@@ -9,9 +9,13 @@ Phases (any failure raises, so the process exits non-zero):
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc);
-3. each kernel against its plain PyTorch version on the card, bit-equal,
-   at the main path's shapes and on adversarial inputs, with CUDA-event
-   times of both;
+3. each engine kernel against its plain PyTorch version on the card,
+   bit-equal, at the main path's shapes and on adversarial inputs, with
+   CUDA-event times of both; the model plane's ``flash_attention`` and
+   ``ssd_scan`` likewise, within their tolerances, at the serve path's
+   shapes plus ragged, GQA, non-causal, initial-state and float32 cases,
+   with ``scaled_dot_product_attention`` timed beside attention as a
+   yardstick (never called by the port);
 4. engine: 16 SmallBank waves of T=256 over a 1,000,000-account store
    (8 nodes x 125,000 accounts, V=8, 20% distributed) through
    ``run_workload_fused`` for all six schedulers under the ``cuda``,
@@ -21,12 +25,25 @@ Phases (any failure raises, so the process exits non-zero):
    1,000,000 accounts, ``verify() == []``, under ``torch``, ``cuda`` and
    ``cuda+fused``; the CUDA routes' request fates, histories and final
    stores equal the ``torch`` route's;
-6. one JSON line of per-kernel results, with the launches the kernels
-   made during phases 4-5 (each must be > 0), the card line again, and
-   last ``{"ok": true, "device": {...}}``.
+6. serve: zamba2-2.7b at full width (2.42 B parameters, random weights
+   from a seeded generator on the card) behind ``launch.serve.Server`` on
+   the ``cuda`` route, batch 4: 3 batches (prompts of 1,024, 1,024 and
+   1,000 tokens, 16 new tokens each) with a second weight version
+   published after the first, one version per batch (0, 1, 1); then
+   prefill/decode times, a profile of one prefill, every kernel call of
+   one prefill held to its plain version on the same activations, and
+   every batch again on the ``cuda`` and the ``torch`` route
+   teacher-forced with the served tokens: in float32 compute the logits
+   agree within 1e-3 * scale at every step; the bf16 distance is printed
+   beside each route's own bf16-vs-float32 distance;
+7. one JSON line of per-kernel results, with the launches each kernel made
+   on its own path (phases 4-5 for the engine's, the served batches of
+   phase 6 for the model plane's; each must be > 0), the card line again,
+   and last ``{"ok": true, "device": {...}}``.
 
-The store, wave and stream sizes are fixed (the constants below); the
-flags cut only the depth: ``--waves``, ``--scheds`` and ``--ticks``.
+The store, wave, stream and model sizes are fixed (the constants below);
+the flags cut only the depth: ``--waves``, ``--scheds``, ``--ticks``,
+``--serve-batches`` and ``--new-tokens``.
 
 Without a CUDA device, or in a directory that does not hold the repository,
 it exits non-zero and prints no result.
@@ -44,10 +61,17 @@ from typing import NamedTuple
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and the non-tensor-core
-# 32-bit rate, taken here for the kernels' integer compares
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, the non-tensor-core
+# 32-bit rate (taken for the engine kernels' integer compares) and the dense
+# bf16 tensor rate (taken for the model kernels' bf16 products)
 HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
+
+# the serve phase: model, batch and prompt lengths (fixed)
+SERVE_ARCH = "zamba2-2.7b"
+SERVE_BATCH = 4
+SERVE_PROMPTS = (1024, 1024, 1000)
 
 
 class Config(NamedTuple):
@@ -67,6 +91,8 @@ class Config(NamedTuple):
     waves: int = 16
     scheds: str = "all"
     ticks: int = 32
+    serve_batches: int = 3         # of SERVE_PROMPTS
+    new_tokens: int = 16
 
 
 KERNELS = {
@@ -76,6 +102,10 @@ KERNELS = {
                          "src/repro/kernels/interval_negotiate.py:39"),
     "wave_commit": ("src/repro_torch/kernels/csrc/wave_commit.cu",
                     "src/repro/kernels/wave_commit.py:90"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:74"),
+    "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan.py:67"),
 }
 
 
@@ -86,11 +116,11 @@ def card_line() -> str:
         text=True).stdout.strip().splitlines()[0]
 
 
-def bound(n_bytes: float, n_ops: float):
+def bound(n_bytes: float, n_ops: float, ops_per_s: float = ALU_OPS_PER_S):
     """(bound_ms, bound_by): the larger of bytes over the HBM rate and
-    operations over the ALU rate."""
+    operations over ``ops_per_s``."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / ALU_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -291,13 +321,397 @@ def device_ms(torch, fns, records, iters=50):
     if stop_profiler(prof, "kernels"):
         for evt in prof.key_averages():
             for name in fns:
-                if evt.key.startswith(f"{name}_kernel"):
+                # templates demangle as "void name_kernel<...>(...)"
+                if f"{name}_kernel" in evt.key:
                     total = getattr(evt, "device_time_total",
                                     getattr(evt, "cuda_time_total", 0))
                     records[name]["device_ms"] = total / 1e3 / iters
     print("[kernels] profiler device ms/launch: "
           + ", ".join(f"{n}={r['device_ms']}" for n, r in records.items()),
           flush=True)
+
+
+# ------------------------------------------------------- phase 3, model
+def close_err(torch, name, label, got, want, atol, rtol):
+    """Largest |got - want| over the output tensors; raise unless every
+    output is finite, has the reference's shape and dtype, and is within
+    ``atol + rtol * |want|``."""
+    err = 0.0
+    for a, b in zip(got, want):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError(f"{name} [{label}]: shape/dtype {a.shape}/"
+                                 f"{a.dtype} vs {b.shape}/{b.dtype}")
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{name} [{label}]: non-finite output")
+        d = (a.float() - b.float()).abs()
+        excess = float((d - rtol * b.float().abs()).max())
+        err = max(err, float(d.max()))
+        if excess > atol:
+            raise AssertionError(f"{name} [{label}] differs from its plain "
+                                 f"version beyond atol={atol} rtol={rtol}: "
+                                 f"max_abs_err={float(d.max())}")
+    return err
+
+
+def attention_oracle_err(torch, label, got, q, k, v, causal, plain):
+    """A bf16 flash_attention output against the plain version computed in
+    float32 on the same bf16 inputs.  The kernel computes in float32 and
+    rounds its output once, so it must lie within one bf16 rounding of that
+    oracle (rtol 1e-2 > 2^-8) plus 1e-3 * max|o| for the order of sums: a
+    bound well under a typical |o|, unlike the 2e-2 of the bf16-vs-bf16
+    check, whose atol is as large as the outputs of a flat softmax."""
+    want = plain(q.float(), k.float(), v.float(), causal)
+    atol = 1e-3 * float(want.abs().max())
+    return close_err(torch, "flash_attention", label + " vs float32 oracle",
+                     (got.float(),), (want,), atol, 1e-2)
+
+
+def model_kernel_phase(torch, dev):
+    """flash_attention and ssd_scan against their plain versions on the
+    card, at the serve path's shapes and on edge cases; returns the two
+    per-kernel records (times at the serve path's shapes)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.ssd_scan import ssd_cuda, ssd_plain
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain fp32 stays fp32
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(1)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def rn(shape, scale, dtype):
+        return (torch.randn(shape, generator=g, device=dev)
+                * scale).to(dtype)
+
+    errs = {"flash_attention": [], "ssd_scan": []}
+    # (B, S, H, KH, D, dtype, causal): the path in bf16 and float32,
+    # ragged, GQA, non-causal and small odd shapes.  q and k at scale 2
+    # make the softmax peaked (scores of std 4), so outputs are of the
+    # order of v and a wrong tile shows well above the tolerances.
+    fa_cases = [(4, 1024, 32, 32, 80, bf16, True),
+                (4, 1024, 32, 32, 80, f32, True),
+                (4, 1000, 32, 32, 80, bf16, True),
+                (2, 1024, 14, 2, 64, bf16, True),
+                (4, 1024, 32, 32, 80, bf16, False),
+                (2, 256, 4, 2, 128, f32, True),
+                (2, 200, 4, 2, 80, f32, False),
+                (1, 70, 2, 1, 48, f32, True),
+                (1, 1, 4, 4, 16, f32, True)]
+    for B, S, H, KH, D, dt, causal in fa_cases:
+        q = rn((B, S, H, D), 2.0, dt)
+        k, v = rn((B, S, KH, D), 2.0, dt), rn((B, S, KH, D), 1.0, dt)
+        tol = 2e-2 if dt == bf16 else 2e-5
+        label = f"B={B} S={S} H={H} KH={KH} D={D} {dt} causal={causal}"
+        o = flash_attention_cuda(q, k, v, causal)
+        errs["flash_attention"].append(close_err(
+            torch, "flash_attention", label, (o,),
+            (flash_attention_plain(q, k, v, causal),), tol, tol))
+        if dt == bf16:
+            errs["flash_attention"].append(attention_oracle_err(
+                torch, label, o, q, k, v, causal, flash_attention_plain))
+        del q, k, v, o
+    # (Bg, H, S, P, N, chunk, dtype, h0, decay): the path (decay as the
+    # model's dt*A, about -0.7 a step), with an initial state, ragged,
+    # float32, small chunks
+    ssd_cases = [(4, 80, 1024, 64, 64, 128, bf16, False, 1.4),
+                 (4, 80, 1024, 64, 64, 128, bf16, True, 1.4),
+                 (4, 80, 1000, 64, 64, 128, bf16, False, 1.4),
+                 (2, 3, 256, 32, 64, 64, f32, False, 0.3),
+                 (2, 3, 300, 64, 64, 128, f32, True, 0.3),
+                 (2, 4, 77, 16, 16, 16, f32, True, 0.3),
+                 (1, 2, 50, 64, 64, 128, f32, False, 0.3)]
+    for Bg, H, S, P, N, Q, dt, with_h0, decay in ssd_cases:
+        x = rn((Bg * H, S, P), 0.5, dt)
+        dA = -torch.rand((Bg * H, S), generator=g, device=dev) * decay
+        Bm, Cm = rn((Bg, S, N), 0.3, dt), rn((Bg, S, N), 0.3, dt)
+        h0 = rn((Bg * H, N, P), 0.2, f32) if with_h0 else None
+        label = (f"BH={Bg * H} S={S} P={P} N={N} chunk={Q} {dt} "
+                 f"h0={with_h0}")
+        y, h = ssd_cuda(x, dA, Bm, Cm, H, Q, h0)
+        yp, hp = ssd_plain(x, dA, Bm, Cm, H, Q, h0)
+        # y in bf16 may differ by one bf16 rounding (2^-8 relative)
+        ytol = 2e-2 if dt == bf16 else 1e-3
+        errs["ssd_scan"].append(max(
+            close_err(torch, "ssd_scan", label + " y", (y,), (yp,), ytol,
+                      ytol),
+            close_err(torch, "ssd_scan", label + " h", (h,), (hp,), 1e-3,
+                      1e-3)))
+    print(f"[kernels] flash_attention: {len(fa_cases)} checks, ssd_scan: "
+          f"{len(ssd_cases)} checks, all within tolerance of the plain "
+          f"versions (max abs err {max(errs['flash_attention']):.3g} / "
+          f"{max(errs['ssd_scan']):.3g})", flush=True)
+
+    # times at the serve path's shapes
+    B, S, H, D = SERVE_BATCH, SERVE_PROMPTS[0], 32, 80
+    q, k, v = (rn((B, S, H, D), 0.5, bf16) for _ in range(3))
+    qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+    BH, P, N, Q = SERVE_BATCH * 80, 64, 64, 128
+    x = rn((BH, S, P), 0.5, bf16)
+    dA = -torch.rand((BH, S), generator=g, device=dev) * 1.4
+    Bm, Cm = rn((SERVE_BATCH, S, N), 0.3, bf16), rn((SERVE_BATCH, S, N), 0.3,
+                                                     bf16)
+    calls = {
+        "flash_attention": (lambda: flash_attention_cuda(q, k, v, True),
+                            lambda: flash_attention_plain(q, k, v, True),
+                            lambda: F.scaled_dot_product_attention(
+                                qt, kt, vt, is_causal=True)),
+        "ssd_scan": (lambda: ssd_cuda(x, dA, Bm, Cm, 80, Q),
+                     lambda: ssd_plain(x, dA, Bm, Cm, 80, Q), None),
+    }
+    # bytes: inputs read once, outputs written once; operations: the causal
+    # products (half of S^2 for attention, Q(Q+1)/2 per chunk for the
+    # SSD's two intra-chunk products, plus its two state products)
+    pairs = B * H * S * (S + 1) // 2
+    nc = -(-S // Q)
+    work = {
+        "flash_attention": (4 * B * S * H * D * 2, 4 * pairs * D),
+        "ssd_scan": (2 * BH * S * P * 2 + BH * S * 4 + 2 * SERVE_BATCH * S
+                     * N * 2 + BH * N * P * 4,
+                     2 * BH * nc * (Q * (Q + 1) // 2 * (N + P)
+                                    + 2 * Q * N * P)),
+    }
+    records = {}
+    for name, (kern, plain, lib) in calls.items():
+        k_ms = cuda_ms(torch, kern, iters=20, warmup=3)
+        p_ms = cuda_ms(torch, plain, iters=10, warmup=2)
+        l_ms = None if lib is None else cuda_ms(torch, lib, iters=20,
+                                                warmup=3)
+        b_ms, b_by = bound(*work[name], BF16_FLOPS_PER_S)
+        records[name] = {
+            "name": name, "route": "cuda", "source": KERNELS[name][0],
+            "replaces": KERNELS[name][1], "launches": 0,
+            "max_abs_err": max(errs[name]), "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms}
+        print(f"[kernels] {name}: {k_ms:.4f} ms/call (plain {p_ms:.4f}, "
+              f"library {l_ms}), bound {b_ms:.5f} ms by {b_by}", flush=True)
+    device_ms(torch, {n: c[0] for n, c in calls.items()}, records, iters=10)
+    return records
+
+
+# ------------------------------------------------------------ phase 6
+def forced_logits(torch, model, params, toks, forced, max_len):
+    """Logits of every generated position when the batch is fed the tokens
+    ``forced`` ([B, n]) instead of its own: [B, n, vocab] float32."""
+    logits, cache = model.prefill(params, {"tokens": toks}, max_len)
+    out = [logits[:, -1]]
+    for i in range(forced.shape[1] - 1):
+        logits, cache = model.decode(params, cache,
+                                     {"token": forced[:, i:i + 1]})
+        out.append(logits[:, -1])
+    return torch.stack(out, dim=1)
+
+
+def profile_call(torch, label, fn, card):
+    """Device kernels, busy share and top device ops of one call of
+    ``fn``."""
+    prof = start_profiler("serve")
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not stop_profiler(prof, "serve"):
+        return
+    try:
+        kernels = [e for e in prof.events()
+                   if getattr(e, "device_type", None) is not None
+                   and "CUDA" in str(e.device_type)]
+        busy = sum(getattr(e, "device_time", 0) for e in kernels) / 1e6
+        tops = sorted(prof.key_averages(),
+                      key=lambda e: -getattr(e, "device_time_total", 0))[:8]
+        print(f"[serve] profile of {label}: wall "
+              f"{wall * 1e3:.1f} ms, {len(kernels)} device kernels, device "
+              f"busy {busy * 1e3:.2f} ms ({100 * busy / wall:.1f}% of wall)"
+              f" [{card}]", flush=True)
+        print("[serve]   top device time: " + "; ".join(
+            f"{e.key[:48]} {getattr(e, 'device_time_total', 0) / 1e3:.2f}"
+            f" ms x{e.count}" for e in tops), flush=True)
+    except Exception as exc:           # reading the trace is optional here
+        print(f"[serve] profile unavailable: {exc!r}", flush=True)
+
+
+def serve_phase(torch, dev, cfg, card, mcfg=None, route="cuda"):
+    """zamba2-2.7b (or ``mcfg``) behind ``Server`` on ``route``.  Returns
+    the launch counts of the served batches (the counted path); measures
+    and cross-checks against the ``torch`` route after reading them."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.launch.serve import Server
+    from repro_torch.models.model import build
+    from repro_torch.models.module import tree_leaves
+    mcfg = get_config(SERVE_ARCH) if mcfg is None else mcfg
+    n = min(cfg.serve_batches, len(SERVE_PROMPTS))
+    gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+    t0 = time.perf_counter()
+    versions = [build(mcfg).init(gen) for _ in range(2)]
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(versions[0]))
+    print(f"[serve] {mcfg.name}: {n_params:,} parameters per version "
+          f"(param_count {mcfg.param_count():,}), 2 versions made on the "
+          f"card in {time.perf_counter() - t0:.1f} s", flush=True)
+    rng = np.random.RandomState(cfg.seed + 3)
+    prompts = [rng.randint(0, mcfg.vocab_size, (SERVE_BATCH, S))
+               .astype(np.int32) for S in SERVE_PROMPTS[:n]]
+    srv = Server(mcfg, versions[0], batch_size=SERVE_BATCH, kernels=route,
+                 device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    results = []
+    reset_launch_counts()
+    for i, toks in enumerate(prompts):
+        if i == 1 and not srv.publish(versions[1]):
+            raise AssertionError("publish of weight version 1 failed")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = srv.serve_batch(toks, max_new_tokens=cfg.new_tokens)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        results.append(r)
+        print(f"[serve] batch {i}: {SERVE_BATCH} x {toks.shape[1]} prompt "
+              f"tokens + {cfg.new_tokens} new, weight version "
+              f"{r['weight_version']}, {wall:.3f} s, "
+              f"{SERVE_BATCH * cfg.new_tokens / wall:.1f} generated tokens/s"
+              f" [{card}]", flush=True)
+    counts = dict(LAUNCHES)
+    want = [0, 1, 1][:n]
+    got = [r["weight_version"] for r in results]
+    if got != want or srv.stats.versions_served != want:
+        raise AssertionError(f"weight versions served {got}, expected {want}")
+    if srv.stats.batches != n or srv.stats.publishes != min(n - 1, 1):
+        raise AssertionError(f"serve stats {srv.stats}")
+    for r in results:
+        g_ = r["generated"]
+        if g_.shape != (SERVE_BATCH, cfg.new_tokens) or g_.min() < 0 \
+                or g_.max() >= mcfg.vocab_size:
+            raise AssertionError(f"generated ids {g_.shape} out of range")
+    print(f"[serve] versions {got}, stats {srv.stats}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launches "
+          f"{counts} ({n} prefills: expected flash_attention "
+          f"{9 * n}, ssd_scan {54 * n}) [{card}]", flush=True)
+
+    # ---- measurement (not counted): prefill and decode times, a profile
+    params = versions[0]
+    toks = torch.as_tensor(prompts[0], device=dev)
+    max_len = toks.shape[1] + srv.cache_margin
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, cache = srv.prefill(params, {"tokens": toks}, max_len)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    tok = torch.zeros((SERVE_BATCH, 1), dtype=torch.int32, device=dev)
+    steps = max(cfg.new_tokens - 1, 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        tok, cache = srv.decode(params, cache, {"token": tok})
+    torch.cuda.synchronize()
+    dec = (time.perf_counter() - t0) / steps
+    print(f"[serve] prefill {SERVE_BATCH} x {toks.shape[1]}: "
+          + ", ".join(f"{t * 1e3:.1f}" for t in times)
+          + f" ms ({SERVE_BATCH * toks.shape[1] / min(times):.0f} prompt "
+          f"tokens/s); decode {dec * 1e3:.2f} ms/step "
+          f"({SERVE_BATCH / dec:.1f} tokens/s at batch {SERVE_BATCH}) "
+          f"[{card}]", flush=True)
+    profile_call(torch, "one decode step", lambda: srv.decode(
+        params, cache, {"token": tok}), card)
+    del cache
+    profile_call(torch, f"one prefill (S={toks.shape[1]})",
+                 lambda: srv.prefill(params, {"tokens": toks}, max_len), card)
+
+    # ---- the kernels on the path's own activations
+    in_situ_check(torch, srv, params, toks, max_len)
+
+    # ---- the served route against the torch route, teacher-forced with
+    # the served tokens.  In float32 compute the two differ only in the
+    # order of sums: gated at 1e-3 * scale.  In bf16, the served type, the
+    # two round at different places (attention's probabilities, the scan's
+    # sums) and 54 layers of random weights amplify that far past
+    # 0.06 * scale, so bf16 is gated against the rounding noise of the
+    # torch route itself: cuda vs torch in bf16 within 1.5 times the torch
+    # route's own bf16-vs-float32 distance.
+    f32 = mcfg.replace(compute_dtype=torch.float32)
+    models = {(dt, r): build(c, kernels=k)
+              for dt, c in (("bf16", mcfg), ("fp32", f32))
+              for r, k in (("cuda", route), ("torch", "torch"))}
+    for i, (toks, r) in enumerate(zip(prompts, results)):
+        params = versions[r["weight_version"]]
+        t = torch.as_tensor(toks, device=dev)
+        forced = torch.as_tensor(r["generated"], device=dev)
+        lg = {key: forced_logits(torch, m, params, t, forced,
+                                 toks.shape[1] + srv.cache_margin)
+              [..., :mcfg.vocab_size] for key, m in models.items()}
+        for key, v in lg.items():
+            if not bool(torch.isfinite(v).all()):
+                raise AssertionError(f"serve: {key} logits not finite")
+        diff = lambda a, b: float((lg[a] - lg[b]).abs().max())
+        scale = max(float(lg["fp32", "torch"].abs().max()), 1.0)
+        e32 = diff(("fp32", "cuda"), ("fp32", "torch"))
+        e16 = diff(("bf16", "cuda"), ("bf16", "torch"))
+        own = diff(("bf16", "torch"), ("fp32", "torch"))
+        first = float((lg["bf16", "cuda"][:, 0]
+                       - lg["bf16", "torch"][:, 0]).abs().max())
+        same = float((lg["bf16", "cuda"].argmax(-1) == forced).float().mean())
+        print(f"[serve] batch {i} teacher-forced ({forced.shape[1]} steps):"
+              f" float32 cuda vs torch logits max abs diff {e32:.3g} (bound "
+              f"{1e-3 * scale:.3g} = 1e-3 * {scale:.3f}); bf16 cuda vs torch "
+              f"{e16:.4f} (bound {1.5 * own:.4f} = 1.5 * the torch route's "
+              f"bf16 vs float32 {own:.4f}; at the prefill's token "
+              f"{first:.4f}), bf16 vs float32 on the cuda route "
+              f"{diff(('bf16', 'cuda'), ('fp32', 'cuda')):.4f}; "
+              f"bf16 cuda argmax = served token at {100 * same:.1f}% of "
+              f"steps", flush=True)
+        if e32 > 1e-3 * scale:
+            raise AssertionError(f"serve batch {i}: cuda route logits differ "
+                                 f"from the torch route by {e32} in float32")
+        if e16 > 1.5 * own:
+            raise AssertionError(f"serve batch {i}: cuda route bf16 logits "
+                                 f"differ from the torch route's by {e16}, "
+                                 f"more than 1.5 x its own bf16 rounding "
+                                 f"distance {own}")
+    return counts
+
+
+def in_situ_check(torch, srv, params, toks, max_len):
+    """One prefill with every ``ops.flash_attention`` / ``ops.ssd`` call
+    also run on the plain version with the same (real) inputs, each pair
+    held to the kernel tolerances.  Measurement only: not counted."""
+    from repro_torch.kernels import ops
+    orig = {"flash_attention": ops.flash_attention, "ssd": ops.ssd}
+    worst = {name: 0.0 for name in orig}
+
+    def recorder(name):
+        def call(*args, **kw):
+            out = orig[name](*args, **kw)
+            plain = orig[name](*args, **{**kw, "use_kernel": False})
+            out_t = out if isinstance(out, tuple) else (out,)
+            plain_t = plain if isinstance(plain, tuple) else (plain,)
+            tol = 2e-2 if out_t[0].dtype == torch.bfloat16 else 1e-3
+            err = close_err(torch, name, "in situ", out_t[:1], plain_t[:1],
+                            tol, tol)
+            if (name == "flash_attention" and out.dtype == torch.bfloat16
+                    and out.is_cuda and kw.get("use_kernel", True)):
+                # the kernel, not the bf16 plain version it is checked with
+                err = max(err, attention_oracle_err(
+                    torch, "in situ", out, *args, kw.get("causal", True),
+                    lambda q, k, v, c: orig[name](q, k, v, causal=c,
+                                                  use_kernel=False)))
+            if len(out_t) > 1:                      # the scan's fp32 state
+                err = max(err, close_err(torch, name, "in situ state",
+                                         out_t[1:], plain_t[1:], 1e-3, 1e-3))
+            worst[name] = max(worst[name], err)
+            return out
+        return call
+
+    ops.flash_attention = recorder("flash_attention")
+    ops.ssd = recorder("ssd")
+    try:
+        srv.prefill(params, {"tokens": toks}, max_len)
+    finally:
+        ops.flash_attention, ops.ssd = orig["flash_attention"], orig["ssd"]
+    print(f"[serve] in situ: every flash_attention and ssd call of one "
+          f"prefill within tolerance of its plain version on the same "
+          f"activations (max abs err {worst})", flush=True)
 
 
 # ---------------------------------------------------------------- phase 4
@@ -453,9 +867,15 @@ def parse_config(argv=None) -> Config:
                     help="'all' or a comma-separated list of schedulers")
     ap.add_argument("--ticks", type=int, default=full.ticks,
                     help="service ticks of arrivals before the drain")
+    ap.add_argument("--serve-batches", type=int, default=full.serve_batches,
+                    choices=range(1, len(SERVE_PROMPTS) + 1),
+                    help="served batches, the first ones of SERVE_PROMPTS")
+    ap.add_argument("--new-tokens", type=int, default=full.new_tokens,
+                    help="tokens generated per served batch")
     args = ap.parse_args(argv)
     return full._replace(waves=args.waves, scheds=args.scheds,
-                         ticks=args.ticks)
+                         ticks=args.ticks, serve_batches=args.serve_batches,
+                         new_tokens=args.new_tokens)
 
 
 def main(argv=None) -> int:
@@ -482,24 +902,34 @@ def main(argv=None) -> int:
           f"cached={build_info.get('cached')}) -> {build_info['path']}",
           flush=True)
     for line in build_info.get("log", "").splitlines():
-        if "registers" in line or line.startswith("=="):
+        if ("registers" in line or "spill" in line or line.startswith("==")
+                or "entry function" in line):
             print(f"[build] {line.strip()}", flush=True)
 
     records = kernel_phase(torch, dev, cfg.nodes * cfg.kpn, cfg.V, cfg.T,
                            cfg.O)
+    records.update(model_kernel_phase(torch, dev))
 
     profile_wave(torch, dev, cfg)
+    # each path with the counts set to 0 just before it and read just after
     reset_launch_counts()
     t0 = time.perf_counter()
     engine_phase(torch, dev, cfg)
     service_phase(torch, dev, cfg)
-    counts = dict(LAUNCHES)
-    print(f"[main path] {time.perf_counter() - t0:.1f} s, kernel launches "
-          f"{counts}", flush=True)
-    for name, n in counts.items():
-        if n <= 0:
-            raise AssertionError(f"{name} never launched on the main path")
-        records[name]["launches"] = n
+    engine_counts = dict(LAUNCHES)
+    print(f"[main path] engine + service: {time.perf_counter() - t0:.1f} s, "
+          f"kernel launches {engine_counts}", flush=True)
+    t0 = time.perf_counter()
+    serve_counts = serve_phase(torch, dev, cfg, card)
+    print(f"[main path] serve: {time.perf_counter() - t0:.1f} s with its "
+          f"measurements, kernel launches {serve_counts}", flush=True)
+    paths = {"version_scan": engine_counts, "potential_matrix": engine_counts,
+             "wave_commit": engine_counts, "flash_attention": serve_counts,
+             "ssd_scan": serve_counts}
+    for name, counts in paths.items():
+        if counts[name] <= 0:
+            raise AssertionError(f"{name} never launched on its path")
+        records[name]["launches"] = counts[name]
 
     print(json.dumps({"kernels": list(records.values())}), flush=True)
     print(card, flush=True)

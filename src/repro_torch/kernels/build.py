@@ -33,16 +33,23 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v"]
 LIB_NAME = "librepro_torch_kernels.so"
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# C entry point -> argtypes (pointers and the stream as void*, sizes as int)
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry point -> argtypes (pointers and the stream as void*, sizes as int,
+# the softmax scale as float)
 SIGNATURES = {
     "version_scan_launch": [_P] * 6 + [_I] * 3 + [_P],
     "potential_matrix_launch": [_P] * 3 + [_I] * 2 + [_P],
     "wave_commit_launch": [_P] * 16 + [_I] * 4 + [_P],
+    "flash_attention_launch": [_P] * 4 + [_I] * 8 + [_F, _P],
+    "ssd_scan_launch": [_P] * 7 + [_I] * 7 + [_P],
 }
 
 # launches per kernel since the last reset_launch_counts()
-LAUNCHES = {"version_scan": 0, "potential_matrix": 0, "wave_commit": 0}
+LAUNCHES = {"version_scan": 0, "potential_matrix": 0, "wave_commit": 0,
+            "flash_attention": 0, "ssd_scan": 0}
+
+# shared memory one block may use on the H100 (bytes, dynamic)
+SMEM_LIMIT = 232_448
 
 _lib = None
 _lock = threading.Lock()
@@ -138,11 +145,12 @@ def launch(name: str, entry: str, *args) -> None:
 
 
 def check_input(name: str, t, shape, dtype) -> None:
-    """The kernels take contiguous CUDA tensors of one dtype and shape."""
+    """The kernels take contiguous CUDA tensors of one dtype (or one of a
+    tuple of dtypes) and shape."""
     if not (isinstance(t, torch.Tensor) and t.is_cuda):
         raise ValueError(f"{name}: expected a CUDA tensor, got "
                          f"{getattr(t, 'device', type(t))}")
-    if t.dtype != dtype:
+    if t.dtype not in (dtype if isinstance(dtype, tuple) else (dtype,)):
         raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got "

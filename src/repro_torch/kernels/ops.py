@@ -1,7 +1,9 @@
-"""Public wrappers of the engine's data-plane ops (port of
-``repro.kernels.ops``).
+"""Public wrappers of the kernel ops (port of ``repro.kernels.ops``).
 
-The three kernel ops take ``use_kernel``:
+The five kernel ops -- the engine's ``version_scan``, ``potential_matrix``
+and ``wave_commit`` and the model plane's ``flash_attention`` and ``ssd``
+-- take ``use_kernel`` (``KernelConfig.use_kernel``: the ``cuda`` backend
+sets it, ``torch`` does not):
 
   use_kernel=True   the kernel wrapper: the hand-written CUDA kernel for
                     CUDA tensors, its plain version for CPU tensors;
@@ -9,7 +11,8 @@ The three kernel ops take ``use_kernel``:
                     backend — the oracle the kernels are held to on the card).
 
 None of the TPU alignment is carried over: V is not padded to 128 lanes, O
-not to 8 sublanes, and no output is lane-broadcast.
+not to 8 sublanes, no output is lane-broadcast, attention's head dim is
+not padded to 128 and GQA's kv heads are not repeated.
 
 The three commit-phase scatter/gather ops (``sid_regather``,
 ``masked_install``, ``masked_sid_bump``) are plain PyTorch, as the reference
@@ -26,7 +29,11 @@ from __future__ import annotations
 import torch
 
 from . import ref
+from .flash_attention import flash_attention as _flash_attention
+from .flash_attention import flash_attention_plain
 from .interval_negotiate import potential_matrix as _potential_matrix
+from .ssd_scan import ssd_plain
+from .ssd_scan import ssd_scan as _ssd_scan
 from .version_scan import version_scan as _version_scan
 from .version_scan import version_scan_plain
 from .wave_commit import wave_commit as _wave_commit
@@ -63,6 +70,22 @@ def wave_commit(cids, tids, sids, vals, max_cid, read_key, write_key, rvalid,
                             write_key, rvalid, keys)
     return wave_commit_plain(cids, tids, sids, vals, max_cid, read_key,
                              write_key, rvalid, keys)
+
+
+def flash_attention(q, k, v, *, causal=True, use_kernel=True):
+    """q: [B, Sq, H, D]; k, v: [B, Sk, KH, D] -> [B, Sq, H, D]."""
+    if use_kernel:
+        return _flash_attention(q, k, v, causal)
+    return flash_attention_plain(q, k, v, causal)
+
+
+def ssd(x, dA, Bm, Cm, *, n_heads_per_group, chunk=128, h0=None,
+        use_kernel=True):
+    """x: [BH, S, P]; dA: [BH, S]; Bm/Cm: [Bg, S, N]; h0: [BH, N, P] or
+    None -> (y [BH, S, P], final state [BH, N, P])."""
+    if use_kernel:
+        return _ssd_scan(x, dA, Bm, Cm, n_heads_per_group, chunk, h0)
+    return ssd_plain(x, dA, Bm, Cm, n_heads_per_group, chunk, h0)
 
 
 # ---------------------------------------------------------------------------

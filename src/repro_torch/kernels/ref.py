@@ -1,10 +1,19 @@
-"""Plain PyTorch versions of the wave engine's kernels (the exact targets).
+"""Plain PyTorch oracles of the kernels (counterparts of
+``repro.kernels.ref``).
 
-Counterparts of ``repro.kernels.ref``: the CPU route of every wrapper in
-``kernels.ops``, the ``torch`` backend on any device, and the yardstick
-each CUDA kernel is held to bit-for-bit.  All integer: results are exact.
+The wave engine's three (``version_scan_ref``, ``potential_matrix_ref``,
+``wave_commit_ref``) are the CPU route of the ``kernels.ops`` wrappers, the
+``torch`` backend on any device, and the yardstick each CUDA kernel is held
+to bit for bit: all integer, results are exact.  The model plane's two
+(``attention_ref``, ``ssd_ref``) are float oracles in the kernels' folded
+layout, held to a tolerance; the plain routes of ``ops.flash_attention``
+/ ``ops.ssd`` are the versions beside the kernels
+(``flash_attention_plain``, ``ssd_plain``), which follow the reference
+model's own functions.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -61,3 +70,35 @@ def wave_commit_ref(cids, tids, sids, vals, max_cid, read_key, write_key,
     s_lo0 = torch.where(rvalid.bool(), r_cid, 0).max(dim=1).values
     pot = potential_matrix_ref(read_key, write_key)
     return slot, r_val, r_tid, r_cid, r_sid, s_lo0, pot
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True) -> torch.Tensor:
+    """q, k, v: [BH, S, D] -- dense softmax attention in float32."""
+    D = q.shape[-1]
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) / math.sqrt(D)
+    if causal:
+        Sq, Sk = q.shape[1], k.shape[1]
+        mask = (torch.arange(Sq, device=q.device)[:, None]
+                >= torch.arange(Sk, device=q.device)[None, :])
+        s = torch.where(mask, s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+
+
+def ssd_ref(x: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor,
+            Cm: torch.Tensor, n_heads_per_group: int):
+    """The sequential SSD recurrence, vectorised over BH with one loop over
+    S.  x: [BH, S, P]; dA: [BH, S]; Bm/Cm: [Bg, S, N].  Returns
+    (y [BH, S, P] in x's dtype, h [BH, N, P] float32)."""
+    BH, S, P = x.shape
+    N = Bm.shape[-1]
+    grp = torch.arange(BH, device=x.device) // n_heads_per_group
+    Bh, Ch = Bm.float()[grp], Cm.float()[grp]                 # [BH, S, N]
+    xf, a = x.float(), torch.exp(dA.float())
+    h = torch.zeros((BH, N, P), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(S):
+        h = h * a[:, t, None, None] + Bh[:, t, :, None] * xf[:, t, None, :]
+        ys.append(torch.einsum("bn,bnp->bp", Ch[:, t], h))
+    return torch.stack(ys, dim=1).to(x.dtype), h

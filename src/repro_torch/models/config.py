@@ -1,0 +1,153 @@
+"""Model configuration for every supported architecture family.
+
+Port of ``repro.models.config`` with torch dtypes: ``param_dtype`` float32
+and ``compute_dtype`` bfloat16, as in the reference.  The fields that only
+steer GSPMD/XLA there (``attn_seq_shard``, ``decode_seq_shard``,
+``remat_policy``) are kept so that configurations read alike, but only at
+their defaults: another value raises ``NotImplementedError`` rather than
+meaning nothing on one card.  ``attn_chunk`` too: the reference uses it to
+pick its chunked XLA attention; here the flash kernel (``cuda`` route) or
+the dense plain version (``torch`` route) takes that place.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional, Tuple
+
+import torch
+
+# where the families, options and entry points the port does not serve yet
+# are queued (named by every NotImplementedError they raise)
+NOT_YET = "ROADMAP.md queue 1, 'Model plane'"
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                      # dense | moe | ssm | hybrid | encdec | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    d_head: Optional[int] = None     # default: d_model // n_heads
+
+    # ---- attention options -------------------------------------------------
+    rope_theta: float = 1.0e4
+    qk_norm: bool = False            # qwen3-style per-head RMSNorm on q/k
+    qkv_bias: bool = False           # qwen2-style bias on qkv projections
+    mrope: bool = False              # qwen2-vl multimodal 3D RoPE
+    mrope_sections: Tuple[int, int, int] = (16, 24, 24)   # t/h/w half-dims
+
+    # ---- MoE ---------------------------------------------------------------
+    moe: bool = False
+    n_experts: int = 0
+    n_shared_experts: int = 0
+    top_k: int = 0
+    d_ff_expert: int = 0
+    capacity_factor: float = 1.25
+
+    # ---- SSM (Mamba2 / SSD) ------------------------------------------------
+    ssm: bool = False
+    d_state: int = 0
+    d_conv: int = 4
+    expand: int = 2
+    headdim: int = 64
+    ssd_chunk: int = 64
+
+    # ---- hybrid (zamba2): shared attention block every k ssm layers --------
+    attn_every: int = 0
+
+    # ---- encoder-decoder (seamless) -----------------------------------------
+    encdec: bool = False
+    n_enc_layers: int = 0
+
+    # ---- misc ---------------------------------------------------------------
+    norm_eps: float = 1.0e-5
+    tie_embeddings: bool = False
+    vocab_pad_to: int = 256
+    param_dtype: Any = torch.float32
+    compute_dtype: Any = torch.bfloat16
+    # reference-only (GSPMD/XLA) knobs, kept for like-for-like configs;
+    # only their defaults are accepted (REFERENCE_ONLY)
+    remat_policy: str = "full"
+    attn_chunk: int = 512
+    attn_seq_shard: bool = False
+    decode_seq_shard: bool = False
+
+    def __post_init__(self):
+        for f in REFERENCE_ONLY:
+            if getattr(self, f) != _DEFAULTS[f]:
+                raise NotImplementedError(
+                    f"{f}={getattr(self, f)!r}: the field steers GSPMD/XLA "
+                    f"in the reference and has no counterpart in repro_torch"
+                    f" ({NOT_YET})")
+
+    # ------------------------------------------------------------------------
+    @property
+    def head_dim(self) -> int:
+        return self.d_head if self.d_head is not None else self.d_model // self.n_heads
+
+    @property
+    def padded_vocab(self) -> int:
+        return _round_up(self.vocab_size, self.vocab_pad_to)
+
+    @property
+    def d_inner(self) -> int:
+        """SSM inner width."""
+        return self.expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.headdim
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+    # parameter-count estimate (for MODEL_FLOPS = 6 N D) ----------------------
+    def param_count(self, active_only: bool = False) -> int:
+        d, v = self.d_model, self.padded_vocab
+        hd = self.head_dim
+        n = v * d  # embedding
+        if not self.tie_embeddings:
+            n += v * d
+
+        def attn_params() -> int:
+            return d * (self.n_heads * hd) + 2 * d * (self.n_kv_heads * hd) + (self.n_heads * hd) * d
+
+        def mlp_params(ff: int) -> int:
+            return 3 * d * ff
+
+        if self.family in ("dense", "vlm"):
+            per = attn_params() + mlp_params(self.d_ff) + 2 * d
+            n += self.n_layers * per
+        elif self.family == "moe":
+            routed = self.n_experts if not active_only else self.top_k
+            per = attn_params() + 2 * d + d * self.n_experts  # router
+            per += (routed + self.n_shared_experts) * mlp_params(self.d_ff_expert)
+            n += self.n_layers * per
+        elif self.family == "ssm":
+            di, ds, nh = self.d_inner, self.d_state, self.ssm_heads
+            per = d * (2 * di + 2 * ds + nh) + di * d + di + 2 * nh + 2 * d
+            n += self.n_layers * per
+        elif self.family == "hybrid":
+            di, ds, nh = self.d_inner, self.d_state, self.ssm_heads
+            per = d * (2 * di + 2 * ds + nh) + di * d + di + 2 * nh + 2 * d
+            n += self.n_layers * per
+            n += attn_params() + mlp_params(self.d_ff) + 2 * d  # one shared block
+        elif self.family == "encdec":
+            enc = self.n_enc_layers * (attn_params() + mlp_params(self.d_ff) + 2 * d)
+            dec = self.n_layers * (2 * attn_params() + mlp_params(self.d_ff) + 3 * d)
+            n += enc + dec
+        return n
+
+
+REFERENCE_ONLY = ("remat_policy", "attn_chunk", "attn_seq_shard",
+                  "decode_seq_shard")
+_DEFAULTS = {f.name: f.default for f in dataclasses.fields(ModelConfig)
+             if f.name in REFERENCE_ONLY}

@@ -2,10 +2,15 @@
 CUDA device).
 
 Run on a machine with one: ``PYTHONPATH=src python -m pytest -m cuda
-tests/test_torch_cuda.py``.  Each kernel must equal its plain PyTorch
-version bit for bit on seeded inputs (pad keys 0 / -1 / hot, all-invisible
-rows, T not a multiple of 32), the ``cuda`` routes of the engine must equal
-the ``torch`` routes, and every launch must be counted.
+tests/test_torch_cuda.py``.  Each engine kernel must equal its plain
+PyTorch version bit for bit on seeded inputs (pad keys 0 / -1 / hot,
+all-invisible rows, T not a multiple of 32), the ``cuda`` routes of the
+engine must equal the ``torch`` routes, and every launch must be counted.
+The model plane's ``flash_attention`` and ``ssd_scan`` must agree with
+their plain versions within the tolerances of ``tests/test_kernels.py``
+(2e-5 fp32 / 2e-2 bf16 for attention, 1e-3 for the SSD scan, 2e-2 for its
+bf16 output: one bf16 rounding), and reduced zamba2 behind ``Server`` on
+the ``cuda`` route must serve what the ``torch`` route serves.
 """
 import numpy as np
 import pytest
@@ -13,7 +18,13 @@ import torch
 
 import repro_torch.core as tc
 from repro_torch.core import workloads as tw
+from repro_torch.configs import get_reduced
 from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                 flash_attention_plain)
+from repro_torch.kernels.ssd_scan import ssd_cuda, ssd_plain
+from repro_torch.launch.serve import Server
+from repro_torch.models.model import build
 from repro_torch.kernels.interval_negotiate import (potential_matrix_cuda,
                                                     potential_matrix_ref)
 from repro_torch.kernels.version_scan import (version_scan_cuda,
@@ -69,7 +80,8 @@ def test_kernels_equal_plain_versions(dev, T, O, V, pad):
           wave_commit_plain(*args, keys=keys))
     torch.cuda.synchronize()
     assert {k: LAUNCHES[k] - before[k] for k in LAUNCHES} == {
-        "version_scan": 1, "potential_matrix": 1, "wave_commit": 1}
+        "version_scan": 1, "potential_matrix": 1, "wave_commit": 1,
+        "flash_attention": 0, "ssd_scan": 0}
 
 
 @pytest.mark.parametrize("sched", tc.SCHEDULERS)
@@ -90,3 +102,96 @@ def test_engine_cuda_routes_equal_torch_routes(dev, sched):
         for (_, a), (_, b) in zip(hist, ref_hist):
             for x, y in zip(a, b):
                 np.testing.assert_array_equal(x, y)
+
+
+def _close(got, want, tol):
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("B,S,H,KH,D,causal", [
+    (2, 256, 4, 2, 128, True), (2, 512, 4, 2, 64, False),
+    (1, 100, 4, 2, 80, True), (2, 1000, 14, 2, 64, True),
+    (1, 1, 2, 2, 16, True), (1, 70, 3, 1, 48, False),
+    (4, 1024, 32, 32, 80, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_vs_plain(dev, B, S, H, KH, D, causal, dtype):
+    """q and k at scale 2 (a peaked softmax, outputs of the order of v).
+    In bf16 also against the plain version in float32 on the same bf16
+    inputs: the kernel computes in float32 and rounds once, so within one
+    bf16 rounding (rtol 1e-2) plus 1e-3 * max|o|."""
+    g = torch.Generator(device=dev).manual_seed(S + D)
+    q, k, v = ((torch.randn((B, S, h, D), generator=g, device=dev) * sc)
+               .to(dtype) for h, sc in ((H, 2.0), (KH, 2.0), (KH, 1.0)))
+    before = LAUNCHES["flash_attention"]
+    got = flash_attention_cuda(q, k, v, causal)
+    _close(got, flash_attention_plain(q, k, v, causal),
+           2e-2 if dtype == torch.bfloat16 else 2e-5)
+    assert LAUNCHES["flash_attention"] == before + 1
+    if dtype == torch.bfloat16:
+        want = flash_attention_plain(q.float(), k.float(), v.float(), causal)
+        torch.testing.assert_close(got.float(), want, rtol=1e-2,
+                                   atol=1e-3 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("Bg,H,S,P,N,chunk,with_h0", [
+    (2, 3, 256, 64, 64, 128, False), (2, 3, 300, 32, 64, 64, True),
+    (1, 4, 77, 16, 16, 16, True), (2, 2, 50, 64, 64, 128, False),
+    (1, 80, 1024, 64, 64, 128, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_vs_plain(dev, Bg, H, S, P, N, chunk, with_h0, dtype):
+    g = torch.Generator(device=dev).manual_seed(S + P)
+    rn = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    x = (rn(Bg * H, S, P) * 0.5).to(dtype)
+    dA = -torch.rand((Bg * H, S), generator=g, device=dev) * 0.8
+    Bm, Cm = ((rn(Bg, S, N) * 0.3).to(dtype) for _ in range(2))
+    h0 = rn(Bg * H, N, P) * 0.2 if with_h0 else None
+    before = LAUNCHES["ssd_scan"]
+    y, h = ssd_cuda(x, dA, Bm, Cm, H, chunk, h0)
+    yp, hp = ssd_plain(x, dA, Bm, Cm, H, chunk, h0)
+    _close(y, yp, 2e-2 if dtype == torch.bfloat16 else 1e-3)
+    _close(h, hp, 1e-3)
+    assert LAUNCHES["ssd_scan"] == before + 1
+
+
+def test_ssd_kernel_refuses_too_much_shared_memory(dev):
+    x = torch.zeros((2, 256, 64), device=dev)
+    bc = torch.zeros((1, 256, 128), device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        ssd_cuda(x, torch.zeros((2, 256), device=dev), bc, bc, 2, 128)
+
+
+def test_server_cuda_route_serves_what_torch_serves(dev):
+    """Reduced zamba2 (float32) behind Server: the cuda route and the
+    torch route give the same ids and versions; each prefill launches
+    flash_attention once per group and ssd_scan once per layer."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_reduced("zamba2-2.7b").replace(compute_dtype=torch.float32)
+    model = build(cfg)
+    g = torch.Generator(device=dev).manual_seed(0)
+    versions = [model.init(g) for _ in range(2)]
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab_size, (2, S)).astype(np.int32)
+               for S in (64, 37)]
+    served = {}
+    for route in ("torch", "cuda"):
+        srv = Server(cfg, versions[0], batch_size=2, kernels=route,
+                     device=dev)
+        before = dict(LAUNCHES)
+        out = []
+        for i, toks in enumerate(prompts):
+            if i == 1:
+                assert srv.publish(versions[1])
+            out.append(srv.serve_batch(toks, max_new_tokens=4))
+        launched = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+        served[route] = (out, srv.stats, launched)
+    (t_out, t_stats, t_l), (c_out, c_stats, c_l) = served["torch"], \
+        served["cuda"]
+    assert t_l["flash_attention"] == t_l["ssd_scan"] == 0
+    assert c_l["flash_attention"] == 2 * (cfg.n_layers // cfg.attn_every)
+    assert c_l["ssd_scan"] == 2 * cfg.n_layers
+    assert c_stats == t_stats and c_stats.versions_served == [0, 1]
+    for a, b in zip(c_out, t_out):
+        assert a["weight_version"] == b["weight_version"]
+        np.testing.assert_array_equal(a["generated"], b["generated"])

@@ -7,8 +7,8 @@
   one — they never quietly run on the CPU;
 * a ``cuda`` kernel config with CPU tensors raises — it is never served by
   the plain version;
-* the service planes this slice does not port raise
-  ``NotImplementedError`` instead of being ignored;
+* the service planes, model families and architectures the port does not
+  serve yet raise ``NotImplementedError`` instead of being ignored;
 * the backend registry resolves and round-trips like the reference's.
 """
 import os
@@ -24,7 +24,13 @@ import torch
 import repro_torch.core as tc
 from repro_torch import kernels as tk
 from repro_torch.core import workloads as tw
+from repro_torch.configs import ARCH_IDS, PORTED, get_config, get_reduced
 from repro_torch.kernels import KernelConfig, backend, build
+from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.ssd_scan import ssd_cuda, ssd_smem_bytes
+from repro_torch.launch.serve import Server
+from repro_torch.models.convert import params_from_jax
+from repro_torch.models.model import build as build_model
 from repro_torch.service import TxnService
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -51,16 +57,25 @@ def test_chip_smoke_flags_cut_depth_only():
     full = chip_smoke.parse_config([])
     assert full == chip_smoke.Config()
     assert (full.nodes * full.kpn, full.V, full.T) == (1_000_000, 8, 256)
+    assert (full.serve_batches, full.new_tokens) == (3, 16)
+    assert (chip_smoke.SERVE_ARCH, chip_smoke.SERVE_BATCH,
+            chip_smoke.SERVE_PROMPTS) == ("zamba2-2.7b", 4, (1024, 1024, 1000))
     short = chip_smoke.parse_config(["--waves", "2", "--scheds", "postsi",
-                                     "--ticks", "4"])
-    assert short == full._replace(waves=2, scheds="postsi", ticks=4)
-    with pytest.raises(SystemExit):
-        chip_smoke.parse_config(["--kpn", "10"])
+                                     "--ticks", "4", "--serve-batches", "1",
+                                     "--new-tokens", "2"])
+    assert short == full._replace(waves=2, scheds="postsi", ticks=4,
+                                  serve_batches=1, new_tokens=2)
+    for bad in (["--kpn", "10"], ["--serve-batches", "4"],
+                ["--batch", "8"], ["--prompt", "64"]):
+        with pytest.raises(SystemExit):
+            chip_smoke.parse_config(bad)
 
 
 def test_import_leaves_jax_unloaded():
     code = ("import sys, repro_torch, repro_torch.core, "
-            "repro_torch.service, repro_torch.kernels.ops; "
+            "repro_torch.service, repro_torch.kernels.ops, "
+            "repro_torch.configs, repro_torch.models.convert, "
+            "repro_torch.launch.serve; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'repro.')) or m == 'repro']; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -82,6 +97,11 @@ def test_default_entry_points_need_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tc.wave_from_numpy(tw.smallbank_waves(
             np.random.RandomState(0), 1, 4, 2, 4, device="cpu")[0])
+    cfg = get_reduced("zamba2-2.7b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Server(cfg, {}, batch_size=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        params_from_jax(cfg, {})
     assert KernelConfig("auto").backend == "torch"
     assert tk.resolve("auto", "cpu") == KernelConfig("torch")
 
@@ -100,6 +120,14 @@ def test_cuda_config_with_cpu_tensors_raises():
     with pytest.raises(ValueError, match="cuda"):
         tc.commit_phase.build_potential(wave.op_key, wave.op_kind > 0,
                                         wave.op_kind > 1, backend="cuda")
+    # the model plane: prefill with the kernels on CPU tokens raises too
+    cfg = get_reduced("zamba2-2.7b").replace(compute_dtype=torch.float32)
+    model = build_model(cfg, kernels="cuda")
+    params = model.init(torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="cuda"):
+        model.prefill(params, {"tokens": torch.zeros((1, 8), dtype=torch.int32)})
+    with pytest.raises(ValueError, match="cuda"):
+        Server(cfg, params, batch_size=1, kernels="cuda", device="cpu")
 
 
 def test_kernel_wrappers_refuse_cpu_tensors_and_bad_inputs():
@@ -118,7 +146,66 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_bad_inputs():
     with pytest.raises(ValueError, match="CUDA tensor"):
         wave_commit_cuda(a, a, a, a, a[:1], a[:1], a[:1], a[:1].bool(),
                          a[:1])
+    q = torch.zeros((1, 8, 2, 16))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        flash_attention_cuda(q, q, q)
+    x, dA, bc = torch.zeros((2, 8, 4)), torch.zeros((2, 8)), torch.zeros(
+        (1, 8, 4))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ssd_cuda(x, dA, bc, bc, 2)
+    with pytest.raises(ValueError, match="groups"):
+        ssd_cuda(x, dA, bc, bc, 3)
     assert tk.LAUNCHES == before
+
+
+def test_ssd_kernel_shared_memory_limit():
+    """The SSD kernel keeps a chunk in shared memory: the path's sizes fit,
+    mamba2-130m's N=128 at chunk 128 does not (checked, not launched)."""
+    assert ssd_smem_bytes(64, 64, 128) == 181_760 <= build.SMEM_LIMIT
+    assert ssd_smem_bytes(64, 128, 128) > build.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("arch", [
+    "qwen2-vl-2b", "qwen2-0.5b", "qwen3-14b", "deepseek-coder-33b", "yi-9b",
+    "mamba2-130m", "phi3.5-moe-42b-a6.6b", "deepseek-moe-16b",
+    "seamless-m4t-large-v2"])
+def test_unported_archs_raise(arch):
+    with pytest.raises(NotImplementedError, match="Model plane"):
+        get_config(arch)
+    with pytest.raises(NotImplementedError, match="Model plane"):
+        get_reduced(arch)
+
+
+def test_unported_families_and_options_raise():
+    cfg = get_reduced("zamba2-2.7b")
+    for family in ("dense", "moe", "vlm", "ssm", "encdec"):
+        with pytest.raises(NotImplementedError, match="Model plane"):
+            build_model(cfg.replace(family=family))
+    for flag in ("qkv_bias", "qk_norm", "mrope"):
+        with pytest.raises(NotImplementedError, match="Model plane"):
+            build_model(cfg.replace(**{flag: True})).param_specs()
+    with pytest.raises(NotImplementedError, match="Model plane"):
+        Server(cfg.replace(mrope=True), {}, device="cpu")
+    with pytest.raises(NotImplementedError, match="Model plane"):
+        Server(cfg.replace(family="encdec"), {}, device="cpu")
+    with pytest.raises(KeyError):
+        get_config("gpt-5")
+    assert set(ARCH_IDS) == set(PORTED) | {
+        "qwen2-vl-2b", "qwen2-0.5b", "qwen3-14b", "deepseek-coder-33b",
+        "yi-9b", "mamba2-130m", "phi3.5-moe-42b-a6.6b", "deepseek-moe-16b",
+        "seamless-m4t-large-v2"}
+
+
+@pytest.mark.parametrize("field,value", [
+    ("remat_policy", "dots"), ("attn_chunk", 16), ("attn_seq_shard", True),
+    ("decode_seq_shard", True)])
+def test_reference_only_knobs_refuse_other_values(field, value):
+    """The GSPMD/XLA-only fields are kept at their defaults; another value
+    raises instead of meaning nothing."""
+    cfg = get_reduced("zamba2-2.7b")
+    with pytest.raises(NotImplementedError, match="Model plane"):
+        cfg.replace(**{field: value})
+    assert cfg.replace(**{field: getattr(cfg, field)}) == cfg
 
 
 @pytest.mark.parametrize("arg,item", [
@@ -162,7 +249,14 @@ def test_build_hash_covers_sources_and_flags(tmp_path):
     header note."""
     sources, headers = build._sources()
     assert {s.name for s in sources} == {
-        "version_scan.cu", "interval_negotiate.cu", "wave_commit.cu"}
+        "version_scan.cu", "interval_negotiate.cu", "wave_commit.cu",
+        "flash_attention.cu", "ssd_scan.cu"}
+    assert set(build.LAUNCHES) == {
+        "version_scan", "potential_matrix", "wave_commit", "flash_attention",
+        "ssd_scan"}
+    assert {f"{n}_launch" for n in ("version_scan", "potential_matrix",
+                                    "wave_commit", "flash_attention",
+                                    "ssd_scan")} == set(build.SIGNATURES)
     assert [h.name for h in headers] == ["common.cuh"]
     for src in sources:
         text = src.read_text()
