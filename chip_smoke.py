@@ -8,14 +8,20 @@ Run from the repository root, with one CUDA device:
 Phases (any failure raises, so the process exits non-zero):
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc);
+2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc),
+   then disassemble the library (``cuobjdump -sass``): every bf16
+   instantiation of ``flash_attention`` and ``ssd_scan`` must run
+   tensor-core (HMMA / HGMMA) instructions;
 3. each engine kernel against its plain PyTorch version on the card,
    bit-equal, at the main path's shapes and on adversarial inputs, with
    CUDA-event times of both; the model plane's ``flash_attention`` and
    ``ssd_scan`` likewise, within their tolerances, at the serve path's
-   shapes plus ragged, GQA, non-causal, initial-state and float32 cases,
-   with ``scaled_dot_product_attention`` timed beside attention as a
-   yardstick (never called by the port);
+   shapes plus ragged, GQA, non-causal, initial-state, float32, 128-row
+   q tile, N=128, model-layout and slow-decay cases, each bf16 output also
+   against its plain version in float32 on the same inputs, the element
+   closest to its limit printed per check, with
+   ``scaled_dot_product_attention`` timed beside attention as a yardstick
+   (never called by the port);
 4. engine: 16 SmallBank waves of T=256 over a 1,000,000-account store
    (8 nodes x 125,000 accounts, V=8, 20% distributed) through
    ``run_workload_fused`` for all six schedulers under the ``cuda``,
@@ -31,7 +37,8 @@ Phases (any failure raises, so the process exits non-zero):
    1,000 tokens, 16 new tokens each) with a second weight version
    published after the first, one version per batch (0, 1, 1); then
    prefill/decode times, a profile of one prefill, every kernel call of
-   one prefill held to its plain version on the same activations, and
+   one prefill held to its plain version on the same activations (and,
+   in bf16, to the float32 one), and
    every batch again on the ``cuda`` and the ``torch`` route
    teacher-forced with the served tokens: in float32 compute the logits
    agree within 1e-3 * scale at every step; the bf16 distance is printed
@@ -308,6 +315,54 @@ def stop_profiler(prof, tag):
         return False
 
 
+def kernel_of(symbol: str):
+    """The kernel (a key of KERNELS) whose CUDA function ``symbol`` (a
+    demangled profiler key or a mangled SASS name) is, else None.  Each is
+    ``<name>_kernel``, ``<name>_mma_kernel`` (bf16, tensor cores) or
+    ``<name>_fma_kernel`` (float32)."""
+    for name in KERNELS:
+        if any(f"{name}{kind}_kernel" in symbol
+               for kind in ("", "_mma", "_fma")):
+            return name
+    return None
+
+
+def tensor_core_counts(sass: str) -> dict:
+    """``cuobjdump -sass`` text -> {function: count of HMMA / HGMMA
+    instructions} for every function of the model kernels."""
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            fn = fn if kernel_of(fn) in ("flash_attention", "ssd_scan") \
+                else None
+            if fn:
+                counts[fn] = 0
+        elif fn and ("HMMA" in line or "HGMMA" in line):
+            counts[fn] += 1
+    return counts
+
+
+def tensor_core_check(lib_path, nvcc):
+    """Disassemble the built library; raise unless every bf16 instantiation
+    of flash_attention and ssd_scan (``*_mma_kernel``) runs tensor-core
+    instructions.  Prints the counts per kernel and dtype."""
+    tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib_path], check=True,
+                          capture_output=True, text=True).stdout
+    counts = tensor_core_counts(sass)
+    for name in ("flash_attention", "ssd_scan"):
+        for kind in ("mma", "fma"):
+            got = {f: n for f, n in counts.items()
+                   if kernel_of(f) == name and f"_{kind}_kernel" in f}
+            print(f"[build] {name} {'bf16' if kind == 'mma' else 'float32'}"
+                  f": {len(got)} instantiations, HMMA/HGMMA per "
+                  f"instantiation {sorted(got.values())}", flush=True)
+            if kind == "mma" and (not got or min(got.values()) == 0):
+                raise AssertionError(f"{name}: a bf16 instantiation runs no "
+                                     f"tensor-core instruction")
+
+
 def device_ms(torch, fns, records, iters=50):
     """Kernel-only device time from the profiler's CUDA trace, where the
     profiler sees the device; recorded as ``device_ms`` (else None)."""
@@ -321,8 +376,7 @@ def device_ms(torch, fns, records, iters=50):
     if stop_profiler(prof, "kernels"):
         for evt in prof.key_averages():
             for name in fns:
-                # templates demangle as "void name_kernel<...>(...)"
-                if f"{name}_kernel" in evt.key:
+                if kernel_of(evt.key) == name:
                     total = getattr(evt, "device_time_total",
                                     getattr(evt, "cuda_time_total", 0))
                     records[name]["device_ms"] = total / 1e3 / iters
@@ -332,10 +386,12 @@ def device_ms(torch, fns, records, iters=50):
 
 
 # ------------------------------------------------------- phase 3, model
-def close_err(torch, name, label, got, want, atol, rtol):
+def close_err(torch, name, label, got, want, atol, rtol, use=None):
     """Largest |got - want| over the output tensors; raise unless every
     output is finite, has the reference's shape and dtype, and is within
-    ``atol + rtol * |want|``."""
+    ``atol + rtol * |want|``.  ``use`` (a dict), where given, keeps under
+    ``name`` the element that came closest to its limit over all calls:
+    (|got - want| / limit, |got - want|, |want|, label)."""
     err = 0.0
     for a, b in zip(got, want):
         if a.shape != b.shape or a.dtype != b.dtype:
@@ -343,17 +399,36 @@ def close_err(torch, name, label, got, want, atol, rtol):
                                  f"{a.dtype} vs {b.shape}/{b.dtype}")
         if not bool(torch.isfinite(a).all()):
             raise AssertionError(f"{name} [{label}]: non-finite output")
-        d = (a.float() - b.float()).abs()
-        excess = float((d - rtol * b.float().abs()).max())
+        if not a.numel():
+            continue
+        d = (a.float() - b.float()).abs().flatten()
+        mag = b.float().abs().flatten()
+        limit = atol + rtol * mag
+        share = d / limit.clamp_min(1e-30)
+        i = int(share.argmax())
+        worst = (float(share[i]), float(d[i]), float(mag[i]), label)
         err = max(err, float(d.max()))
-        if excess > atol:
-            raise AssertionError(f"{name} [{label}] differs from its plain "
-                                 f"version beyond atol={atol} rtol={rtol}: "
-                                 f"max_abs_err={float(d.max())}")
+        if use is not None and worst[0] > use.get(name, (-1.0,))[0]:
+            use[name] = worst
+        if worst[0] > 1.0:
+            raise AssertionError(
+                f"{name} [{label}] differs from its reference beyond "
+                f"atol={atol} rtol={rtol}: max_abs_err={float(d.max())}; "
+                f"largest excess over the limit "
+                f"{float((d - limit).max())}, worst element |d|={worst[1]} "
+                f"at |want|={worst[2]} ({worst[0]:.3g} x its limit)")
     return err
 
 
-def attention_oracle_err(torch, label, got, q, k, v, causal, plain):
+def limit_use_line(use) -> str:
+    """The elements closest to their limits, as close_err keeps them."""
+    return "; ".join(f"{name} {share:.3g} of its limit (|d|={d:.4g} at "
+                     f"|want|={mag:.4g}, {label})"
+                     for name, (share, d, mag, label) in sorted(use.items()))
+
+
+def attention_oracle_err(torch, label, got, q, k, v, causal, plain,
+                         use=None):
     """A bf16 flash_attention output against the plain version computed in
     float32 on the same bf16 inputs.  The kernel computes in float32 and
     rounds its output once, so it must lie within one bf16 rounding of that
@@ -362,8 +437,34 @@ def attention_oracle_err(torch, label, got, q, k, v, causal, plain):
     check, whose atol is as large as the outputs of a flat softmax."""
     want = plain(q.float(), k.float(), v.float(), causal)
     atol = 1e-3 * float(want.abs().max())
-    return close_err(torch, "flash_attention", label + " vs float32 oracle",
-                     (got.float(),), (want,), atol, 1e-2)
+    return close_err(torch, "flash_attention oracle",
+                     label + " vs float32 oracle", (got.float(),), (want,),
+                     atol, 1e-2, use)
+
+
+def ssd_oracle_err(torch, label, y, x, dA, Bm, Cm, H, chunk, h0, plain,
+                   use=None):
+    """A bf16 ssd_scan output y against the plain version computed in
+    float32 on the same bf16 inputs (``plain``: ssd_plain's arguments).
+    The kernel keeps about 16 mantissa bits in every operand that is not a
+    bf16 input and rounds y once, so y must lie within one bf16 rounding
+    of that oracle (rtol 1e-2 > 2^-8) plus 1e-3 * max|y| for the order of
+    sums.  The bf16-vs-bf16 check (2e-2 + 2e-2 |y|) sets its limit from a
+    y rounded to bf16 and cannot tell a kernel that rounds its products'
+    operands once from one that keeps them."""
+    want, _ = plain(x.float(), dA, Bm.float(), Cm.float(), H, chunk, h0)
+    atol = 1e-3 * float(want.abs().max())
+    return close_err(torch, "ssd_scan oracle", label + " vs float32 oracle",
+                     (y.float(),), (want,), atol, 1e-2, use)
+
+
+def model_layout(x, dA, Bg, H):
+    """x [BH, S, P] and dA [BH, S] as the [Bg, H, S, .] transpose views of
+    the model's [Bg, S, H, .] layout, the views models/ssm.py:ssd passes."""
+    S, P = x.shape[1:]
+    return (x.reshape(Bg, H, S, P).transpose(1, 2).contiguous()
+            .transpose(1, 2),
+            dA.reshape(Bg, H, S).transpose(1, 2).contiguous().transpose(1, 2))
 
 
 def model_kernel_phase(torch, dev):
@@ -384,6 +485,7 @@ def model_kernel_phase(torch, dev):
                 * scale).to(dtype)
 
     errs = {"flash_attention": [], "ssd_scan": []}
+    use = {}
     # (B, S, H, KH, D, dtype, causal): the path in bf16 and float32,
     # ragged, GQA, non-causal and small odd shapes.  q and k at scale 2
     # make the softmax peaked (scores of std 4), so outputs are of the
@@ -396,7 +498,8 @@ def model_kernel_phase(torch, dev):
                 (2, 256, 4, 2, 128, f32, True),
                 (2, 200, 4, 2, 80, f32, False),
                 (1, 70, 2, 1, 48, f32, True),
-                (1, 1, 4, 4, 16, f32, True)]
+                (1, 1, 4, 4, 16, f32, True),
+                (1, 2048, 32, 8, 128, bf16, True)]
     for B, S, H, KH, D, dt, causal in fa_cases:
         q = rn((B, S, H, D), 2.0, dt)
         k, v = rn((B, S, KH, D), 2.0, dt), rn((B, S, KH, D), 1.0, dt)
@@ -405,49 +508,72 @@ def model_kernel_phase(torch, dev):
         o = flash_attention_cuda(q, k, v, causal)
         errs["flash_attention"].append(close_err(
             torch, "flash_attention", label, (o,),
-            (flash_attention_plain(q, k, v, causal),), tol, tol))
+            (flash_attention_plain(q, k, v, causal),), tol, tol, use))
         if dt == bf16:
             errs["flash_attention"].append(attention_oracle_err(
-                torch, label, o, q, k, v, causal, flash_attention_plain))
+                torch, label, o, q, k, v, causal, flash_attention_plain,
+                use))
         del q, k, v, o
-    # (Bg, H, S, P, N, chunk, dtype, h0, decay): the path (decay as the
-    # model's dt*A, about -0.7 a step), with an initial state, ragged,
-    # float32, small chunks
-    ssd_cases = [(4, 80, 1024, 64, 64, 128, bf16, False, 1.4),
-                 (4, 80, 1024, 64, 64, 128, bf16, True, 1.4),
-                 (4, 80, 1000, 64, 64, 128, bf16, False, 1.4),
-                 (2, 3, 256, 32, 64, 64, f32, False, 0.3),
-                 (2, 3, 300, 64, 64, 128, f32, True, 0.3),
-                 (2, 4, 77, 16, 16, 16, f32, True, 0.3),
-                 (1, 2, 50, 64, 64, 128, f32, False, 0.3)]
-    for Bg, H, S, P, N, Q, dt, with_h0, decay in ssd_cases:
+    # (Bg, H, S, P, N, chunk, dtype, h0, decay, model layout): the path
+    # (decay as the model's dt*A, about -0.7 a step), with an initial
+    # state, ragged, float32, small chunks, mamba2-130m's N=128, and x / dA
+    # as the [B, H, S, .] views of the model's [B, S, H, .] that the path
+    # passes.  The last three decay slowly (dA ~ -U(0, 0.01), as trained
+    # SSM heads do), so that every row tile of the state product and every
+    # block below the diagonal of (C B^T .* L) x carries weight: at a decay
+    # of 0.7 a step, rows 16 back add under e^-6 and a wrong or skipped
+    # block would pass unseen.
+    ssd_cases = [(4, 80, 1024, 64, 64, 128, bf16, False, 1.4, False),
+                 (4, 80, 1024, 64, 64, 128, bf16, True, 1.4, False),
+                 (4, 80, 1000, 64, 64, 128, bf16, False, 1.4, False),
+                 (2, 3, 256, 32, 64, 64, f32, False, 0.3, False),
+                 (2, 3, 300, 64, 64, 128, f32, True, 0.3, False),
+                 (2, 4, 77, 16, 16, 16, f32, True, 0.3, False),
+                 (1, 2, 50, 64, 64, 128, f32, False, 0.3, False),
+                 (4, 24, 1024, 64, 128, 128, bf16, True, 1.4, False),
+                 (4, 80, 1000, 64, 64, 128, bf16, True, 1.4, True),
+                 (2, 3, 300, 64, 64, 128, f32, True, 0.3, True),
+                 (4, 80, 1024, 64, 64, 128, bf16, True, 0.01, True),
+                 (4, 24, 1024, 64, 128, 128, bf16, True, 0.01, False),
+                 (2, 3, 300, 32, 64, 64, bf16, True, 0.01, False)]
+    for Bg, H, S, P, N, Q, dt, with_h0, decay, model in ssd_cases:
         x = rn((Bg * H, S, P), 0.5, dt)
         dA = -torch.rand((Bg * H, S), generator=g, device=dev) * decay
+        if model:
+            x, dA = model_layout(x, dA, Bg, H)
         Bm, Cm = rn((Bg, S, N), 0.3, dt), rn((Bg, S, N), 0.3, dt)
         h0 = rn((Bg * H, N, P), 0.2, f32) if with_h0 else None
         label = (f"BH={Bg * H} S={S} P={P} N={N} chunk={Q} {dt} "
-                 f"h0={with_h0}")
+                 f"h0={with_h0}{' model layout' if model else ''}")
         y, h = ssd_cuda(x, dA, Bm, Cm, H, Q, h0)
         yp, hp = ssd_plain(x, dA, Bm, Cm, H, Q, h0)
         # y in bf16 may differ by one bf16 rounding (2^-8 relative)
         ytol = 2e-2 if dt == bf16 else 1e-3
         errs["ssd_scan"].append(max(
             close_err(torch, "ssd_scan", label + " y", (y,), (yp,), ytol,
-                      ytol),
-            close_err(torch, "ssd_scan", label + " h", (h,), (hp,), 1e-3,
-                      1e-3)))
+                      ytol, use),
+            close_err(torch, "ssd_scan state", label + " h", (h,), (hp,),
+                      1e-3, 1e-3, use)))
+        if dt == bf16:
+            errs["ssd_scan"].append(ssd_oracle_err(
+                torch, label, y, x, dA, Bm, Cm, H, Q, h0, ssd_plain, use))
+        del x, dA, Bm, Cm, h0, y, h, yp, hp
     print(f"[kernels] flash_attention: {len(fa_cases)} checks, ssd_scan: "
           f"{len(ssd_cases)} checks, all within tolerance of the plain "
           f"versions (max abs err {max(errs['flash_attention']):.3g} / "
           f"{max(errs['ssd_scan']):.3g})", flush=True)
+    print(f"[kernels] closest to the limit: {limit_use_line(use)}",
+          flush=True)
 
     # times at the serve path's shapes
     B, S, H, D = SERVE_BATCH, SERVE_PROMPTS[0], 32, 80
     q, k, v = (rn((B, S, H, D), 0.5, bf16) for _ in range(3))
     qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
     BH, P, N, Q = SERVE_BATCH * 80, 64, 64, 128
-    x = rn((BH, S, P), 0.5, bf16)
-    dA = -torch.rand((BH, S), generator=g, device=dev) * 1.4
+    # the scan in the layout the path gives it (views of [B, S, H, .])
+    x, dA = model_layout(rn((BH, S, P), 0.5, bf16),
+                         -torch.rand((BH, S), generator=g, device=dev) * 1.4,
+                         SERVE_BATCH, 80)
     Bm, Cm = rn((SERVE_BATCH, S, N), 0.3, bf16), rn((SERVE_BATCH, S, N), 0.3,
                                                      bf16)
     calls = {
@@ -679,6 +805,7 @@ def in_situ_check(torch, srv, params, toks, max_len):
     from repro_torch.kernels import ops
     orig = {"flash_attention": ops.flash_attention, "ssd": ops.ssd}
     worst = {name: 0.0 for name in orig}
+    use = {}
 
     def recorder(name):
         def call(*args, **kw):
@@ -688,17 +815,27 @@ def in_situ_check(torch, srv, params, toks, max_len):
             plain_t = plain if isinstance(plain, tuple) else (plain,)
             tol = 2e-2 if out_t[0].dtype == torch.bfloat16 else 1e-3
             err = close_err(torch, name, "in situ", out_t[:1], plain_t[:1],
-                            tol, tol)
-            if (name == "flash_attention" and out.dtype == torch.bfloat16
-                    and out.is_cuda and kw.get("use_kernel", True)):
-                # the kernel, not the bf16 plain version it is checked with
+                            tol, tol, use)
+            kernel = (out_t[0].dtype == torch.bfloat16 and out_t[0].is_cuda
+                      and kw.get("use_kernel", True))
+            # the kernel, not the bf16 plain version it is checked with
+            if name == "flash_attention" and kernel:
                 err = max(err, attention_oracle_err(
                     torch, "in situ", out, *args, kw.get("causal", True),
                     lambda q, k, v, c: orig[name](q, k, v, causal=c,
-                                                  use_kernel=False)))
+                                                  use_kernel=False), use))
+            if name == "ssd" and kernel:
+                err = max(err, ssd_oracle_err(
+                    torch, "in situ", out_t[0], *args,
+                    kw["n_heads_per_group"], kw.get("chunk", 128),
+                    kw.get("h0"),
+                    lambda x, a, b, c, H, Q, h0: orig[name](
+                        x, a, b, c, n_heads_per_group=H, chunk=Q, h0=h0,
+                        use_kernel=False), use))
             if len(out_t) > 1:                      # the scan's fp32 state
-                err = max(err, close_err(torch, name, "in situ state",
-                                         out_t[1:], plain_t[1:], 1e-3, 1e-3))
+                err = max(err, close_err(torch, name + " state",
+                                         "in situ state", out_t[1:],
+                                         plain_t[1:], 1e-3, 1e-3, use))
             worst[name] = max(worst[name], err)
             return out
         return call
@@ -712,6 +849,8 @@ def in_situ_check(torch, srv, params, toks, max_len):
     print(f"[serve] in situ: every flash_attention and ssd call of one "
           f"prefill within tolerance of its plain version on the same "
           f"activations (max abs err {worst})", flush=True)
+    print(f"[serve] in situ, closest to the limit: {limit_use_line(use)}",
+          flush=True)
 
 
 # ---------------------------------------------------------------- phase 4
@@ -887,7 +1026,7 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, SRC)
     from repro_torch.kernels import LAUNCHES, reset_launch_counts
-    from repro_torch.kernels.build import build_info, library
+    from repro_torch.kernels.build import build_info, library, nvcc_path
 
     dev = torch.device("cuda:0")
     card = card_line()
@@ -905,6 +1044,7 @@ def main(argv=None) -> int:
         if ("registers" in line or "spill" in line or line.startswith("==")
                 or "entry function" in line):
             print(f"[build] {line.strip()}", flush=True)
+    tensor_core_check(build_info["path"], nvcc_path())
 
     records = kernel_phase(torch, dev, cfg.nodes * cfg.kpn, cfg.V, cfg.T,
                            cfg.O)

@@ -34,14 +34,15 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 LIB_NAME = "librepro_torch_kernels.so"
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 # C entry point -> argtypes (pointers and the stream as void*, sizes as int,
-# the softmax scale as float)
+# element strides as long long, the softmax scale as float)
 SIGNATURES = {
     "version_scan_launch": [_P] * 6 + [_I] * 3 + [_P],
     "potential_matrix_launch": [_P] * 3 + [_I] * 2 + [_P],
     "wave_commit_launch": [_P] * 16 + [_I] * 4 + [_P],
     "flash_attention_launch": [_P] * 4 + [_I] * 8 + [_F, _P],
-    "ssd_scan_launch": [_P] * 7 + [_I] * 7 + [_P],
+    "ssd_scan_launch": [_P] * 7 + [_I] * 7 + [_L] * 11 + [_P],
 }
 
 # launches per kernel since the last reset_launch_counts()
@@ -66,7 +67,9 @@ def build_dir() -> Path:
                                REPO_ROOT / "build" / "kernels"))
 
 
-def _nvcc() -> str:
+def nvcc_path() -> str:
+    """The nvcc that builds the kernels (also for tools that build variants
+    of them)."""
     for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
                  shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
         if cand and os.path.isfile(cand):
@@ -97,7 +100,7 @@ def _build() -> Path:
         build_info.update(path=str(lib), seconds=0.0, cached=True)
         return lib
     out.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
+    nvcc = nvcc_path()
     t0 = time.perf_counter()
     procs = [(src, subprocess.Popen(
         [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(out / f"{src.stem}.o")],
@@ -144,9 +147,10 @@ def launch(name: str, entry: str, *args) -> None:
     LAUNCHES[name] += 1
 
 
-def check_input(name: str, t, shape, dtype) -> None:
-    """The kernels take contiguous CUDA tensors of one dtype (or one of a
-    tuple of dtypes) and shape."""
+def check_input(name: str, t, shape, dtype, strides="contiguous") -> None:
+    """The kernels take CUDA tensors of one dtype (or one of a tuple of
+    dtypes) and shape; ``strides``: "contiguous", "rows" (any strides but a
+    dense last dimension) or "any"."""
     if not (isinstance(t, torch.Tensor) and t.is_cuda):
         raise ValueError(f"{name}: expected a CUDA tensor, got "
                          f"{getattr(t, 'device', type(t))}")
@@ -155,8 +159,10 @@ def check_input(name: str, t, shape, dtype) -> None:
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
                          f"{tuple(t.shape)}")
-    if not t.is_contiguous():
+    if strides == "contiguous" and not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+    if strides == "rows" and t.shape[-1] > 1 and t.stride(-1) != 1:
+        raise ValueError(f"{name}: expected a dense last dimension")
 
 
 def stream_of(t) -> int:

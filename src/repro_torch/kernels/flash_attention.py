@@ -1,7 +1,8 @@
 """flash_attention: causal or full attention with an online softmax.
 
 Port of ``repro.kernels.flash_attention.flash_attention_pallas``.  The CUDA
-kernel (``csrc/flash_attention.cu``) takes the model's own layout, q
+kernels (``csrc/flash_attention.cu``: bf16 on the tensor cores, float32 on
+the FMA units, chosen by dtype) take the model's own layout, q
 ``[B, Sq, H, D]`` and k/v ``[B, Sk, KH, D]``, and reads the kv head of each
 query head by index, so neither the reference wrapper's GQA repeat nor its
 128-lane padding of D exists here; the scale is 1/sqrt(D).  Sequence lengths
@@ -18,8 +19,8 @@ import torch
 
 from .build import check_input, launch, stream_of
 
-__all__ = ["NEG_INF", "flash_attention", "flash_attention_cuda",
-           "flash_attention_plain"]
+__all__ = ["NEG_INF", "flash_attention",
+           "flash_attention_cuda", "flash_attention_plain"]
 
 NEG_INF = -1.0e30
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -46,8 +47,9 @@ def flash_attention_plain(q, k, v, causal: bool = True):
 
 def flash_attention_cuda(q, k, v, causal: bool = True):
     """CUDA kernel.  q: [B, Sq, H, D]; k, v: [B, Sk, KH, D]; contiguous, one
-    dtype (float32 or bfloat16); D a multiple of 16 up to 128; H a multiple
-    of KH.  Returns o [B, Sq, H, D] in q's dtype."""
+    dtype (bfloat16: the tensor-core kernel, 16-byte aligned; float32: the
+    FMA kernel); D a multiple of 16 up to 128; H a multiple of KH.  Returns
+    o [B, Sq, H, D] in q's dtype."""
     B, Sq, H, D = q.shape
     Sk, KH = k.shape[1], k.shape[2]
     check_input("flash_attention.q", q, (B, Sq, H, D), _DTYPES)
@@ -59,12 +61,16 @@ def flash_attention_cuda(q, k, v, causal: bool = True):
     if H % KH:
         raise ValueError(f"flash_attention: {H} query heads do not group "
                          f"over {KH} kv heads")
+    bf16 = q.dtype == torch.bfloat16
+    if bf16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: bf16 tensors must be 16-byte "
+                         "aligned (the kernel copies 16-byte rows)")
     o = torch.empty_like(q)
     if B and Sq and Sk and H:
         launch("flash_attention", "flash_attention_launch", q.data_ptr(),
                k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Sq, Sk, H, KH, D,
-               int(bool(causal)), int(q.dtype == torch.bfloat16),
-               1.0 / math.sqrt(D), stream_of(q))
+               int(bool(causal)), int(bf16), 1.0 / math.sqrt(D),
+               stream_of(q))
     return o
 
 

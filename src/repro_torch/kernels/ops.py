@@ -81,8 +81,9 @@ def flash_attention(q, k, v, *, causal=True, use_kernel=True):
 
 def ssd(x, dA, Bm, Cm, *, n_heads_per_group, chunk=128, h0=None,
         use_kernel=True):
-    """x: [BH, S, P]; dA: [BH, S]; Bm/Cm: [Bg, S, N]; h0: [BH, N, P] or
-    None -> (y [BH, S, P], final state [BH, N, P])."""
+    """x: [BH, S, P] (or the [Bg, H, S, P] view of [Bg, S, H, P]); dA:
+    [BH, S] (or [Bg, H, S]); Bm/Cm: [Bg, S, N]; h0: [BH, N, P] or None ->
+    (y in x's shape, final state [BH, N, P])."""
     if use_kernel:
         return _ssd_scan(x, dA, Bm, Cm, n_heads_per_group, chunk, h0)
     return ssd_plain(x, dA, Bm, Cm, n_heads_per_group, chunk, h0)

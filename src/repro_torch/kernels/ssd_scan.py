@@ -2,11 +2,16 @@
 
 Port of ``repro.kernels.ssd_scan.ssd_scan_pallas``, in its folded layout:
 x ``[BH, S, P]``, dA ``[BH, S]``, B/C ``[BH // H, S, N]`` shared by the H
-heads of a group; it returns (y ``[BH, S, P]``, h ``[BH, N, P]``).  The
-CUDA kernel (``csrc/ssd_scan.cu``) runs one block per batch*head over the
-chunks in order with the state in shared memory.  Beyond the Pallas kernel
-it takes an initial state ``h0`` (or None) and any S: the tail chunk is
-masked in-kernel as the reference's zero padding would leave it.
+heads of a group; it returns (y ``[BH, S, P]``, h ``[BH, N, P]``).  It also
+takes x and dA as the ``[G, H, S, P]`` / ``[G, H, S]`` transpose views of
+the model's ``[G, S, H, P]`` / ``[G, S, H]`` and then returns y as such a
+view, so the model's layout is read and written in place: the kernel
+indexes by the strides it is given.  The CUDA kernels
+(``csrc/ssd_scan.cu``: bf16 on the tensor cores, float32 on the FMA units,
+chosen by dtype) run one block per batch*head over the chunks in order
+with the state on chip.  Beyond the Pallas kernel it takes an initial
+state ``h0`` (or None) and any S: the tail chunk is masked in-kernel as
+the reference's zero padding would leave it.
 
 Its plain version, :func:`ssd_plain`, folds the layout onto
 :func:`ssd_chunked`, the port of the reference model's
@@ -95,59 +100,102 @@ def ssd_chunked(x, dA, Bm, Cm, chunk: int, init_state=None):
     return y[:, :S0].to(x.dtype), h.reshape(B, H, P, N)
 
 
+def _unfold(x, dA, H):
+    """Views of x [BH, S, P] or [G, H, S, P] and dA [BH, S] or [G, H, S]
+    as [G, H, S, P] and [G, H, S] (no copy)."""
+    if x.dim() == 3:
+        x = x.unflatten(0, (x.shape[0] // H, H))
+    if dA.dim() == 2:
+        dA = dA.unflatten(0, (dA.shape[0] // H, H))
+    return x, dA
+
+
 def ssd_plain(x, dA, Bm, Cm, n_heads_per_group: int, chunk: int = 128,
               h0=None):
-    """Plain PyTorch version of :func:`ssd_cuda` (same arguments): the
-    folded layout unfolded onto :func:`ssd_chunked`."""
-    BH, S, P = x.shape
-    Bg, _, N = Bm.shape
+    """Plain PyTorch version of :func:`ssd_cuda` (same arguments, either
+    layout): unfolded onto :func:`ssd_chunked`.  y comes back in x's
+    shape."""
     H = n_heads_per_group
-    xm = x.reshape(Bg, H, S, P).transpose(1, 2)
-    am = dA.reshape(Bg, H, S).transpose(1, 2)
+    x4, a4 = _unfold(x, dA, H)
+    Bg, _, S, P = x4.shape
+    N = Bm.shape[-1]
     init = None if h0 is None else h0.reshape(Bg, H, N, P).transpose(-1, -2)
-    y, h = ssd_chunked(xm, am, Bm[:, :, None], Cm[:, :, None], chunk, init)
-    return (y.transpose(1, 2).reshape(BH, S, P),
-            h.transpose(-1, -2).reshape(BH, N, P))
+    y, h = ssd_chunked(x4.transpose(1, 2), a4.transpose(1, 2),
+                       Bm[:, :, None], Cm[:, :, None], chunk, init)
+    return (y.transpose(1, 2).reshape(x.shape),
+            h.transpose(-1, -2).reshape(Bg * H, N, P))
 
 
-def ssd_smem_bytes(P: int, N: int, Q: int) -> int:
-    """Shared memory of one block of the kernel (``ssd_smem_bytes`` in
+def ssd_smem_bytes(P: int, N: int, Q: int,
+                   dtype: torch.dtype = torch.float32) -> int:
+    """Shared memory of one block of the kernel for ``dtype``
+    (``ssd_fma_smem_bytes`` / ``ssd_mma_smem_bytes`` in
     ``csrc/ssd_scan.cu``)."""
+    if dtype == torch.bfloat16:
+        Qp = -(-Q // 16) * 16
+        return 4 * Qp * (P + N) + 2 * Qp * N + 16 * Qp + 4 * N * P
     return 4 * (Q * (Q + N + 1) + Q * (N + 1) + (Q + N) * P + Q)
 
 
 def ssd_cuda(x, dA, Bm, Cm, n_heads_per_group: int, chunk: int = 128,
              h0=None):
-    """CUDA kernel.  x: [BH, S, P] and Bm/Cm: [BH // H, S, N], one dtype
-    (float32 or bfloat16); dA: [BH, S] float32; h0: [BH, N, P] float32 or
-    None (zero state); all contiguous.  Chunks of min(chunk, S) rows.
-    Returns (y [BH, S, P] in x's dtype, h [BH, N, P] float32)."""
-    BH, S, P = x.shape
-    N = Bm.shape[-1]
+    """CUDA kernel.  x: [BH, S, P] or the [G, H, S, P] view of the model's
+    [G, S, H, P] (any strides, last dimension dense); Bm/Cm: [G, S, N]
+    (G = BH // H, last dimension dense), one dtype with x: bfloat16 (the
+    tensor-core kernel: P in {16, 32, 64}, N in {16, 32, 64, 128}) or
+    float32 (the FMA kernel); dA: [BH, S] or [G, H, S] float32, any
+    strides; h0: [BH, N, P] float32 contiguous or None (zero state).
+    Chunks of min(chunk, S) rows.  Returns (y in x's shape, dtype and
+    layout order, h [BH, N, P] float32)."""
     H = n_heads_per_group
-    if H < 1 or BH % H:
+    S, P = x.shape[-2:]
+    N = Bm.shape[-1]
+    BH = x.shape[0] * (x.shape[1] if x.dim() == 4 else 1)
+    if H < 1 or BH % H or (x.dim() == 4 and x.shape[1] != H):
         raise ValueError(f"ssd_scan: {BH} rows do not fold into groups of "
                          f"{H} heads")
-    check_input("ssd_scan.x", x, (BH, S, P), _DTYPES)
-    check_input("ssd_scan.dA", dA, (BH, S), torch.float32)
-    check_input("ssd_scan.Bm", Bm, (BH // H, S, N), x.dtype)
-    check_input("ssd_scan.Cm", Cm, (BH // H, S, N), x.dtype)
+    G = BH // H
+    x4, a4 = _unfold(x, dA, H)
+    check_input("ssd_scan.x", x4, (G, H, S, P), _DTYPES, "rows")
+    check_input("ssd_scan.dA", a4, (G, H, S), torch.float32, "any")
+    check_input("ssd_scan.Bm", Bm, (G, S, N), x.dtype, "rows")
+    check_input("ssd_scan.Cm", Cm, (G, S, N), x.dtype, "rows")
     if h0 is not None:
         check_input("ssd_scan.h0", h0, (BH, N, P), torch.float32)
+    if Bm.stride() != Cm.stride():
+        raise ValueError("ssd_scan: B and C must share strides")
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:
+        if P not in (16, 32, 64) or N not in (16, 32, 64, 128):
+            raise ValueError(f"ssd_scan: the bf16 kernel takes P in (16, 32,"
+                             f" 64) and N in (16, 32, 64, 128), got P={P}, "
+                             f"N={N}")
+        if any(t.data_ptr() % 16 for t in (x4, Bm, Cm)) or any(
+                r % 8 for r in x4.stride()[:3] + Bm.stride()[:2]):
+            raise ValueError("ssd_scan: bf16 rows of x, B and C must start "
+                             "16-byte aligned")
     Q = max(1, min(chunk, S))
-    if ssd_smem_bytes(P, N, Q) > SMEM_LIMIT:
+    smem = ssd_smem_bytes(P, N, Q, x.dtype)
+    if smem > SMEM_LIMIT:
         raise ValueError(
-            f"ssd_scan: chunk {Q} with N={N}, P={P} needs "
-            f"{ssd_smem_bytes(P, N, Q)} bytes of shared memory, above the "
-            f"{SMEM_LIMIT} a block may use")
-    y = torch.empty_like(x)
+            f"ssd_scan: chunk {Q} with N={N}, P={P} needs {smem} bytes of "
+            f"shared memory, above the {SMEM_LIMIT} a block may use")
+    # y in the order of x's layout: the model's [G, S, H, P] for a view of
+    # it, else [BH, S, P]
+    if x.dim() == 4:
+        y = torch.empty((G, S, H, P), dtype=x.dtype,
+                        device=x.device).transpose(1, 2)
+    else:
+        y = torch.empty_like(x, memory_format=torch.contiguous_format)
+    y4 = y if y.dim() == 4 else y.unflatten(0, (G, H))
     h = torch.empty((BH, N, P), dtype=torch.float32, device=x.device)
     if BH and S:
         launch("ssd_scan", "ssd_scan_launch", x.data_ptr(), dA.data_ptr(),
                Bm.data_ptr(), Cm.data_ptr(),
                None if h0 is None else h0.data_ptr(), y.data_ptr(),
-               h.data_ptr(), BH, S, P, N, H, Q,
-               int(x.dtype == torch.bfloat16), stream_of(x))
+               h.data_ptr(), BH, S, P, N, H, Q, int(bf16), *x4.stride()[:3],
+               *a4.stride(), *y4.stride()[:3], *Bm.stride()[:2],
+               stream_of(x))
     elif h0 is not None:
         h.copy_(h0)
     else:

@@ -71,21 +71,19 @@ def ssd(x, dA, Bm, Cm, chunk: int, init_state=None, kernels=None):
 
     x: [B, S, H, P]; dA: [B, S, H]; Bm, Cm: [B, S, 1, N]; init_state:
     [B, H, P, N] or None.  Returns (y [B, S, H, P], state [B, H, P, N]).
-    The heads are folded into the kernel's ``[B*H, S, P]`` layout and the
-    state comes back as ``[B*H, N, P]``: both are transposed here."""
+    x and dA go in as their [B, H, S, ·] transpose views and y comes back
+    as one, so the kernel reads and writes the model's layout in place; the
+    state is the kernel's ``[B*H, N, P]``, transposed here."""
     B, S, H, P = x.shape
     N = Bm.shape[-1]
     h0 = (None if init_state is None else
           init_state.float().transpose(-1, -2).reshape(B * H, N, P)
           .contiguous())
-    y, h = ops.ssd(x.transpose(1, 2).reshape(B * H, S, P).contiguous(),
-                   dA.float().transpose(1, 2).reshape(B * H, S).contiguous(),
-                   Bm.reshape(B, S, N).contiguous(),
-                   Cm.reshape(B, S, N).contiguous(),
+    y, h = ops.ssd(x.transpose(1, 2), dA.float().transpose(1, 2),
+                   Bm.reshape(B, S, N), Cm.reshape(B, S, N),
                    n_heads_per_group=H, chunk=chunk, h0=h0,
                    use_kernel=resolve(kernels, x.device).use_kernel)
-    return (y.reshape(B, H, S, P).transpose(1, 2),
-            h.reshape(B, H, N, P).transpose(-1, -2))
+    return y.transpose(1, 2), h.reshape(B, H, N, P).transpose(-1, -2)
 
 
 # ---------------------------------------------------------------------------

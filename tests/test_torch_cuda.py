@@ -9,8 +9,11 @@ engine must equal the ``torch`` routes, and every launch must be counted.
 The model plane's ``flash_attention`` and ``ssd_scan`` must agree with
 their plain versions within the tolerances of ``tests/test_kernels.py``
 (2e-5 fp32 / 2e-2 bf16 for attention, 1e-3 for the SSD scan, 2e-2 for its
-bf16 output: one bf16 rounding), and reduced zamba2 behind ``Server`` on
-the ``cuda`` route must serve what the ``torch`` route serves.
+bf16 output: one bf16 rounding), also at 128-row attention q tiles, in the
+model's strided layout, at N=128 and with slow decay (where every block of
+the scan carries weight), the bf16 outputs also against the plain versions
+in float32 on the same inputs, and reduced zamba2 behind ``Server`` on the
+``cuda`` route must serve what the ``torch`` route serves.
 """
 import numpy as np
 import pytest
@@ -152,6 +155,107 @@ def test_ssd_kernel_vs_plain(dev, Bg, H, S, P, N, chunk, with_h0, dtype):
     yp, hp = ssd_plain(x, dA, Bm, Cm, H, chunk, h0)
     _close(y, yp, 2e-2 if dtype == torch.bfloat16 else 1e-3)
     _close(h, hp, 1e-3)
+    assert LAUNCHES["ssd_scan"] == before + 1
+
+
+@pytest.mark.parametrize("B,S,H,KH,D", [(1, 2048, 32, 8, 128),
+                                        (4, 1000, 32, 32, 80)])
+def test_flash_attention_kernel_wide_q_tiles(dev, B, S, H, KH, D):
+    """bf16 at the kernel's 128-row q tiles (four warps of two 16-row
+    m-tiles), long with GQA at D=128 and ragged at the path's width:
+    against the plain version and the float32 oracle as above."""
+    g = torch.Generator(device=dev).manual_seed(S + D)
+    q, k, v = ((torch.randn((B, S, h, D), generator=g, device=dev) * sc)
+               .to(torch.bfloat16) for h, sc in ((H, 2.0), (KH, 2.0),
+                                                 (KH, 1.0)))
+    got = flash_attention_cuda(q, k, v, True)
+    _close(got, flash_attention_plain(q, k, v, True), 2e-2)
+    want = flash_attention_plain(q.float(), k.float(), v.float(), True)
+    torch.testing.assert_close(got.float(), want, rtol=1e-2,
+                               atol=1e-3 * float(want.abs().max()))
+
+
+def _ssd_oracle(y, x, dA, Bm, Cm, H, chunk, h0):
+    """A bf16 scan output against the plain version in float32 on the same
+    bf16 inputs: within one bf16 rounding (rtol 1e-2) plus 1e-3 * max|y|,
+    as chip_smoke.py's ssd_oracle_err."""
+    want, _ = ssd_plain(x.float(), dA, Bm.float(), Cm.float(), H, chunk, h0)
+    torch.testing.assert_close(y.float(), want, rtol=1e-2,
+                               atol=1e-3 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("Bg,H,S,P,N,chunk", [
+    (4, 80, 1024, 64, 64, 128), (2, 24, 1000, 64, 128, 128),
+    (2, 3, 300, 32, 64, 64)])
+def test_ssd_kernel_slow_decay(dev, Bg, H, S, P, N, chunk):
+    """bf16 with dA ~ -U(0, 0.01), as trained SSM heads decay, and an
+    initial state: every row tile of the state product and every block
+    below the diagonal of (C B^T .* L) x carries weight, so a wrong or
+    skipped block shows (at -U(0, 0.8), rows 16 back add under e^-6).  At
+    the path's shape, at N=128 and ragged; against the plain version and
+    the float32 oracle."""
+    g = torch.Generator(device=dev).manual_seed(S + N + 1)
+    rn = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    x = (rn(Bg * H, S, P) * 0.5).to(torch.bfloat16)
+    dA = -torch.rand((Bg * H, S), generator=g, device=dev) * 0.01
+    Bm, Cm = ((rn(Bg, S, N) * 0.3).to(torch.bfloat16) for _ in range(2))
+    h0 = rn(Bg * H, N, P) * 0.2
+    y, h = ssd_cuda(x, dA, Bm, Cm, H, chunk, h0)
+    yp, hp = ssd_plain(x, dA, Bm, Cm, H, chunk, h0)
+    _close(y, yp, 2e-2)
+    _close(h, hp, 1e-3)
+    _ssd_oracle(y, x, dA, Bm, Cm, H, chunk, h0)
+
+
+@pytest.mark.parametrize("Bg,H,S,P,N,chunk,with_h0", [
+    (2, 3, 300, 64, 64, 128, True), (1, 80, 1024, 64, 64, 128, True),
+    (2, 4, 77, 16, 16, 16, False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("decay", [0.8, 0.01])
+def test_ssd_kernel_model_layout(dev, Bg, H, S, P, N, chunk, with_h0,
+                                 dtype, decay):
+    """x and dA as the [B, H, S, .] views of the model's [B, S, H, .], as
+    models/ssm.py:ssd passes them: y comes back as such a view, equal to
+    the folded call's and within the tolerances of the plain version (in
+    bf16 also of the float32 oracle); with the decay of the other cases
+    and slow."""
+    g = torch.Generator(device=dev).manual_seed(S + N)
+    rn = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    x = (rn(Bg, S, H, P) * 0.5).to(dtype)
+    dA = -torch.rand((Bg, S, H), generator=g, device=dev) * decay
+    Bm, Cm = ((rn(Bg, S, N) * 0.3).to(dtype) for _ in range(2))
+    h0 = rn(Bg * H, N, P) * 0.2 if with_h0 else None
+    xv, av = x.transpose(1, 2), dA.transpose(1, 2)
+    y, h = ssd_cuda(xv, av, Bm, Cm, H, chunk, h0)
+    assert y.shape == (Bg, H, S, P) and y.transpose(1, 2).is_contiguous()
+    yf, hf = ssd_cuda(xv.reshape(Bg * H, S, P).contiguous(),
+                      av.reshape(Bg * H, S).contiguous(), Bm, Cm, H, chunk,
+                      h0)
+    assert torch.equal(y.reshape(Bg * H, S, P), yf) and torch.equal(h, hf)
+    yp, hp = ssd_plain(xv, av, Bm, Cm, H, chunk, h0)
+    _close(y, yp, 2e-2 if dtype == torch.bfloat16 else 1e-3)
+    _close(h, hp, 1e-3)
+    if dtype == torch.bfloat16:
+        _ssd_oracle(y, xv, av, Bm, Cm, H, chunk, h0)
+
+
+def test_ssd_kernel_bf16_state_128(dev):
+    """mamba2-130m's state size, N=128 with P=64 at chunk 128, which only
+    the bf16 kernel's shared-memory budget admits; with an initial state
+    (slow decay at N=128: test_ssd_kernel_slow_decay)."""
+    g = torch.Generator(device=dev).manual_seed(128)
+    rn = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    Bg, H, S, P, N = 2, 24, 1000, 64, 128
+    x = (rn(Bg * H, S, P) * 0.5).to(torch.bfloat16)
+    dA = -torch.rand((Bg * H, S), generator=g, device=dev) * 0.8
+    Bm, Cm = ((rn(Bg, S, N) * 0.3).to(torch.bfloat16) for _ in range(2))
+    h0 = rn(Bg * H, N, P) * 0.2
+    before = LAUNCHES["ssd_scan"]
+    y, h = ssd_cuda(x, dA, Bm, Cm, H, 128, h0)
+    yp, hp = ssd_plain(x, dA, Bm, Cm, H, 128, h0)
+    _close(y, yp, 2e-2)
+    _close(h, hp, 1e-3)
+    _ssd_oracle(y, x, dA, Bm, Cm, H, 128, h0)
     assert LAUNCHES["ssd_scan"] == before + 1
 
 

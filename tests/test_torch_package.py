@@ -257,7 +257,7 @@ def test_build_hash_covers_sources_and_flags(tmp_path):
     assert {f"{n}_launch" for n in ("version_scan", "potential_matrix",
                                     "wave_commit", "flash_attention",
                                     "ssd_scan")} == set(build.SIGNATURES)
-    assert [h.name for h in headers] == ["common.cuh"]
+    assert [h.name for h in headers] == ["common.cuh", "mma.cuh"]
     for src in sources:
         text = src.read_text()
         assert "Replaces the TPU kernel" in text
