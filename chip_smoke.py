@@ -21,12 +21,21 @@ Phases (any failure raises, so the process exits non-zero):
    against its plain version in float32 on the same inputs, the element
    closest to its limit printed per check, with
    ``scaled_dot_product_attention`` timed beside attention as a yardstick
-   (never called by the port);
+   (never called by the port); ``commit_loop`` against the engine's plain
+   loop, bit-equal in its outputs and the store, for the six schedulers x
+   {no GC, ``gc_track``, ``gc_block``} on corner waves (V=2 rings read and
+   read-modify-written in one wave, duplicate write keys, T=1, T=33, O=12,
+   T=1040 with potential in global memory, placement with clocksi skew) and on a wave of the engine path (T=256
+   over the 1,000,000-account store), with CUDA-event times of both there;
+   one profiled postsi wave on each CUDA route, with its launches (one
+   ``commit_loop`` a wave);
 4. engine: 16 SmallBank waves of T=256 over a 1,000,000-account store
    (8 nodes x 125,000 accounts, V=8, 20% distributed) through
    ``run_workload_fused`` for all six schedulers under the ``cuda``,
    ``cuda+fused``, ``torch`` and ``torch+fused`` routes; every route equal
-   to ``torch`` bit for bit, histories verified;
+   to ``torch`` bit for bit, histories verified; each CUDA route launches
+   ``commit_loop`` once a wave and ``version_scan`` once a wave on ``cuda``
+   (the read phase), never on ``cuda+fused``;
 5. service: a Poisson SmallBank stream through ``TxnService`` over the same
    1,000,000 accounts, ``verify() == []``, under ``torch``, ``cuda`` and
    ``cuda+fused``; the CUDA routes' request fates, histories and final
@@ -109,6 +118,8 @@ KERNELS = {
                          "src/repro/kernels/interval_negotiate.py:39"),
     "wave_commit": ("src/repro_torch/kernels/csrc/wave_commit.cu",
                     "src/repro/kernels/wave_commit.py:90"),
+    "commit_loop": ("src/repro_torch/kernels/csrc/commit_loop.cu",
+                    "src/repro/core/engine.py:264"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:74"),
     "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
@@ -161,7 +172,8 @@ def max_abs_err(torch, got, want) -> int:
 # ---------------------------------------------------------------- phase 3
 def kernel_phase(torch, dev, n_keys, V, T, O):
     """Each kernel vs its plain version on the card; returns per-kernel
-    records of the main-path shape (T*O requests, a T-txn wave)."""
+    records of the main-path shape (T*O requests, a T-txn wave) and a call
+    of each at that shape (for ``device_ms``)."""
     from repro_torch.kernels.interval_negotiate import (
         potential_matrix_cuda, potential_matrix_ref)
     from repro_torch.kernels.version_scan import (version_scan_cuda,
@@ -280,12 +292,10 @@ def kernel_phase(torch, dev, n_keys, V, T, O):
               f"bound {b_ms:.6f} ms by {b_by}", flush=True)
     print(f"[kernels] version_scan at M={O} (one commit step): "
           f"{ms_o[0]:.5f} ms/call (plain {ms_o[1]:.5f})", flush=True)
-    device_ms(torch, {"version_scan": lambda: version_scan_cuda(*vs),
-                      "potential_matrix": lambda: potential_matrix_cuda(
-                          rk, wk),
-                      "wave_commit": lambda: wave_commit_cuda(*wc, keys=kw)},
-              records)
-    return records
+    fns = {"version_scan": lambda: version_scan_cuda(*vs),
+           "potential_matrix": lambda: potential_matrix_cuda(rk, wk),
+           "wave_commit": lambda: wave_commit_cuda(*wc, keys=kw)}
+    return records, fns
 
 
 def start_profiler(tag):
@@ -383,6 +393,174 @@ def device_ms(torch, fns, records, iters=50):
     print("[kernels] profiler device ms/launch: "
           + ", ".join(f"{n}={r['device_ms']}" for n, r in records.items()),
           flush=True)
+
+
+# ------------------------------------------------- phase 3, commit loop
+def aged_store(torch, np, rng, n_keys, V, dev):
+    """A store whose rings have wrapped: V + 1 rounds of installs on random
+    halves of the keys (CIDs 1..V+1, creator TIDs that collide with the
+    waves' own), SIDs random below 4."""
+    from repro_torch.core import install_version, make_store
+    store = make_store(n_keys, V, device=dev)
+    for r in range(V + 1):
+        ks = rng.choice(n_keys, size=max(n_keys // 2, 1), replace=False)
+        install_version(store, ks, rng.randint(-50, 50, ks.size), 1 + r,
+                        1 + r, r)
+    store.sid.copy_(torch.as_tensor(rng.randint(0, 4, tuple(store.sid.shape)),
+                                    dtype=torch.int32, device=dev))
+    return store
+
+
+def commit_loop_cases(np, cfg):
+    """(label, n_keys, V, n_nodes, numpy waves, host_skew, placement) of
+    the waves ``commit_loop`` is held to its plain version on: the corners
+    where a slip shows, then one wave of the engine path."""
+    from repro_torch.core import wave_to_numpy
+    from repro_torch.core import workloads as tw
+    rng = np.random.RandomState(11)
+    i32 = lambda a: np.asarray(a, np.int32)
+
+    def wave(kind, key, val, tid0):
+        T = kind.shape[0]
+        return (i32(kind), i32(key), i32(val), i32(rng.randint(0, 4, T)),
+                i32(tid0 + np.arange(T)))
+
+    def gen(fn, *args, **kw):
+        return [tuple(np.asarray(a) for a in wave_to_numpy(w))
+                for w in fn(rng, *args, device="cpu", **kw)]
+
+    rmw = []                # every other txn reads k, then RMWs k
+    for w in range(2):
+        kind, key = rng.randint(0, 4, (12, 3)), rng.randint(0, 6, (12, 3))
+        kind[::2, 0], kind[::2, 1], key[::2, 1] = 1, 3, key[::2, 0]
+        rmw.append(wave(kind, key, rng.randint(1, 9, (12, 3)), 1 + 12 * w))
+    kind, key = rng.randint(0, 4, (16, 4)), rng.randint(0, 8, (16, 4))
+    kind[:, 1], key[:, 1] = 2, key[:, 0]          # a second write of key 0
+    kind[::3, 2], key[::3, 2] = 3, key[::3, 0]    # and an RMW of it
+    dup = [wave(kind, key, rng.randint(-9, 9, (16, 4)), 40)]
+    n_keys = cfg.nodes * cfg.kpn
+    path = [tuple(np.asarray(a) for a in wave_to_numpy(w))
+            for w in tw.smallbank_waves(np.random.RandomState(cfg.seed + 4),
+                                        1, cfg.T, cfg.nodes, cfg.kpn,
+                                        dist_frac=0.2, device="cpu")]
+    perm = np.random.RandomState(4).permutation(24).astype(np.int32)
+    return [
+        ("V=2 read+RMW of one key", 6, 2, 4, rmw, None, None),
+        ("duplicate write keys", 8, 4, 4, dup, None, None),
+        ("T=1", 16, 4, 4, gen(tw.smallbank_waves, 3, 1, 4, 4,
+                              dist_frac=0.5), None, None),
+        ("T=33", 16, 4, 4, gen(tw.smallbank_waves, 2, 33, 4, 4,
+                               dist_frac=0.5), None, None),
+        ("tpcc O=12", 256, 4, 4, gen(tw.tpcc_waves, 2, 16, 4, 64), None,
+         None),
+        # past the shared-memory budget of potential and past 512 threads
+        ("T=1040", 64, 4, 4, gen(tw.micro_waves, 1, 1040, 4, 16, n_ops=2,
+                                 read_ratio=0.5, hot_frac=0.3,
+                                 hot_per_node=4), None, None),
+        ("placement + host skew", 24, 4, 4,
+         gen(tw.smallbank_waves, 3, 16, 4, 6, dist_frac=0.6),
+         np.array([0, 2, 1, 3], np.int32),
+         ((np.arange(24) % 4).astype(np.int32), perm)),
+        (f"path T={cfg.T}", n_keys, cfg.V, cfg.nodes, path, None, None),
+    ]
+
+
+def check_commit_loop(torch, np, dev, case, sched, gc, kernel, plain):
+    """Every wave of ``case`` through ``kernel`` and ``plain`` on clones of
+    one aged store, GC watermark 2 (below most superseders: evictions are
+    real); returns the largest difference over the outputs and the store
+    (0 = bit-equal)."""
+    from repro_torch.core import LocalSubstrate, MVStore, wave_from_numpy
+    from repro_torch.core.engine import wave_read_phase
+    from repro_torch.core.store import as_placement_arrays
+    label, n_keys, V, n_nodes, waves, hs, pl = case
+    store = aged_store(torch, np, np.random.RandomState(n_keys + V), n_keys,
+                       V, dev)
+    sub = LocalSubstrate("torch", dev)
+    kw = dict(sched=sched, n_nodes=n_nodes, gc_track=gc == "track",
+              gc_block=gc == "block")
+    hs = None if hs is None else torch.as_tensor(hs, device=dev)
+    pl = as_placement_arrays(pl, dev)
+    clock = torch.tensor(V + 2, dtype=torch.int32, device=dev)
+    err = 0
+    for w, wave in enumerate(waves):
+        inputs = wave_read_phase(sub, store, wave_from_numpy(wave, dev),
+                                 w + 1, clock, sched=sched, host_skew=hs,
+                                 watermark=2, placement=pl)
+        copy = MVStore(*(t.clone() for t in store))
+        got = kernel(copy, inputs, **kw)
+        want = plain(store, inputs, **kw)
+        err = max(err, max_abs_err(torch, got, want),
+                  max_abs_err(torch, copy, store))
+        if err:
+            raise AssertionError(
+                f"commit_loop [{label}, {sched}, gc {gc}, wave {w}] differs "
+                f"from the plain loop: max_abs_err={err}")
+        clock = want[4]
+    return err
+
+
+def commit_loop_phase(torch, np, dev, cfg):
+    """``commit_loop`` against the engine's plain loop on every case, for
+    the six schedulers x three GC modes; then CUDA-event times of both on
+    the path's wave (postsi, ``gc_track`` as the engine phase runs it) and
+    the bound.  Returns the kernel's record and a call of it there."""
+    from repro_torch.core import SCHEDULERS, LocalSubstrate, MVStore
+    from repro_torch.core import wave_from_numpy
+    from repro_torch.core.engine import wave_read_phase
+    from repro_torch.kernels.commit_loop import (commit_loop_cuda,
+                                                 commit_loop_plain)
+    cases = commit_loop_cases(np, cfg)
+    n, err = 0, 0
+    for case in cases:
+        for sched in SCHEDULERS:
+            for gc in ("none", "track", "block"):
+                err = max(err, check_commit_loop(torch, np, dev, case, sched,
+                                                 gc, commit_loop_cuda,
+                                                 commit_loop_plain))
+                n += 1
+    print(f"[kernels] commit_loop: {n} checks ({len(cases)} cases x 6 "
+          f"schedulers x 3 GC modes), outputs and store bit-equal to the "
+          f"plain loop", flush=True)
+
+    # times on the path's wave: each call installs again into its store
+    label, n_keys, V, n_nodes, (wave,), _, _ = cases[-1]
+    store = aged_store(torch, np, np.random.RandomState(0), n_keys, V, dev)
+    sub = LocalSubstrate("torch", dev)
+    inputs = wave_read_phase(sub, store, wave_from_numpy(wave, dev), 1,
+                             V + 2, sched="postsi")
+    kw = dict(sched="postsi", n_nodes=n_nodes, gc_track=True,
+              gc_block=False)
+    k_store = MVStore(*(t.clone() for t in store))
+    k_ms = cuda_ms(torch, lambda: commit_loop_cuda(k_store, inputs, **kw),
+                   iters=20, warmup=2)
+    p_ms = cuda_ms(torch, lambda: commit_loop_plain(store, inputs, **kw),
+                   iters=3, warmup=1)
+    # bytes of this wave: the per-op inputs (8 [T, O] int32 arrays), host,
+    # tid, s_lo0, potential and 3 scalars read once; the ring rows of the
+    # distinct keys touched (cid, tid, sid) and their heads; every install
+    # (4 ring fields, head, wave tag) and SID bump written once; the
+    # outputs.  Operations: the ring compares and the two [T, T] passes.
+    status, _, _, wcid, _, _ = commit_loop_plain(
+        MVStore(*(t.clone() for t in store)), inputs, **kw)
+    kind, T, O = wave[0], *wave[0].shape
+    rows = len(np.unique(np.clip(wave[1], 0, n_keys - 1)))
+    reads = ((kind == 1) | (kind == 3)) & (status.cpu().numpy() == 1)[:, None]
+    n_bytes = (8 * T * O * 4 + 3 * T * 4 + T * T + 12 + rows * (3 * V + 1) * 4
+               + int((wcid >= 0).sum()) * 6 * 4 + int(reads.sum()) * 4
+               + 3 * T * 4 + T * O * 4 + 8)
+    b_ms, b_by = bound(n_bytes, 3 * T * O * V + 2 * T * T)
+    print(f"[kernels] commit_loop at the path's wave ({label}, O={O}, "
+          f"V={V}, postsi): {k_ms:.4f} ms/wave (plain loop {p_ms:.2f} ms), "
+          f"{1e3 * k_ms / T:.2f} us a step; bound {b_ms:.6f} ms by {b_by} "
+          f"({n_bytes} bytes)", flush=True)
+    rec = {"name": "commit_loop", "route": "cuda",
+           "source": KERNELS["commit_loop"][0],
+           "replaces": KERNELS["commit_loop"][1], "launches": 0,
+           "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    return {"commit_loop": rec}, {"commit_loop": lambda: commit_loop_cuda(
+        k_store, inputs, **kw)}
 
 
 # ------------------------------------------------------- phase 3, model
@@ -874,12 +1052,27 @@ def same_run(torch, np, label, ref_hist, ref_store, hist, store):
                                  f"route")
 
 
+def check_route_launches(label, route, n_waves, before, after):
+    """Raise unless ``n_waves`` waves on ``route`` launched ``commit_loop``
+    once a wave and ``version_scan`` once a wave on ``cuda`` (the read
+    phase; never inside the commit loop), not at all on ``cuda+fused``; the
+    ``torch`` routes launch nothing.  Returns the deltas."""
+    got = {k: after[k] - before[k] for k in after}
+    cuda = route.startswith("cuda")
+    want = {"commit_loop": n_waves if cuda else 0,
+            "version_scan": n_waves if route == "cuda" else 0}
+    if any(got[k] != v for k, v in want.items()):
+        raise AssertionError(f"{label}: launches {got}, expected {want}")
+    return got
+
+
 def engine_phase(torch, dev, cfg,
                  routes=("torch", "cuda", "cuda+fused", "torch+fused")):
     import numpy as np
     from repro_torch.core import (SCHEDULERS, final_values_ok, make_store,
                                   run_workload_fused, verify_cv, verify_si)
     from repro_torch.core.workloads import smallbank_waves
+    from repro_torch.kernels import LAUNCHES
     n_keys = cfg.nodes * cfg.kpn
     waves = smallbank_waves(np.random.RandomState(cfg.seed), cfg.waves,
                             cfg.T, cfg.nodes, cfg.kpn, dist_frac=0.2,
@@ -892,12 +1085,15 @@ def engine_phase(torch, dev, cfg,
         for route in routes:
             store = make_store(n_keys, cfg.V, device=dev)
             sync()
+            before = dict(LAUNCHES)
             t0 = time.perf_counter()
             store, hist, stats = run_workload_fused(
                 store, waves, sched=sched, n_nodes=cfg.nodes,
                 gc_track=True, kernels=route)
             sync()
             dt = time.perf_counter() - t0
+            check_route_launches(f"{sched}/{route}", route, cfg.waves,
+                                 before, LAUNCHES)
             if ref_store is None:
                 ref_store, ref_hist = store, hist
                 errs = final_values_ok(store, hist, n_keys)
@@ -919,10 +1115,13 @@ def engine_phase(torch, dev, cfg,
 def profile_wave(torch, dev, cfg):
     """Where one wave's time goes: the profiler's device-kernel time, the
     kernel launches and the device's busy share of the wall time, for one
-    postsi SmallBank wave on each CUDA route.  Measurement only."""
+    postsi SmallBank wave on each CUDA route.  The wave's launch counts are
+    checked (one ``commit_loop``; one ``version_scan`` on ``cuda``, none
+    on ``cuda+fused``) outside the guard around the profiler."""
     import numpy as np
     from repro_torch.core import make_store, run_wave
     from repro_torch.core.workloads import smallbank_waves
+    from repro_torch.kernels import LAUNCHES
     (wave,) = smallbank_waves(np.random.RandomState(cfg.seed + 2), 1,
                               cfg.T, cfg.nodes, cfg.kpn, dist_frac=0.2,
                               device=dev)
@@ -930,11 +1129,16 @@ def profile_wave(torch, dev, cfg):
         store = make_store(cfg.nodes * cfg.kpn, cfg.V, device=dev)
         run_wave(store, wave, 1, 1, cfg.nodes, kernels=route)    # warm-up
         torch.cuda.synchronize()
+        before = dict(LAUNCHES)
         prof = start_profiler("profile")
         t0 = time.perf_counter()
         run_wave(store, wave, 2, 1, cfg.nodes, kernels=route)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        got = check_route_launches(f"profiled postsi wave, {route}", route,
+                                   1, before, LAUNCHES)
+        print(f"[profile] postsi {route}: launches of the wave "
+              f"{ {k: v for k, v in got.items() if v} }", flush=True)
         if not stop_profiler(prof, "profile"):
             continue
         try:
@@ -1046,8 +1250,12 @@ def main(argv=None) -> int:
             print(f"[build] {line.strip()}", flush=True)
     tensor_core_check(build_info["path"], nvcc_path())
 
-    records = kernel_phase(torch, dev, cfg.nodes * cfg.kpn, cfg.V, cfg.T,
-                           cfg.O)
+    import numpy as np
+    records, fns = kernel_phase(torch, dev, cfg.nodes * cfg.kpn, cfg.V,
+                                cfg.T, cfg.O)
+    loop_record, loop_fn = commit_loop_phase(torch, np, dev, cfg)
+    records.update(loop_record)
+    device_ms(torch, {**fns, **loop_fn}, records)   # one profiler session
     records.update(model_kernel_phase(torch, dev))
 
     profile_wave(torch, dev, cfg)
@@ -1064,7 +1272,8 @@ def main(argv=None) -> int:
     print(f"[main path] serve: {time.perf_counter() - t0:.1f} s with its "
           f"measurements, kernel launches {serve_counts}", flush=True)
     paths = {"version_scan": engine_counts, "potential_matrix": engine_counts,
-             "wave_commit": engine_counts, "flash_attention": serve_counts,
+             "wave_commit": engine_counts, "commit_loop": engine_counts,
+             "flash_attention": serve_counts,
              "ssd_scan": serve_counts}
     for name, counts in paths.items():
         if counts[name] <= 0:

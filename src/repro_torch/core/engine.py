@@ -10,15 +10,16 @@ rules fire:
                  one ``sub.read_phase`` call (three kernel dispatches, or
                  one ``wave_commit`` launch on the ``+fused`` route);
   commit phase — CV rules 5-6 and PostSI rules 3/4/5 (``commit_phase``),
-                 a Python loop of T steps of small tensor ops.
+                 one ``sub.commit_loop`` call over the T steps.
 
-The commit loop is branch-free tensor arithmetic: no ``.item()``, no
-``bool(tensor)`` and no ``if`` on device values, so the host never waits
-on the device inside a wave.  Each step launches about 170 small kernels
-for postsi (``version_scan`` once, through ``read_newest``; counted on an
-H100 by ``chip_smoke.py``), so a wave of T transactions costs T times that
-in launches and the host, not the device, sets its pace; CUDA graphs or a
-commit-loop kernel are the way to cut them.
+On the ``cuda`` routes the commit loop is ONE launch of the ``commit_loop``
+kernel per wave (``kernels/csrc/commit_loop.cu``), as the reference runs
+it as one ``lax.fori_loop``.  On the ``torch`` route it is
+``_commit_loop_plain``, a Python loop of T steps of small tensor ops
+(about 170 launches a step for postsi on the card), which holds the only
+Python copy of the rules and is the oracle the kernel is held to.  Both
+are branch-free on device values: no ``.item()``, no ``bool(tensor)``, so
+the host never waits on the device inside a wave.
 
 Unlike the JAX engine, the store is updated IN PLACE: ``run_wave`` and
 every driver below mutate the store they are given (clone it first to
@@ -97,33 +98,41 @@ def _out_to_numpy(out: WaveOut) -> WaveOut:
     return WaveOut(*(t.cpu().numpy() for t in out))
 
 
-def run_wave_on(sub, store: MVStore, wave: Wave, wave_idx, clock,
-                n_nodes=8, sched: str = "postsi", host_skew=None,
-                watermark=None, gc_track: bool = False,
-                gc_block: bool = False,
-                placement: PlacementArrays | None = None,
-                ) -> Tuple[MVStore, WaveOut, torch.Tensor]:
-    """Execute one wave on a data-access substrate, updating ``store`` in
-    place.  The ONLY copy of the concurrency-control rules for all six
-    schedulers.  ``wave`` holds tensors on the store's device; ``wave_idx``
-    and ``clock`` are ints or int32 scalars.  Returns (store, out, clock').
+def _op_masks(kind):
+    """(is_read, is_write) [T, O] of the op kinds: an RMW is both."""
+    return (kind == READ) | (kind == RMW), (kind == WRITE) | (kind == RMW)
 
-    ``placement`` translates logical keys once (``pkeys = slot[key]``, the
-    store row every substrate access uses); locality (dsi remoteness,
-    clocksi node skew, msgs_cross) stays the logical ``key % n_nodes``."""
-    if sched not in SCHEDULERS:
-        raise ValueError(f"unknown scheduler {sched!r}; expected one of "
-                         f"{SCHEDULERS}")
+
+class CommitInputs(NamedTuple):
+    """What one wave's commit loop reads besides the store: the wave, its
+    store rows, the read phase's outputs and three int32 device scalars."""
+    wave: Wave
+    pkeys: torch.Tensor      # [T, O] store rows (placement-translated keys)
+    r_val: torch.Tensor      # [T, O] read phase: value, creator TID, CID
+    r_tid: torch.Tensor      #        and ring slot of each op's read
+    r_cid: torch.Tensor
+    r_slot: torch.Tensor
+    s_lo0: torch.Tensor      # [T] PostSI rule-3 seed
+    potential: torch.Tensor  # [T, T] bool anti-dependency candidates
+    wave_idx: torch.Tensor   # int32 scalars: wave tag of installs,
+    clock: torch.Tensor      # wave-entry clock,
+    watermark: torch.Tensor  # GC watermark
+
+
+def wave_read_phase(sub, store: MVStore, wave: Wave, wave_idx, clock, *,
+                    sched: str = "postsi", host_skew=None, watermark=None,
+                    placement: PlacementArrays | None = None
+                    ) -> CommitInputs:
+    """The read phase of one wave on ``sub``: translate keys, compute the
+    clocksi stale-read ceilings and run ``sub.read_phase``.  Returns the
+    commit loop's inputs.  Reads the store only."""
     dev = store.device
     T, O = wave.op_kind.shape
     wave_idx = _i32(wave_idx, dev)
     clock = _i32(clock, dev)
-    clock0 = clock          # wave-entry clock = snapshot time for clocked scheds
-    track_gc = gc_track or gc_block
     wm = clock if watermark is None else _i32(watermark, dev)
     kind, keys, host = wave.op_kind, wave.op_key, wave.host
-    is_read = (kind == READ) | (kind == RMW)
-    is_write = (kind == WRITE) | (kind == RMW)
+    is_read, is_write = _op_masks(kind)
     if placement is None:
         pkeys = keys                                   # slot[k] == k
     else:
@@ -131,7 +140,6 @@ def run_wave_on(sub, store: MVStore, wave: Wave, wave_idx, clock,
         # negative NOP sentinels pass through untranslated
         pkeys = torch.where(keys >= 0, placement.slot[kc], keys)
 
-    # ------------------------------------------------------------------ reads
     if sched == "clocksi":
         hs = (host_skew if host_skew is not None
               else torch.zeros(1, dtype=torch.int32, device=dev))
@@ -144,13 +152,28 @@ def run_wave_on(sub, store: MVStore, wave: Wave, wave_idx, clock,
     else:
         max_cid = torch.full((T, O), INF, dtype=torch.int32, device=dev)
 
-    (r_val, r_tid, r_cid, r_sid, r_slot, s_lo0,
+    (r_val, r_tid, r_cid, _, r_slot, s_lo0,
      potential) = sub.read_phase(store, pkeys, max_cid, is_read, is_write)
+    return CommitInputs(wave, pkeys, r_val, r_tid, r_cid, r_slot, s_lo0,
+                        potential, wave_idx, clock, wm)
 
-    read_key = torch.where(is_read, keys, -1)
-    read_cid = torch.where(is_read, r_cid, -1)
 
-    # --------------------------------------------------------------- commits
+def _commit_loop_plain(sub, store: MVStore, inputs: CommitInputs, *,
+                       sched: str, n_nodes: int, gc_track: bool,
+                       gc_block: bool):
+    """The commit loop of one wave as T Python steps over ``sub``, updating
+    ``store`` in place: the only Python copy of the concurrency-control
+    rules, and the plain version of the ``commit_loop`` kernel.  Returns
+    ``(status, s_arr, c_arr [T], wcid [T, O], clk, evicted)``."""
+    (wave, pkeys, r_val, r_tid, r_cid, r_slot, s_lo0, potential, wave_idx,
+     clock, wm) = inputs
+    dev = store.device
+    T, O = wave.op_kind.shape
+    track_gc = gc_track or gc_block
+    kind, keys, host = wave.op_kind, wave.op_key, wave.host
+    is_read, is_write = _op_masks(kind)
+    clock0 = clock          # wave-entry clock = snapshot time for clocked scheds
+
     # deterministic commit order = wave-local index (tids ascend within wave)
     s_lo, c_lo = s_lo0, s_lo0
     s_hi = torch.full((T,), INF, dtype=torch.int32, device=dev)
@@ -232,6 +255,41 @@ def run_wave_on(sub, store: MVStore, wave: Wave, wave_idx, clock,
         if track_gc:
             evicted = evicted + torch.where(
                 commit, evict_unsafe.sum().to(torch.int32), 0)
+    return status, s_arr, c_arr, wcid, clk, evicted
+
+
+def run_wave_on(sub, store: MVStore, wave: Wave, wave_idx, clock,
+                n_nodes=8, sched: str = "postsi", host_skew=None,
+                watermark=None, gc_track: bool = False,
+                gc_block: bool = False,
+                placement: PlacementArrays | None = None,
+                ) -> Tuple[MVStore, WaveOut, torch.Tensor]:
+    """Execute one wave on a data-access substrate, updating ``store`` in
+    place: the read phase (``wave_read_phase``), the commit loop
+    (``sub.commit_loop``: the ``commit_loop`` kernel on the ``cuda``
+    routes, ``_commit_loop_plain`` on ``torch``) and the statistics.
+    ``wave`` holds tensors on the store's device; ``wave_idx`` and
+    ``clock`` are ints or int32 scalars.  Returns (store, out, clock').
+
+    ``placement`` translates logical keys once (``pkeys = slot[key]``, the
+    store row every substrate access uses); locality (dsi remoteness,
+    clocksi node skew, msgs_cross) stays the logical ``key % n_nodes``."""
+    if sched not in SCHEDULERS:
+        raise ValueError(f"unknown scheduler {sched!r}; expected one of "
+                         f"{SCHEDULERS}")
+    dev = store.device
+    T = wave.op_kind.shape[0]
+    inputs = wave_read_phase(sub, store, wave, wave_idx, clock, sched=sched,
+                             host_skew=host_skew, watermark=watermark,
+                             placement=placement)
+    kind, keys, host = wave.op_kind, wave.op_key, wave.host
+    is_read, is_write = _op_masks(kind)
+    read_key = torch.where(is_read, keys, -1)
+    read_cid = torch.where(is_read, inputs.r_cid, -1)
+
+    status, s_arr, c_arr, wcid, clk, evicted = sub.commit_loop(
+        store, inputs, sched=sched, n_nodes=n_nodes, gc_track=gc_track,
+        gc_block=gc_block)
 
     write_key = torch.where(is_write & (status[:, None] == COMMITTED), keys,
                             -1)
@@ -253,7 +311,7 @@ def run_wave_on(sub, store: MVStore, wave: Wave, wave_idx, clock,
     if sched in ("postsi", "cv"):
         # negotiation (postsi) / anti-dependency entries stored on both
         # endpoint hosts (cv): one message per DISTINCT peer host
-        edge = potential & committed[None, :]
+        edge = inputs.potential & committed[None, :]
         peer_hosts = ((host[None, :, None] == node_ids)
                       & edge[:, :, None]).any(dim=1)                   # [T,MN]
         msgs_cross = msgs_cross + count(peer_hosts & remote_mask)

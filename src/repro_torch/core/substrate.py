@@ -1,18 +1,22 @@
 """Data-access substrate: the engine/placement seam (port of
 ``repro.core.substrate``, ``LocalSubstrate`` only).
 
-``engine.run_wave_on`` holds the only copy of the concurrency-control
-rules; everything the rule arithmetic needs from the data plane — the read
-phase, the commit-phase re-validation read, the version install, the SID
-bump and the GC watermark consult — goes through the interface below.
+``engine._commit_loop_plain`` holds the only Python copy of the
+concurrency-control rules; everything the rule arithmetic needs from the
+data plane — the read phase, the commit-phase re-validation read, the
+version install, the SID bump and the GC watermark consult — goes through
+the interface below, and so does the whole commit loop of a wave
+(``commit_loop``).
 
 ``LocalSubstrate`` keeps the whole key space in one store: every access is
 direct indexing or a masked scatter, and the installs and SID bumps update
 the store IN PLACE.  It carries a resolved ``KernelConfig`` and dispatches
 the slot selection (``ops.version_scan``), the anti-dependency build
-(``commit_phase.build_potential``) and the fused read phase
-(``ops.wave_commit``) through the kernel plane.  A ``cuda`` config on a CPU
-store raises at construction.
+(``commit_phase.build_potential``), the fused read phase
+(``ops.wave_commit``) and the commit loop (``ops.commit_loop``: one
+kernel launch per wave on ``cuda``, the plain loop on ``torch``) through
+the kernel plane.  A ``cuda`` config on a CPU store raises at
+construction.
 """
 from __future__ import annotations
 
@@ -51,7 +55,10 @@ class LocalSubstrate:
                 store.cid.take(cell), store.sid.take(cell), slot)
 
     def read_newest(self, store: MVStore, keys):
-        """Newest committed version (PostSI reads start with s_hi = +inf)."""
+        """Newest committed version (PostSI reads start with s_hi = +inf):
+        the plain commit loop's per-step read, one ``ops.version_scan``
+        call.  The ``commit_loop`` kernel runs the same scan inside its
+        launch."""
         return self.read_visible(store, keys, torch.full_like(keys, INF))
 
     def read_sid(self, store: MVStore, keys, slots):
@@ -83,6 +90,17 @@ class LocalSubstrate:
         ops.masked_sid_bump(store.sid, store.tid, mask=mask, keys=keys,
                             slots=slots, expect_tid=expect_tid, s_val=s_val)
         return store
+
+    def commit_loop(self, store: MVStore, inputs, *, sched: str,
+                    n_nodes: int, gc_track: bool, gc_block: bool):
+        """The commit loop of one wave, updating ``store`` in place
+        (``inputs``: an ``engine.CommitInputs``).  On a ``cuda`` config ONE
+        launch of the ``commit_loop`` kernel; on ``torch`` the plain loop
+        (``engine._commit_loop_plain``).  Returns ``(status, s_arr, c_arr,
+        wcid, clk, evicted)``, bit-identical either way."""
+        return ops.commit_loop(store, inputs, sched=sched, n_nodes=n_nodes,
+                               gc_track=gc_track, gc_block=gc_block,
+                               use_kernel=self.kernels.use_kernel)
 
     def build_potential(self, keys, is_read, is_write):
         """Anti-dependency candidate matrix [T, T] bool."""

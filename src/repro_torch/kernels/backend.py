@@ -3,8 +3,8 @@
 Counterpart of ``repro.kernels.backend``.  Every compute hot spot the
 engine dispatches — the read-phase latest-visible-version selection
 (``ops.version_scan``), the anti-dependency candidate build
-(``ops.potential_matrix``) and the fused read phase (``ops.wave_commit``) —
-routes through a single :class:`KernelConfig` threaded as a field of the
+(``ops.potential_matrix``), the fused read phase (``ops.wave_commit``) and
+the commit loop (``ops.commit_loop``) — routes through a single :class:`KernelConfig` threaded as a field of the
 data-access substrate (``core.substrate``).
 
 Backends:

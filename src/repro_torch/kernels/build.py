@@ -43,11 +43,12 @@ SIGNATURES = {
     "wave_commit_launch": [_P] * 16 + [_I] * 4 + [_P],
     "flash_attention_launch": [_P] * 4 + [_I] * 8 + [_F, _P],
     "ssd_scan_launch": [_P] * 7 + [_I] * 7 + [_L] * 11 + [_P],
+    "commit_loop_launch": [_P] * 27 + [_I] * 11 + [_P],
 }
 
 # launches per kernel since the last reset_launch_counts()
 LAUNCHES = {"version_scan": 0, "potential_matrix": 0, "wave_commit": 0,
-            "flash_attention": 0, "ssd_scan": 0}
+            "commit_loop": 0, "flash_attention": 0, "ssd_scan": 0}
 
 # shared memory one block may use on the H100 (bytes, dynamic)
 SMEM_LIMIT = 232_448

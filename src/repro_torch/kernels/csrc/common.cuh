@@ -17,17 +17,27 @@ __device__ __forceinline__ long long clip_row(int key, int n_rows) {
   return key < 0 ? 0 : (key >= n_rows ? n_rows - 1 : key);
 }
 
+// A load that kL2 sends to L2 only (ld.global.cg): the kernels that write
+// the store tables read them this way, so no L1 line can go stale.
+template <bool kL2>
+__device__ __forceinline__ int load_i32(const int* p) {
+  if constexpr (kL2) return __ldcg(p);
+  else return *p;
+}
+
 // Newest visible version in one ring of V slots (paper §IV-B read rule):
 // ok = tid != -1 && cid <= ceil; best = max(ok ? cid : -1); slot = the FIRST
 // slot attaining best (so an all-invisible ring gives slot 0, best -1).
+template <bool kL2 = false>
 __device__ __forceinline__ void scan_ring(const int* __restrict__ cid,
                                           const int* __restrict__ tid, int V,
                                           int ceil, int& slot, int& best) {
-  int b = (tid[0] != -1 && cid[0] <= ceil) ? cid[0] : -1;
+  const int c0 = load_i32<kL2>(cid);
+  int b = (load_i32<kL2>(tid) != -1 && c0 <= ceil) ? c0 : -1;
   int s = 0;
   for (int v = 1; v < V; ++v) {
-    const int c = cid[v];
-    const int m = (tid[v] != -1 && c <= ceil) ? c : -1;
+    const int c = load_i32<kL2>(cid + v);
+    const int m = (load_i32<kL2>(tid + v) != -1 && c <= ceil) ? c : -1;
     if (m > b) {  // strict: ties keep the first slot
       b = m;
       s = v;

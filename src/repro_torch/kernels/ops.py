@@ -1,9 +1,10 @@
 """Public wrappers of the kernel ops (port of ``repro.kernels.ops``).
 
-The five kernel ops -- the engine's ``version_scan``, ``potential_matrix``
-and ``wave_commit`` and the model plane's ``flash_attention`` and ``ssd``
--- take ``use_kernel`` (``KernelConfig.use_kernel``: the ``cuda`` backend
-sets it, ``torch`` does not):
+The six kernel ops -- the engine's ``version_scan``, ``potential_matrix``,
+``wave_commit`` and ``commit_loop`` and the model plane's
+``flash_attention`` and ``ssd`` -- take ``use_kernel``
+(``KernelConfig.use_kernel``: the ``cuda`` backend sets it, ``torch`` does
+not):
 
   use_kernel=True   the kernel wrapper: the hand-written CUDA kernel for
                     CUDA tensors, its plain version for CPU tensors;
@@ -29,6 +30,8 @@ from __future__ import annotations
 import torch
 
 from . import ref
+from .commit_loop import commit_loop as _commit_loop
+from .commit_loop import commit_loop_plain
 from .flash_attention import flash_attention as _flash_attention
 from .flash_attention import flash_attention_plain
 from .interval_negotiate import potential_matrix as _potential_matrix
@@ -70,6 +73,16 @@ def wave_commit(cids, tids, sids, vals, max_cid, read_key, write_key, rvalid,
                             write_key, rvalid, keys)
     return wave_commit_plain(cids, tids, sids, vals, max_cid, read_key,
                              write_key, rvalid, keys)
+
+
+def commit_loop(store, inputs, *, sched, n_nodes, gc_track, gc_block,
+                use_kernel=True):
+    """The commit loop of one wave over the six store tables ``store``
+    (updated in place); ``inputs``: an ``engine.CommitInputs``.  Returns
+    (status, s_arr, c_arr [T], wcid [T, O], clk, evicted)."""
+    fn = _commit_loop if use_kernel else commit_loop_plain
+    return fn(store, inputs, sched=sched, n_nodes=n_nodes,
+              gc_track=gc_track, gc_block=gc_block)
 
 
 def flash_attention(q, k, v, *, causal=True, use_kernel=True):

@@ -5,7 +5,12 @@ Run on a machine with one: ``PYTHONPATH=src python -m pytest -m cuda
 tests/test_torch_cuda.py``.  Each engine kernel must equal its plain
 PyTorch version bit for bit on seeded inputs (pad keys 0 / -1 / hot,
 all-invisible rows, T not a multiple of 32), the ``cuda`` routes of the
-engine must equal the ``torch`` routes, and every launch must be counted.
+engine must equal the ``torch`` routes, and every launch must be counted:
+one ``commit_loop`` a wave on both CUDA routes, one ``version_scan`` a wave
+on ``cuda`` and none on ``cuda+fused``.  ``commit_loop`` must equal the
+engine's plain loop bit for bit, in its outputs and the store, for the six
+schedulers x {no GC, ``gc_track``, ``gc_block``} on ``chip_smoke.py``'s
+corner waves.
 The model plane's ``flash_attention`` and ``ssd_scan`` must agree with
 their plain versions within the tolerances of ``tests/test_kernels.py``
 (2e-5 fp32 / 2e-2 bf16 for attention, 1e-3 for the SSD scan, 2e-2 for its
@@ -23,6 +28,7 @@ import repro_torch.core as tc
 from repro_torch.core import workloads as tw
 from repro_torch.configs import get_reduced
 from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels.commit_loop import commit_loop_cuda, commit_loop_plain
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_plain)
 from repro_torch.kernels.ssd_scan import ssd_cuda, ssd_plain
@@ -84,7 +90,7 @@ def test_kernels_equal_plain_versions(dev, T, O, V, pad):
     torch.cuda.synchronize()
     assert {k: LAUNCHES[k] - before[k] for k in LAUNCHES} == {
         "version_scan": 1, "potential_matrix": 1, "wave_commit": 1,
-        "flash_attention": 0, "ssd_scan": 0}
+        "commit_loop": 0, "flash_attention": 0, "ssd_scan": 0}
 
 
 @pytest.mark.parametrize("sched", tc.SCHEDULERS)
@@ -93,10 +99,16 @@ def test_engine_cuda_routes_equal_torch_routes(dev, sched):
                                hot_frac=0.5, hot_per_node=3, device=dev)
     results = {}
     for route in ("torch", "cuda", "torch+fused", "cuda+fused"):
+        before = dict(LAUNCHES)
         st, hist, stats = tc.run_workload_fused(
             tc.make_store(64, 4, device=dev), waves, sched=sched, n_nodes=4,
             gc_track=True, kernels=route)
         results[route] = (tc.store_to_numpy(st), hist, stats)
+        cuda = route.startswith("cuda")
+        assert LAUNCHES["commit_loop"] - before["commit_loop"] == (
+            len(waves) if cuda else 0), route
+        assert LAUNCHES["version_scan"] - before["version_scan"] == (
+            len(waves) if route == "cuda" else 0), route
     ref_store, ref_hist, ref_stats = results["torch"]
     for route, (st, hist, stats) in results.items():
         assert stats == ref_stats, route
@@ -105,6 +117,37 @@ def test_engine_cuda_routes_equal_torch_routes(dev, sched):
         for (_, a), (_, b) in zip(hist, ref_hist):
             for x, y in zip(a, b):
                 np.testing.assert_array_equal(x, y)
+
+
+def _chip_smoke():
+    import sys
+    from pathlib import Path
+    root = str(Path(__file__).resolve().parents[1])
+    sys.path.insert(0, root)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(root)
+    return chip_smoke
+
+
+@pytest.mark.parametrize("gc", ["none", "track", "block"])
+@pytest.mark.parametrize("sched", tc.SCHEDULERS)
+def test_commit_loop_kernel_equals_plain_loop(dev, sched, gc):
+    """Every corner case of chip_smoke.py (V=2 rings read and RMW'd in one
+    wave, duplicate write keys, T=1, T=33, O=12, T=1040 with potential in
+    global memory and strided threads, placement with clocksi skew) and a
+    T=256 SmallBank wave over a 256-key store, each wave from an aged
+    store under a watermark that evicts: outputs and store bit-equal to
+    the plain loop, one launch a wave."""
+    cs = _chip_smoke()
+    cases = cs.commit_loop_cases(np, cs.Config(nodes=4, kpn=64, V=8, T=256))
+    before = LAUNCHES["commit_loop"]
+    for case in cases:
+        assert cs.check_commit_loop(torch, np, dev, case, sched, gc,
+                                    commit_loop_cuda, commit_loop_plain) == 0
+    torch.cuda.synchronize()
+    assert LAUNCHES["commit_loop"] - before == sum(len(c[4]) for c in cases)
 
 
 def _close(got, want, tol):

@@ -133,6 +133,8 @@ def test_cuda_config_with_cpu_tensors_raises():
 def test_kernel_wrappers_refuse_cpu_tensors_and_bad_inputs():
     """The CUDA entry points take CUDA int32 tensors only; they raise before
     building or launching anything."""
+    from repro_torch.core.engine import wave_read_phase
+    from repro_torch.kernels.commit_loop import commit_loop_cuda
     from repro_torch.kernels.interval_negotiate import potential_matrix_cuda
     from repro_torch.kernels.version_scan import version_scan_cuda
     from repro_torch.kernels.wave_commit import wave_commit_cuda
@@ -146,6 +148,16 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_bad_inputs():
     with pytest.raises(ValueError, match="CUDA tensor"):
         wave_commit_cuda(a, a, a, a, a[:1], a[:1], a[:1], a[:1].bool(),
                          a[:1])
+    store = tc.make_store(8, 2, device="cpu")
+    (wave,) = tw.smallbank_waves(np.random.RandomState(0), 1, 4, 2, 4,
+                                 device="cpu")
+    inputs = wave_read_phase(tc.LocalSubstrate("torch", "cpu"), store, wave,
+                             1, 1)
+    kw = dict(sched="postsi", n_nodes=2, gc_track=False, gc_block=False)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        commit_loop_cuda(store, inputs, **kw)
+    with pytest.raises(ValueError, match="unknown scheduler"):
+        commit_loop_cuda(store, inputs, **{**kw, "sched": "2pl"})
     q = torch.zeros((1, 8, 2, 16))
     with pytest.raises(ValueError, match="CUDA tensor"):
         flash_attention_cuda(q, q, q)
@@ -250,13 +262,14 @@ def test_build_hash_covers_sources_and_flags(tmp_path):
     sources, headers = build._sources()
     assert {s.name for s in sources} == {
         "version_scan.cu", "interval_negotiate.cu", "wave_commit.cu",
-        "flash_attention.cu", "ssd_scan.cu"}
+        "commit_loop.cu", "flash_attention.cu", "ssd_scan.cu"}
     assert set(build.LAUNCHES) == {
-        "version_scan", "potential_matrix", "wave_commit", "flash_attention",
-        "ssd_scan"}
+        "version_scan", "potential_matrix", "wave_commit", "commit_loop",
+        "flash_attention", "ssd_scan"}
     assert {f"{n}_launch" for n in ("version_scan", "potential_matrix",
-                                    "wave_commit", "flash_attention",
-                                    "ssd_scan")} == set(build.SIGNATURES)
+                                    "wave_commit", "commit_loop",
+                                    "flash_attention", "ssd_scan")} == set(
+        build.SIGNATURES)
     assert [h.name for h in headers] == ["common.cuh", "mma.cuh"]
     for src in sources:
         text = src.read_text()
