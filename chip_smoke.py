@@ -25,8 +25,15 @@ Phases (any failure raises, so the process exits non-zero):
    loop, bit-equal in its outputs and the store, for the six schedulers x
    {no GC, ``gc_track``, ``gc_block``} on corner waves (V=2 rings read and
    read-modify-written in one wave, duplicate write keys, T=1, T=33, O=12,
-   T=1040 with potential in global memory, placement with clocksi skew) and on a wave of the engine path (T=256
-   over the 1,000,000-account store), with CUDA-event times of both there;
+   T=1040 past the shared-memory budget, placement with clocksi skew,
+   negative and out-of-range rows on live ops, -1 and n - 1 written by one
+   txn, V=1 where every install overwrites the slot read, one hot key under
+   a T=256 wave, and T=256 O=4 at the largest V that stages and the next)
+   and on a
+   wave of the engine path (T=256 over the 1,000,000-account store), in the
+   variant the wrapper picks (``staged`` or ``global``) and, where that is
+   ``staged``, in ``global`` too; CUDA-event times of both variants and the
+   plain loop there, and the wrapper's host time a call at T=1;
    one profiled postsi wave on each CUDA route, with its launches (one
    ``commit_loop`` a wave);
 4. engine: 16 SmallBank waves of T=256 over a 1,000,000-account store
@@ -417,6 +424,7 @@ def commit_loop_cases(np, cfg):
     where a slip shows, then one wave of the engine path."""
     from repro_torch.core import wave_to_numpy
     from repro_torch.core import workloads as tw
+    from repro_torch.kernels.commit_loop import commit_loop_smem_bytes
     rng = np.random.RandomState(11)
     i32 = lambda a: np.asarray(a, np.int32)
 
@@ -444,6 +452,50 @@ def commit_loop_cases(np, cfg):
                                         1, cfg.T, cfg.nodes, cfg.kpn,
                                         dist_frac=0.2, device="cpu")]
     perm = np.random.RandomState(4).permutation(24).astype(np.int32)
+    # live ops on negative and out-of-range rows: a negative key's scans
+    # read clip_row (row 0) while its SID re-gather, install and bump reach
+    # gather_row; -1 is written where n - 1 is read.  At most one live
+    # install a row per txn: the reference leaves which of two installs
+    # into one cell wins to its backend
+    n = 8
+    neg = []
+    for w in range(2):
+        kind = rng.randint(1, 4, (16, 4))
+        key = rng.choice([-1, -2, -n, -n - 3, n, n + 2, 0, 1, 3, n - 1],
+                         (16, 4))
+        kind[::3, 0], key[::3, 0] = 2, -1
+        kind[::3, 1], key[::3, 1] = 1, n - 1
+        for t in range(16):
+            rows = set()
+            for o in range(4):
+                row = key[t, o] + n if key[t, o] < 0 else key[t, o]
+                if kind[t, o] >= 2 and 0 <= row < n:
+                    if row in rows:
+                        kind[t, o] = 1
+                    rows.add(row)
+        neg.append(wave(kind, key, rng.randint(-9, 9, (16, 4)), 1 + 16 * w))
+    # -1 and n - 1 written by one txn: one row, two heads (as duplicate
+    # write keys, held to the plain loop alone)
+    kind, key = rng.randint(1, 4, (16, 4)), rng.randint(0, n, (16, 4))
+    kind[:, :2], key[:, 0], key[:, 1] = 2, -1, n - 1
+    heads = [wave(kind, key, rng.randint(-9, 9, (16, 4)), 40)]
+    # V=1: every install overwrites the slot its txn read, so the SID
+    # bump's TID guard sees the txn's own TID (the waves repeat their tids)
+    v1 = []
+    for w in range(2):
+        kind, key = np.ones((16, 3), np.int64), rng.randint(0, 4, (16, 3))
+        kind[:, 1], key[:, 1] = rng.choice([2, 3], 16), key[:, 0]
+        v1.append(wave(kind, key, rng.randint(-9, 9, (16, 3)), 1))
+    # every op of a T=256 wave on one key, one write a txn: one staged row,
+    # a dense potential
+    kind = np.ones((256, 4), np.int64)
+    kind[:, 1] = rng.choice([2, 3], 256)
+    hot = [wave(kind, np.full((256, 4), 5), rng.randint(-9, 9, (256, 4)),
+                300)]
+    # the largest V whose wave of T=256, O=4 still stages, and the next
+    v_edge = max(v for v in range(1, 64)
+                 if commit_loop_smem_bytes(256, 4, v)[1] == "staged")
+    edge = gen(tw.smallbank_waves, 1, 256, 4, 64, dist_frac=0.2)
     return [
         ("V=2 read+RMW of one key", 6, 2, 4, rmw, None, None),
         ("duplicate write keys", 8, 4, 4, dup, None, None),
@@ -461,21 +513,32 @@ def commit_loop_cases(np, cfg):
          gen(tw.smallbank_waves, 3, 16, 4, 6, dist_frac=0.6),
          np.array([0, 2, 1, 3], np.int32),
          ((np.arange(24) % 4).astype(np.int32), perm)),
+        ("negative and out-of-range rows", n, 4, 4, neg, None, None),
+        ("one row from two heads", n, 4, 4, heads, None, None),
+        ("V=1, each install over the slot read", 4, 1, 4, v1, None, None),
+        ("one hot key, T=256", 64, 8, 4, hot, None, None),
+        (f"T=256 O=4 V={v_edge}, the largest V that stages", 256, v_edge, 4,
+         edge, None, None),
+        (f"T=256 O=4 V={v_edge + 1}, the smallest V that does not", 256,
+         v_edge + 1, 4, edge, None, None),
         (f"path T={cfg.T}", n_keys, cfg.V, cfg.nodes, path, None, None),
     ]
 
 
 def check_commit_loop(torch, np, dev, case, sched, gc, kernel, plain):
-    """Every wave of ``case`` through ``kernel`` and ``plain`` on clones of
-    one aged store, GC watermark 2 (below most superseders: evictions are
-    real); returns the largest difference over the outputs and the store
-    (0 = bit-equal)."""
+    """Every wave of ``case`` through ``kernel`` (one callable or a tuple
+    of them, each on its own clone of the store) and ``plain`` from one aged
+    store, GC watermark 2 (below most superseders: evictions are real);
+    returns the largest difference over the outputs and the store (0 =
+    bit-equal)."""
     from repro_torch.core import LocalSubstrate, MVStore, wave_from_numpy
     from repro_torch.core.engine import wave_read_phase
     from repro_torch.core.store import as_placement_arrays
     label, n_keys, V, n_nodes, waves, hs, pl = case
+    kernels = kernel if isinstance(kernel, tuple) else (kernel,)
     store = aged_store(torch, np, np.random.RandomState(n_keys + V), n_keys,
                        V, dev)
+    copies = [MVStore(*(t.clone() for t in store)) for _ in kernels]
     sub = LocalSubstrate("torch", dev)
     kw = dict(sched=sched, n_nodes=n_nodes, gc_track=gc == "track",
               gc_block=gc == "block")
@@ -487,41 +550,75 @@ def check_commit_loop(torch, np, dev, case, sched, gc, kernel, plain):
         inputs = wave_read_phase(sub, store, wave_from_numpy(wave, dev),
                                  w + 1, clock, sched=sched, host_skew=hs,
                                  watermark=2, placement=pl)
-        copy = MVStore(*(t.clone() for t in store))
-        got = kernel(copy, inputs, **kw)
+        got = [k(copy, inputs, **kw) for k, copy in zip(kernels, copies)]
         want = plain(store, inputs, **kw)
-        err = max(err, max_abs_err(torch, got, want),
-                  max_abs_err(torch, copy, store))
-        if err:
-            raise AssertionError(
-                f"commit_loop [{label}, {sched}, gc {gc}, wave {w}] differs "
-                f"from the plain loop: max_abs_err={err}")
+        for k, out, copy in zip(kernels, got, copies):
+            err = max(err, max_abs_err(torch, out, want),
+                      max_abs_err(torch, copy, store))
+            if err:
+                raise AssertionError(
+                    f"commit_loop [{label}, {sched}, gc {gc}, wave {w}, "
+                    f"{getattr(k, 'keywords', {}).get('variant', 'auto')}] "
+                    f"differs from the plain loop: max_abs_err={err}")
         clock = want[4]
     return err
 
 
 def commit_loop_phase(torch, np, dev, cfg):
     """``commit_loop`` against the engine's plain loop on every case, for
-    the six schedulers x three GC modes; then CUDA-event times of both on
-    the path's wave (postsi, ``gc_track`` as the engine phase runs it) and
-    the bound.  Returns the kernel's record and a call of it there."""
+    the six schedulers x three GC modes, in the variant the wrapper picks
+    and, where that is ``staged``, in the ``global`` one too; then
+    CUDA-event times of both variants and of the plain loop on the path's
+    wave (postsi, ``gc_track`` as the engine phase runs it), the bound and
+    the wrapper's host time a call at T=1.  Returns the kernel's record and
+    a call of it there."""
+    from functools import partial
+
     from repro_torch.core import SCHEDULERS, LocalSubstrate, MVStore
     from repro_torch.core import wave_from_numpy
     from repro_torch.core.engine import wave_read_phase
-    from repro_torch.kernels.commit_loop import (commit_loop_cuda,
-                                                 commit_loop_plain)
+    from repro_torch.kernels.commit_loop import (VARIANTS, commit_loop_cuda,
+                                                 commit_loop_plain,
+                                                 commit_loop_smem_bytes)
     cases = commit_loop_cases(np, cfg)
     n, err = 0, 0
     for case in cases:
+        label, _, V, _, waves, _, _ = case
+        T, O = waves[0][0].shape
+        smem, auto = commit_loop_smem_bytes(T, O, V)
+        kernels = {auto: commit_loop_cuda}
+        if auto == "staged":
+            kernels["global"] = partial(commit_loop_cuda, variant="global")
         for sched in SCHEDULERS:
             for gc in ("none", "track", "block"):
-                err = max(err, check_commit_loop(torch, np, dev, case, sched,
-                                                 gc, commit_loop_cuda,
-                                                 commit_loop_plain))
+                err = max(err, check_commit_loop(
+                    torch, np, dev, case, sched, gc, tuple(kernels.values()),
+                    commit_loop_plain))
                 n += 1
+        print(f"[kernels] commit_loop [{label}] T={T} O={O} V={V}: runs "
+              f"{auto} ({smem} bytes of shared memory); bit-equal in "
+              f"{' and '.join(kernels)}", flush=True)
     print(f"[kernels] commit_loop: {n} checks ({len(cases)} cases x 6 "
-          f"schedulers x 3 GC modes), outputs and store bit-equal to the "
-          f"plain loop", flush=True)
+          f"schedulers x 3 GC modes, each in every variant that fits), "
+          f"outputs and store bit-equal to the plain loop", flush=True)
+
+    # the wrapper's host time a call at T=1 (enqueue only: no sync inside)
+    _, _, V, n_nodes, (wave, *_), _, _ = next(
+        c for c in cases if c[0] == "T=1")
+    store = aged_store(torch, np, np.random.RandomState(1), 16, V, dev)
+    inputs = wave_read_phase(LocalSubstrate("torch", dev), store,
+                             wave_from_numpy(wave, dev), 1, V + 2,
+                             sched="postsi")
+    kw = dict(sched="postsi", n_nodes=n_nodes, gc_track=True,
+              gc_block=False)
+    cuda_ms(torch, lambda: commit_loop_cuda(store, inputs, **kw), iters=20)
+    t0 = time.perf_counter()
+    for _ in range(200):
+        commit_loop_cuda(store, inputs, **kw)
+    host_ms = (time.perf_counter() - t0) * 1e3 / 200
+    torch.cuda.synchronize()
+    print(f"[kernels] commit_loop wrapper host time at T=1: {host_ms:.4f} "
+          f"ms a call", flush=True)
 
     # times on the path's wave: each call installs again into its store
     label, n_keys, V, n_nodes, (wave,), _, _ = cases[-1]
@@ -532,8 +629,11 @@ def commit_loop_phase(torch, np, dev, cfg):
     kw = dict(sched="postsi", n_nodes=n_nodes, gc_track=True,
               gc_block=False)
     k_store = MVStore(*(t.clone() for t in store))
-    k_ms = cuda_ms(torch, lambda: commit_loop_cuda(k_store, inputs, **kw),
-                   iters=20, warmup=2)
+    kind, T, O = wave[0], *wave[0].shape
+    auto = commit_loop_smem_bytes(T, O, V)[1]
+    k_ms = {v: cuda_ms(torch, lambda: commit_loop_cuda(k_store, inputs,
+                                                        variant=v, **kw),
+                       iters=20, warmup=2) for v in VARIANTS}
     p_ms = cuda_ms(torch, lambda: commit_loop_plain(store, inputs, **kw),
                    iters=3, warmup=1)
     # bytes of this wave: the per-op inputs (8 [T, O] int32 arrays), host,
@@ -543,7 +643,6 @@ def commit_loop_phase(torch, np, dev, cfg):
     # outputs.  Operations: the ring compares and the two [T, T] passes.
     status, _, _, wcid, _, _ = commit_loop_plain(
         MVStore(*(t.clone() for t in store)), inputs, **kw)
-    kind, T, O = wave[0], *wave[0].shape
     rows = len(np.unique(np.clip(wave[1], 0, n_keys - 1)))
     reads = ((kind == 1) | (kind == 3)) & (status.cpu().numpy() == 1)[:, None]
     n_bytes = (8 * T * O * 4 + 3 * T * 4 + T * T + 12 + rows * (3 * V + 1) * 4
@@ -551,13 +650,15 @@ def commit_loop_phase(torch, np, dev, cfg):
                + 3 * T * 4 + T * O * 4 + 8)
     b_ms, b_by = bound(n_bytes, 3 * T * O * V + 2 * T * T)
     print(f"[kernels] commit_loop at the path's wave ({label}, O={O}, "
-          f"V={V}, postsi): {k_ms:.4f} ms/wave (plain loop {p_ms:.2f} ms), "
-          f"{1e3 * k_ms / T:.2f} us a step; bound {b_ms:.6f} ms by {b_by} "
-          f"({n_bytes} bytes)", flush=True)
+          f"V={V}, postsi): "
+          + ", ".join(f"{v} {ms:.4f} ms/wave ({1e3 * ms / T:.3f} us a step)"
+                      for v, ms in k_ms.items())
+          + f"; runs {auto}; plain loop {p_ms:.2f} ms; bound {b_ms:.6f} ms "
+          f"by {b_by} ({n_bytes} bytes)", flush=True)
     rec = {"name": "commit_loop", "route": "cuda",
            "source": KERNELS["commit_loop"][0],
            "replaces": KERNELS["commit_loop"][1], "launches": 0,
-           "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+           "max_abs_err": err, "ms": k_ms[auto], "plain_ms": p_ms,
            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
     return {"commit_loop": rec}, {"commit_loop": lambda: commit_loop_cuda(
         k_store, inputs, **kw)}

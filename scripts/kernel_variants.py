@@ -16,11 +16,21 @@ limit (``nvidia-smi``):
   only their times are read;
 * dependent-load latency: one thread chasing a random cycle of 128-byte
   lines with ``ld.global.cg``, over 8 MB (held in the 50 MB L2) and over
-  2 GB (device memory, TLB misses included), in ns per load;
+  2 GB (device memory, TLB misses included), and a random cycle of ints in
+  16 KB of shared memory, in ns per load;
 * ``commit_loop``: one postsi SmallBank wave over the 1,000,000-account
-  store (V=8) at T = 1, 16, 64, 256 and 1024, in ms per wave and us per
-  step, beside T times the L2 latency (the bound of T serially dependent
-  steps).
+  store (V=8) at T = 1, 16, 64, 256 and 1024 in the variant the wrapper
+  picks there, in ms per wave and us per step, beside T times the L2
+  latency (the bound of T serially dependent steps on the store in L2)
+  and one device-memory round trip plus T shared-memory loads (the same on
+  rows staged in shared memory); at T=256 both variants on the same wave
+  (``global`` forced through the wrapper's ``variant`` argument), each
+  also from a build of ``csrc/commit_loop.cu`` with
+  ``-DCOMMIT_LOOP_RUNTIME_SHAPE`` (no copy with O=4, V=8 fixed at compile
+  time), and the clock cycles of each phase of a step from a build with
+  ``-DCOMMIT_LOOP_CLOCKS``.
+
+The wrapper's host time is ``scripts/commit_loop_ab.py``'s.
 
 Times are CUDA-event means per call after a warm-up.  Nothing of the port
 imports this script.
@@ -44,12 +54,21 @@ from repro_torch.kernels.flash_attention import \
 from repro_torch.kernels.ssd_scan import ssd_cuda  # noqa: E402
 
 # one thread chasing next[] (a random cycle over line-aligned ints), each
-# load through L2 only; a tool of this script, never part of the port
+# load through L2 only; or over n ints copied into shared memory first; a
+# tool of this script, never part of the port
 CHASE_CU = r"""
 #include <cuda_runtime.h>
 __global__ void chase(const int* next, int steps, int* out) {
   int p = 0;
   for (int s = 0; s < steps; ++s) p = __ldcg(next + p);
+  *out = p;
+}
+__global__ void chase_smem(const int* next, int n, int steps, int* out) {
+  extern __shared__ int cyc[];
+  for (int k = 0; k < n; ++k) cyc[k] = next[k];
+  volatile int* v = cyc;
+  int p = 0;
+  for (int s = 0; s < steps; ++s) p = v[p];
   *out = p;
 }
 extern "C" int chase_launch(const void* next, int steps, void* out,
@@ -58,7 +77,14 @@ extern "C" int chase_launch(const void* next, int steps, void* out,
                                            (int*)out);
   return (int)cudaGetLastError();
 }
+extern "C" int chase_smem_launch(const void* next, int n, int steps,
+                                 void* out, void* stream) {
+  chase_smem<<<1, 1, n * sizeof(int), (cudaStream_t)stream>>>(
+      (const int*)next, n, steps, (int*)out);
+  return (int)cudaGetLastError();
+}
 """
+SMEM_CYCLE = 4096                    # ints (16 KB) of shared memory
 LINE_INTS = 32                       # 128-byte lines
 
 # SSD_CUT bits of csrc/ssd_scan.cu: 1 state product, 2 C B^T and its
@@ -95,43 +121,48 @@ def cuda_ms(fn, iters=40, warmup=5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def build_cut(bits: int):
-    """ssd_scan.cu built alone with SSD_CUT=bits into its own library;
-    returns its ssd_scan_launch."""
-    out = build.build_dir() / "variants" / f"ssd_cut{bits}"
+def build_flagged(source: str, define: str):
+    """csrc/``source`` built alone with ``-D<define>`` into its own library
+    under build/kernels/variants/, its C entry points typed as the port's."""
+    out = build.build_dir() / "variants" / define.lower().replace("=", "")
     out.mkdir(parents=True, exist_ok=True)
-    subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, f"-DSSD_CUT={bits}",
-                    "-shared", str(build.CSRC / "ssd_scan.cu"), "-o",
+    subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, f"-D{define}",
+                    "-shared", str(build.CSRC / source), "-o",
                     str(out / "lib.so")], check=True, capture_output=True)
-    fn = ctypes.CDLL(str(out / "lib.so")).ssd_scan_launch
-    fn.argtypes = build.SIGNATURES["ssd_scan_launch"]
-    fn.restype = ctypes.c_int
-    return fn
+    lib = ctypes.CDLL(str(out / "lib.so"))
+    for entry, argtypes in build.SIGNATURES.items():
+        if hasattr(lib, entry):
+            getattr(lib, entry).argtypes = argtypes
+            getattr(lib, entry).restype = ctypes.c_int
+    return lib
 
 
-def time_with(fn, call) -> float:
-    """The time of ``call`` with ssd_scan_launch replaced by ``fn``."""
+def time_with(entry: str, fn, call) -> float:
+    """The time of ``call`` with the library's C entry point ``entry``
+    replaced by ``fn``."""
     lib = build.library()
-    full = lib.ssd_scan_launch
-    lib.ssd_scan_launch = fn
+    full = getattr(lib, entry)
+    setattr(lib, entry, fn)
     try:
         return cuda_ms(call)
     finally:
-        lib.ssd_scan_launch = full
+        setattr(lib, entry, full)
 
 
 def build_chase():
+    """(chase_launch, chase_smem_launch) of the chase library."""
     out = build.build_dir() / "variants" / "chase"
     out.mkdir(parents=True, exist_ok=True)
     (out / "chase.cu").write_text(CHASE_CU)
     subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-shared",
                     str(out / "chase.cu"), "-o", str(out / "lib.so")],
                    check=True, capture_output=True)
-    fn = ctypes.CDLL(str(out / "lib.so")).chase_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    lib = ctypes.CDLL(str(out / "lib.so"))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.chase_launch.argtypes = [P, I, P, P]
+    lib.chase_smem_launch.argtypes = [P, I, I, P, P]
+    lib.chase_launch.restype = lib.chase_smem_launch.restype = I
+    return lib.chase_launch, lib.chase_smem_launch
 
 
 def chase_ns(fn, n_bytes: int, steps: int, warm: bool) -> float:
@@ -154,26 +185,105 @@ def chase_ns(fn, n_bytes: int, steps: int, warm: bool) -> float:
     return (full - short) * 1e6 / (steps - 1)
 
 
-def commit_loop_steps(card, l2_ns):
-    """commit_loop per wave and per step at growing T, beside T x L2."""
+def chase_smem_ns(fn, steps: int) -> float:
+    """ns per dependent load over a random cycle of SMEM_CYCLE ints in
+    shared memory (the copy in is the same in both timings)."""
+    dev = torch.device("cuda")
+    perm = torch.randperm(SMEM_CYCLE, device=dev)
+    nxt = torch.zeros(SMEM_CYCLE, dtype=torch.int32, device=dev)
+    nxt[perm] = torch.roll(perm, -1).to(torch.int32)
+    out = torch.empty(1, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    call = lambda k: fn(nxt.data_ptr(), SMEM_CYCLE, k, out.data_ptr(),
+                        stream)
+    short = cuda_ms(lambda: call(1), iters=5, warmup=1)
+    full = cuda_ms(lambda: call(steps), iters=3, warmup=1)
+    return (full - short) * 1e6 / (steps - 1)
+
+
+CLOCK_PHASES = ("prologue: state", "prologue: rows and bits",
+                "prologue: op records", "prologue: gather",
+                "(A) op reads", "(A) readers walk",
+                "reductions + decision",
+                "install scratch", "install", "bump + push_bounds + step end",
+                "epilogue")
+PER_LAUNCH = (0, 1, 2, 3, 10)          # the other phases run once a step
+
+
+def phase_clocks(card, store, inputs, kw, launches=20):
+    """commit_loop.cu built with -DCOMMIT_LOOP_CLOCKS: thread 0's clock64()
+    cycles of each phase, per launch (prologue, epilogue) or per step, in
+    both variants on one wave."""
+    from repro_torch.kernels import commit_loop as cl
+    flagged = build_flagged("commit_loop.cu", "COMMIT_LOOP_CLOCKS")
+    flagged.commit_loop_clocks.argtypes = [ctypes.c_void_p]
+    lib = build.library()
+    full = lib.commit_loop_launch
+    lib.commit_loop_launch = flagged.commit_loop_launch
+    T = inputs.wave.op_kind.shape[0]
+    try:
+        for v in cl.VARIANTS:
+            cl.commit_loop_cuda(store, inputs, variant=v, **kw)
+            torch.cuda.synchronize()
+            cyc = (ctypes.c_ulonglong * len(CLOCK_PHASES))()
+            flagged.commit_loop_clocks(cyc)           # clears the sums
+            for _ in range(launches):
+                cl.commit_loop_cuda(store, inputs, variant=v, **kw)
+            torch.cuda.synchronize()
+            flagged.commit_loop_clocks(cyc)
+            per = [c / launches / (1 if k in PER_LAUNCH else T)
+                   for k, c in enumerate(cyc)]
+            print(f"commit_loop T={T} {v} cycles (thread 0's clock64; "
+                  f"prologue and epilogue a launch, the rest a step): "
+                  + ", ".join(f"{n} {c:.0f}" for n, c in
+                              zip(CLOCK_PHASES, per)) + f" [{card}]",
+                  flush=True)
+    finally:
+        lib.commit_loop_launch = full
+
+
+def commit_loop_steps(card, l2_ns, hbm_ns, smem_ns):
+    """commit_loop per wave and per step at growing T in the variant the
+    wrapper picks, beside T x L2 and one HBM round trip + T x shared
+    memory; at T=256 both variants, each also with no compile-time shape,
+    and the cycles of each phase."""
     import numpy as np
     from repro_torch.core import LocalSubstrate, make_store
     from repro_torch.core.engine import wave_read_phase
     from repro_torch.core.workloads import smallbank_waves
-    from repro_torch.kernels.commit_loop import commit_loop_cuda
+    from repro_torch.kernels import commit_loop as cl
     dev = torch.device("cuda")
     store = make_store(1_000_000, 8, device=dev)
     sub = LocalSubstrate("torch", dev)
+    kw = dict(sched="postsi", n_nodes=8, gc_track=True, gc_block=False)
+    runtime_shape = build_flagged("commit_loop.cu",
+                                  "COMMIT_LOOP_RUNTIME_SHAPE")
     for T in (1, 16, 64, 256, 1024):
         (wave,) = smallbank_waves(np.random.RandomState(2), 1, T, 8,
                                   125_000, dist_frac=0.2, device=dev)
         inputs = wave_read_phase(sub, store, wave, 1, 1, sched="postsi")
-        ms = cuda_ms(lambda: commit_loop_cuda(
-            store, inputs, sched="postsi", n_nodes=8, gc_track=True,
-            gc_block=False), iters=20, warmup=2)
-        print(f"commit_loop postsi SmallBank T={T}: {ms:.4f} ms/wave, "
-              f"{1e3 * ms / T:.3f} us/step; T x L2 latency "
-              f"{T * l2_ns * 1e-6:.4f} ms [{card}]", flush=True)
+        auto = cl.commit_loop_smem_bytes(T, 4, 8)[1]
+        for v in (auto, "global") if T == 256 else (auto,):
+            call = lambda: cl.commit_loop_cuda(store, inputs, variant=v,
+                                               **kw)
+            ms = cuda_ms(call, iters=20, warmup=2)
+            print(f"commit_loop postsi SmallBank T={T} ({v} variant): "
+                  f"{ms:.4f} ms/wave, {1e3 * ms / T:.3f} us/step; T x L2 "
+                  f"latency {T * l2_ns * 1e-6:.4f} ms; HBM + T x "
+                  f"shared-memory latency "
+                  f"{(hbm_ns + T * smem_ns) * 1e-6:.4f} ms [{card}]",
+                  flush=True)
+            if T == 256:   # O, V fixed / read at run time, alternately
+                rt = lambda: time_with("commit_loop_launch",
+                                       runtime_shape.commit_loop_launch, call)
+                fixed, rt1, rt2, fixed2 = (cuda_ms(call), rt(), rt(),
+                                           cuda_ms(call))
+                print(f"commit_loop postsi SmallBank T={T} ({v} variant), "
+                      f"O=4 V=8 fixed at compile time / read at run time, "
+                      f"alternately: {fixed:.4f} / {rt1:.4f} / {rt2:.4f} / "
+                      f"{fixed2:.4f} ms/wave [{card}]", flush=True)
+        if T == 256:
+            phase_clocks(card, store, inputs, kw)
 
 
 def main() -> int:
@@ -189,6 +299,20 @@ def main() -> int:
         return (torch.randn(shape, generator=g, device=dev) * scale).to(bf)
 
     build.library()
+    model_kernels(card, rn, g, dev)
+    chase, chase_smem = build_chase()
+    l2_ns = chase_ns(chase, 8 << 20, 200_000, warm=True)
+    hbm_ns = chase_ns(chase, 2 << 30, 100_000, warm=False)
+    smem_ns = chase_smem_ns(chase_smem, 200_000)
+    print(f"dependent ld.global.cg latency: {l2_ns:.1f} ns over 8 MB (L2), "
+          f"{hbm_ns:.1f} ns over 2 GB (device memory); dependent shared-"
+          f"memory load: {smem_ns:.2f} ns [{card}]", flush=True)
+    commit_loop_steps(card, l2_ns, hbm_ns, smem_ns)
+    return 0
+
+
+def model_kernels(card, rn, g, dev):
+    """flash_attention beside SDPA; ssd_scan and its SSD_CUT builds."""
     for B, S, H, KH, D in FA_SHAPES:
         q, k, v = rn((B, S, H, D)), rn((B, S, KH, D)), rn((B, S, KH, D))
         qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
@@ -207,17 +331,9 @@ def main() -> int:
     print(f"ssd_scan x [4, 80, 1024, 64] (model layout), N=64, chunk 128: "
           f"{cuda_ms(call):.4f} ms [{card}]", flush=True)
     for name, bits in SSD_CUTS.items():
-        print(f"ssd_scan {name}: {time_with(build_cut(bits), call):.4f} ms "
-              f"[{card}]", flush=True)
-    del x, dA, Bm, Cm
-
-    chase = build_chase()
-    l2_ns = chase_ns(chase, 8 << 20, 200_000, warm=True)
-    hbm_ns = chase_ns(chase, 2 << 30, 100_000, warm=False)
-    print(f"dependent ld.global.cg latency: {l2_ns:.1f} ns over 8 MB (L2), "
-          f"{hbm_ns:.1f} ns over 2 GB (device memory) [{card}]", flush=True)
-    commit_loop_steps(card, l2_ns)
-    return 0
+        cut = build_flagged("ssd_scan.cu", f"SSD_CUT={bits}")
+        ms = time_with("ssd_scan_launch", cut.ssd_scan_launch, call)
+        print(f"ssd_scan {name}: {ms:.4f} ms [{card}]", flush=True)
 
 
 if __name__ == "__main__":

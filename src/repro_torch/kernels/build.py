@@ -43,7 +43,7 @@ SIGNATURES = {
     "wave_commit_launch": [_P] * 16 + [_I] * 4 + [_P],
     "flash_attention_launch": [_P] * 4 + [_I] * 8 + [_F, _P],
     "ssd_scan_launch": [_P] * 7 + [_I] * 7 + [_L] * 11 + [_P],
-    "commit_loop_launch": [_P] * 27 + [_I] * 11 + [_P],
+    "commit_loop_launch": [_P] * 28 + [_I] * 10 + [_P, _I, _P],
 }
 
 # launches per kernel since the last reset_launch_counts()
@@ -167,4 +167,9 @@ def check_input(name: str, t, shape, dtype, strides="contiguous") -> None:
 
 
 def stream_of(t) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current CUDA stream of ``t``'s device, as the raw handle a C
+    entry point takes (what ``torch.cuda.current_stream(...).cuda_stream``
+    gives, without building a Stream object)."""
+    index = t.device.index
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if index is None else index)

@@ -18,6 +18,7 @@ itself is held to the same loop on the card (``tests/test_torch_cuda.py``).
 """
 import numpy as np
 import pytest
+import torch
 
 import jax.numpy as jnp
 
@@ -32,6 +33,17 @@ from repro_torch.kernels import LAUNCHES, ops
 from test_torch_engine import assert_same_history, assert_same_store
 
 N_NODES = 4
+
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """The plain loop runs ~170 small tensor ops a step; on one intra-op
+    thread they are as fast alone and do not stall when the other test
+    workers load every core (a T=256 wave took 80x longer then)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _wrapped_stores(n_keys, V=2):
@@ -190,18 +202,60 @@ def test_ops_commit_loop_on_cpu_is_the_plain_loop(sched, gc):
 
 
 def test_commit_loop_shared_memory_budget():
-    """potential is staged in shared memory while T rows of it fit; above,
-    the kernel reads it from global memory; a wave whose interval state
-    alone does not fit is refused before any launch."""
+    """The path's wave (T=256, O=4, V=8) runs the ``staged`` variant: its
+    rows, bit matrices and op records fit in shared memory.  T=1040 runs
+    ``global``.  At T=256, O=4 the largest V that stages is 14; at O=4,
+    V=8 the largest T is 362.  A variant can be forced; a wave whose
+    interval state alone does not fit is refused before any launch."""
+    import pytest
     from repro_torch.kernels.build import SMEM_LIMIT
     from repro_torch.kernels.commit_loop import commit_loop_smem_bytes
-    smem, staged = commit_loop_smem_bytes(256, 4)
-    assert staged and smem == 16 * 256 + 16 + 256 + 256 * 260
-    assert commit_loop_smem_bytes(460, 12)[1]
-    assert not commit_loop_smem_bytes(480, 12)[1]
-    assert commit_loop_smem_bytes(4096, 12) == (16 * 4096 + 48 + 256, False)
-    assert commit_loop_smem_bytes(15_000, 4)[0] > SMEM_LIMIT
+    assert commit_loop_smem_bytes(256, 4, 8) == (155_912, "staged")
+    assert commit_loop_smem_bytes(256, 4, 8, "global") == (4_560, "global")
+    assert commit_loop_smem_bytes(1040, 4, 4)[1] == "global"
+    assert commit_loop_smem_bytes(1040, 12, 8) == (18_240, "global")
+    assert commit_loop_smem_bytes(256, 4, 14)[1] == "staged"
+    assert commit_loop_smem_bytes(256, 4, 15)[1] == "global"
+    assert commit_loop_smem_bytes(362, 4, 8) == (231_960, "staged")
+    assert commit_loop_smem_bytes(363, 4, 8)[1] == "global"
+    assert commit_loop_smem_bytes(15_000, 4, 8)[0] > SMEM_LIMIT
+    for T, O, V in ((1, 1, 1), (33, 12, 4), (600, 2, 2)):
+        smem, variant = commit_loop_smem_bytes(T, O, V)
+        assert variant == "staged" and smem <= SMEM_LIMIT
+    # the global variant's shared memory does not grow with V (its rings
+    # stay in device memory)
+    g = [commit_loop_smem_bytes(1040, O, V, "global")[0]
+         for O, V in ((1, 2), (12, 8), (12, 64))]
+    assert g[0] < g[1] == g[2] < SMEM_LIMIT
+    with pytest.raises(ValueError, match="variant"):
+        commit_loop_smem_bytes(256, 4, 8, "shared")
 
+
+
+def test_commit_loop_layout_is_the_kernel_struct():
+    """The host's layout of a launch, which the C entry compares byte for
+    byte with the kernel's own (``make_layout``), is ``struct Layout`` of
+    csrc/commit_loop.cu: the two declare the same fields in the same
+    order, all 64-bit; the regions of a staged launch follow one another
+    and end at its shared memory."""
+    import ctypes
+    import re
+    from pathlib import Path
+
+    from repro_torch.kernels import commit_loop as cl
+    src = (Path(cl.__file__).parent / "csrc" / "commit_loop.cu").read_text()
+    body = re.search(r"struct Layout \{(.*?)\n\};", src, re.S).group(1)
+    body = re.sub(r"//[^\n]*", "", body)
+    names = [n.strip() for decl in re.findall(r"long long ([^;]+);", body)
+             for n in decl.split(",")]
+    assert names == [n for n, _ in cl.Layout._fields_]
+    assert all(t is ctypes.c_longlong for _, t in cl.Layout._fields_)
+    L = cl._layout(256, 4, 8, True)
+    offsets = [L.slo, L.shi, L.clo, L.ttid, L.cmask, L.dh, L.misc, L.P,
+               L.PT, L.ops, L.row_of, L.uni, L.total]
+    assert offsets == sorted(offsets) and L.scratch == 0
+    assert 4 * L.total == cl.commit_loop_smem_bytes(256, 4, 8)[0]
+    assert cl._layout(1040, 12, 8, False).scratch > 0
 
 def _chip_smoke():
     import sys

@@ -10,7 +10,7 @@ one ``commit_loop`` a wave on both CUDA routes, one ``version_scan`` a wave
 on ``cuda`` and none on ``cuda+fused``.  ``commit_loop`` must equal the
 engine's plain loop bit for bit, in its outputs and the store, for the six
 schedulers x {no GC, ``gc_track``, ``gc_block``} on ``chip_smoke.py``'s
-corner waves.
+corner waves, in both of its variants (``staged``, ``global``).
 The model plane's ``flash_attention`` and ``ssd_scan`` must agree with
 their plain versions within the tolerances of ``tests/test_kernels.py``
 (2e-5 fp32 / 2e-2 bf16 for attention, 1e-3 for the SSD scan, 2e-2 for its
@@ -135,19 +135,32 @@ def _chip_smoke():
 @pytest.mark.parametrize("sched", tc.SCHEDULERS)
 def test_commit_loop_kernel_equals_plain_loop(dev, sched, gc):
     """Every corner case of chip_smoke.py (V=2 rings read and RMW'd in one
-    wave, duplicate write keys, T=1, T=33, O=12, T=1040 with potential in
-    global memory and strided threads, placement with clocksi skew) and a
-    T=256 SmallBank wave over a 256-key store, each wave from an aged
-    store under a watermark that evicts: outputs and store bit-equal to
-    the plain loop, one launch a wave."""
+    wave, duplicate write keys, T=1, T=33, O=12, T=1040 past the shared-
+    memory budget, placement with clocksi skew, negative and out-of-range
+    rows on live ops, one row from two heads, one hot key at T=256, T=256
+    O=4 at the largest V that stages and the next) and a T=256 SmallBank
+    wave over a 256-key store, each wave from an aged store under a
+    watermark that evicts: outputs and store bit-equal to the plain loop in
+    the variant the wrapper picks and, where that is ``staged``, in the
+    ``global`` one too; one launch a wave and variant."""
+    from functools import partial
+    from repro_torch.kernels.commit_loop import commit_loop_smem_bytes
     cs = _chip_smoke()
     cases = cs.commit_loop_cases(np, cs.Config(nodes=4, kpn=64, V=8, T=256))
-    before = LAUNCHES["commit_loop"]
+    before, launches, variants = LAUNCHES["commit_loop"], 0, set()
     for case in cases:
-        assert cs.check_commit_loop(torch, np, dev, case, sched, gc,
-                                    commit_loop_cuda, commit_loop_plain) == 0
+        T, O = case[4][0][0].shape
+        auto = commit_loop_smem_bytes(T, O, case[2])[1]
+        kernels = (commit_loop_cuda,)
+        if auto == "staged":
+            kernels += (partial(commit_loop_cuda, variant="global"),)
+        variants |= {auto, "global"}
+        assert cs.check_commit_loop(torch, np, dev, case, sched, gc, kernels,
+                                    commit_loop_plain) == 0
+        launches += len(kernels) * len(case[4])
     torch.cuda.synchronize()
-    assert LAUNCHES["commit_loop"] - before == sum(len(c[4]) for c in cases)
+    assert variants == {"staged", "global"}
+    assert LAUNCHES["commit_loop"] - before == launches
 
 
 def _close(got, want, tol):
