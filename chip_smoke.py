@@ -13,8 +13,16 @@ Phases (any failure raises, so the process exits non-zero):
    instantiation of ``flash_attention`` and ``ssd_scan`` must run
    tensor-core (HMMA / HGMMA) instructions;
 3. each engine kernel against its plain PyTorch version on the card,
-   bit-equal, at the main path's shapes and on adversarial inputs, with
-   CUDA-event times of both; the model plane's ``flash_attention`` and
+   bit-equal, at the main path's shapes and on adversarial inputs
+   (the read-phase corners: tied visible CIDs, empty rings, V = 1 / 3,
+   O = 12, T = 1 and ragged T, pad keys 0 / -1 / hot / past the last row),
+   with CUDA-event times of both; the read-phase kernels' device ms from
+   the profiler, warm (one key set) and with cold rows (a rotating pool of
+   key sets over the whole store, ``scripts/read_phase_ab.py``), beside an
+   empty kernel's (the launch floor) and their bound restated as the larger
+   of bytes over the memory rate and dependent device-memory round trips x
+   one round trip (a pointer chase over 256 MB, ``scripts/probes.py``);
+   the model plane's ``flash_attention`` and
    ``ssd_scan`` likewise, within their tolerances, at the serve path's
    shapes plus ragged, GQA, non-causal, initial-state, float32, 128-row
    q tile, N=128, model-layout and slow-decay cases, each bf16 output also
@@ -176,11 +184,46 @@ def max_abs_err(torch, got, want) -> int:
     return err
 
 
+# (T, O, V) of the read-phase corner cases: T = 1 and T not a multiple of
+# 4 (the potential matrix's byte stores on a ragged tail), O = 12 (s_lo0
+# through shared memory), V = 1 and 3 (lanes an op past V), each with the
+# pad keys 0 / -1 / a hot row / past the last row
+READ_CORNERS = ((1, 1, 1), (40, 4, 8), (130, 5, 3), (256, 4, 8),
+                (1024, 12, 8), (256, 12, 2), (40, 1, 2), (130, 12, 1),
+                (1024, 4, 3))
+CORNER_ROWS = 64
+CORNER_PADS = (0, -1, 5, CORNER_ROWS + 3)
+
+
+def read_phase_corner(np, T, O, V, pad):
+    """One corner of the read phase as numpy arrays: ((cid, tid, sid, val)
+    [CORNER_ROWS, V] int32, keys, max_cid, read_key, write_key [T, O]
+    int32, rvalid [T, O] bool).  CIDs come from [0, 4), so visible slots
+    tie and the first must win (>= 0 as a store's: the reference's Pallas
+    kernel pads V and O with slots and ops that read as -1 and 0, and
+    leaves its own plain version on a negative CID); every eighth row is
+    empty and some ceilings are -1, so rings have no visible slot; every
+    fifth key is ``pad``, and 64 rows make hot rows and matching keys."""
+    rng = np.random.RandomState(1000 * T + 100 * O + 10 * V + pad % 97)
+    i32 = lambda a: np.asarray(a, np.int32)
+    shape = (CORNER_ROWS, V)
+    tid = np.where(rng.rand(*shape) < 0.3, -1, rng.randint(1, 99, shape))
+    tid[::8] = -1
+    tables = (i32(rng.randint(0, 4, shape)), i32(tid),
+              i32(rng.randint(0, 40, shape)), i32(rng.randint(-99, 99, shape)))
+    keys = rng.randint(0, CORNER_ROWS, (T, O))
+    keys.reshape(-1)[::5] = pad
+    is_r, is_w = rng.rand(T, O) < 0.5, rng.rand(T, O) < 0.4
+    return (tables, i32(keys), i32(rng.randint(-1, 4, (T, O))),
+            i32(np.where(is_r, keys, -1)), i32(np.where(is_w, keys, -1)),
+            is_r)
+
+
 # ---------------------------------------------------------------- phase 3
 def kernel_phase(torch, dev, n_keys, V, T, O):
     """Each kernel vs its plain version on the card; returns per-kernel
-    records of the main-path shape (T*O requests, a T-txn wave) and a call
-    of each at that shape (for ``device_ms``)."""
+    records of the main-path shape (T*O requests, a T-txn wave) and the
+    store tables they ran on (for ``engine_device_ms``)."""
     from repro_torch.kernels.interval_negotiate import (
         potential_matrix_cuda, potential_matrix_ref)
     from repro_torch.kernels.version_scan import (version_scan_cuda,
@@ -250,8 +293,28 @@ def kernel_phase(torch, dev, n_keys, V, T, O):
             args = (cid, tid, sid, val, mc, rk, wk, is_r)
             check("wave_commit", wave_commit_cuda(*args, keys=k),
                   wave_commit_plain(*args, keys=k), f"T={Tw} pad={pad}")
+    # the read-phase corners: ties, empty rings, V = 1 / 3, O = 12, T = 1
+    # and ragged T, pad keys 0 / -1 / hot / past the last row
+    import numpy as np
+    for Tc, Oc, Vc in READ_CORNERS:
+        for pad in CORNER_PADS:
+            tabs, k, mc, rk, wk, rv = (
+                [torch.as_tensor(a, device=dev) for a in x]
+                if isinstance(x, tuple) else torch.as_tensor(x, device=dev)
+                for x in read_phase_corner(np, Tc, Oc, Vc, pad))
+            label = f"corner T={Tc} O={Oc} V={Vc} pad={pad}"
+            args = (*tabs, mc, rk, wk, rv)
+            check("wave_commit", wave_commit_cuda(*args, keys=k),
+                  wave_commit_plain(*args, keys=k), label)
+            check("potential_matrix", (potential_matrix_cuda(rk, wk),),
+                  (potential_matrix_ref(rk, wk),), label)
+            flat = (tabs[0], tabs[1], mc.view(-1), k.view(-1))
+            check("version_scan", version_scan_cuda(*flat),
+                  version_scan_plain(*flat), label)
+    torch.cuda.synchronize()
     print(f"[kernels] {len(checks)} checks, all bit-equal to the plain "
-          f"versions", flush=True)
+          f"versions ({3 * len(READ_CORNERS) * len(CORNER_PADS)} of them "
+          f"on the read-phase corners)", flush=True)
 
     # times at the main path's shapes
     M = T * O
@@ -299,10 +362,7 @@ def kernel_phase(torch, dev, n_keys, V, T, O):
               f"bound {b_ms:.6f} ms by {b_by}", flush=True)
     print(f"[kernels] version_scan at M={O} (one commit step): "
           f"{ms_o[0]:.5f} ms/call (plain {ms_o[1]:.5f})", flush=True)
-    fns = {"version_scan": lambda: version_scan_cuda(*vs),
-           "potential_matrix": lambda: potential_matrix_cuda(rk, wk),
-           "wave_commit": lambda: wave_commit_cuda(*wc, keys=kw)}
-    return records, fns
+    return records, (cid, tid, sid, val)
 
 
 def start_profiler(tag):
@@ -380,24 +440,65 @@ def tensor_core_check(lib_path, nvcc):
                                      f"tensor-core instruction")
 
 
-def device_ms(torch, fns, records, iters=50):
-    """Kernel-only device time from the profiler's CUDA trace, where the
-    profiler sees the device; recorded as ``device_ms`` (else None)."""
-    for rec in records.values():
-        rec["device_ms"] = None
-    prof = start_profiler("kernels")
-    for _ in range(iters):
-        for fn in fns.values():
-            fn()
-    torch.cuda.synchronize()
-    if stop_profiler(prof, "kernels"):
-        for evt in prof.key_averages():
-            for name in fns:
-                if kernel_of(evt.key) == name:
-                    total = getattr(evt, "device_time_total",
-                                    getattr(evt, "cuda_time_total", 0))
-                    records[name]["device_ms"] = total / 1e3 / iters
-    print("[kernels] profiler device ms/launch: "
+def scripts_module(name: str):
+    """A measurement module of the repository's ``scripts/``."""
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    try:
+        return __import__(name)
+    finally:
+        sys.path.pop(0)
+
+
+# dependent device-memory round trips of the read-phase kernels: the key,
+# then the ring row it names (version_scan, wave_commit); the keys, then
+# the stores (potential_matrix)
+ROUND_TRIPS = {"version_scan": 2, "potential_matrix": 1, "wave_commit": 2}
+
+
+def engine_device_ms(torch, tables, records, loop_fn, T, O):
+    """Kernel-only device ms a launch from the profiler, recorded as
+    ``device_ms`` (None where the profiler shows no device time), beside
+    the launch floor, an empty kernel's device time in the same session:
+    the engine kernels on one input set (warm: their rows stay in L2);
+    then the read-phase kernels on a rotating pool of key sets over the
+    whole store (cold rows, as an engine wave's; ``device_ms_cold``)
+    (``scripts/read_phase_ab.py``).  Each read-phase kernel's bound,
+    restated as the larger of its bytes over the memory rate and its
+    dependent device-memory round trips x one round trip (a pointer chase
+    over 256 MB, beyond the 50 MB L2, in this run), is printed and
+    recorded as ``latency_bound_ms``; the JSON's ``bound_ms`` stays the
+    bytes-or-operations bound."""
+    probes = scripts_module("probes")
+    ab = scripts_module("read_phase_ab")
+    lib = probes.build_probes()
+    warm, cold = ab.calls(tables, T, O)
+    got = ab.measure(lib, warm, cold, extra={
+        "commit_loop": (loop_fn, "commit_loop_kernel")})
+    trip_ns = probes.chase_ns(lib, 256 << 20, 20_000, warm=False)
+    floor = {k: got[k]["empty"] for k in got}
+    print(f"[kernels] launch floor (an empty kernel's device ms, same "
+          f"sessions): warm {floor['warm']}, cold {floor['cold']}; one "
+          f"dependent device-memory round trip {trip_ns:.1f} ns (chase over "
+          f"256 MB)", flush=True)
+    for name, rec in records.items():
+        rec["device_ms"] = got["warm"][name]
+        if name not in ROUND_TRIPS:
+            continue
+        rec["device_ms_cold"] = got["cold"][name]
+        lat = ROUND_TRIPS[name] * trip_ns * 1e-6
+        rec["latency_bound_ms"] = max(rec["bound_ms"], lat)
+        rec["launch_floor_ms"] = floor["cold"]
+        by = ("bytes" if rec["bound_ms"] >= lat else
+              f"latency, {ROUND_TRIPS[name]} dependent round trips")
+        cold_ms = rec["device_ms_cold"]
+        share = (f"{100 * rec['latency_bound_ms'] / cold_ms:.1f}% of cold"
+                 if cold_ms else "share not measured")
+        print(f"[kernels] {name}: device ms warm {rec['device_ms']}, cold "
+              f"{cold_ms}; bound restated max(bytes {rec['bound_ms']:.7f},"
+              f" {ROUND_TRIPS[name]} x {trip_ns:.1f} ns) = "
+              f"{rec['latency_bound_ms']:.7f} ms by {by} ({share}); launch "
+              f"floor {floor['cold']} ms", flush=True)
+    print("[kernels] profiler device ms/launch (warm): "
           + ", ".join(f"{n}={r['device_ms']}" for n, r in records.items()),
           flush=True)
 
@@ -889,7 +990,14 @@ def model_kernel_phase(torch, dev):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms}
         print(f"[kernels] {name}: {k_ms:.4f} ms/call (plain {p_ms:.4f}, "
               f"library {l_ms}), bound {b_ms:.5f} ms by {b_by}", flush=True)
-    device_ms(torch, {n: c[0] for n, c in calls.items()}, records, iters=10)
+    probes = scripts_module("probes")
+    got = probes.profile_device_ms(
+        {n: (c[0], f"{n}_") for n, c in calls.items()}, iters=10)
+    for name, rec in records.items():
+        rec["device_ms"] = got[name]
+    print("[kernels] profiler device ms/launch: "
+          + ", ".join(f"{n}={r['device_ms']}" for n, r in records.items()),
+          flush=True)
     return records
 
 
@@ -1352,11 +1460,13 @@ def main(argv=None) -> int:
     tensor_core_check(build_info["path"], nvcc_path())
 
     import numpy as np
-    records, fns = kernel_phase(torch, dev, cfg.nodes * cfg.kpn, cfg.V,
-                                cfg.T, cfg.O)
+    records, tables = kernel_phase(torch, dev, cfg.nodes * cfg.kpn, cfg.V,
+                                   cfg.T, cfg.O)
     loop_record, loop_fn = commit_loop_phase(torch, np, dev, cfg)
     records.update(loop_record)
-    device_ms(torch, {**fns, **loop_fn}, records)   # one profiler session
+    engine_device_ms(torch, tables, records, loop_fn["commit_loop"], cfg.T,
+                     cfg.O)
+    del tables
     records.update(model_kernel_phase(torch, dev))
 
     profile_wave(torch, dev, cfg)

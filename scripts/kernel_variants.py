@@ -48,44 +48,11 @@ import torch.nn.functional as F
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "src"))
 
+import probes  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import \
     flash_attention_cuda  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_cuda  # noqa: E402
-
-# one thread chasing next[] (a random cycle over line-aligned ints), each
-# load through L2 only; or over n ints copied into shared memory first; a
-# tool of this script, never part of the port
-CHASE_CU = r"""
-#include <cuda_runtime.h>
-__global__ void chase(const int* next, int steps, int* out) {
-  int p = 0;
-  for (int s = 0; s < steps; ++s) p = __ldcg(next + p);
-  *out = p;
-}
-__global__ void chase_smem(const int* next, int n, int steps, int* out) {
-  extern __shared__ int cyc[];
-  for (int k = 0; k < n; ++k) cyc[k] = next[k];
-  volatile int* v = cyc;
-  int p = 0;
-  for (int s = 0; s < steps; ++s) p = v[p];
-  *out = p;
-}
-extern "C" int chase_launch(const void* next, int steps, void* out,
-                            void* stream) {
-  chase<<<1, 1, 0, (cudaStream_t)stream>>>((const int*)next, steps,
-                                           (int*)out);
-  return (int)cudaGetLastError();
-}
-extern "C" int chase_smem_launch(const void* next, int n, int steps,
-                                 void* out, void* stream) {
-  chase_smem<<<1, 1, n * sizeof(int), (cudaStream_t)stream>>>(
-      (const int*)next, n, steps, (int*)out);
-  return (int)cudaGetLastError();
-}
-"""
-SMEM_CYCLE = 4096                    # ints (16 KB) of shared memory
-LINE_INTS = 32                       # 128-byte lines
 
 # SSD_CUT bits of csrc/ssd_scan.cu: 1 state product, 2 C B^T and its
 # product with x, 4 the whole y phase
@@ -147,58 +114,6 @@ def time_with(entry: str, fn, call) -> float:
         return cuda_ms(call)
     finally:
         setattr(lib, entry, full)
-
-
-def build_chase():
-    """(chase_launch, chase_smem_launch) of the chase library."""
-    out = build.build_dir() / "variants" / "chase"
-    out.mkdir(parents=True, exist_ok=True)
-    (out / "chase.cu").write_text(CHASE_CU)
-    subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-shared",
-                    str(out / "chase.cu"), "-o", str(out / "lib.so")],
-                   check=True, capture_output=True)
-    lib = ctypes.CDLL(str(out / "lib.so"))
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib.chase_launch.argtypes = [P, I, P, P]
-    lib.chase_smem_launch.argtypes = [P, I, I, P, P]
-    lib.chase_launch.restype = lib.chase_smem_launch.restype = I
-    return lib.chase_launch, lib.chase_smem_launch
-
-
-def chase_ns(fn, n_bytes: int, steps: int, warm: bool) -> float:
-    """ns per dependent load over a random cycle of n_bytes / 128 lines;
-    ``warm``: the cycle is walked once first and the chase timed three
-    times (it stays in L2), else timed once from cold lines."""
-    dev = torch.device("cuda")
-    n = n_bytes // (4 * LINE_INTS)
-    perm = torch.randperm(n, device=dev) * LINE_INTS
-    nxt = torch.zeros(n * LINE_INTS, dtype=torch.int32, device=dev)
-    nxt[perm] = torch.roll(perm, -1).to(torch.int32)
-    out = torch.empty(1, dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream().cuda_stream
-    call = lambda k: fn(nxt.data_ptr(), k, out.data_ptr(), stream)
-    if warm:
-        call(n)
-    torch.cuda.synchronize()
-    short = cuda_ms(lambda: call(1), iters=5, warmup=1)
-    full = cuda_ms(lambda: call(steps), iters=3 if warm else 1, warmup=0)
-    return (full - short) * 1e6 / (steps - 1)
-
-
-def chase_smem_ns(fn, steps: int) -> float:
-    """ns per dependent load over a random cycle of SMEM_CYCLE ints in
-    shared memory (the copy in is the same in both timings)."""
-    dev = torch.device("cuda")
-    perm = torch.randperm(SMEM_CYCLE, device=dev)
-    nxt = torch.zeros(SMEM_CYCLE, dtype=torch.int32, device=dev)
-    nxt[perm] = torch.roll(perm, -1).to(torch.int32)
-    out = torch.empty(1, dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream().cuda_stream
-    call = lambda k: fn(nxt.data_ptr(), SMEM_CYCLE, k, out.data_ptr(),
-                        stream)
-    short = cuda_ms(lambda: call(1), iters=5, warmup=1)
-    full = cuda_ms(lambda: call(steps), iters=3, warmup=1)
-    return (full - short) * 1e6 / (steps - 1)
 
 
 CLOCK_PHASES = ("prologue: state", "prologue: rows and bits",
@@ -300,10 +215,10 @@ def main() -> int:
 
     build.library()
     model_kernels(card, rn, g, dev)
-    chase, chase_smem = build_chase()
-    l2_ns = chase_ns(chase, 8 << 20, 200_000, warm=True)
-    hbm_ns = chase_ns(chase, 2 << 30, 100_000, warm=False)
-    smem_ns = chase_smem_ns(chase_smem, 200_000)
+    lib = probes.build_probes()
+    l2_ns = probes.chase_ns(lib, 8 << 20, 200_000, warm=True)
+    hbm_ns = probes.chase_ns(lib, 2 << 30, 100_000, warm=False)
+    smem_ns = probes.chase_smem_ns(lib, 200_000)
     print(f"dependent ld.global.cg latency: {l2_ns:.1f} ns over 8 MB (L2), "
           f"{hbm_ns:.1f} ns over 2 GB (device memory); dependent shared-"
           f"memory load: {smem_ns:.2f} ns [{card}]", flush=True)

@@ -27,7 +27,9 @@ def build_potential(keys, is_read, is_write, backend=None):
     cfg = resolve(backend, keys.device)
     rk = torch.where(is_read, keys, -1)
     wk = torch.where(is_write, keys, -1)
-    return ops.potential_matrix(rk, wk, use_kernel=cfg.use_kernel).bool()
+    # 0/1 int8 from every version: viewed as bool, not copied
+    return ops.potential_matrix(rk, wk,
+                                use_kernel=cfg.use_kernel).view(torch.bool)
 
 
 def creator_slots(nv_tid, tid0, n_txns, status):

@@ -127,4 +127,4 @@ class LocalSubstrate:
             store.cid, store.tid, store.sid, store.val, mc,
             torch.where(is_read, keys, -1), torch.where(is_write, keys, -1),
             is_read.contiguous(), keys=k, use_kernel=self.kernels.use_kernel)
-        return r_val, r_tid, r_cid, r_sid, slot, s_lo0, pot.bool()
+        return r_val, r_tid, r_cid, r_sid, slot, s_lo0, pot.view(torch.bool)

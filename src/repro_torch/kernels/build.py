@@ -39,8 +39,8 @@ _L = ctypes.c_longlong
 # element strides as long long, the softmax scale as float)
 SIGNATURES = {
     "version_scan_launch": [_P] * 6 + [_I] * 3 + [_P],
-    "potential_matrix_launch": [_P] * 3 + [_I] * 2 + [_P],
-    "wave_commit_launch": [_P] * 16 + [_I] * 4 + [_P],
+    "potential_matrix_launch": [_P] * 3 + [_I] * 5 + [_P],
+    "wave_commit_launch": [_P] * 16 + [_I] * 10 + [_P],
     "flash_attention_launch": [_P] * 4 + [_I] * 8 + [_F, _P],
     "ssd_scan_launch": [_P] * 7 + [_I] * 7 + [_L] * 11 + [_P],
     "commit_loop_launch": [_P] * 28 + [_I] * 10 + [_P, _I, _P],

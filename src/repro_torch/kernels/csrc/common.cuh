@@ -7,9 +7,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// Output tile edge of the potential-matrix kernels: a block of
-// TILE x TILE threads writes one [TILE, TILE] tile of the [T, T] matrix.
-#define REPRO_TILE 32
+// Bytes of the [T, T] potential matrix one thread computes and stores
+// (one 16-byte store).
+#define POT_UNIT 16
 
 // Store row of a request key: negative NOP padding and out-of-range keys are
 // clipped into [0, n_rows) so they can never wrap to the last row.
@@ -47,32 +47,163 @@ __device__ __forceinline__ void scan_ring(const int* __restrict__ cid,
   best = b;
 }
 
-// One [TILE, TILE] tile of potential[i, j] = "some read key of txn i equals
-// some write key of txn j", key >= 0, i != j.  Called by every thread of a
-// (TILE, TILE) block; rk_s / wk_s are TILE * O ints of shared memory each.
-// Reader keys < 0 (inactive or NOP ops) never match, whatever the writer key.
-__device__ __forceinline__ void potential_tile(
+// 1 where x equals one of the reader keys r[0..3], else 0.
+__device__ __forceinline__ unsigned pot_match(int x, const int (&r)[4]) {
+  return (unsigned)((x == r[0]) | (x == r[1]) | (x == r[2]) | (x == r[3]));
+}
+
+// Loads a thread of potential_part keeps in flight while it stages keys.
+#define POT_STAGE 16
+
+// Part of the potential matrix: potential[i, j] = "some read key of txn i
+// equals some write key of txn j", key >= 0, i != j, as int8 0/1.  Block
+// `part` of the part covers bytes [part * 16 * blockDim.x, ...) of the FLAT
+// [T, T] output, and thread f of it the 16 bytes from that start + 16 f, so
+// a thread's bytes may run over the end of a row (and over several rows
+// where T < 16).  T * T < 2^31 (the host refuses more), so every index is
+// 32-bit.  kO > 0 fixes O at compile time (SmallBank's 4); 0 reads it at run
+// time.
+//
+// The block first stages, in one round of loads (POT_STAGE a thread in
+// flight), the writer keys of every column its bytes touch, at most
+// min(T, 16 * blockDim.x) columns, in keys_s: O ints a column, in order,
+// with 4 ints of padding after every 16 columns, so that the 16-byte loads
+// of a quarter warp's lanes, 16 columns apart, fall in distinct banks;
+// negatives as -2.  Then the reader keys of the rows they touch, O a row,
+// negatives as -1, so the two never match (interval_negotiate.py: geometry
+// sizes keys_s).  A thread keeps a row's reader keys in registers, four at
+// a time, skips a row whose reader keys are all negative, reads a column's
+// writer keys with one 16-byte load where O = 4, and writes its 16 bytes
+// with one 16-byte store (byte stores on a ragged tail).  Called by every
+// thread of the block: it holds a __syncthreads.
+template <int kO>
+__device__ __forceinline__ void potential_part(
     const int* __restrict__ rk, const int* __restrict__ wk,
-    int8_t* __restrict__ pot, int T, int O, int i0, int j0, int* rk_s,
-    int* wk_s) {
-  const int lin = threadIdx.y * blockDim.x + threadIdx.x;
-  const int nthr = blockDim.x * blockDim.y;
-  for (int idx = lin; idx < REPRO_TILE * O; idx += nthr) {
-    const int r = idx / O, o = idx - (idx / O) * O;
-    rk_s[idx] = (i0 + r < T) ? rk[(long long)(i0 + r) * O + o] : -1;
-    wk_s[idx] = (j0 + r < T) ? wk[(long long)(j0 + r) * O + o] : -1;
+    int8_t* __restrict__ pot, int T, int O_rt, int part,
+    int* __restrict__ keys_s) {
+  const int O = kO > 0 ? kO : O_rt;
+  const int TT = T * T;
+  const int b0 = part * POT_UNIT * (int)blockDim.x;
+  const int span = min(POT_UNIT * (int)blockDim.x, TT - b0);
+  // staged column c holds column (c0 + c) % T; all T columns in order
+  // where the span reaches T bytes, else the at most two runs it touches
+  const int ncols = min(span, T);
+  const int c0 = span >= T ? 0 : b0 % T;
+  const int i0 = b0 / T;
+  const int nw = ncols * O, n16 = 16 * O;
+  const int rbase = nw + 4 * ((nw + n16 - 1) / n16);  // reader keys' start
+  const int total = nw + ((b0 + span - 1) / T - i0 + 1) * O;
+  if (kO == 4 && ((uintptr_t)wk & 15) == 0 && ((uintptr_t)rk & 15) == 0) {
+    // a column's four writer keys, or a row's four reader keys, are one
+    // 16-byte load and one 16-byte store
+    const int units = total / 4;
+    for (int first = threadIdx.x; first < units;
+         first += POT_STAGE / 4 * blockDim.x) {
+      int4 x[POT_STAGE / 4];
+      int at[POT_STAGE / 4];
+#pragma unroll
+      for (int q = 0; q < POT_STAGE / 4; ++q) {
+        const int u = first + q * blockDim.x;
+        at[q] = -1;
+        if (u < ncols) {
+          const int col = c0 + u < T ? c0 + u : c0 + u - T;
+          x[q] = reinterpret_cast<const int4*>(wk)[col];
+          at[q] = 4 * u + 4 * (u >> 4);
+        } else if (u < units) {
+          x[q] = reinterpret_cast<const int4*>(rk)[i0 + u - ncols];
+          at[q] = rbase + 4 * (u - ncols);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < POT_STAGE / 4; ++q) {
+        if (at[q] < 0) continue;
+        const int neg = at[q] < rbase ? -2 : -1;
+        int4 v = x[q];
+        v.x = v.x >= 0 ? v.x : neg;
+        v.y = v.y >= 0 ? v.y : neg;
+        v.z = v.z >= 0 ? v.z : neg;
+        v.w = v.w >= 0 ? v.w : neg;
+        *reinterpret_cast<int4*>(keys_s + at[q]) = v;
+      }
+    }
+  } else {
+    for (int first = threadIdx.x; first < total;
+         first += POT_STAGE * blockDim.x) {
+      int x[POT_STAGE], at[POT_STAGE];
+#pragma unroll
+      for (int q = 0; q < POT_STAGE; ++q) {
+        const int idx = first + q * blockDim.x;
+        at[q] = -1;
+        if (idx < nw) {
+          int src = c0 * O + idx;  // (c0 + c) % T, key o
+          if (src >= T * O) src -= T * O;
+          x[q] = wk[src];
+          at[q] = idx + 4 * (idx / n16);
+        } else if (idx < total) {
+          x[q] = rk[i0 * O + (idx - nw)];
+          at[q] = rbase + (idx - nw);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < POT_STAGE; ++q) {
+        if (at[q] >= 0)
+          keys_s[at[q]] = x[q] >= 0 ? x[q] : (at[q] < rbase ? -2 : -1);
+      }
+    }
   }
   __syncthreads();
-  const int i = i0 + threadIdx.y, j = j0 + threadIdx.x;
-  if (i < T && j < T) {
-    bool hit = false;
-    const int* rrow = rk_s + threadIdx.y * O;
-    const int* wrow = wk_s + threadIdx.x * O;
-    for (int o1 = 0; o1 < O; ++o1) {
-      const int r = rrow[o1];
-      if (r < 0) continue;
-      for (int o2 = 0; o2 < O; ++o2) hit |= (r == wrow[o2]);
+  const int b = b0 + POT_UNIT * threadIdx.x;
+  if (b >= TT) return;
+  const int n = min(POT_UNIT, TT - b);
+  int i = b / T, j = b - i * T;
+  unsigned hit = 0;  // bit k: byte b + k
+  for (int k = 0; k < n; j = 0, ++i) {
+    const int seg = min(T - j, n - k);  // bytes of row i from column j
+    const int* rrow = keys_s + rbase + (i - i0) * O;
+    const int cs = j >= c0 ? j - c0 : j - c0 + T;  // staged column of j
+    for (int oc = 0; oc < O; oc += 4) {
+      int r[4];
+      bool any = false;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        r[q] = oc + q < O ? rrow[oc + q] : -1;
+        any |= r[q] >= 0;
+      }
+      if (!any) continue;
+      // the writer keys of staged column c, matched against r
+      auto column = [&](int c) -> unsigned {
+        const int* w = keys_s + c * O + 4 * (c >> 4);
+        if constexpr (kO == 4) {
+          const int4 v = *reinterpret_cast<const int4*>(w);
+          return pot_match(v.x, r) | pot_match(v.y, r) | pot_match(v.z, r) |
+                 pot_match(v.w, r);
+        } else {
+          unsigned h = 0;
+          for (int o2 = 0; o2 < O; ++o2) h |= pot_match(w[o2], r);
+          return h;
+        }
+      };
+      if (seg == POT_UNIT) {
+#pragma unroll
+        for (int s = 0; s < POT_UNIT; ++s) hit |= column(cs + s) << s;
+      } else {
+        for (int s = 0; s < seg; ++s) hit |= column(cs + s) << (k + s);
+      }
     }
-    pot[(long long)i * T + j] = (hit && i != j) ? 1 : 0;
+    if (i >= j && i < j + seg) hit &= ~(1u << (k + i - j));
+    k += seg;
+  }
+  int8_t* out = pot + b;
+  if (n == POT_UNIT && ((uintptr_t)out & 15) == 0) {
+    // bit q of each nibble to bit 0 of byte q: x * 0x204081 places the four
+    // bits 7 apart, with no carries between them
+    uint4 v;
+    v.x = ((hit & 15u) * 0x204081u) & 0x01010101u;
+    v.y = (((hit >> 4) & 15u) * 0x204081u) & 0x01010101u;
+    v.z = (((hit >> 8) & 15u) * 0x204081u) & 0x01010101u;
+    v.w = (((hit >> 12) & 15u) * 0x204081u) & 0x01010101u;
+    *reinterpret_cast<uint4*>(out) = v;
+  } else {
+    for (int k = 0; k < n; ++k) out[k] = (int8_t)((hit >> k) & 1u);
   }
 }

@@ -3,20 +3,61 @@
 Port of ``repro.kernels.wave_commit.wave_commit_pallas``: the version scan
 of every op's ring, the ring fields at the chosen slot, the PostSI rule-3
 seed ``s_lo0`` (as ``[T]``) and the potential matrix.  The CUDA kernel
-(``csrc/wave_commit.cu``) gathers the rings from the store tables in-kernel
-and runs the read phase once per reader row; its plain version
+(``csrc/wave_commit.cu``) gathers the rings from the store tables in-kernel,
+V lanes an op, in read blocks of their own beside the potential matrix's
+blocks (:func:`geometry` sizes the launch); its plain version
 (``wave_commit_ref``, over pre-gathered rings) sits beside it and serves
 CPU tensors.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
+from . import interval_negotiate
 from .build import check_input, launch, stream_of
 from .ref import wave_commit_ref
 
 __all__ = ["wave_commit", "wave_commit_cuda", "wave_commit_plain",
-           "wave_commit_ref"]
+           "wave_commit_ref", "geometry", "Geometry"]
+
+
+class Geometry(NamedTuple):
+    """One launch of the kernel: a 1-D grid of ``read_blocks`` read-phase
+    blocks, then ``pot_blocks`` potential-matrix blocks, ``threads`` each."""
+    vg_log: int        # log2 of the lanes an op (V to a power of two, <= 32)
+    txns: int          # txns a read block, each O x lanes-an-op adjacent lanes
+    threads: int
+    read_blocks: int
+    pot_blocks: int
+    smem: int          # dynamic shared memory bytes
+
+
+def geometry(T: int, O: int, V: int) -> Geometry:
+    """The launch for a wave of T txns of O ops over rings of V slots.  A
+    txn's L = O x Vg lanes lie in one warp where L <= 32, 32 // L txns to a
+    warp in blocks of 128 threads (its s_lo0 is then a warp reduction);
+    otherwise as many whole txns as fit 128 threads, at least one (up to
+    1,024 threads), with their seeds in shared memory.  The potential
+    blocks take the same number of threads."""
+    vg_log = 0
+    while (1 << vg_log) < min(V, 32):
+        vg_log += 1
+    L = O << vg_log
+    if L <= 32:
+        threads = interval_negotiate.THREADS
+        txns = 32 // L * (threads // 32)
+    else:
+        txns = max(1, interval_negotiate.THREADS // L)
+        threads = -(-txns * L // 32) * 32
+    if threads > 1024:
+        raise ValueError(f"wave_commit: a txn of O={O} ops over V={V} slots "
+                         f"takes {L} lanes, more than a block's 1,024")
+    pot_blocks, smem = interval_negotiate.geometry(T, O, threads)
+    if L > 32:
+        smem = max(smem, txns * O * 4)
+    return Geometry(vg_log, txns, threads, -(-T // txns), pot_blocks, smem)
 
 
 def _rings(tables, keys):
@@ -52,6 +93,7 @@ def wave_commit_cuda(cids, tids, sids, vals, max_cid, read_key, write_key,
                     ("vals", vals)):
         check_input(f"wave_commit.{name}", a, (N, V), torch.int32)
     check_input("wave_commit.rvalid", rvalid, (T, O), torch.bool)
+    g = geometry(T, O, V)
     dev = read_key.device
     outs = [torch.empty((T, O), dtype=torch.int32, device=dev)
             for _ in range(5)]
@@ -63,7 +105,7 @@ def wave_commit_cuda(cids, tids, sids, vals, max_cid, read_key, write_key,
                keys.data_ptr(), max_cid.data_ptr(),
                read_key.data_ptr(), write_key.data_ptr(), rvalid.data_ptr(),
                *(o.data_ptr() for o in outs), s_lo0.data_ptr(),
-               pot.data_ptr(), T, O, V, N, stream_of(read_key))
+               pot.data_ptr(), T, O, V, N, *g, stream_of(read_key))
     return (*outs, s_lo0, pot)
 
 

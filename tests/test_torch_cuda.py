@@ -4,7 +4,8 @@ CUDA device).
 Run on a machine with one: ``PYTHONPATH=src python -m pytest -m cuda
 tests/test_torch_cuda.py``.  Each engine kernel must equal its plain
 PyTorch version bit for bit on seeded inputs (pad keys 0 / -1 / hot,
-all-invisible rows, T not a multiple of 32), the ``cuda`` routes of the
+all-invisible rows, T not a multiple of 32, ``chip_smoke.py``'s read-phase
+corners, key sets off a 16-byte boundary), the ``cuda`` routes of the
 engine must equal the ``torch`` routes, and every launch must be counted:
 one ``commit_loop`` a wave on both CUDA routes, one ``version_scan`` a wave
 on ``cuda`` and none on ``cuda+fused``.  ``commit_loop`` must equal the
@@ -129,6 +130,56 @@ def _chip_smoke():
     finally:
         sys.path.remove(root)
     return chip_smoke
+
+
+CS = _chip_smoke()
+
+
+@pytest.mark.parametrize("pad", CS.CORNER_PADS)
+@pytest.mark.parametrize("T,O,V", CS.READ_CORNERS)
+def test_read_phase_corners_equal_plain_versions(dev, T, O, V, pad):
+    """chip_smoke.py's read-phase corners: rings whose visible CIDs tie
+    (the first slot must win), empty rings, V = 1 / 3 (lanes an op past V),
+    O = 12 (s_lo0 through shared memory), T = 1 and ragged T (the potential
+    matrix's byte stores), pad keys 0 / -1 / hot / past the last row; each
+    kernel bit-equal to its plain version, one launch a call."""
+    tabs, keys, mc, rk, wk, rv = (
+        [torch.as_tensor(a, device=dev) for a in x] if isinstance(x, tuple)
+        else torch.as_tensor(x, device=dev)
+        for x in CS.read_phase_corner(np, T, O, V, pad))
+    before = dict(LAUNCHES)
+    args = (*tabs, mc, rk, wk, rv)
+    _same(wave_commit_cuda(*args, keys=keys),
+          wave_commit_plain(*args, keys=keys))
+    _same((potential_matrix_cuda(rk, wk),), (potential_matrix_ref(rk, wk),))
+    flat = (tabs[0], tabs[1], mc.view(-1), keys.view(-1))
+    _same(version_scan_cuda(*flat), version_scan_plain(*flat))
+    torch.cuda.synchronize()
+    assert {k: LAUNCHES[k] - before[k] for k in LAUNCHES} == {
+        "version_scan": 1, "potential_matrix": 1, "wave_commit": 1,
+        "commit_loop": 0, "flash_attention": 0, "ssd_scan": 0}
+
+
+@pytest.mark.parametrize("T", [40, 256])
+def test_read_phase_kernels_take_unaligned_keys(dev, T):
+    """Key sets that start 4 bytes past a 16-byte boundary (views into a
+    larger buffer): the potential matrix stages them with 4-byte loads in
+    place of its 16-byte ones and still equals the plain version."""
+    O = 4
+    tabs, keys, mc, rk, wk, rv = CS.read_phase_corner(np, T, O, 8, -1)
+    def shifted(a):
+        buf = torch.empty(a.size + 1, dtype=torch.int32, device=dev)
+        view = buf[1:].view(a.shape)
+        view.copy_(torch.as_tensor(a, device=dev))
+        assert view.data_ptr() % 16
+        return view
+    tabs = [torch.as_tensor(a, device=dev) for a in tabs]
+    keys, mc, rk, wk = (shifted(a) for a in (keys, mc, rk, wk))
+    rv = torch.as_tensor(rv, device=dev)
+    _same((potential_matrix_cuda(rk, wk),), (potential_matrix_ref(rk, wk),))
+    args = (*tabs, mc, rk, wk, rv)
+    _same(wave_commit_cuda(*args, keys=keys),
+          wave_commit_plain(*args, keys=keys))
 
 
 @pytest.mark.parametrize("gc", ["none", "track", "block"])

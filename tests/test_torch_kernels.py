@@ -6,7 +6,9 @@ Every plain PyTorch version in ``repro_torch.kernels`` (``version_scan``,
 the same seeded numpy inputs as ``repro.kernels.ops`` — its Pallas kernels
 run in interpret mode — and ``repro.kernels.ref``, and must agree exactly:
 everything is int32.  The adversarial cases mirror ``tests/test_kernels.py``:
-NOP pad keys 0 / -1 / hot, all-invisible rows and T not a multiple of 32.
+NOP pad keys 0 / -1 / hot, all-invisible rows and T not a multiple of 32,
+plus ``chip_smoke.py``'s read-phase corners; the read-phase kernels'
+host-made launch geometry is checked here too.
 On the CPU the wrappers take the plain versions; the CUDA kernels are held
 to them on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 """
@@ -21,8 +23,13 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.core import store as tstore
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import interval_negotiate
 from repro_torch.kernels.version_scan import version_scan_plain
-from repro_torch.kernels.wave_commit import wave_commit_plain
+from repro_torch.kernels.wave_commit import (Geometry, geometry,
+                                             wave_commit_plain)
+from test_torch_commit_loop import _chip_smoke
+
+CS = _chip_smoke()
 
 
 def _t(a):
@@ -188,6 +195,90 @@ def test_wave_commit_nop_padding_no_false_edges(pad_key):
     pot = got[6].bool().numpy()
     assert not pot[nop_rows].any() and not pot[:, nop_rows].any()
     assert (got[5].numpy()[nop_rows] == 0).all()
+
+
+# ------------------------------------------------- read-phase corners
+@pytest.mark.parametrize("pad", CS.CORNER_PADS)
+@pytest.mark.parametrize("T,O,V", CS.READ_CORNERS)
+def test_read_phase_corners_vs_jax(T, O, V, pad):
+    """chip_smoke.py's read-phase corners, on which the CUDA kernels are
+    held to these plain versions on the card (tied visible CIDs, empty
+    rings, V = 1 / 3, O = 12, T = 1 and ragged T, pad
+    keys 0 / -1 / hot / past the last row): the port's plain wave_commit
+    over the store tables, potential_matrix and version_scan equal the JAX
+    package's Pallas kernels (interpret mode) on the gathered rings."""
+    tabs, keys, mc, rk, wk, rv = CS.read_phase_corner(np, T, O, V, pad)
+    kc = np.clip(keys, 0, CS.CORNER_ROWS - 1)
+    rings = [jnp.asarray(a[kc]) for a in tabs]
+    want = jops.wave_commit(*rings, *(jnp.asarray(a) for a in
+                                      (mc, rk, wk, rv)),
+                            use_pallas=True, interpret=True)
+    got = wave_commit_plain(*(_t(a) for a in tabs), _t(mc), _t(rk), _t(wk),
+                            _t(rv), keys=_t(keys))
+    names = ("slot", "r_val", "r_tid", "r_cid", "r_sid", "s_lo0",
+             "potential")
+    for name, g, w in zip(names, got, want):
+        _eq(g, w, name)
+    _eq(ops.potential_matrix(_t(rk), _t(wk)),
+        jops.potential_matrix(jnp.asarray(rk), jnp.asarray(wk),
+                              use_pallas=True, interpret=True), "potential")
+    flat = [a.reshape(-1) for a in (kc, mc)]
+    want_vs = jops.version_scan(jnp.asarray(tabs[0][flat[0]]),
+                                jnp.asarray(tabs[1][flat[0]]),
+                                jnp.asarray(flat[1]), use_pallas=True,
+                                interpret=True)
+    got_vs = version_scan_plain(_t(tabs[0]), _t(tabs[1]), _t(flat[1]),
+                                keys=_t(keys.reshape(-1)))
+    for g, w in zip(got_vs, want_vs):
+        _eq(g, w, "version_scan")
+
+
+@pytest.mark.parametrize("T,O,V", [
+    (1, 1, 1), (40, 4, 8), (130, 5, 3), (256, 4, 8), (1024, 12, 8),
+    (256, 12, 2), (64, 3, 2), (40, 1, 2), (33, 4, 64), (20, 3, 40),
+    (3000, 8, 8)])
+def test_read_phase_launch_geometry(T, O, V):
+    """The host-made launch of wave_commit and potential_matrix: lanes an
+    op are V to a power of two (at most 32); a txn's O groups lie in one
+    warp where they fit 32 lanes, else whole txns fill a block of at most
+    1,024 threads; the read blocks cover the T txns and the potential
+    blocks the T x T bytes, 16 a thread, once each; the shared memory holds
+    the writer keys of a block's columns and, past one warp, the seeds."""
+    g = geometry(T, O, V)
+    Vg, L = 1 << g.vg_log, O << g.vg_log
+    assert min(V, 32) <= Vg < 2 * min(V, 32) or Vg == 1
+    assert g.threads % 32 == 0 and 32 <= g.threads <= 1024
+    if L <= 32:
+        assert g.threads == interval_negotiate.THREADS
+        assert g.txns == 32 // L * g.threads // 32
+    else:
+        assert g.txns * L <= g.threads < g.txns * L + 32
+        assert g.txns == 1 or g.txns * L <= interval_negotiate.THREADS
+        assert g.smem >= g.txns * O * 4
+    assert (g.read_blocks - 1) * g.txns < T <= g.read_blocks * g.txns
+    span = 16 * g.threads
+    assert (g.pot_blocks - 1) * span < T * T <= g.pot_blocks * span
+    # writer keys: O of each column a block's bytes touch, 4 ints of
+    # padding after every 16 columns; reader keys: O of each row
+    rows = max((b + min(span, T * T - b) - 1) // T - b // T + 1
+               for b in range(0, T * T, span))
+    cols = min(T, span, T * T)
+    assert g.smem >= (cols * O + 4 * -(-cols // 16) + rows * O) * 4
+
+
+def test_read_phase_geometry_at_the_path_and_refusals():
+    """SmallBank's wave (T=256, O=4, V=8): 8 lanes an op, one txn a warp,
+    4 txns a block of 128, 64 read blocks beside 32 potential blocks of
+    4,096 threads in all; a txn wider than a block, keys beyond a block's
+    shared memory and an output past 32-bit indices are refused."""
+    assert geometry(256, 4, 8) == Geometry(3, 4, 128, 64, 32, 4496)
+    assert interval_negotiate.geometry(256, 4) == (32, 4496)
+    with pytest.raises(ValueError, match="1,024"):
+        geometry(8, 40, 32)
+    with pytest.raises(ValueError, match="shared memory"):
+        interval_negotiate.geometry(4096, 29)
+    with pytest.raises(ValueError, match="2\\^31"):
+        interval_negotiate.geometry(46341, 1)
 
 
 # ------------------------------------------- commit-phase scatter / gather
