@@ -14,8 +14,9 @@ Phases (any failure raises, so the process exits non-zero):
    tensor-core (HMMA / HGMMA) instructions;
 3. each engine kernel against its plain PyTorch version on the card,
    bit-equal, at the main path's shapes and on adversarial inputs
-   (the read-phase corners: tied visible CIDs, empty rings, V = 1 / 3,
-   O = 12, T = 1 and ragged T, pad keys 0 / -1 / hot / past the last row),
+   (the read-phase corners: tied visible CIDs, empty rings, V = 1 / 3 /
+   16 / 40, O = 12, T = 1 and ragged T, pad keys 0 / -1 / hot / past the
+   last row; ``version_scan`` also at ragged M),
    with CUDA-event times of both; the read-phase kernels' device ms from
    the profiler, warm (one key set) and with cold rows (a rotating pool of
    key sets over the whole store, ``scripts/read_phase_ab.py``), beside an
@@ -186,11 +187,12 @@ def max_abs_err(torch, got, want) -> int:
 
 # (T, O, V) of the read-phase corner cases: T = 1 and T not a multiple of
 # 4 (the potential matrix's byte stores on a ragged tail), O = 12 (s_lo0
-# through shared memory), V = 1 and 3 (lanes an op past V), each with the
+# through shared memory), V = 1 and 3 (lanes an op past V), V = 16 (a
+# group of 16 lanes) and V = 40 (a lane holding two slots), each with the
 # pad keys 0 / -1 / a hot row / past the last row
 READ_CORNERS = ((1, 1, 1), (40, 4, 8), (130, 5, 3), (256, 4, 8),
                 (1024, 12, 8), (256, 12, 2), (40, 1, 2), (130, 12, 1),
-                (1024, 4, 3))
+                (1024, 4, 3), (64, 2, 16), (33, 3, 40))
 CORNER_ROWS = 64
 CORNER_PADS = (0, -1, 5, CORNER_ROWS + 3)
 
@@ -258,8 +260,9 @@ def kernel_phase(torch, dev, n_keys, V, T, O):
                                  f"version: max_abs_err={err}")
         return err
 
-    # version_scan: M = T*O on the read phase, M = O on each commit step
-    for M in (T * O, O, 40):
+    # version_scan: M = T*O on the read phase, and ragged M (groups of V
+    # lanes past M stay idle in the kernel)
+    for M in (T * O, O, 40, 1, T * O + 1):
         for pad in (0, -1, hot):
             k = keys_for((M,), pad)
             mc = ri(-1, 3 * V, (M,))               # incl. all-invisible rows
@@ -293,8 +296,8 @@ def kernel_phase(torch, dev, n_keys, V, T, O):
             args = (cid, tid, sid, val, mc, rk, wk, is_r)
             check("wave_commit", wave_commit_cuda(*args, keys=k),
                   wave_commit_plain(*args, keys=k), f"T={Tw} pad={pad}")
-    # the read-phase corners: ties, empty rings, V = 1 / 3, O = 12, T = 1
-    # and ragged T, pad keys 0 / -1 / hot / past the last row
+    # the read-phase corners: ties, empty rings, V = 1 / 3 / 16 / 40,
+    # O = 12, T = 1 and ragged T, pad keys 0 / -1 / hot / past the last row
     import numpy as np
     for Tc, Oc, Vc in READ_CORNERS:
         for pad in CORNER_PADS:
@@ -324,9 +327,6 @@ def kernel_phase(torch, dev, n_keys, V, T, O):
     ms = {}
     ms["version_scan"] = (cuda_ms(torch, lambda: version_scan_cuda(*vs)),
                           cuda_ms(torch, lambda: version_scan_plain(*vs)))
-    vs_o = (cid, tid, mc[:O].contiguous(), k[:O].contiguous())
-    ms_o = (cuda_ms(torch, lambda: version_scan_cuda(*vs_o)),
-            cuda_ms(torch, lambda: version_scan_plain(*vs_o)))
     kw = k.view(T, O)
     is_r = torch.rand((T, O), generator=g, device=dev) < 0.6
     is_w = torch.rand((T, O), generator=g, device=dev) < 0.5
@@ -360,8 +360,6 @@ def kernel_phase(torch, dev, n_keys, V, T, O):
             "bound_by": b_by, "library_ms": None}
         print(f"[kernels] {name}: {k_ms:.5f} ms/call (plain {p_ms:.5f}), "
               f"bound {b_ms:.6f} ms by {b_by}", flush=True)
-    print(f"[kernels] version_scan at M={O} (one commit step): "
-          f"{ms_o[0]:.5f} ms/call (plain {ms_o[1]:.5f})", flush=True)
     return records, (cid, tid, sid, val)
 
 

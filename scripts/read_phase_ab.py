@@ -18,6 +18,10 @@ one session with an empty kernel, whose device time is the launch floor:
   outside the kernel's time), since the engine's read phase makes them
   fresh just before the launch; only the rings are cold.
 
+The kernels are called in turns, in the order named above, so
+``potential_matrix`` runs right after ``version_scan``, as on the unfused
+``cuda`` route, where both launch once a wave; their sum is printed as
+that route's read phase.
 ``measure`` is also what ``chip_smoke.py`` prints.  Each measurement runs
 once unrecorded, then ``--reps`` times; every run and the median are
 printed with the card's name and power limit.  To compare two trees copy
@@ -146,6 +150,10 @@ def main() -> int:
         for temp, ms in measure(lib, warm, cold).items():
             for name, x in ms.items():
                 runs.setdefault(f"{name} device ms, {temp}", []).append(x)
+            pair = (ms["version_scan"], ms["potential_matrix"])
+            runs.setdefault(f"unfused read phase (version_scan + "
+                            f"potential_matrix) device ms, {temp}",
+                            []).append(None if None in pair else sum(pair))
     for name, xs in runs.items():
         if None in xs:
             print(f"{name}: not measured (no profiler device time) "

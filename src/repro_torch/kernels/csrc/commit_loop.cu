@@ -57,7 +57,7 @@
 //
 // One step i, each block citing the core/commit_phase.py (or ops.py /
 // store.py) function it computes:
-//   (A) G lanes an op: scan_ring with ceiling INF (read_newest),
+//   (A) G lanes an op: ring_pick's rule with ceiling INF (read_newest),
 //       creator_slots, lost_update, rw_edge_to_creator or first-committer-
 //       wins, the dsi remote check, postsi_bounds' per-op maxima with the
 //       re-gathered SID (ops.sid_regather), the install slot head + 1 and
@@ -269,13 +269,13 @@ struct Rings {
   }
 };
 
-// read_newest's slot of one ring, G lanes a ring: scan_ring with ceiling
-// INF picks the FIRST slot with the largest m = (tid != -1 && cid <= INF)
-// ? cid : -1, slot 0 when none is visible.  Each of the G lanes takes the
-// slots v = g, g + G, ..., then the group merges (m, slot) pairs by xor
-// shuffles (larger m wins, ties the lower slot); identity (INT_MIN,
-// INT_MAX) for lanes without a slot or an active op.  Called by all 32
-// lanes.
+// read_newest's slot of one ring, G lanes a ring: ring_pick's rule
+// (common.cuh) with ceiling INF picks the FIRST slot with the largest
+// m = (tid != -1 && cid <= INF) ? cid : -1, slot 0 when none is visible.
+// Each of the G lanes takes the slots v = g, g + G, ..., then the group
+// merges (m, slot) pairs by xor shuffles (larger m wins, ties the lower
+// slot); identity (INT_MIN, INT_MAX) for lanes without a slot or an active
+// op.  Called by all 32 lanes.
 template <class Rings>
 __device__ __forceinline__ int newest_slot(const Rings& rg, bool active,
                                            int h, int V, int g, int G) {

@@ -4,6 +4,7 @@
 // must match the plain PyTorch versions in kernels/ref.py bit for bit.
 #pragma once
 
+#include <climits>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -17,34 +18,79 @@ __device__ __forceinline__ long long clip_row(int key, int n_rows) {
   return key < 0 ? 0 : (key >= n_rows ? n_rows - 1 : key);
 }
 
-// A load that kL2 sends to L2 only (ld.global.cg): the kernels that write
-// the store tables read them this way, so no L1 line can go stale.
-template <bool kL2>
-__device__ __forceinline__ int load_i32(const int* p) {
-  if constexpr (kL2) return __ldcg(p);
-  else return *p;
-}
+// What a group of lanes finds in one ring (ring_pick): the group's slot
+// and newest visible CID, and this lane's own candidate with its fields.
+template <int kN>
+struct RingPick {
+  int slot;                   // the first slot reaching best (0 if none is)
+  int best;                   // the newest visible CID, -1 where none is
+  bool mine;                  // this lane's candidate is `slot` (live only)
+  int cid, tid;               // this lane's candidate's raw cid and tid
+  int more[kN > 0 ? kN : 1];  // and its kN further fields
+};
 
-// Newest visible version in one ring of V slots (paper §IV-B read rule):
-// ok = tid != -1 && cid <= ceil; best = max(ok ? cid : -1); slot = the FIRST
-// slot attaining best (so an all-invisible ring gives slot 0, best -1).
-template <bool kL2 = false>
-__device__ __forceinline__ void scan_ring(const int* __restrict__ cid,
-                                          const int* __restrict__ tid, int V,
-                                          int ceil, int& slot, int& best) {
-  const int c0 = load_i32<kL2>(cid);
-  int b = (load_i32<kL2>(tid) != -1 && c0 <= ceil) ? c0 : -1;
-  int s = 0;
-  for (int v = 1; v < V; ++v) {
-    const int c = load_i32<kL2>(cid + v);
-    const int m = (load_i32<kL2>(tid + v) != -1 && c <= ceil) ? c : -1;
-    if (m > b) {  // strict: ties keep the first slot
-      b = m;
-      s = v;
+// Newest visible version in one ring (paper §IV-B read rule), read by a
+// group of Vg lanes: ok = tid != -1 && cid <= ceil; best = max over slots
+// of (ok ? cid : -1); slot = the FIRST slot reaching best (an all-invisible
+// ring gives slot 0, best -1).  Vg is a power of two, at most 32, and the
+// group is Vg adjacent lanes from a multiple of Vg in its warp.  Lane v of
+// it (v = lane % Vg) loads cid, tid and the kN fields more[0..kN) of slots
+// v, v + Vg, ... of the ring at element `base` and keeps its first slot
+// reaching its own maximum; slot v's loads stand outside the loop, so where
+// V <= Vg they are one round of independent loads and no loop runs.  Then
+// log2(Vg) steps of xor shuffles merge the lanes' (maximum, slot) pairs:
+// the larger maximum wins, a tie the lower slot; a lane without a slot
+// (v >= V) or of a group that is not live holds (INT_MIN, INT_MAX).  The
+// shuffles take the whole warp: every lane of it must call, live or not,
+// with the same Vg.  Two redux.sync over the group's lanes (a max, then a
+// min) would do the same, but took more device time on the H100 (PERF.md,
+// the version_scan finding).
+template <int kN>
+__device__ __forceinline__ RingPick<kN> ring_pick(
+    const int* __restrict__ cid, const int* __restrict__ tid,
+    const int* const* more, long long base, int V, int Vg, int ceil,
+    bool live) {
+  const int v = threadIdx.x & (Vg - 1);
+  RingPick<kN> p;
+  p.cid = p.tid = 0;
+#pragma unroll
+  for (int i = 0; i < kN; ++i) p.more[i] = 0;
+  int best = INT_MIN, slot = INT_MAX;
+  if (live && v < V) {
+    p.cid = cid[base + v];
+    p.tid = tid[base + v];
+#pragma unroll
+    for (int i = 0; i < kN; ++i) p.more[i] = more[i][base + v];
+    best = (p.tid != -1 && p.cid <= ceil) ? p.cid : -1;
+    slot = v;
+    for (int s = v + Vg; s < V; s += Vg) {  // only where V > Vg
+      const int c = cid[base + s], t = tid[base + s];
+      int f[kN > 0 ? kN : 1];
+#pragma unroll
+      for (int i = 0; i < kN; ++i) f[i] = more[i][base + s];
+      const int mk = (t != -1 && c <= ceil) ? c : -1;
+      if (mk > best) {  // strict: ties keep the first slot
+        best = mk;
+        slot = s;
+        p.cid = c;
+        p.tid = t;
+#pragma unroll
+        for (int i = 0; i < kN; ++i) p.more[i] = f[i];
+      }
     }
   }
-  slot = s;
-  best = b;
+  p.best = best;
+  p.slot = slot;
+  for (int o = 1; o < Vg; o <<= 1) {
+    const int ob = __shfl_xor_sync(0xffffffffu, p.best, o);
+    const int os = __shfl_xor_sync(0xffffffffu, p.slot, o);
+    if (ob > p.best || (ob == p.best && os < p.slot)) {
+      p.best = ob;
+      p.slot = os;
+    }
+  }
+  p.mine = live && slot == p.slot;
+  return p;
 }
 
 // 1 where x equals one of the reader keys r[0..3], else 0.

@@ -31,10 +31,11 @@
 //     (and v + Vg, ...) of the op's clipped row in one round: four
 //     independent loads, each field's row one 32-byte sector at V = 8.  The
 //     key, the ceiling and rvalid are loaded together before that.  So the
-//     chain is two round trips, key then ring.  Two redux.sync reductions
-//     over the group pick the newest visible slot (max of ok ? cid : -1,
-//     then the first slot attaining it), and the winning lane writes the
-//     five [T, O] outputs from its registers.
+//     chain is two round trips, key then ring.  xor shuffles over the
+//     group pick the newest visible slot (the larger ok ? cid : -1, a tie
+//     the lower slot; ring_pick in common.cuh, shared with
+//     version_scan.cu), and the winning lane writes the five [T, O]
+//     outputs from its registers.
 //   * A txn's O groups are adjacent lanes.  Where O * Vg <= 32 (SmallBank:
 //     4 x 8) a txn lies in one warp and s_lo0 is one redux.sync over its
 //     lanes; otherwise (TPC-C's O = 12 at V = 8 is 96 lanes) the seeds go
@@ -46,7 +47,7 @@
 //     gathers of one 32-byte row picked by data, and the whole call moves
 //     about 150 KB.  What the kernel uses instead is many SMs in flight on
 //     the gathers (96 blocks at the path's shape), full 32-byte sectors,
-//     16-byte stores and warp reductions.
+//     16-byte stores, warp shuffles and reductions.
 // The host computes the launch geometry (wave_commit.py: geometry) and
 // passes it in.
 #include <climits>
@@ -90,44 +91,28 @@ __global__ void wave_commit_kernel(
   }
   const int t = blockIdx.x * txns + local;
   const bool live = !idle && t < T;
-  const int o = r >> vg_log, v = r & (Vg - 1);
+  const int o = r >> vg_log;
   const long long m = (long long)t * O + o;
 
   // one round: key, ceiling, rvalid; then one round: the ring row's slots
-  int best = INT_MIN, bslot = INT_MAX, bc = 0, bt = 0, bs = 0, bv = 0,
-      valid = 0;
+  int key = 0, ceil = 0, valid = 0;
   if (live) {
-    const int key = keys[m], ceil = max_cid[m];
+    key = keys[m];
+    ceil = max_cid[m];
     valid = rvalid[m];
-    const long long base = clip_row(key, n_rows) * V;
-    for (int s = v; s < V; s += Vg) {  // once at V <= Vg
-      const int c = cid[base + s], tt = tid[base + s];
-      const int sd = sid[base + s], vl = val[base + s];
-      const int mk = (tt != -1 && c <= ceil) ? c : -1;
-      if (s == v || mk > best) {  // strict: ties keep the first slot
-        best = mk;
-        bslot = s;
-        bc = c;
-        bt = tt;
-        bs = sd;
-        bv = vl;
-      }
-    }
   }
-  // the group's newest visible CID, then the first slot attaining it
-  const unsigned gmask =
-      Vg == 32 ? 0xffffffffu : ((1u << Vg) - 1u) << (lane & ~(Vg - 1));
-  const int top = __reduce_max_sync(gmask, best);
-  const int slot = __reduce_min_sync(gmask, best == top ? bslot : INT_MAX);
-  const bool win = live && bslot == slot;
-  if (win) {
-    slot_out[m] = slot;
-    rval_out[m] = bv;
-    rtid_out[m] = bt;
-    rcid_out[m] = bc;  // RAW cid at the slot, even if -1
-    rsid_out[m] = bs;
+  const int* const more[2] = {sid, val};
+  const RingPick<2> p = ring_pick<2>(cid, tid, more,
+                                     clip_row(key, n_rows) * V, V, Vg, ceil,
+                                     live);
+  if (p.mine) {
+    slot_out[m] = p.slot;
+    rval_out[m] = p.more[1];
+    rtid_out[m] = p.tid;
+    rcid_out[m] = p.cid;  // RAW cid at the slot, even if -1
+    rsid_out[m] = p.more[0];
   }
-  const int seed = win ? (valid ? bc : 0) : INT_MIN;
+  const int seed = p.mine ? (valid ? p.cid : 0) : INT_MIN;
   if (L <= 32) {
     if (!idle) {
       const unsigned tmask =
@@ -136,7 +121,7 @@ __global__ void wave_commit_kernel(
       if (live && r == 0) slo_out[t] = s_lo;
     }
   } else {  // uniform per launch
-    if (win) smem[local * O + o] = seed;
+    if (p.mine) smem[local * O + o] = seed;
     __syncthreads();
     const int tt = blockIdx.x * txns + threadIdx.x;
     if ((int)threadIdx.x < txns && tt < T) {

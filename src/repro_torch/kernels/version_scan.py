@@ -2,9 +2,13 @@
 
 Port of ``repro.kernels.version_scan.version_scan_pallas``.  The CUDA
 kernel (``csrc/version_scan.cu``) gathers each request's ring row straight
-from the store tables by clipped key — one thread per request, V a runtime
-argument — so no ``[M, V]`` pre-gather and no 128-lane padding exist.  Its
-plain version (``version_scan_ref``) sits beside it and serves CPU tensors.
+from the store tables by clipped key, so no ``[M, V]`` pre-gather and no
+128-lane padding exist.  Each request takes a group of V lanes (V rounded
+up to a power of two, at most 32, fixed at compile time): one round of
+loads for the key and the ceiling, one for the ring's slots, and xor
+shuffles over the group pick the first slot holding the newest visible
+CID.  The C entry sizes the grid from M and V.  Its plain version
+(``version_scan_ref``) sits beside it and serves CPU tensors.
 """
 from __future__ import annotations
 

@@ -5,7 +5,8 @@ Run on a machine with one: ``PYTHONPATH=src python -m pytest -m cuda
 tests/test_torch_cuda.py``.  Each engine kernel must equal its plain
 PyTorch version bit for bit on seeded inputs (pad keys 0 / -1 / hot,
 all-invisible rows, T not a multiple of 32, ``chip_smoke.py``'s read-phase
-corners, key sets off a 16-byte boundary), the ``cuda`` routes of the
+corners, key sets off a 16-byte boundary, ``version_scan`` at ragged M and
+V from 1 to 40), the ``cuda`` routes of the
 engine must equal the ``torch`` routes, and every launch must be counted:
 one ``commit_loop`` a wave on both CUDA routes, one ``version_scan`` a wave
 on ``cuda`` and none on ``cuda+fused``.  ``commit_loop`` must equal the
@@ -140,6 +141,7 @@ CS = _chip_smoke()
 def test_read_phase_corners_equal_plain_versions(dev, T, O, V, pad):
     """chip_smoke.py's read-phase corners: rings whose visible CIDs tie
     (the first slot must win), empty rings, V = 1 / 3 (lanes an op past V),
+    V = 16 / 40 (groups of 16 and 32 lanes, two slots a lane at 40),
     O = 12 (s_lo0 through shared memory), T = 1 and ragged T (the potential
     matrix's byte stores), pad keys 0 / -1 / hot / past the last row; each
     kernel bit-equal to its plain version, one launch a call."""
@@ -158,6 +160,31 @@ def test_read_phase_corners_equal_plain_versions(dev, T, O, V, pad):
     assert {k: LAUNCHES[k] - before[k] for k in LAUNCHES} == {
         "version_scan": 1, "potential_matrix": 1, "wave_commit": 1,
         "commit_loop": 0, "flash_attention": 0, "ssd_scan": 0}
+
+
+@pytest.mark.parametrize("V", [1, 3, 8, 16, 40])
+@pytest.mark.parametrize("M", [1, 5, 1023, 1025])
+def test_version_scan_ragged_requests_and_ring_widths(dev, M, V):
+    """version_scan_cuda bit-equal to version_scan_plain where M is not a
+    multiple of the requests a warp holds (the groups past M stay in the
+    kernel for the reductions), at one-lane groups (V = 1), lanes past V
+    (V = 3), full sectors (V = 8), 16-lane groups and lanes holding two
+    slots (V = 40); CIDs tie, some rings are empty, pad keys -1 and past
+    the last row."""
+    rng = np.random.RandomState(10 * M + V)
+    n = 64
+    tid = np.where(rng.rand(n, V) < 0.3, -1, rng.randint(1, 99, (n, V)))
+    tid[::8] = -1
+    keys = rng.randint(0, n, M)
+    keys[::5] = -1
+    keys[2::7] = n + 3
+    t = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=dev)
+    args = (t(rng.randint(0, 4, (n, V))), t(tid), t(rng.randint(-1, 4, M)),
+            t(keys))
+    before = LAUNCHES["version_scan"]
+    _same(version_scan_cuda(*args), version_scan_plain(*args))
+    torch.cuda.synchronize()
+    assert LAUNCHES["version_scan"] - before == 1
 
 
 @pytest.mark.parametrize("T", [40, 256])

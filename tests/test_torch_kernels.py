@@ -203,7 +203,7 @@ def test_wave_commit_nop_padding_no_false_edges(pad_key):
 def test_read_phase_corners_vs_jax(T, O, V, pad):
     """chip_smoke.py's read-phase corners, on which the CUDA kernels are
     held to these plain versions on the card (tied visible CIDs, empty
-    rings, V = 1 / 3, O = 12, T = 1 and ragged T, pad
+    rings, V = 1 / 3 / 16 / 40, O = 12, T = 1 and ragged T, pad
     keys 0 / -1 / hot / past the last row): the port's plain wave_commit
     over the store tables, potential_matrix and version_scan equal the JAX
     package's Pallas kernels (interpret mode) on the gathered rings."""
