@@ -55,7 +55,25 @@ Phases (any failure raises, so the process exits non-zero):
 5. service: a Poisson SmallBank stream through ``TxnService`` over the same
    1,000,000 accounts, ``verify() == []``, under ``torch``, ``cuda`` and
    ``cuda+fused``; the CUDA routes' request fates, histories and final
-   stores equal the ``torch`` route's;
+   stores equal the ``torch`` route's; then the streaming plane and the
+   planner on the same store size:
+
+   * the dispatch check: ``torch.cuda.set_sync_debug_mode("error")`` is
+     shown to raise on a known blocking copy, then every block dispatch of
+     every ``cuda`` / ``cuda+fused`` streaming session below
+     (``TxnService._run_block``) runs under it, and their count is printed;
+   * ``run_streaming`` at B=1, K=1 on ``cuda`` equals the ``cuda`` step
+     loop above (fates, histories, final store); at B=4, K=2 with the
+     adaptive sizer on ``torch``, ``cuda`` and ``cuda+fused``, the CUDA
+     routes equal to ``torch``; each route's goodput, blocks, waves, wall
+     time and the sizer's final T and B;
+   * the planner: ``run_workload_planned`` (base postsi) over SmallBank
+     waves of T=256 with a hotspot (``hot_frac=0.5``, 4 hot keys a node)
+     with zero aborts, the CUDA routes equal to ``torch`` and the
+     committed values equal to ``core/seq.py``'s; a
+     ``planner="planned"`` stream with no retry and no spill; a
+     ``planner="hybrid"`` ``run_streaming`` (B=2, K=2) on YCSB at
+     theta=0.99 with 10% reads, ``cuda`` equal to ``torch``;
 6. serve: zamba2-2.7b at full width (2.42 B parameters, random weights
    from a seeded generator on the card) behind ``launch.serve.Server`` on
    the ``cuda`` route, batch 4: 3 batches (prompts of 1,024, 1,024 and
@@ -69,13 +87,14 @@ Phases (any failure raises, so the process exits non-zero):
    agree within 1e-3 * scale at every step; the bf16 distance is printed
    beside each route's own bf16-vs-float32 distance;
 7. one JSON line of per-kernel results, with the launches each kernel made
-   on its own path (phases 4-5 for the engine's, the served batches of
-   phase 6 for the model plane's; each must be > 0), the card line again,
+   on its own path (phases 4-5 for the engine's, the streamed and planned
+   runs included, the served batches of phase 6 for the model plane's;
+   each must be > 0), the card line again,
    and last ``{"ok": true, "device": {...}}``.
 
 The store, wave, stream and model sizes are fixed (the constants below);
 the flags cut only the depth: ``--waves``, ``--scheds``, ``--ticks``,
-``--serve-batches`` and ``--new-tokens``.
+``--planned-waves``, ``--serve-batches`` and ``--new-tokens``.
 
 Without a CUDA device, or in a directory that does not hold the repository,
 it exits non-zero and prints no result.
@@ -125,6 +144,7 @@ class Config(NamedTuple):
     ticks: int = 32
     serve_batches: int = 3         # of SERVE_PROMPTS
     new_tokens: int = 16
+    planned_waves: int = 4         # hot SmallBank waves the planner replays
 
 
 KERNELS = {
@@ -1370,11 +1390,13 @@ def profile_wave(torch, dev, cfg):
 # ---------------------------------------------------------------- phase 5
 def service_phase(torch, dev, cfg, routes=("torch", "cuda", "cuda+fused")):
     """The stream on each route; the first route is the reference the
-    others must equal per request, per wave and in the final store."""
+    others must equal per request, per wave and in the final store.
+    Returns each route's (fates, history, store)."""
     import numpy as np
     from repro_torch.core.workloads import poisson_arrivals
     from repro_torch.service import TxnService, smallbank_txn_gen
     ref = None
+    runs = {}
     for kernels in routes:
         rng = np.random.RandomState(cfg.seed + 1)
         arrivals = poisson_arrivals(rng, cfg.rate, cfg.ticks)
@@ -1383,28 +1405,278 @@ def service_phase(torch, dev, cfg, routes=("torch", "cuda", "cuda+fused")):
                          kernels=kernels, device=dev)
         rep = svc.run_stream(arrivals, smallbank_txn_gen(
             rng, cfg.nodes, cfg.kpn, dist_frac=0.2))
-        errs = svc.verify()
-        if errs:
-            raise AssertionError(f"service [{kernels}] history fails: "
-                                 f"{errs[:3]}")
-        if rep.committed + rep.dropped != rep.admitted:
-            raise AssertionError(f"service [{kernels}]: admitted requests "
-                                 f"did not all commit or drop")
-        fates = [(r.status, r.tids, r.s, r.c) for r in svc.requests]
+        served_ok(f"service [{kernels}]", svc, rep)
+        runs[kernels] = (fates_of(svc), svc.history, svc.store)
         if ref is None:
-            ref = (fates, svc.history, svc.store)
+            ref = runs[kernels]
         else:
-            if fates != ref[0]:
-                raise AssertionError(f"service [{kernels}]: request fates "
-                                     f"differ from the {routes[0]} route")
-            same_run(torch, np, f"service [{kernels}]", ref[1], ref[2],
-                     svc.history, svc.store)
+            same_session(torch, np, f"service [{kernels}]",
+                         f"the {routes[0]} route", ref, runs[kernels])
         print(f"[service] {kernels:10s} offered={rep.offered} "
               f"committed={rep.committed} dropped={rep.dropped} "
               f"waves={rep.waves} wall={rep.wall_s:.3f} s "
               f"goodput={rep.goodput_tps} txn/s retry_rate={rep.retry_rate}"
               f" p50={rep.latency_p50} p99={rep.latency_p99} ticks",
               flush=True)
+    return runs
+
+
+def fates_of(svc):
+    """Every request's fate: status, execution tids, interval, commit
+    tick."""
+    return [(r.status, tuple(r.tids), r.s, r.c, r.commit_tick)
+            for r in svc.requests]
+
+
+def same_session(torch, np, label, ref_label, ref, got):
+    """Raise unless two served sessions' (fates, history, store) are equal
+    per request, per wave and in the final store."""
+    if got[0] != ref[0]:
+        raise AssertionError(f"{label}: request fates differ from "
+                             f"{ref_label}")
+    same_run(torch, np, label, ref[1], ref[2], got[1], got[2])
+
+
+def served_ok(label, svc, rep):
+    """Raise unless the served history verifies and every admitted request
+    committed or dropped."""
+    errs = svc.verify()
+    if errs:
+        raise AssertionError(f"{label}: history fails: {errs[:3]}")
+    if rep.committed + rep.dropped != rep.admitted:
+        raise AssertionError(f"{label}: admitted requests did not all "
+                             f"commit or drop")
+
+
+# --------------------------------------------------------------- phase 5b
+def sync_detector_fires(torch, np, dev) -> None:
+    """Raise unless ``torch.cuda.set_sync_debug_mode("error")`` raises on a
+    known blocking copy (a pageable numpy array to the card), so that its
+    silence around a dispatch means the dispatch did not wait."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        torch.as_tensor(np.zeros(4, np.int32), device=dev)
+    except RuntimeError as exc:
+        if "synchroniz" not in str(exc):
+            raise
+        print(f"[stream] sync debug mode 'error' fires on a blocking copy: "
+              f"{str(exc).splitlines()[0]!r}", flush=True)
+        return
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    raise AssertionError("sync debug mode 'error' let a blocking copy pass")
+
+
+def check_dispatch(torch, svc, checked):
+    """Run each block dispatch of ``svc`` (``TxnService._run_block``, the
+    dispatch half of the streaming driver) under sync debug mode "error":
+    a host wait inside it raises.  ``checked[0]`` counts the dispatches."""
+    run = svc._run_block
+
+    def run_checked(waves):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = run(waves)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        checked[0] += 1
+        return out
+    svc._run_block = run_checked
+
+
+def oracle_values(waves):
+    """Final value of every key the waves touch, from ``core/seq.py`` run
+    one txn at a time in tid order (keys renumbered densely, which the
+    oracle cannot tell apart)."""
+    import numpy as np
+    from repro_torch.core import NOP, READ, RMW, WRITE
+    from repro_torch.core.seq import SeqScheduler
+    waves = [[np.asarray(f.cpu()) for f in w] for w in waves]
+    keys = np.unique(np.concatenate([w[1][w[0] != NOP] for w in waves]))
+    seq = SeqScheduler(len(keys))
+    for kinds, op_key, vals, _, _ in waves:
+        dense = np.searchsorted(keys, op_key)
+        for t in range(kinds.shape[0]):
+            tid = seq.begin()
+            for kind, k, v in zip(kinds[t].tolist(), dense[t].tolist(),
+                                  vals[t].tolist()):
+                if kind == READ:
+                    seq.read(tid, k)
+                elif kind == WRITE:
+                    seq.write(tid, k, v)
+                elif kind == RMW:
+                    seq.write(tid, k, seq.read(tid, k) + v)
+            if not seq.commit(tid):
+                raise AssertionError("the serial oracle aborted a txn")
+    return {int(key): seq.versions[i][-1].value
+            for i, key in enumerate(keys.tolist())}
+
+
+def streaming_phase(torch, dev, cfg, step_runs,
+                    routes=("torch", "cuda", "cuda+fused")):
+    """The pipelined streaming plane on phase 5's stream: B=1, K=1 on
+    ``cuda`` equals phase 5's ``cuda`` step loop; B=4, K=2 with the
+    adaptive sizer on every route, the CUDA routes equal to ``torch``.
+    Every ``cuda`` block dispatch runs under sync debug mode "error"."""
+    import numpy as np
+    from repro_torch.core.workloads import poisson_arrivals
+    from repro_torch.service import TxnService, smallbank_txn_gen
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    checked = [0]
+    if on_card:
+        sync_detector_fires(torch, np, dev)
+
+    def session(kernels, B, K, sizer=None):
+        rng = np.random.RandomState(cfg.seed + 1)
+        arrivals = poisson_arrivals(rng, cfg.rate, cfg.ticks)
+        svc = TxnService(n_keys=cfg.nodes * cfg.kpn, n_versions=cfg.V,
+                         T=cfg.service_T, sched="postsi", n_nodes=cfg.nodes,
+                         kernels=kernels, device=dev)
+        if on_card and kernels.startswith("cuda"):
+            check_dispatch(torch, svc, checked)
+        sync()
+        t0 = time.perf_counter()
+        rep = svc.run_streaming(arrivals, smallbank_txn_gen(
+            rng, cfg.nodes, cfg.kpn, dist_frac=0.2), B=B, K=K, sizer=sizer)
+        sync()
+        wall = time.perf_counter() - t0
+        label = f"streaming [{kernels} B={B} K={K}]"
+        served_ok(label, svc, rep)
+        sz = svc.stream.sizer
+        print(f"[stream] {kernels:10s} B={B} K={K} "
+              f"sizer={sizer or 'none'}: offered={rep.offered} "
+              f"committed={rep.committed} dropped={rep.dropped} "
+              f"blocks={rep.blocks} waves={rep.waves} wall={wall:.3f} s "
+              f"(report {rep.wall_s:.3f} s) goodput={rep.goodput_tps} txn/s"
+              f" retry_rate={rep.retry_rate} p50={rep.latency_p50} "
+              f"p99={rep.latency_p99} ticks"
+              + (f" final T={sz.T} B={sz.B} (+{sz.increases} "
+                 f"-{sz.decreases})" if sz else ""), flush=True)
+        return label, (fates_of(svc), svc.history, svc.store)
+
+    route = routes[1]                  # cuda on the card
+    label, run = session(route, 1, 1)
+    same_session(torch, np, label, f"the {route} step loop",
+                 step_runs[route], run)
+    print(f"[stream] {route} B=1 K=1 equals the {route} step loop of phase "
+          f"5: fates, histories, final store", flush=True)
+    ref = None
+    for kernels in routes:
+        label, run = session(kernels, 4, 2, "auto")
+        if ref is None:
+            ref = run
+        else:
+            same_session(torch, np, label, f"the {routes[0]} route", ref,
+                         run)
+    if on_card:
+        if checked[0] == 0:
+            raise AssertionError("no block dispatch was checked")
+        print(f"[stream] dispatch check: {checked[0]} block dispatches of "
+              f"the cuda routes ran under sync debug mode 'error', none "
+              f"waited on the card", flush=True)
+    return checked
+
+
+def planner_phase(torch, dev, cfg, checked,
+                  routes=("torch", "cuda", "cuda+fused")):
+    """The planner: ``run_workload_planned`` over hot SmallBank waves (zero
+    aborts, every route equal to ``torch``, the committed values the serial
+    oracle's), a ``planner="planned"`` service stream (no retry, no
+    spill) and a ``planner="hybrid"`` streaming session on skewed YCSB,
+    ``cuda`` equal to ``torch``."""
+    import numpy as np
+    from repro_torch.core import make_store, verify_si
+    from repro_torch.core.workloads import poisson_arrivals, smallbank_waves
+    from repro_torch.planner import run_workload_planned
+    from repro_torch.service import (TxnService, smallbank_txn_gen,
+                                     ycsb_txn_gen)
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    n_keys = cfg.nodes * cfg.kpn
+    waves = smallbank_waves(np.random.RandomState(cfg.seed + 3),
+                            cfg.planned_waves, cfg.T, cfg.nodes, cfg.kpn,
+                            dist_frac=0.2, hot_frac=0.5, hot_per_node=4,
+                            device=dev)
+    ref = None
+    for kernels in routes:
+        store = make_store(n_keys, cfg.V, device=dev)
+        sync()
+        t0 = time.perf_counter()
+        store, hist, stats = run_workload_planned(
+            store, waves, sched="postsi", n_nodes=cfg.nodes, kernels=kernels)
+        sync()
+        dt = time.perf_counter() - t0
+        label = f"planner [{kernels}]"
+        if stats.aborted or stats.spilled_txns:
+            raise AssertionError(f"{label}: {stats.aborted} aborts, "
+                                 f"{stats.spilled_txns} spilled")
+        if ref is None:
+            ref = (hist, store)
+            errs = verify_si(hist)
+            if errs:
+                raise AssertionError(f"{label}: history fails: {errs[:3]}")
+            want = oracle_values(waves)
+            rows = torch.tensor(sorted(want), device=dev, dtype=torch.long)
+            got = store.val[rows, store.head[rows].long()].tolist()
+            if got != [want[k] for k in sorted(want)]:
+                raise AssertionError(f"{label}: committed values differ "
+                                     f"from core/seq.py")
+        else:
+            same_run(torch, np, label, ref[0], ref[1], hist, store)
+        print(f"[planner] run_workload_planned postsi {kernels:10s}: "
+              f"{cfg.planned_waves} waves of T={cfg.T} -> "
+              f"{stats.dispatched_waves} lane waves (deepest "
+              f"{stats.max_lanes_seen} lanes), committed={stats.committed}"
+              f" aborted=0, {dt:.3f} s (planning {stats.plan_s:.3f} s)",
+              flush=True)
+    del ref
+
+    def serve(kernels, planner, gen_of, B=None):
+        rng = np.random.RandomState(cfg.seed + 4)
+        arrivals = poisson_arrivals(rng, cfg.rate, cfg.ticks)
+        svc = TxnService(n_keys=n_keys, n_versions=cfg.V, T=cfg.service_T,
+                         sched="postsi", n_nodes=cfg.nodes, kernels=kernels,
+                         planner=planner, device=dev)
+        if on_card and kernels.startswith("cuda") and B:
+            check_dispatch(torch, svc, checked)
+        sync()
+        t0 = time.perf_counter()
+        gen = gen_of(rng)
+        rep = (svc.run_streaming(arrivals, gen, B=B, K=2) if B
+               else svc.run_stream(arrivals, gen))
+        sync()
+        wall = time.perf_counter() - t0
+        label = f"planner={planner} [{kernels}{f' B={B} K=2' if B else ''}]"
+        served_ok(label, svc, rep)
+        print(f"[planner] {label}: offered={rep.offered} "
+              f"committed={rep.committed} retries={rep.retries} "
+              f"planned_waves={rep.planned_waves} lane waves="
+              f"{rep.planned_lane_waves} spilled={rep.planned_spilled} "
+              f"switches={rep.planner_switches} blocks={rep.blocks} "
+              f"waves={rep.waves} wall={wall:.3f} s goodput="
+              f"{rep.goodput_tps} txn/s", flush=True)
+        return label, svc, rep
+
+    bank = lambda rng: smallbank_txn_gen(rng, cfg.nodes, cfg.kpn,
+                                         dist_frac=0.2)
+    label, _, rep = serve(routes[1], "planned", bank)
+    if rep.retries or rep.planned_spilled or not rep.planned_waves:
+        raise AssertionError(f"{label}: {rep.retries} retries, "
+                             f"{rep.planned_spilled} spilled, "
+                             f"{rep.planned_waves} planned waves")
+    hot = lambda rng: ycsb_txn_gen(rng, cfg.nodes, cfg.kpn, theta=0.99,
+                                   read_frac=0.1)
+    ref = None
+    for kernels in routes[:2]:
+        label, svc, rep = serve(kernels, "hybrid", hot, B=2)
+        run = (fates_of(svc), svc.history, svc.store)
+        if ref is None:
+            ref = run
+        else:
+            same_session(torch, np, label, f"the {routes[0]} route", ref,
+                         run)
 
 
 def parse_config(argv=None) -> Config:
@@ -1417,6 +1689,8 @@ def parse_config(argv=None) -> Config:
                     help="'all' or a comma-separated list of schedulers")
     ap.add_argument("--ticks", type=int, default=full.ticks,
                     help="service ticks of arrivals before the drain")
+    ap.add_argument("--planned-waves", type=int, default=full.planned_waves,
+                    help="waves run_workload_planned replays")
     ap.add_argument("--serve-batches", type=int, default=full.serve_batches,
                     choices=range(1, len(SERVE_PROMPTS) + 1),
                     help="served batches, the first ones of SERVE_PROMPTS")
@@ -1425,7 +1699,8 @@ def parse_config(argv=None) -> Config:
     args = ap.parse_args(argv)
     return full._replace(waves=args.waves, scheds=args.scheds,
                          ticks=args.ticks, serve_batches=args.serve_batches,
-                         new_tokens=args.new_tokens)
+                         new_tokens=args.new_tokens,
+                         planned_waves=args.planned_waves)
 
 
 def main(argv=None) -> int:
@@ -1472,10 +1747,18 @@ def main(argv=None) -> int:
     reset_launch_counts()
     t0 = time.perf_counter()
     engine_phase(torch, dev, cfg)
-    service_phase(torch, dev, cfg)
-    engine_counts = dict(LAUNCHES)
+    step_runs = service_phase(torch, dev, cfg)
     print(f"[main path] engine + service: {time.perf_counter() - t0:.1f} s, "
-          f"kernel launches {engine_counts}", flush=True)
+          f"kernel launches {dict(LAUNCHES)}", flush=True)
+    t1 = time.perf_counter()
+    checked = streaming_phase(torch, dev, cfg, step_runs)
+    del step_runs
+    planner_phase(torch, dev, cfg, checked)
+    engine_counts = dict(LAUNCHES)
+    print(f"[main path] streaming + planner: {time.perf_counter() - t1:.1f} "
+          f"s, {checked[0]} block dispatches checked for host waits; kernel "
+          f"launches of engine, service, streaming and planner "
+          f"{engine_counts}", flush=True)
     t0 = time.perf_counter()
     serve_counts = serve_phase(torch, dev, cfg, card)
     print(f"[main path] serve: {time.perf_counter() - t0:.1f} s with its "

@@ -4,10 +4,10 @@ from repro_torch.kernels import (KernelConfig, default_backend, resolve,
                                  set_default_backend)
 from .commit_phase import (ABORTED, COMMITTED, NOP, READ, RMW, RUNNING,
                            WRITE)
-from .engine import (SCHEDULERS, RunStats, Wave, WaveOut, run_block,
-                     run_wave, run_wave_on, run_workload, run_workload_fused,
-                     stack_waves, step_block, step_wave, wave_from_numpy,
-                     wave_to_numpy)
+from .engine import (SCHEDULERS, RunStats, StagedBlock, Wave, WaveOut,
+                     run_block, run_wave, run_wave_on, run_workload,
+                     run_workload_fused, stack_waves, stage_block,
+                     step_block, step_wave, wave_from_numpy, wave_to_numpy)
 from .store import (INF, NO_TID, MVStore, PlacementArrays,
                     as_placement_arrays, bump_sid,
                     evicting_visible, install_version, make_store,
@@ -19,9 +19,10 @@ from . import workloads
 
 __all__ = [
     "NOP", "READ", "RMW", "WRITE", "RUNNING", "COMMITTED", "ABORTED",
-    "SCHEDULERS", "Wave", "WaveOut", "RunStats", "run_block", "run_wave",
-    "run_wave_on", "run_workload", "run_workload_fused", "stack_waves",
-    "step_block", "step_wave", "wave_from_numpy", "wave_to_numpy",
+    "SCHEDULERS", "Wave", "WaveOut", "RunStats", "StagedBlock", "run_block",
+    "run_wave", "run_wave_on", "run_workload", "run_workload_fused",
+    "stack_waves", "stage_block", "step_block", "step_wave",
+    "wave_from_numpy", "wave_to_numpy",
     "KernelConfig", "default_backend", "resolve", "set_default_backend",
     "INF", "NO_TID", "MVStore", "PlacementArrays", "as_placement_arrays",
     "bump_sid", "evicting_visible", "install_version",

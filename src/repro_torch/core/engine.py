@@ -18,8 +18,12 @@ it as one ``lax.fori_loop``.  On the ``torch`` route it is
 ``_commit_loop_plain``, a Python loop of T steps of small tensor ops
 (about 170 launches a step for postsi on the card), which holds the only
 Python copy of the rules and is the oracle the kernel is held to.  Both
-are branch-free on device values: no ``.item()``, no ``bool(tensor)``, so
-the host never waits on the device inside a wave.
+are branch-free on device values: no ``.item()``, no ``bool(tensor)``.
+Their scalars (wave index, clock, watermark) are device tensors or fills on
+the device, and host arrays reach the card through page-locked memory and
+asynchronous copies (``stage_block``, ``_h2d``), so on a CUDA device the
+host never waits on it while it dispatches a wave or a block: it waits
+only where a driver reads the outcomes back.
 
 Unlike the JAX engine, the store is updated IN PLACE: ``run_wave`` and
 every driver below mutate the store they are given (clone it first to
@@ -35,7 +39,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels import KernelConfig, resolve
+from repro_torch.kernels import KernelConfig, resolve, resolve_device
 from .commit_phase import (ABORTED, COMMITTED, NOP, READ, RMW, RUNNING,
                            WRITE, creator_slots, lost_update,
                            ongoing_readers_of, postsi_bounds, push_bounds,
@@ -71,19 +75,37 @@ class WaveOut(NamedTuple):
     evicted_visible: torch.Tensor  # ring reuses of still-visible versions
 
 
-def _i32(x, device) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=torch.int32, device=device)
+def _scalar(x, device) -> torch.Tensor:
+    """An int32 scalar on ``device``: a tensor as it is (cast and moved if
+    need be), a Python or numpy int by a fill on the device.  Never a copy
+    from pageable host memory: on a CUDA device that copy synchronizes the
+    stream, so the host would wait for all work queued before it."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.int32)
+    return torch.full((), int(x), dtype=torch.int32, device=device)
+
+
+def _h2d(a, device) -> torch.Tensor:
+    """An int32 copy of the host array-like ``a`` on ``device``.  On a
+    CUDA device it goes through page-locked memory and an asynchronous
+    copy, so the host does not wait (PyTorch's page-locked allocator keeps
+    the buffer until the copy is done).  A tensor already on the device's
+    kind is only cast (and moved, where need be)."""
+    if isinstance(a, torch.Tensor):
+        if a.device.type == device.type:
+            return a.to(device=device, dtype=torch.int32)
+        a = a.cpu()
+    t = torch.tensor(np.asarray(a), dtype=torch.int32)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def wave_from_numpy(wave, device=None) -> Wave:
     """A ``Wave`` of int32 tensors on ``device`` from any wave whose leaves
     are array-likes (numpy, the JAX package's waves, tensors)."""
-    from repro_torch.kernels import resolve_device
     dev = resolve_device(device)
-    return Wave(*(leaf.to(device=dev, dtype=torch.int32)
-                  if isinstance(leaf, torch.Tensor)
-                  else _i32(np.array(leaf, np.int32), dev)
-                  for leaf in wave))
+    return Wave(*(_h2d(leaf, dev) for leaf in wave))
 
 
 def wave_to_numpy(wave) -> Wave:
@@ -128,9 +150,9 @@ def wave_read_phase(sub, store: MVStore, wave: Wave, wave_idx, clock, *,
     commit loop's inputs.  Reads the store only."""
     dev = store.device
     T, O = wave.op_kind.shape
-    wave_idx = _i32(wave_idx, dev)
-    clock = _i32(clock, dev)
-    wm = clock if watermark is None else _i32(watermark, dev)
+    wave_idx = _scalar(wave_idx, dev)
+    clock = _scalar(clock, dev)
+    wm = clock if watermark is None else _scalar(watermark, dev)
     kind, keys, host = wave.op_kind, wave.op_key, wave.host
     is_read, is_write = _op_masks(kind)
     if placement is None:
@@ -322,7 +344,8 @@ def run_wave_on(sub, store: MVStore, wave: Wave, wave_idx, clock,
             msgs_cross = msgs_cross + count(read_touch.any(dim=1)
                                             & remote_mask)
     elif sched == "si":
-        msgs_coord = _i32(2 * T, dev)                  # begin + end, per txn
+        msgs_coord = torch.full((), 2 * T, dtype=torch.int32,
+                                device=dev)            # begin + end, per txn
     elif sched == "dsi":
         msgs_coord = 2 * count(remote_op.any(dim=1))   # global txns pay
 
@@ -345,7 +368,7 @@ def _prepare(store: MVStore, kernels, host_skew, placement):
     """Resolve the substrate and move the wave-independent inputs onto the
     store's device."""
     dev = store.device
-    hs = None if host_skew is None else _i32(np.array(host_skew), dev)
+    hs = None if host_skew is None else _h2d(host_skew, dev)
     return (LocalSubstrate(kernels, dev), hs,
             as_placement_arrays(placement, dev))
 
@@ -447,14 +470,87 @@ def stack_waves(waves, device=None) -> Wave:
                   for f in Wave._fields))
 
 
-def _run_stacked(sub, store, stacked: Wave, wave_idx0, clock, **kw):
-    """Run the [B] waves of ``stacked`` back to back on the device (no host
+class StagedBlock(NamedTuple):
+    """A block of B waves on the store's device, put there without a host
+    wait (``stage_block``)."""
+    wave: Wave                     # [B, T, O] / [B, T] int32 fields
+    wave_idx: torch.Tensor         # [B] int32 wave index of each wave
+    watermark: torch.Tensor | None  # int32 scalar, None: each entry clock
+    host: torch.Tensor | None      # the page-locked buffer copied from
+
+
+_BLOCK_FIELDS = len(Wave._fields)
+
+
+def _pad4(n: int) -> int:
+    return -(-n // 4) * 4          # ints: every field starts 16-byte aligned
+
+
+def stage_block(waves, wave_idx0: int, watermark=None,
+                device=None) -> StagedBlock:
+    """Put a block of B waves, their wave indices ``wave_idx0 ... +B-1``
+    and the GC ``watermark`` (an int, or ``None``) on ``device``.
+
+    ``waves`` is a list of B waves or one wave whose leaves carry a leading
+    [B] axis.  Tensors on the device are stacked there.  Host
+    arrays are written straight into one int32 buffer, the stacking
+    included, and the buffer crosses to the device in one copy: on a CUDA
+    device the buffer is page-locked and the copy asynchronous, so the host
+    does not wait for the work queued before it.  The caller keeps the
+    returned block, whose ``host`` is that buffer, until the block's
+    outcomes are read.  On the CPU the buffer is the block itself."""
+    dev = resolve_device(device)
+    stacked = not isinstance(waves, list)
+    first = waves if stacked else waves[0]
+    if (isinstance(first[0], torch.Tensor)
+            and first[0].device.type == dev.type):
+        fields = (waves if stacked
+                  else [torch.stack(f) for f in zip(*waves)])
+        wave = Wave(*(f.to(device=dev, dtype=torch.int32) for f in fields))
+        B = wave.op_kind.shape[0]
+        wm = None if watermark is None else _scalar(watermark, dev)
+        return StagedBlock(wave, torch.arange(
+            wave_idx0, wave_idx0 + B, dtype=torch.int32, device=dev), wm,
+            None)
+    as_np = lambda a: np.asarray(a.cpu() if isinstance(a, torch.Tensor)
+                                 else a)
+    if stacked:
+        fields = [[as_np(f)] for f in waves]
+        B = fields[0][0].shape[0]
+    else:
+        fields = [[as_np(f)[None] for f in col] for col in zip(*waves)]
+        B = len(waves)
+    shapes = [(B, *col[0].shape[1:]) for col in fields] + [(B,), ()]
+    sizes = [int(np.prod(sh)) for sh in shapes]
+    offs = np.cumsum([0] + [_pad4(n) for n in sizes]).tolist()
+    host = torch.empty(offs[-1], dtype=torch.int32,
+                       pin_memory=dev.type == "cuda")
+    h = host.numpy()
+
+    def view(buf, k):
+        return buf[offs[k]:offs[k] + sizes[k]].reshape(shapes[k])
+
+    for k, col in enumerate(fields):
+        np.concatenate(col, out=view(h, k), casting="unsafe")
+    h[offs[_BLOCK_FIELDS]:offs[_BLOCK_FIELDS] + B] = np.arange(
+        wave_idx0, wave_idx0 + B)
+    h[offs[_BLOCK_FIELDS + 1]] = 0 if watermark is None else int(watermark)
+    buf = host.to(dev, non_blocking=True) if dev.type == "cuda" else host
+    return StagedBlock(
+        Wave(*(view(buf, k) for k in range(_BLOCK_FIELDS))),
+        view(buf, _BLOCK_FIELDS),
+        None if watermark is None else view(buf, _BLOCK_FIELDS + 1),
+        host if dev.type == "cuda" else None)
+
+
+def _run_stacked(sub, store, blk: StagedBlock, clock, **kw):
+    """Run the [B] waves of ``blk`` back to back on the device (no host
     sync); returns (store, WaveOut with a leading [B] axis, clock')."""
     outs = []
-    for b in range(stacked.op_kind.shape[0]):
+    for b in range(blk.wave.op_kind.shape[0]):
         store, out, clock = run_wave_on(
-            sub, store, Wave(*(f[b] for f in stacked)), wave_idx0 + b,
-            clock, **kw)
+            sub, store, Wave(*(f[b] for f in blk.wave)), blk.wave_idx[b],
+            clock, watermark=blk.watermark, **kw)
         outs.append(out)
     return store, WaveOut(*(torch.stack(f) for f in zip(*outs))), clock
 
@@ -467,33 +563,46 @@ def run_workload_fused(store: MVStore, waves, sched: str = "postsi",
     """Fused driver: the whole workload with no host sync between waves
     and one copy of the stacked outcomes at the end.  Same (store, history,
     stats) contract as ``run_workload``, bit-identical history."""
-    stacked = stack_waves(waves, store.device)
+    blk = stage_block(list(waves), 1, None, store.device)
     sub, hs, pl = _prepare(store, kernels, host_skew, placement)
     store, outs, _ = _run_stacked(
-        sub, store, stacked, 1, 1, n_nodes=n_nodes, sched=sched,
-        host_skew=hs, gc_track=gc_track, gc_block=gc_block, placement=pl)
+        sub, store, blk, _scalar(1, store.device), n_nodes=n_nodes,
+        sched=sched, host_skew=hs, gc_track=gc_track, gc_block=gc_block,
+        placement=pl)
     outs = _out_to_numpy(outs)
-    tids = stacked.tid.cpu().numpy()
+    tids = blk.wave.tid.cpu().numpy()
     history = [(tids[i], WaveOut(*(f[i] for f in outs)))
                for i in range(len(waves))]
     return store, history, _stats_of(history)
 
 
-def run_block(store: MVStore, stacked: Wave, wave_idx0: int, clock,
+def run_block(store: MVStore, stacked, wave_idx0, clock,
               *, sched: str = "postsi", n_nodes: int = 8, host_skew=None,
               watermark=None, gc_track: bool = True, gc_block: bool = False,
               kernels: KernelConfig | str | None = None, placement=None):
-    """Run a block of B formed waves (``stacked`` has a leading [B] axis,
-    from ``stack_waves``) back to back, in place, and return
+    """Run a block of B formed waves back to back, in place, and return
     device-resident results ``(store, outs, clock')`` — ``outs`` is a
-    ``WaveOut`` whose every leaf carries the [B] axis.  Nothing here waits
-    on the device.  ``watermark`` (or ``None`` for the per-wave entry
-    clock) applies to every wave of the block."""
+    ``WaveOut`` whose every leaf carries the [B] axis.
+
+    ``stacked`` is a ``StagedBlock`` (``stage_block``), which carries its
+    own wave indices and watermark (``wave_idx0`` and ``watermark`` are
+    then ``None``), or anything ``stage_block`` takes, staged here with
+    ``wave_idx0`` and ``watermark`` (``None``: each wave's entry clock,
+    else one watermark for every wave of the block).  On a CUDA device
+    nothing here waits on the device: the host arrays cross through
+    page-locked memory and ``clock`` may be an int or a device scalar; a
+    caller that passes host arrays keeps nothing alive, a caller that
+    passes a ``StagedBlock`` keeps it until it reads ``outs``."""
+    if isinstance(stacked, StagedBlock):
+        if wave_idx0 is not None or watermark is not None:
+            raise ValueError("run_block: a StagedBlock carries its own "
+                             "wave indices and watermark")
+        blk = stacked
+    else:
+        blk = stage_block(stacked, wave_idx0, watermark, store.device)
     sub, hs, pl = _prepare(store, kernels, host_skew, placement)
-    return _run_stacked(sub, store, wave_from_numpy(stacked, store.device),
-                        wave_idx0, clock,
-                        n_nodes=n_nodes, sched=sched,
-                        host_skew=hs, watermark=watermark,
+    return _run_stacked(sub, store, blk, _scalar(clock, store.device),
+                        n_nodes=n_nodes, sched=sched, host_skew=hs,
                         gc_track=gc_track, gc_block=gc_block, placement=pl)
 
 

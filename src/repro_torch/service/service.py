@@ -17,11 +17,16 @@ The full history (aborted attempts included) is kept as ``(tids,
 WaveOut)`` with numpy leaves, so ``verify()`` runs the verifiers of
 ``core.verify`` on served traffic.
 
+Besides the step loop it serves the same stream through the pipelined
+streaming plane (``run_streaming``: blocks of B waves, K blocks in flight,
+``stream.StreamingDriver``) and, with ``planner=``, through the planner's
+conflict-free lanes (``repro_torch.planner``: ``"planned"`` plans every
+wave, ``"hybrid"`` switches on the trailing abort rate).
+
 This slice serves from one device.  The mesh, placement, replica,
-balancer, durability, fault-injection and planner planes and the pipelined
-streaming driver are not ported yet: their arguments must be ``None`` and
-anything else raises ``NotImplementedError`` naming the ROADMAP item that
-brings it.
+balancer, durability and fault-injection planes are not ported yet: their
+arguments must be ``None`` and anything else raises
+``NotImplementedError`` naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -33,13 +38,14 @@ from typing import Callable, Dict, Iterable, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.commit_phase import COMMITTED
-from repro_torch.core.engine import step_wave
+from repro_torch.core.commit_phase import ABORTED, COMMITTED
+from repro_torch.core.engine import run_block, stage_block, step_wave
 from repro_torch.core.store import make_store
 from repro_torch.core.verify import final_values_ok, verify_cv, verify_si
 from repro_torch.core.workloads import (SMALLBANK_O, rmw_hot_txn,
                                         smallbank_txn, ycsb_txn)
 from repro_torch.kernels import resolve, resolve_device
+from repro_torch.planner import HybridSwitch
 
 from .former import TxnRequest, WaveFormer
 from .gc import VisibilityGC
@@ -55,7 +61,6 @@ _NOT_YET = {
     "balancer": "Elastic placement",
     "durability": "Checkpoint store + durability + fault injection",
     "faults": "Checkpoint store + durability + fault injection",
-    "planner": "Planner",
 }
 
 
@@ -86,11 +91,13 @@ class ServiceReport:
     latency_p99: float
     evicted_visible: int   # GC watermark violations observed
     gc: Dict[str, int]
-    blocks: int = 0
-    planned_waves: int = 0
-    planned_lane_waves: int = 0
-    planned_spilled: int = 0
-    planner_switches: int = 0
+    # streaming plane: 0 under the per-wave step loop
+    blocks: int = 0        # block dispatches (>= waves / B)
+    # planner plane: all 0 without a planner
+    planned_waves: int = 0       # waves served through conflict-free lanes
+    planned_lane_waves: int = 0  # lane + spill waves they expanded to
+    planned_spilled: int = 0     # txns spilled past the lane budget
+    planner_switches: int = 0    # hybrid mode flips (either direction)
     replica_commits: int = 0
     replica_refreshes: int = 0
     placement_moves: int = 0
@@ -124,7 +131,7 @@ class TxnService:
                  fold_rmw: bool = False, fold_max: int = 256, device=None):
         given = dict(mesh=mesh, placement=placement, replicas=replicas,
                      replica_refresh=replica_refresh, balancer=balancer,
-                     durability=durability, faults=faults, planner=planner)
+                     durability=durability, faults=faults)
         for name, value in given.items():
             if value is not None:
                 raise NotImplementedError(
@@ -147,6 +154,7 @@ class TxnService:
         self.rng = np.random.RandomState(seed)       # backoff jitter only
         self.tick = 0
         self.wave_idx = 0
+        self.blocks = 0                              # streaming plane only
         self.history: List = []                      # (tids, WaveOut) numpy
         self.requests: List[TxnRequest] = []         # every offered request
         self.committed = 0
@@ -157,6 +165,17 @@ class TxnService:
         self.latencies: List[int] = []
         self._req_ids = itertools.count(1)
         self._wall_s = 0.0
+        self.stream = None                   # StreamingDriver, when serving
+        self._last_dispatch = (0, None)      # (wave_idx0, wm) of last block
+        # planner plane: ``None`` — always optimistic; ``"hybrid"`` — switch
+        # to planned lanes when the trailing abort rate crosses the AIMD
+        # ceiling and back when contention drops; ``"planned"`` — plan every
+        # wave; or a configured HybridSwitch
+        self.planner = (HybridSwitch.from_name(planner)
+                        if isinstance(planner, str) else planner)
+        self.planned_waves = 0        # waves served through the planner
+        self.planned_lane_waves = 0   # lane + spill waves they expanded to
+        self.planned_spilled = 0      # txns spilled past the lane budget
 
     # ------------------------------------------------------------ intake
     def _tstat(self, tenant: int) -> Dict:
@@ -191,16 +210,57 @@ class TxnService:
             self.idle_ticks += 1
             return None
         wave, slots = formed
+        if self.planner is not None and self.planner.planned:
+            out = self._step_planned(wave, slots)
+            self._wall_s += time.perf_counter() - t0
+            return out
         self.wave_idx += 1
         self.store, out, self.clock = step_wave(
             self.store, wave, self.wave_idx, self.clock, sched=self.sched,
             n_nodes=self.n_nodes, host_skew=self.host_skew,
-            watermark=self.gc.watermark(), gc_block=self.gc.block,
+            watermark=self._watermark(), gc_block=self.gc.block,
             kernels=self.kernels)
         self.gc.observe(out, int(self.clock))
         self.history.append((np.asarray(wave.tid), out))
         self._route(out, slots)
+        if self.planner is not None:
+            self.planner.observe_optimistic(
+                len(slots), int((out.status[:len(slots)] == ABORTED).sum()))
         self._wall_s += time.perf_counter() - t0
+        return out
+
+    def _step_planned(self, wave, slots):
+        """Planned-mode tick half: plan the formed wave into conflict-free
+        lanes and execute them as ONE pow2 wave block, then route the
+        merged per-row outcomes exactly like an optimistic wave.  Lane rows
+        commit abort-free; only spilled rows can re-enter the retry
+        calendar."""
+        from repro_torch.planner.sched import run_wave_planned
+        self.store, self.clock, pw = run_wave_planned(
+            self.store, wave, self.clock, wave_idx0=self.wave_idx + 1,
+            next_tid=self.former.next_tid, sched=self.sched,
+            n_nodes=self.n_nodes, kernels=self.kernels,
+            watermark=self._watermark(), host_skew=self.host_skew,
+            gc_block=self.gc.block, max_lanes=self.planner.max_lanes)
+        # the planner relabeled every row with fresh contiguous tids (lane
+        # waves need their own [tid0, tid0+T) ranges); advance the former's
+        # counter past them and point each request at the tid it ran under,
+        # so history rows, requests and store versions all agree
+        self.wave_idx += pw.waves_consumed
+        self.former.next_tid += pw.tids_consumed
+        out = pw.merged
+        self.gc.observe(out, int(self.clock))
+        self.history.append((pw.exec_tid, out))
+        self.planned_waves += 1
+        self.planned_lane_waves += pw.lane_waves + pw.spill_waves
+        self.planned_spilled += pw.plan.n_spilled
+        for i, req in enumerate(slots):
+            for r in (req, *req.folded):
+                r.tid = int(pw.exec_tid[i])
+                r.tids[-1] = r.tid
+        self._route(out, slots)
+        self.planner.observe_planned(
+            len(slots), pw.plan.conflicted + pw.plan.n_spilled)
         return out
 
     def _route(self, out, slots):
@@ -232,6 +292,34 @@ class TxnService:
                         self.retries += 1
                         self._tstat(r.tenant)["retries"] += 1
                         self.former.requeue(r, self.tick + delay)
+
+    def _watermark(self):
+        """The GC watermark for the next dispatch: the tracker's min over
+        pins, or ``None`` for the engine's wave-boundary collapse.  Under
+        pipelined streaming the tracker's clock is the clock of the
+        *retired* prefix, which can only under-estimate the true floor — a
+        lower watermark is conservative, never unsafe."""
+        return self.gc.watermark()
+
+    def _run_block(self, waves):
+        """Dispatch B formed waves as one block WITHOUT waiting on the
+        device (the streaming driver's dispatch half): the waves, their
+        wave indices and the watermark are staged in one page-locked
+        buffer (``engine.stage_block``) and the store and clock advance on
+        the device; outcomes are read only when the driver retires the
+        block.  Returns ``(outs, clock, staged)``, the staged block to be
+        kept until then; ``_last_dispatch`` records the (wave_idx0,
+        watermark) this dispatch consumed."""
+        wave_idx0 = self.wave_idx + 1
+        self.wave_idx += len(waves)
+        wm = self._watermark()
+        self._last_dispatch = (wave_idx0, wm)
+        staged = stage_block(waves, wave_idx0, wm, self.device)
+        self.store, outs, self.clock = run_block(
+            self.store, staged, None, self.clock, sched=self.sched,
+            n_nodes=self.n_nodes, host_skew=self.host_skew,
+            gc_block=self.gc.block, kernels=self.kernels)
+        return outs, self.clock, staged
 
     def drain(self, max_ticks: Optional[int] = None) -> int:
         """Run ticks until no request is pending (or the safety cap).
@@ -272,11 +360,35 @@ class TxnService:
             self.drain()
         return self.report()
 
-    def run_streaming(self, *args, **kwargs):
-        raise NotImplementedError(
-            "TxnService.run_streaming (the pipelined StreamingDriver) is not "
-            "ported yet: see ROADMAP.md queue 1, item 'Streaming service "
-            "plane'")
+    def run_streaming(self, arrivals: Iterable, txn_gen: Callable,
+                      B: int = 4, K: int = 2, sizer=None,
+                      drain: bool = True):
+        """Serve the same open stream through the pipelined streaming
+        plane: waves are batched into blocks of ``B`` and dispatched as one
+        block each (``engine.run_block``), with up to ``K`` dispatched
+        blocks in flight — the host forms the next block(s) while the
+        device runs, and a block's outcomes are synced (and its aborts
+        routed to retry) only when it retires.
+
+        ``B=1, K=1`` degenerates to the synchronous ``run_stream`` loop and
+        is bit-identical to it.  ``sizer`` — a
+        ``stream.AdaptiveWaveSizer`` (or ``"auto"``) — regulates the wave
+        size T (and optionally B) from the trailing abort rate.  Returns
+        the end-of-run ``ServiceReport``."""
+        from .stream import AdaptiveWaveSizer, StreamingDriver
+        if sizer == "auto":
+            sizer = AdaptiveWaveSizer(T0=self.T, B0=B,
+                                      t_min=min(8, self.T), adapt_B=True)
+        driver = StreamingDriver(self, B=B, K=K, sizer=sizer)
+        self.stream = driver                 # expose pipeline state/stats
+        for n_arr in arrivals:
+            self._submit_tick(n_arr, txn_gen)
+            driver.tick()
+        if drain:
+            driver.drain()
+        else:
+            driver.flush()
+        return self.report()
 
     # ------------------------------------------------------------ output
     def report(self) -> ServiceReport:
@@ -302,6 +414,12 @@ class TxnService:
             latency_p99=_pct(self.latencies, 99),
             evicted_visible=self.gc.evicted_visible,
             gc=self.gc.report(),
+            blocks=self.blocks,
+            planned_waves=self.planned_waves,
+            planned_lane_waves=self.planned_lane_waves,
+            planned_spilled=self.planned_spilled,
+            planner_switches=(self.planner.switches
+                              if self.planner is not None else 0),
             tenants=self._tenant_report(),
             fold_groups=self.former.fold_groups,
             folded_requests=self.former.folded_requests,

@@ -20,7 +20,13 @@ bf16 output: one bf16 rounding), also at 128-row attention q tiles, in the
 model's strided layout, at N=128 and with slow decay (where every block of
 the scan carries weight), the bf16 outputs also against the plain versions
 in float32 on the same inputs, and reduced zamba2 behind ``Server`` on the
-``cuda`` route must serve what the ``torch`` route serves.
+``cuda`` route must serve what the ``torch`` route serves.  The block
+dispatch (``run_block`` on a staged or a host block) must run under
+``torch.cuda.set_sync_debug_mode("error")``, which must raise on a known
+blocking copy; a block's page-locked staging must stay alive, unchanged,
+until the block retires; ``run_streaming`` (B=4, K=2, with and without the
+hybrid planner) and ``run_workload_planned`` on ``cuda`` and
+``cuda+fused`` must equal ``torch``.
 """
 import numpy as np
 import pytest
@@ -35,6 +41,7 @@ from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_plain)
 from repro_torch.kernels.ssd_scan import ssd_cuda, ssd_plain
 from repro_torch.launch.serve import Server
+import repro_torch.service as ts
 from repro_torch.models.model import build
 from repro_torch.kernels.interval_negotiate import (potential_matrix_cuda,
                                                     potential_matrix_ref)
@@ -433,3 +440,127 @@ def test_server_cuda_route_serves_what_torch_serves(dev):
     for a, b in zip(c_out, t_out):
         assert a["weight_version"] == b["weight_version"]
         np.testing.assert_array_equal(a["generated"], b["generated"])
+
+
+# ------------------------------------------ streaming plane and planner
+def _host_block(n_waves, T=16, seed=3):
+    waves = tw.ycsb_waves(np.random.RandomState(seed), n_waves, T, 4, 40,
+                          theta=0.9, read_frac=0.3, device="cpu")
+    return [tc.wave_to_numpy(w) for w in waves]
+
+
+@pytest.mark.parametrize("route", ["cuda", "cuda+fused"])
+@pytest.mark.parametrize("sched", ["postsi", "clocksi", "si"])
+def test_run_block_dispatches_without_host_waits(dev, route, sched):
+    """The dispatch half of a block (staging, copies, every wave's read
+    phase, commit loop and statistics) runs under sync debug mode "error";
+    the same mode raises on a known blocking copy."""
+    hs = np.array([0, 1, 0, 2], np.int32) if sched == "clocksi" else None
+    store = tc.make_store(160, 4, device=dev)
+    clock = torch.ones((), dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with pytest.raises(RuntimeError, match="synchroniz"):
+            torch.as_tensor(np.zeros(4, np.int32), device=dev)
+        for wm in (None, 1):
+            blk = tc.stage_block(_host_block(4), 1, wm, device=dev)
+            store, outs, clock = tc.run_block(
+                store, blk, None, clock, sched=sched, n_nodes=4,
+                host_skew=hs, kernels=route)
+            store, outs, clock = tc.run_block(
+                store, tc.Wave(*(np.stack(f) for f in zip(*_host_block(
+                    2, seed=4)))), 5, clock, sched=sched, n_nodes=4,
+                host_skew=hs, watermark=wm, kernels=route)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert blk.host.is_pinned()
+    assert outs.status.shape == (2, 16)
+
+
+def _stream(route, dev, B=4, K=2, planner=None, seed=2):
+    svc = ts.TxnService(160, T=16, n_nodes=4, kernels=route, device=dev,
+                        planner=planner)
+    gen = ts.ycsb_txn_gen(np.random.RandomState(seed), 4, 40, theta=0.99,
+                          read_frac=0.2)
+    rep = svc.run_streaming([12] * 12, gen, B=B, K=K, sizer="auto")
+    fates = [(r.status, tuple(r.tids), r.s, r.c) for r in svc.requests]
+    return svc, rep, fates
+
+
+@pytest.mark.parametrize("planner", [None, "hybrid"])
+def test_streaming_cuda_routes_equal_torch(dev, planner):
+    ref_svc, ref_rep, ref_fates = _stream("torch", dev, planner=planner)
+    assert ref_svc.verify() == [] and ref_rep.blocks > 0
+    for route in ("cuda", "cuda+fused"):
+        before = LAUNCHES["commit_loop"]
+        svc, rep, fates = _stream(route, dev, planner=planner)
+        assert LAUNCHES["commit_loop"] - before >= rep.blocks
+        assert fates == ref_fates, route
+        assert rep.blocks == ref_rep.blocks
+        for (ta, oa), (tb, ob) in zip(svc.history, ref_svc.history):
+            np.testing.assert_array_equal(ta, tb)
+            for x, y in zip(oa, ob):
+                np.testing.assert_array_equal(x, y)
+        for a, b in zip(svc.store, ref_svc.store):
+            assert torch.equal(a, b), route
+
+
+def test_planned_replay_cuda_routes_equal_torch(dev):
+    from repro_torch.planner import run_workload_planned
+    waves = tw.smallbank_waves(np.random.RandomState(5), 2, 64, 4, 16,
+                               hot_frac=0.6, hot_per_node=2, device=dev)
+    runs = {}
+    for route in ("torch", "cuda", "cuda+fused"):
+        st, hist, stats = run_workload_planned(
+            tc.make_store(64, 8, device=dev), waves, n_nodes=4,
+            kernels=route)
+        assert stats.aborted == 0 and stats.max_lanes_seen > 1
+        runs[route] = (tc.store_to_numpy(st), hist, stats._replace(
+            plan_s=0.0))
+    ref_store, ref_hist, ref_stats = runs["torch"]
+    for route, (st, hist, stats) in runs.items():
+        assert stats == ref_stats, route
+        for f in st:
+            np.testing.assert_array_equal(st[f], ref_store[f])
+        for (_, a), (_, b) in zip(hist, ref_hist):
+            for x, y in zip(a, b):
+                np.testing.assert_array_equal(x, y)
+
+
+def test_staging_stays_alive_until_retire(dev):
+    """Each in-flight block keeps its page-locked staging until it retires:
+    the same buffer, pinned, with the same contents, after the K-1 further
+    dispatches that retire it."""
+    K = 3
+    svc = ts.TxnService(160, T=16, n_nodes=4, kernels="cuda", device=dev)
+    drv = ts.StreamingDriver(svc, B=2, K=K)
+    svc.stream = drv
+    seen, dispatched, retired = {}, [0], []
+    run = svc._run_block
+
+    def run_block(waves):
+        outs, clock, staged = run(waves)
+        dispatched[0] += 1
+        seen[id(staged)] = (staged.host.data_ptr(), dispatched[0],
+                            staged.host.numpy().copy())
+        return outs, clock, staged
+    svc._run_block = run_block
+    retire = drv._retire_one
+
+    def retire_one():
+        host = drv._inflight[0].staged.host
+        ptr, at, content = seen[id(drv._inflight[0].staged)]
+        assert host.is_pinned() and host.data_ptr() == ptr
+        np.testing.assert_array_equal(host.numpy(), content)
+        retired.append(dispatched[0] - at)
+        retire()
+    drv._retire_one = retire_one
+    gen = ts.ycsb_txn_gen(np.random.RandomState(0), 4, 40, theta=0.5)
+    for _ in range(10):
+        for _ in range(40):
+            svc.submit(*gen())
+        drv.tick()
+    drv.drain()
+    assert svc.verify() == []
+    assert max(retired) == K - 1 and len(retired) == svc.blocks
