@@ -74,6 +74,35 @@ Phases (any failure raises, so the process exits non-zero):
      ``planner="planned"`` stream with no retry and no spill; a
      ``planner="hybrid"`` ``run_streaming`` (B=2, K=2) on YCSB at
      theta=0.99 with 10% reads, ``cuda`` equal to ``torch``;
+
+   5c. durability, on the same stream, each durable directory a fresh
+   temporary one:
+
+   * durable serving: ``run_streaming`` B=4, K=2 (``sizer="auto"``) on
+     ``cuda`` with ``DurabilityManager(fsync_every=1, snapshot_every=4)``
+     equals the non-durable ``cuda`` session of phase 5 (fates,
+     histories, final store); its block dispatches run under sync debug
+     mode "error" and count in the dispatch check;
+   * recovery: a clean restart on that directory recovers from its
+     snapshot and serves 2 more ticks, stopping short of the next
+     snapshot; then ``recover()`` of the directory on ``cuda`` and
+     ``cuda+fused`` from the snapshot plus the WAL suffix and by full
+     replay, and on ``torch`` by full replay; each equals the live store,
+     clock, wave index, GC clock and next TID bit for bit, the full
+     replays equal ``torch``'s wave by wave, and each CUDA replay launches
+     ``commit_loop`` once a replayed wave (``version_scan`` once a wave on
+     ``cuda``);
+   * crash and restart: the same stream under a kill after the 6th log
+     record and a 40-byte tear; the crashed log is a bit-identical prefix
+     of the durable one; a new ``cuda`` service on the directory
+     recovers it, the requests neither acked nor committed in the log are
+     resubmitted and drained: nothing commits twice, every acked commit is
+     in the log, ``verify() == []``; the directory then recovers to the
+     restarted service on both CUDA routes;
+   * printed, not claimed: WAL append + fsync host ms a block (median),
+     snapshot save ms and bytes, recovery seconds split into scan,
+     snapshot restore and replay, replayed waves/s per route, and the
+     durable session's goodput beside the non-durable one's;
 6. serve: zamba2-2.7b at full width (2.42 B parameters, random weights
    from a seeded generator on the card) behind ``launch.serve.Server`` on
    the ``cuda`` route, batch 4: 3 batches (prompts of 1,024, 1,024 and
@@ -87,8 +116,9 @@ Phases (any failure raises, so the process exits non-zero):
    agree within 1e-3 * scale at every step; the bf16 distance is printed
    beside each route's own bf16-vs-float32 distance;
 7. one JSON line of per-kernel results, with the launches each kernel made
-   on its own path (phases 4-5 for the engine's, the streamed and planned
-   runs included, the served batches of phase 6 for the model plane's;
+   on its own path (phases 4-5c for the engine's, the streamed, planned,
+   durable and replayed runs included, the served batches of phase 6 for
+   the model plane's;
    each must be > 0), the card line again,
    and last ``{"ok": true, "device": {...}}``.
 
@@ -1554,29 +1584,31 @@ def streaming_phase(torch, dev, cfg, step_runs,
               f"p99={rep.latency_p99} ticks"
               + (f" final T={sz.T} B={sz.B} (+{sz.increases} "
                  f"-{sz.decreases})" if sz else ""), flush=True)
-        return label, (fates_of(svc), svc.history, svc.store)
+        return label, (fates_of(svc), svc.history, svc.store), rep
 
     route = routes[1]                  # cuda on the card
-    label, run = session(route, 1, 1)
+    label, run, _ = session(route, 1, 1)
     same_session(torch, np, label, f"the {route} step loop",
                  step_runs[route], run)
     print(f"[stream] {route} B=1 K=1 equals the {route} step loop of phase "
           f"5: fates, histories, final store", flush=True)
-    ref = None
+    ref = streamed = None
     for kernels in routes:
-        label, run = session(kernels, 4, 2, "auto")
+        label, run, rep = session(kernels, 4, 2, "auto")
         if ref is None:
             ref = run
         else:
             same_session(torch, np, label, f"the {routes[0]} route", ref,
                          run)
+        if kernels == route:
+            streamed = (run, rep)
     if on_card:
         if checked[0] == 0:
             raise AssertionError("no block dispatch was checked")
         print(f"[stream] dispatch check: {checked[0]} block dispatches of "
               f"the cuda routes ran under sync debug mode 'error', none "
               f"waited on the card", flush=True)
-    return checked
+    return checked, streamed
 
 
 def planner_phase(torch, dev, cfg, checked,
@@ -1679,6 +1711,288 @@ def planner_phase(torch, dev, cfg, checked,
                          run)
 
 
+# --------------------------------------------------------------- phase 5c
+# the durable sessions: phase 5's B=4, K=2 stream, a WAL synced before
+# every ack, a snapshot every 4 retired blocks at pipeline-empty boundaries;
+# the crash: a kill after the 6th log record (earlier when a cut run logs
+# fewer than 7 blocks), then a 40-byte tear (which fsync_every=1 clamps to
+# nothing: every record is behind the fsync barrier)
+DURABLE_FSYNC_EVERY, DURABLE_SNAPSHOT_EVERY = 1, 4
+CRASH_AT, CRASH_TEAR = 5, 40
+# a clean restart on the durable directory serves this many more ticks and
+# stops short of the snapshot cadence: the directory then ends in a
+# snapshot plus a WAL suffix for the recoveries to replay
+RESUME_TICKS = 2
+PREFIX_KEYS = ("op_kind", "op_key", "op_val", "host", "tid", "status", "s",
+               "c", "fold")
+
+
+def timed(fn, ms):
+    """``fn`` wrapped to append the host ms of each call to ``ms``."""
+    def run(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kw)
+        finally:
+            ms.append((time.perf_counter() - t0) * 1e3)
+    return run
+
+
+def same_state(torch, label, st, svc):
+    """Raise unless a recovered state equals the live service's store and
+    meta (clock, wave index, GC clock, next TID) bit for bit."""
+    for f, a, b in zip(svc.store._fields, st.store, svc.store):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{label}: store.{f} differs from the live "
+                                 f"service")
+    got = (st.clock, st.wave_idx, st.gc_clock, st.next_tid)
+    want = (int(svc.clock), svc.wave_idx, svc.gc.clock, svc.former.next_tid)
+    if got != want:
+        raise AssertionError(f"{label}: (clock, wave_idx, gc_clock, "
+                             f"next_tid) {got} vs live {want}")
+
+
+def wal_prefix(np, label, crashed, ref):
+    """Raise unless ``crashed`` is a non-empty proper prefix of ``ref``,
+    record by record, bit for bit."""
+    if not 0 < len(crashed) < len(ref):
+        raise AssertionError(f"{label}: {len(crashed)} crashed records vs "
+                             f"{len(ref)}: not mid-stream")
+    for i, (a, b) in enumerate(zip(crashed, ref)):
+        for k in PREFIX_KEYS:
+            if not np.array_equal(a[k], b[k]):
+                raise AssertionError(f"{label}: record {i} field {k} differs")
+        for k in ("seq", "wave_idx0", "wm", "clock", "gc_clock"):
+            if a[k] != b[k]:
+                raise AssertionError(f"{label}: record {i} field {k} differs")
+
+
+def durability_phase(torch, dev, cfg, streamed, checked,
+                     routes=("torch", "cuda", "cuda+fused")):
+    """Durable serving, recovery and a crash with restart on phase 5's
+    stream.  ``streamed`` is phase 5's non-durable ``run_streaming``
+    session on ``routes[1]`` ((fates, history, store), report); the
+    durable one must equal it.  Each ``recover`` must give the live state;
+    the full replays on ``routes[1:]`` must equal ``routes[0]``'s, wave by
+    wave; the crashed log must be a prefix of the durable one and the
+    restart must commit nothing twice."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from repro_torch.core import COMMITTED
+    from repro_torch.core.workloads import poisson_arrivals
+    from repro_torch.durability import DurabilityManager, recover, wal
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.runtime import Fault, FaultSchedule, InjectedCrash
+    from repro_torch.service import TxnService, smallbank_txn_gen
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    route = routes[1]
+    n_keys = cfg.nodes * cfg.kpn
+    root = tempfile.mkdtemp(prefix="chip_smoke_durable_")
+    n_checked = checked[0]
+
+    def service(d, faults=None, max_queue=None):
+        mgr = DurabilityManager(d, fsync_every=DURABLE_FSYNC_EVERY,
+                                snapshot_every=DURABLE_SNAPSHOT_EVERY)
+        svc = TxnService(n_keys=n_keys, n_versions=cfg.V, T=cfg.service_T,
+                         sched="postsi", n_nodes=cfg.nodes, kernels=route,
+                         device=dev, durability=mgr, faults=faults,
+                         max_queue=max_queue)
+        return svc, mgr
+
+    def serve(d, faults=None, ticks=cfg.ticks, seed=cfg.seed + 1):
+        svc, mgr = service(d, faults)
+        log_ms, snap_ms = [], []
+        mgr.log_block = timed(mgr.log_block, log_ms)
+        mgr.snaps.save = timed(mgr.snaps.save, snap_ms)
+        if on_card:
+            check_dispatch(torch, svc, checked)
+        rng = np.random.RandomState(seed)
+        arrivals = poisson_arrivals(rng, cfg.rate, ticks)
+        sync()
+        t0 = time.perf_counter()
+        try:
+            rep = svc.run_streaming(arrivals, smallbank_txn_gen(
+                rng, cfg.nodes, cfg.kpn, dist_frac=0.2), B=4, K=2,
+                sizer="auto")
+        except InjectedCrash:
+            mgr.crash()
+            torn = faults.mutilate_wal(mgr.wal_path, mgr.crash_synced_bytes)
+            return svc, mgr, None, torn
+        sync()
+        wall = time.perf_counter() - t0
+        mgr.close()
+        return svc, mgr, (rep, wall, log_ms, snap_ms), None
+
+    try:
+        # 1. durable serving equals the non-durable session
+        d = os.path.join(root, "durable")
+        svc, mgr, (rep, wall, log_ms, snap_ms), _ = serve(d)
+        label = f"durable streaming [{route} B=4 K=2]"
+        served_ok(label, svc, rep)
+        (ref_run, ref_rep) = streamed
+        same_session(torch, np, label, f"the non-durable {route} session",
+                     ref_run, (fates_of(svc), svc.history, svc.store))
+        blocks = wal.scan(mgr.wal_path).blocks
+        if len(blocks) != rep.blocks:
+            raise AssertionError(f"{label}: {len(blocks)} records for "
+                                 f"{rep.blocks} blocks")
+        if not mgr.snapshots_taken:
+            raise AssertionError(f"{label}: no snapshot in {len(blocks)} "
+                                 f"blocks: run more --ticks")
+        snap_bytes = sum(t.numel() * t.element_size() for t in svc.store)
+        print(f"[durable] {label} equals the non-durable session: fates, "
+              f"histories, final store; {len(blocks)} WAL records "
+              f"({os.path.getsize(mgr.wal_path)} bytes), "
+              f"{mgr.snapshots_taken} snapshots; wall {wall:.3f} s",
+              flush=True)
+        print(f"[durable] WAL append + fsync, host ms a block: median "
+              f"{float(np.median(log_ms)):.4f} (min {min(log_ms):.4f}, max "
+              f"{max(log_ms):.4f}, {len(log_ms)} blocks); snapshot save ms: "
+              f"{', '.join(f'{x:.1f}' for x in snap_ms)}, {snap_bytes} bytes "
+              f"of arrays each", flush=True)
+        print(f"[durable] goodput: durable {rep.goodput_tps} txn/s "
+              f"(report wall {rep.wall_s:.3f} s) beside non-durable "
+              f"{ref_rep.goodput_tps} txn/s (report wall "
+              f"{ref_rep.wall_s:.3f} s), {route}", flush=True)
+
+        # 2. a clean restart resumes from the snapshot and serves on, then
+        # recovery from the snapshot + suffix and by full replay, each route
+        live, r_mgr, (r_rep, _, _, _), _ = serve(d, ticks=RESUME_TICKS,
+                                                 seed=cfg.seed + 5)
+        served_ok("resumed durable session", live, r_rep)
+        st = r_mgr.last_recovery
+        if (st is None or st.snapshot_seq is None or r_mgr.snapshots_taken
+                or len(wal.scan(r_mgr.wal_path).blocks) <= len(blocks)):
+            raise AssertionError("the resumed session did not start from "
+                                 "the snapshot and end in a WAL suffix")
+        print(f"[durable] resumed on the directory: recovered from snapshot "
+              f"{st.snapshot_seq} ({st.seconds['snapshot']:.4f} s), served "
+              f"{RESUME_TICKS} more ticks ({r_rep.blocks} blocks, "
+              f"{r_rep.committed} committed), verify() == [] on the suffix "
+              f"history against the snapshot's rings", flush=True)
+        full = {}
+        cases = ([(r, True) for r in routes[1:]]
+                 + [(r, False) for r in routes[1:]] + [(routes[0], False)])
+        for kernels, use_snapshot in cases:
+            how = "snapshot + WAL suffix" if use_snapshot else "full replay"
+            lbl = f"recover [{kernels}, {how}]"
+            sync()
+            before = dict(LAUNCHES)
+            t0 = time.perf_counter()
+            st = recover(d, kernels=kernels, device=dev,
+                         use_snapshot=use_snapshot)
+            sync()
+            dt = time.perf_counter() - t0
+            n_waves = len(st.history)
+            got = check_route_launches(lbl, kernels, n_waves, before,
+                                       LAUNCHES)
+            same_state(torch, lbl, st, live)
+            if use_snapshot != (st.snapshot_seq is not None) or not n_waves:
+                raise AssertionError(f"{lbl}: snapshot {st.snapshot_seq}, "
+                                     f"{n_waves} waves replayed")
+            if not use_snapshot:
+                full[kernels] = st
+            sec = st.seconds
+            rate = (f"{n_waves / sec['replay']:.1f} replayed waves/s"
+                    if n_waves else "no wave to replay")
+            print(f"[durable] {lbl}: {dt:.3f} s (scan {sec['scan']:.4f}, "
+                  f"snapshot restore {sec['snapshot']:.4f}, replay "
+                  f"{sec['replay']:.4f}), {st.n_replayed} of {st.n_blocks} "
+                  f"blocks = {n_waves} waves replayed, {rate}; launches "
+                  f"{ {k: v for k, v in got.items() if v} }; equal to the "
+                  f"live store, clock, wave index, GC clock, next TID",
+                  flush=True)
+        ref = full[routes[0]]
+        for kernels in routes[1:]:
+            same_run(torch, np, f"full replay [{kernels}]", ref.history,
+                     ref.store, full[kernels].history, full[kernels].store)
+        del full, ref, st, live
+
+        # 3. crash after the 6th log record, restart, resubmit
+        c_d = os.path.join(root, "crashed")
+        at = min(CRASH_AT, len(blocks) - 2)     # >= 2: a snapshot was due
+        crash = [Fault("kill", "post_log", at),
+                 Fault("torn_tail", "wal", 0, arg=CRASH_TEAR)]
+        faults = FaultSchedule(crash)
+        crashed, c_mgr, done, torn = serve(c_d, faults)
+        if done is not None or not faults.pure_kill:
+            raise AssertionError("the crash schedule did not kill the run")
+        c_blocks = wal.scan(c_mgr.wal_path).blocks
+        wal_prefix(np, "crashed WAL", c_blocks, blocks)
+        C = {int(t) for rec in c_blocks
+             for t, s in zip(rec["tid"].ravel(), rec["status"].ravel())
+             if s == COMMITTED}
+        acked = [r for r in crashed.requests if r.status == "committed"]
+        if any(r.tid not in C for r in acked):
+            raise AssertionError("an acked commit is not in the crashed log")
+        t0 = time.perf_counter()
+        svc2, mgr2 = service(c_d, max_queue=10_000)
+        t_restart = time.perf_counter() - t0
+        st2 = mgr2.last_recovery
+        if st2 is None or st2.n_blocks != len(c_blocks):
+            raise AssertionError("the restart did not recover the log")
+        resub = {}
+        for r in crashed.requests:
+            if r.status in ("committed", "dropped", "rejected") or any(
+                    t in C for t in r.tids):
+                continue           # acked, dropped or durable-but-unacked
+            resub[r.req_id] = svc2.submit(r.op_kind, r.op_key, r.op_val,
+                                          r.host)
+        svc2.drain()
+        window = 0
+        for r in crashed.requests:
+            pre = any(t in C for t in r.tids)
+            r2 = resub.get(r.req_id)
+            if pre and r2 is not None:
+                raise AssertionError(f"req {r.req_id} resubmitted though "
+                                     f"committed in the log")
+            if r2 is not None and r2.status not in ("committed", "dropped"):
+                raise AssertionError(f"req {r.req_id}: {r2.status}")
+            window += pre and r.status != "committed"
+        errs = svc2.verify()
+        if errs:
+            raise AssertionError(f"restarted service fails: {errs[:3]}")
+        mgr2.close()
+        # the directory now holds the crashed prefix, the restart's B=1
+        # blocks and their snapshots: it recovers to the restarted service
+        for kernels, use_snapshot in ([(r, True) for r in routes[1:]]
+                                      + [(routes[1], False)]):
+            before = dict(LAUNCHES)
+            st = recover(c_d, kernels=kernels, device=dev,
+                         use_snapshot=use_snapshot)
+            lbl = (f"recover after the restart [{kernels}, "
+                   f"{'snapshot' if use_snapshot else 'full replay'}]")
+            check_route_launches(lbl, kernels, len(st.history), before,
+                                 LAUNCHES)
+            same_state(torch, lbl, st, svc2)
+            print(f"[durable] {lbl}: {st.n_replayed} of {st.n_blocks} "
+                  f"blocks = {len(st.history)} waves replayed, snapshot "
+                  f"{st.snapshot_seq}; equal to the restarted service",
+                  flush=True)
+        print(f"[durable] crash {crash}: {len(c_blocks)} of "
+              f"{len(blocks)} records survive, a bit-identical prefix; "
+              f"{torn} bytes torn (behind the fsync barrier: none at risk); "
+              f"{len(acked)} acked commits all in the log, {window} "
+              f"committed but never acked (not resubmitted); restart "
+              f"{t_restart:.3f} s (recovery scan "
+              f"{st2.seconds['scan']:.4f}, snapshot "
+              f"{st2.seconds['snapshot']:.4f}, replay "
+              f"{st2.seconds['replay']:.4f}; {st2.n_replayed} blocks "
+              f"replayed), {len(resub)} resubmitted: "
+              f"{sum(r.status == 'committed' for r in resub.values())} "
+              f"committed, none twice; verify() == []"
+              + (" (suffix history, the snapshot's rings)"
+                 if svc2.base_store is not None else ""), flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if on_card:
+        print(f"[durable] dispatch check: {checked[0] - n_checked} block "
+              f"dispatches of the durable sessions ran under sync debug "
+              f"mode 'error', none waited on the card", flush=True)
+
+
 def parse_config(argv=None) -> Config:
     """The fixed configuration, with only its depth taken from the flags."""
     full = Config()
@@ -1751,7 +2065,7 @@ def main(argv=None) -> int:
     print(f"[main path] engine + service: {time.perf_counter() - t0:.1f} s, "
           f"kernel launches {dict(LAUNCHES)}", flush=True)
     t1 = time.perf_counter()
-    checked = streaming_phase(torch, dev, cfg, step_runs)
+    checked, streamed = streaming_phase(torch, dev, cfg, step_runs)
     del step_runs
     planner_phase(torch, dev, cfg, checked)
     engine_counts = dict(LAUNCHES)
@@ -1759,6 +2073,19 @@ def main(argv=None) -> int:
           f"s, {checked[0]} block dispatches checked for host waits; kernel "
           f"launches of engine, service, streaming and planner "
           f"{engine_counts}", flush=True)
+    reset_launch_counts()
+    t1 = time.perf_counter()
+    durability_phase(torch, dev, cfg, streamed, checked)
+    del streamed
+    durable_counts = dict(LAUNCHES)
+    if durable_counts["commit_loop"] <= 0:
+        raise AssertionError("recovery replayed no wave through commit_loop")
+    print(f"[main path] durability: {time.perf_counter() - t1:.1f} s, "
+          f"{checked[0]} block dispatches checked in all; kernel launches "
+          f"of durable serving, recovery and restart {durable_counts}",
+          flush=True)
+    engine_counts = {k: v + durable_counts[k]
+                     for k, v in engine_counts.items()}
     t0 = time.perf_counter()
     serve_counts = serve_phase(torch, dev, cfg, card)
     print(f"[main path] serve: {time.perf_counter() - t0:.1f} s with its "

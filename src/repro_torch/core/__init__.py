@@ -7,7 +7,8 @@ from .commit_phase import (ABORTED, COMMITTED, NOP, READ, RMW, RUNNING,
 from .engine import (SCHEDULERS, RunStats, StagedBlock, Wave, WaveOut,
                      run_block, run_wave, run_wave_on, run_workload,
                      run_workload_fused, stack_waves, stage_block,
-                     step_block, step_wave, wave_from_numpy, wave_to_numpy)
+                     staged_inputs, step_block, step_wave, wave_from_numpy,
+                     wave_to_numpy)
 from .store import (INF, NO_TID, MVStore, PlacementArrays,
                     as_placement_arrays, bump_sid,
                     evicting_visible, install_version, make_store,
@@ -21,7 +22,8 @@ __all__ = [
     "NOP", "READ", "RMW", "WRITE", "RUNNING", "COMMITTED", "ABORTED",
     "SCHEDULERS", "Wave", "WaveOut", "RunStats", "StagedBlock", "run_block",
     "run_wave", "run_wave_on", "run_workload", "run_workload_fused",
-    "stack_waves", "stage_block", "step_block", "step_wave",
+    "stack_waves", "stage_block", "staged_inputs", "step_block",
+    "step_wave",
     "wave_from_numpy", "wave_to_numpy",
     "KernelConfig", "default_backend", "resolve", "set_default_backend",
     "INF", "NO_TID", "MVStore", "PlacementArrays", "as_placement_arrays",

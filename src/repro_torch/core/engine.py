@@ -486,6 +486,25 @@ def _pad4(n: int) -> int:
     return -(-n // 4) * 4          # ints: every field starts 16-byte aligned
 
 
+def _layout(shapes):
+    """(offsets, sizes) of the fields of ``shapes`` in one staging buffer."""
+    sizes = [int(np.prod(sh)) for sh in shapes]
+    return np.cumsum([0] + [_pad4(n) for n in sizes]).tolist(), sizes
+
+
+def staged_inputs(blk: StagedBlock) -> Wave:
+    """The wave fields of a staged block as numpy int32 arrays in host
+    memory, read from its page-locked buffer (``blk.host``) and never
+    copied back from the device; on the CPU the block itself."""
+    if blk.host is None:
+        return Wave(*(f.numpy() for f in blk.wave))
+    shapes = [tuple(f.shape) for f in blk.wave]
+    offs, sizes = _layout(shapes)
+    h = blk.host.numpy()
+    return Wave(*(h[offs[k]:offs[k] + sizes[k]].reshape(shapes[k])
+                  for k in range(_BLOCK_FIELDS)))
+
+
 def stage_block(waves, wave_idx0: int, watermark=None,
                 device=None) -> StagedBlock:
     """Put a block of B waves, their wave indices ``wave_idx0 ... +B-1``
@@ -521,8 +540,7 @@ def stage_block(waves, wave_idx0: int, watermark=None,
         fields = [[as_np(f)[None] for f in col] for col in zip(*waves)]
         B = len(waves)
     shapes = [(B, *col[0].shape[1:]) for col in fields] + [(B,), ()]
-    sizes = [int(np.prod(sh)) for sh in shapes]
-    offs = np.cumsum([0] + [_pad4(n) for n in sizes]).tolist()
+    offs, sizes = _layout(shapes)
     host = torch.empty(offs[-1], dtype=torch.int32,
                        pin_memory=dev.type == "cuda")
     h = host.numpy()

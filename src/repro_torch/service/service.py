@@ -23,10 +23,17 @@ streaming plane (``run_streaming``: blocks of B waves, K blocks in flight,
 conflict-free lanes (``repro_torch.planner``: ``"planned"`` plans every
 wave, ``"hybrid"`` switches on the trailing abort rate).
 
-This slice serves from one device.  The mesh, placement, replica,
-balancer, durability and fault-injection planes are not ported yet: their
-arguments must be ``None`` and anything else raises
-``NotImplementedError`` naming the ROADMAP item that brings it.
+With ``durability=`` (a ``durability.DurabilityManager``) every retired
+wave or block is logged to a write-ahead log before its outcomes are
+acknowledged, snapshots are taken at pipeline-empty boundaries, and a
+service started on an existing directory recovers it first (through its
+own device and kernels); ``faults=`` (a ``runtime.FaultSchedule``) fires
+injected crashes and delays at the dispatch, retire and post-log seams.
+
+This slice serves from one device.  The mesh, placement, replica and
+balancer planes are not ported yet: their arguments must be ``None`` and
+anything else raises ``NotImplementedError`` naming the ROADMAP item that
+brings it.
 """
 from __future__ import annotations
 
@@ -39,7 +46,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.commit_phase import ABORTED, COMMITTED
-from repro_torch.core.engine import run_block, stage_block, step_wave
+from repro_torch.core.engine import Wave, WaveOut, run_block, stage_block, \
+    step_wave
 from repro_torch.core.store import make_store
 from repro_torch.core.verify import final_values_ok, verify_cv, verify_si
 from repro_torch.core.workloads import (SMALLBANK_O, rmw_hot_txn,
@@ -47,7 +55,7 @@ from repro_torch.core.workloads import (SMALLBANK_O, rmw_hot_txn,
 from repro_torch.kernels import resolve, resolve_device
 from repro_torch.planner import HybridSwitch
 
-from .former import TxnRequest, WaveFormer
+from .former import TxnRequest, WaveFormer, fold_counts
 from .gc import VisibilityGC
 from .retry import RetryPolicy
 
@@ -59,8 +67,6 @@ _NOT_YET = {
     "replicas": "Elastic placement",
     "replica_refresh": "Elastic placement",
     "balancer": "Elastic placement",
-    "durability": "Checkpoint store + durability + fault injection",
-    "faults": "Checkpoint store + durability + fault injection",
 }
 
 
@@ -130,8 +136,7 @@ class TxnService:
                  tenants: Optional[Dict[int, float]] = None,
                  fold_rmw: bool = False, fold_max: int = 256, device=None):
         given = dict(mesh=mesh, placement=placement, replicas=replicas,
-                     replica_refresh=replica_refresh, balancer=balancer,
-                     durability=durability, faults=faults)
+                     replica_refresh=replica_refresh, balancer=balancer)
         for name, value in given.items():
             if value is not None:
                 raise NotImplementedError(
@@ -167,6 +172,12 @@ class TxnService:
         self._wall_s = 0.0
         self.stream = None                   # StreamingDriver, when serving
         self._last_dispatch = (0, None)      # (wave_idx0, wm) of last block
+        self.base_store = None    # snapshot rings when history is a suffix
+        # durability & fault-injection planes: the manager WAL-logs every
+        # retired block durable-before-ack and auto-recovers an existing
+        # log into this fresh service; the schedule fires at the dispatch,
+        # retire and post-log seams
+        self.faults = faults
         # planner plane: ``None`` — always optimistic; ``"hybrid"`` — switch
         # to planned lanes when the trailing abort rate crosses the AIMD
         # ceiling and back when contention drops; ``"planned"`` — plan every
@@ -176,6 +187,9 @@ class TxnService:
         self.planned_waves = 0        # waves served through the planner
         self.planned_lane_waves = 0   # lane + spill waves they expanded to
         self.planned_spilled = 0      # txns spilled past the lane budget
+        self.durability = durability
+        if durability is not None:
+            durability.attach(self)
 
     # ------------------------------------------------------------ intake
     def _tstat(self, tenant: int) -> Dict:
@@ -215,17 +229,35 @@ class TxnService:
             self._wall_s += time.perf_counter() - t0
             return out
         self.wave_idx += 1
+        wm = self._watermark()
+        if self.faults is not None:
+            self.faults.at_dispatch(self)
         self.store, out, self.clock = step_wave(
             self.store, wave, self.wave_idx, self.clock, sched=self.sched,
             n_nodes=self.n_nodes, host_skew=self.host_skew,
-            watermark=self._watermark(), gc_block=self.gc.block,
-            kernels=self.kernels)
+            watermark=wm, gc_block=self.gc.block, kernels=self.kernels)
+        if self.faults is not None:
+            self.faults.at_retire(self)
         self.gc.observe(out, int(self.clock))
         self.history.append((np.asarray(wave.tid), out))
+        if self.durability is not None:
+            # the step loop retires every wave synchronously: log it as a
+            # B=1 block, durable BEFORE its outcomes are acked below
+            self.durability.log_block(
+                Wave(*(np.asarray(f)[None] for f in wave)),
+                self.wave_idx, wm, WaveOut(*(np.asarray(x)[None]
+                                             for x in out)),
+                int(self.clock), self.gc.clock,
+                fold=fold_counts(slots,
+                                 np.asarray(wave.op_kind).shape[0])[None])
+            if self.faults is not None:
+                self.faults.post_log(self)
         self._route(out, slots)
         if self.planner is not None:
             self.planner.observe_optimistic(
                 len(slots), int((out.status[:len(slots)] == ABORTED).sum()))
+        if self.durability is not None:
+            self.durability.maybe_snapshot(self, pipeline_empty=True)
         self._wall_s += time.perf_counter() - t0
         return out
 
@@ -236,12 +268,18 @@ class TxnService:
         commit abort-free; only spilled rows can re-enter the retry
         calendar."""
         from repro_torch.planner.sched import run_wave_planned
+        wave_idx0 = self.wave_idx + 1
+        wm = self._watermark()
+        if self.faults is not None:
+            self.faults.at_dispatch(self)
         self.store, self.clock, pw = run_wave_planned(
-            self.store, wave, self.clock, wave_idx0=self.wave_idx + 1,
+            self.store, wave, self.clock, wave_idx0=wave_idx0,
             next_tid=self.former.next_tid, sched=self.sched,
             n_nodes=self.n_nodes, kernels=self.kernels,
-            watermark=self._watermark(), host_skew=self.host_skew,
+            watermark=wm, host_skew=self.host_skew,
             gc_block=self.gc.block, max_lanes=self.planner.max_lanes)
+        if self.faults is not None:
+            self.faults.at_retire(self)
         # the planner relabeled every row with fresh contiguous tids (lane
         # waves need their own [tid0, tid0+T) ranges); advance the former's
         # counter past them and point each request at the tid it ran under,
@@ -254,6 +292,23 @@ class TxnService:
         self.planned_waves += 1
         self.planned_lane_waves += pw.lane_waves + pw.spill_waves
         self.planned_spilled += pw.plan.n_spilled
+        if self.durability is not None:
+            # the dispatched block IS an ordinary wave block: logged as-is,
+            # recovery replays it through run_block under the base sched.
+            # Fold multiplicities ride along at each request's EXECUTED row
+            # (the planner relabeled rows into lanes; exec_tid maps a slot
+            # to its contiguous position in the stacked block)
+            fold = np.zeros(pw.stacked.tid.shape, np.int32)
+            tid0 = int(pw.stacked.tid[0, 0])
+            T_pad = pw.stacked.tid.shape[1]
+            for i, req in enumerate(slots):
+                off = int(pw.exec_tid[i]) - tid0
+                fold[off // T_pad, off % T_pad] = 1 + len(req.folded)
+            self.durability.log_block(pw.stacked, wave_idx0, wm, pw.outs,
+                                      int(self.clock), self.gc.clock,
+                                      fold=fold)
+            if self.faults is not None:
+                self.faults.post_log(self)
         for i, req in enumerate(slots):
             for r in (req, *req.folded):
                 r.tid = int(pw.exec_tid[i])
@@ -261,6 +316,8 @@ class TxnService:
         self._route(out, slots)
         self.planner.observe_planned(
             len(slots), pw.plan.conflicted + pw.plan.n_spilled)
+        if self.durability is not None:
+            self.durability.maybe_snapshot(self, pipeline_empty=True)
         return out
 
     def _route(self, out, slots):
@@ -454,7 +511,7 @@ class TxnService:
         """Post-hoc correctness of the served history: SI (or CV) validity
         plus final-store-matches-serial-replay, via ``core.verify``."""
         check = verify_cv if self.sched == "cv" else verify_si
-        errors = check(self.history)
+        errors = check(self.history, base_store=self.base_store)
         errors += final_values_ok(self.store, self.history, self.n_keys)
         return errors
 

@@ -46,10 +46,14 @@ with bounded AIMD — additive increase by one ``quantum`` rung when the
 stream is calm, halving when aborts exceed the high-water threshold — on
 the ladder of quantum multiples in ``[t_min, t_max]``.
 
-The reference driver's write-ahead log and fault-injection hooks (at
-dispatch, at retire, after the log record, delayed retires, snapshots)
-are not ported yet: ROADMAP.md queue 1, item 4 ("Checkpoint store +
-durability + fault injection") adds them back at the same seams.
+**Durability and fault injection** sit at the reference's seams: with a
+``DurabilityManager`` attached, a retired block is logged once, after its
+outcome copy and before any outcome is acknowledged (the block's inputs
+come from its page-locked staging buffer, ``engine.staged_inputs``, never
+back from the device, so the dispatch still waits on nothing), and a
+snapshot is taken when the pipeline is empty; a ``FaultSchedule`` fires at
+dispatch, at retire and after the log record, and may hold the oldest
+block for a few tick-level retires (``delay_retire``).
 """
 from __future__ import annotations
 
@@ -62,7 +66,10 @@ import numpy as np
 import torch
 
 from repro_torch.core.commit_phase import ABORTED
-from repro_torch.core.engine import StagedBlock, Wave, WaveOut
+from repro_torch.core.engine import StagedBlock, Wave, WaveOut, \
+    staged_inputs
+
+from .former import fold_counts
 
 
 def _ladder_snap(T: int, quantum: int, t_min: int, t_max: int) -> int:
@@ -223,14 +230,16 @@ class StreamingDriver:
             self._dispatch()               # full block: ship it
         elif self._buf:
             if self._inflight:
-                self._retire_one()         # hold the partial; feed retries
+                # hold the partial; feed retries (tick-level retire: the
+                # one place an injected delay_retire may stall)
+                self._retire_one(allow_delay=True)
             else:
                 self._dispatch()           # device idle: ship what we have
         else:
             self._buf_T = self._buf_B = None   # no open block: re-propose
             svc.idle_ticks += 1
             if self._inflight:             # nothing to form: drain the pipe
-                self._retire_one()
+                self._retire_one(allow_delay=True)
         svc._wall_s += time.perf_counter() - t0
 
     def flush(self) -> None:
@@ -272,6 +281,8 @@ class StreamingDriver:
             meta = [(np.asarray(w.tid), slots) for w, slots in chunk]
             outs, clock, staged = svc._run_block([w for w, _ in chunk])
             wave_idx0, wm = svc._last_dispatch
+            if svc.faults is not None:
+                svc.faults.at_dispatch(svc)   # kill: launched, not durable
             self._inflight.append(
                 _Block(outs, clock, meta, staged, wave_idx0, wm))
             svc.blocks += 1
@@ -280,10 +291,20 @@ class StreamingDriver:
         while len(self._inflight) > limit:
             self._retire_one()
 
-    def _retire_one(self) -> None:
+    def _retire_one(self, allow_delay: bool = False) -> None:
         """Sync the oldest in-flight block (the pipeline's only blocking
-        point) and route its per-wave outcomes through the service."""
+        point), WAL-log it when a durability manager is attached
+        (durable-before-ack), then route its per-wave outcomes through the
+        service.  ``allow_delay`` marks tick-level calls — the only ones a
+        ``delay_retire`` fault may skip; the dispatch loop's K-limit drain
+        always completes, so an armed delay stalls the pipeline but can
+        never deadlock it."""
         svc = self.svc
+        if allow_delay and svc.faults is not None \
+                and svc.faults.delay_retire(svc):
+            return                       # injected straggler: hold the block
+        if svc.faults is not None:
+            svc.faults.at_retire(svc)    # kill: computed, never logged/acked
         blk = self._inflight.popleft()
         outs = WaveOut(*(leaf.cpu().numpy() for leaf in blk.outs))  # waits
         clock = int(blk.clock)
@@ -293,6 +314,19 @@ class StreamingDriver:
             svc.gc.observe(out_j, clock)
             svc.history.append((tids, out_j))
             per_wave.append((out_j, slots))
+        if svc.durability is not None:
+            # retire point = durability boundary: one record per retired
+            # block, appended before any outcome is acked; the fold
+            # multiplicities ride along (computed here, before _route
+            # clears them)
+            T = blk.staged.wave.op_kind.shape[1]
+            fold = np.stack([fold_counts(slots, T)
+                             for _, slots in blk.waves])
+            svc.durability.log_block(staged_inputs(blk.staged),
+                                     blk.wave_idx0, blk.wm, outs, clock,
+                                     svc.gc.clock, fold=fold)
+            if svc.faults is not None:
+                svc.faults.post_log(svc)   # kill: durable-but-unacked window
         for out_j, slots in per_wave:
             svc._route(out_j, slots)
             n_abort = int((out_j.status[:len(slots)] == ABORTED).sum())
@@ -300,3 +334,6 @@ class StreamingDriver:
                 self.sizer.observe(len(slots), n_abort)
             if svc.planner is not None:
                 svc.planner.observe_optimistic(len(slots), n_abort)
+        if svc.durability is not None:
+            svc.durability.maybe_snapshot(
+                svc, pipeline_empty=not self._inflight and not self._buf)

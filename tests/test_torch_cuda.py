@@ -26,7 +26,12 @@ dispatch (``run_block`` on a staged or a host block) must run under
 blocking copy; a block's page-locked staging must stay alive, unchanged,
 until the block retires; ``run_streaming`` (B=4, K=2, with and without the
 hybrid planner) and ``run_workload_planned`` on ``cuda`` and
-``cuda+fused`` must equal ``torch``.
+``cuda+fused`` must equal ``torch``.  A durable ``run_streaming`` on each
+CUDA route must dispatch under sync debug mode "error" and write the
+write-ahead log the ``torch`` route writes, record for record, and
+``recover`` on both CUDA routes (from the snapshot and by full replay,
+one ``commit_loop`` launch a replayed wave) must give the ``torch``
+route's state.
 """
 import numpy as np
 import pytest
@@ -548,13 +553,13 @@ def test_staging_stays_alive_until_retire(dev):
     svc._run_block = run_block
     retire = drv._retire_one
 
-    def retire_one():
+    def retire_one(allow_delay=False):
         host = drv._inflight[0].staged.host
         ptr, at, content = seen[id(drv._inflight[0].staged)]
         assert host.is_pinned() and host.data_ptr() == ptr
         np.testing.assert_array_equal(host.numpy(), content)
         retired.append(dispatched[0] - at)
-        retire()
+        retire(allow_delay)
     drv._retire_one = retire_one
     gen = ts.ycsb_txn_gen(np.random.RandomState(0), 4, 40, theta=0.5)
     for _ in range(10):
@@ -564,3 +569,74 @@ def test_staging_stays_alive_until_retire(dev):
     drv.drain()
     assert svc.verify() == []
     assert max(retired) == K - 1 and len(retired) == svc.blocks
+
+
+# ------------------------------------------------ durability and recovery
+def _durable_stream(route, dev, d, checked=None):
+    from repro_torch.durability import DurabilityManager
+    mgr = DurabilityManager(str(d), snapshot_every=3)
+    svc = ts.TxnService(160, T=16, n_nodes=4, kernels=route, device=dev,
+                        durability=mgr)
+    if checked is not None:
+        run = svc._run_block
+
+        def run_checked(waves):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = run(waves)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            checked[0] += 1
+            return out
+        svc._run_block = run_checked
+    gen = ts.ycsb_txn_gen(np.random.RandomState(2), 4, 40, theta=0.9,
+                          read_frac=0.3)
+    svc.run_streaming([12] * 12, gen, B=4, K=2, sizer="auto")
+    mgr.close()
+    assert svc.verify() == [] and mgr.snapshots_taken > 0
+    return svc
+
+
+@pytest.mark.parametrize("route", ["cuda", "cuda+fused"])
+def test_durable_streaming_logs_what_torch_logs(dev, route, tmp_path):
+    from repro_torch.durability import wal, wal_path
+    ref = _durable_stream("torch", dev, tmp_path / "torch")
+    checked = [0]
+    svc = _durable_stream(route, dev, tmp_path / "cuda", checked)
+    assert checked[0] == svc.blocks > 0
+    for a, b in zip(svc.store, ref.store):
+        assert torch.equal(a, b)
+    got = wal.scan(wal_path(str(tmp_path / "cuda"))).blocks
+    want = wal.scan(wal_path(str(tmp_path / "torch"))).blocks
+    assert len(got) == len(want) == svc.blocks
+    for x, y in zip(got, want):
+        assert x.keys() == y.keys()
+        for k in x:
+            if isinstance(y[k], np.ndarray):
+                assert x[k].dtype == y[k].dtype == np.int32
+                np.testing.assert_array_equal(x[k], y[k])
+            else:
+                assert type(x[k]) is type(y[k]) and x[k] == y[k], k
+        assert wal._frame(wal.REC_BLOCK, x) == wal._frame(wal.REC_BLOCK, y)
+
+
+def test_recovery_cuda_routes_equal_torch(dev, tmp_path):
+    from repro_torch.durability import recover
+    live = _durable_stream("cuda", dev, tmp_path)
+    for use_snapshot in (True, False):
+        ref = recover(str(tmp_path), kernels="torch", device=dev,
+                      use_snapshot=use_snapshot)
+        for route in ("cuda", "cuda+fused"):
+            before = LAUNCHES["commit_loop"]
+            st = recover(str(tmp_path), kernels=route, device=dev,
+                         use_snapshot=use_snapshot)
+            assert LAUNCHES["commit_loop"] - before == len(st.history)
+            if not use_snapshot:
+                assert st.n_replayed == st.n_blocks > 0
+            for state in (ref, st):
+                for a, b in zip(state.store, live.store):
+                    assert torch.equal(a, b), route
+                assert (state.clock, state.wave_idx, state.gc_clock,
+                        state.next_tid) == (int(live.clock), live.wave_idx,
+                                            live.gc.clock,
+                                            live.former.next_tid)

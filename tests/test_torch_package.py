@@ -75,7 +75,8 @@ def test_import_leaves_jax_unloaded():
     code = ("import sys, repro_torch, repro_torch.core, "
             "repro_torch.service, repro_torch.kernels.ops, "
             "repro_torch.configs, repro_torch.models.convert, "
-            "repro_torch.launch.serve; "
+            "repro_torch.launch.serve, repro_torch.durability, "
+            "repro_torch.checkpoint, repro_torch.runtime; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'repro.')) or m == 'repro']; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -221,8 +222,8 @@ def test_reference_only_knobs_refuse_other_values(field, value):
 
 
 @pytest.mark.parametrize("arg,item", [
-    ("mesh", "Mesh substrate"), ("durability", "durability"),
-    ("faults", "fault injection"), ("placement", "Elastic placement"), ("replicas", "Elastic placement"),
+    ("mesh", "Mesh substrate"), ("placement", "Elastic placement"),
+    ("replicas", "Elastic placement"),
     ("replica_refresh", "Elastic placement"),
     ("balancer", "Elastic placement")])
 def test_unported_service_planes_raise(arg, item):
@@ -230,19 +231,26 @@ def test_unported_service_planes_raise(arg, item):
         TxnService(16, T=4, n_nodes=2, device="cpu", **{arg: object()})
 
 
-def test_run_streaming_not_ported():
-    """The streaming plane serves; what of it is not ported yet is the
-    reference driver's write-ahead log and fault hooks, which come with
-    the durability plane: a service asking for them raises."""
-    svc = TxnService(16, T=4, n_nodes=2, device="cpu")
+def test_run_streaming_not_ported(tmp_path):
+    """The streaming plane serves, and serves durably: with a durability
+    manager and a fault schedule attached, every retired block is logged
+    and a fresh service on the directory recovers the same store."""
+    from repro_torch.durability import DurabilityManager, wal, wal_path
+    from repro_torch.runtime import FaultSchedule
     read_one = lambda: (np.array([tc.READ, tc.NOP, tc.NOP, tc.NOP]),
                         np.array([3, 0, 0, 0]), np.zeros(4), 1)
+    mgr = DurabilityManager(str(tmp_path))
+    svc = TxnService(16, T=4, n_nodes=2, device="cpu", durability=mgr,
+                     faults=FaultSchedule())
     rep = svc.run_streaming([2, 2], read_one, B=2, K=2)
+    mgr.close()
     assert rep.committed == rep.admitted == 4 and rep.blocks > 0
-    for arg in ("durability", "faults"):
-        with pytest.raises(NotImplementedError,
-                           match="durability \\+ fault injection"):
-            TxnService(16, T=4, n_nodes=2, device="cpu", **{arg: object()})
+    assert len(wal.scan(wal_path(str(tmp_path))).blocks) == rep.blocks
+    again = TxnService(16, T=4, n_nodes=2, device="cpu",
+                       durability=DurabilityManager(str(tmp_path)))
+    for a, b in zip(again.store, svc.store):
+        assert torch.equal(a, b)
+    assert again.former.next_tid == svc.former.next_tid
 
 
 def test_kernel_config_resolution_round_trips(monkeypatch):

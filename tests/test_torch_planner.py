@@ -263,7 +263,6 @@ def test_planned_service_matches_jax(planner, mode, seed, n_ticks):
 
 # ------------------------------------------- what this slice leaves out
 @pytest.mark.parametrize("arg,item", [
-    ("durability", "durability"), ("faults", "fault injection"),
     ("mesh", "Mesh substrate"), ("placement", "Elastic placement")])
 def test_unported_planes_still_raise(arg, item):
     with pytest.raises(NotImplementedError, match=item):
