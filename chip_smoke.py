@@ -103,6 +103,45 @@ Phases (any failure raises, so the process exits non-zero):
      snapshot save ms and bytes, recovery seconds split into scan,
      snapshot restore and replay, replayed waves/s per route, and the
      durable session's goodput beside the non-durable one's;
+   5d. elastic placement, at full width: the 1,000,000 keys of phase 5
+   laid out by ``PlacementMap(1_000_000, 8, headroom=2)`` (2,000,000
+   physical rows, the free ones empty), served with the reference's
+   elastic deployment (``benchmarks/bench_dist.py``: YCSB theta=0.99, 97%
+   reads, 2 ops a txn, 3 x T = 192 arrivals a tick for 20 ticks at T=64,
+   ``replica_refresh=8``, the replica set of ``zipf_hot_keys(8, 125_000,
+   0.99, mass=0.95, max_frac=0.4)``); first, outside the counted path,
+   a wave with live reads and padding on key -1 and past the last key
+   over the placed store, before and after a move that fills the last
+   physical row, equal on both CUDA routes to ``torch`` (wave and store);
+   then:
+
+   * elastic = static: placement and ``balancer=True``, plus an explicit
+     ``move_range(0, 31_250, 1)`` at tick 10, on ``cuda`` and
+     ``cuda+fused``: moves made, fates, history rows and the logical store
+     equal to the static ``cuda`` session on the same stream,
+     ``verify() == []``, one ``commit_loop`` launch a wave (one
+     ``version_scan`` a wave on ``cuda``, none on ``cuda+fused``);
+   * replicas: the same with the replica set on: replica commits made,
+     ``max_cid() <= floor`` after every refresh, ``verify() == []``,
+     ``cuda`` equal to ``cuda+fused``; and ``torch`` equal to ``cuda``
+     over the first 6 ticks (the explicit move at tick 3);
+   * streaming: ``run_streaming(B=4, K=2)`` under the placement on
+     ``cuda``, every block dispatch under sync debug mode "error", equal
+     to the static B=4, K=2 session (fates, histories, logical store) and
+     committing the placed step loop's request set;
+   * durable: the first session with ``DurabilityManager(fsync_every=1,
+     snapshot_every=2)`` equals the non-durable one and recovers on
+     ``cuda`` (snapshot) and ``cuda+fused`` (full replay) to the live
+     store, ``slot`` and ``owner``; a session crashed right after its
+     first REC_MOVE record (the explicit move at tick 3) recovers on
+     ``cuda``, ``cuda+fused`` and ``torch`` to the live state at the
+     crash; a restarted service adopts the replayed map, serves 2 more
+     ticks and verifies;
+   * printed, not claimed, each line with the card's name and power
+     limit: ms and keys of each move, ms of each replica refresh, goodput
+     of elastic against static on each CUDA route, the balancer's load
+     imbalance before and after each move, occupancy, replica-served
+     reads, recovery seconds;
 6. serve: zamba2-2.7b at full width (2.42 B parameters, random weights
    from a seeded generator on the card) behind ``launch.serve.Server`` on
    the ``cuda`` route, batch 4: 3 batches (prompts of 1,024, 1,024 and
@@ -116,15 +155,16 @@ Phases (any failure raises, so the process exits non-zero):
    agree within 1e-3 * scale at every step; the bf16 distance is printed
    beside each route's own bf16-vs-float32 distance;
 7. one JSON line of per-kernel results, with the launches each kernel made
-   on its own path (phases 4-5c for the engine's, the streamed, planned,
-   durable and replayed runs included, the served batches of phase 6 for
+   on its own path (phases 4-5d for the engine's, the streamed, planned,
+   durable, replayed and placed runs included, the served batches of phase 6 for
    the model plane's;
    each must be > 0), the card line again,
    and last ``{"ok": true, "device": {...}}``.
 
 The store, wave, stream and model sizes are fixed (the constants below);
 the flags cut only the depth: ``--waves``, ``--scheds``, ``--ticks``,
-``--planned-waves``, ``--serve-batches`` and ``--new-tokens``.
+``--planned-waves``, ``--elastic-ticks``, ``--serve-batches`` and
+``--new-tokens``.
 
 Without a CUDA device, or in a directory that does not hold the repository,
 it exits non-zero and prints no result.
@@ -175,6 +215,7 @@ class Config(NamedTuple):
     serve_batches: int = 3         # of SERVE_PROMPTS
     new_tokens: int = 16
     planned_waves: int = 4         # hot SmallBank waves the planner replays
+    elastic_ticks: int = 20        # ticks of phase 5d's elastic stream
 
 
 KERNELS = {
@@ -1469,11 +1510,11 @@ def same_session(torch, np, label, ref_label, ref, got):
 
 def served_ok(label, svc, rep):
     """Raise unless the served history verifies and every admitted request
-    committed or dropped."""
+    committed or dropped (replica reads commit at submit, unadmitted)."""
     errs = svc.verify()
     if errs:
         raise AssertionError(f"{label}: history fails: {errs[:3]}")
-    if rep.committed + rep.dropped != rep.admitted:
+    if rep.committed - rep.replica_commits + rep.dropped != rep.admitted:
         raise AssertionError(f"{label}: admitted requests did not all "
                              f"commit or drop")
 
@@ -1993,6 +2034,416 @@ def durability_phase(torch, dev, cfg, streamed, checked,
               f"mode 'error', none waited on the card", flush=True)
 
 
+# --------------------------------------------------------------- phase 5d
+# the reference's elastic deployment (benchmarks/bench_dist.py, _elastic):
+# zipf theta=0.99, 97% reads, 2 ops a txn, 3 x T arrivals a tick, replicas
+# refreshed every 8 ticks over the rank prefix holding 95% of the zipf
+# mass (at most 40% of the keys), 2x headroom; the request stream's seed
+ELASTIC_THETA, ELASTIC_READ_FRAC, ELASTIC_N_OPS = 0.99, 0.97, 2
+ELASTIC_LOAD, ELASTIC_REFRESH, ELASTIC_HEADROOM = 3, 8, 2
+ELASTIC_MASS, ELASTIC_MAX_FRAC, ELASTIC_SEED = 0.95, 0.4, 31
+# the explicit move (the first quarter of node 0's keys, [0, 31_250), to
+# node 1) and its tick; the short sessions (torch against cuda, the crash)
+# move at tick 3
+ELASTIC_MOVE_AT, ELASTIC_SHORT = 10, 6
+ELASTIC_CRASH_AT, ELASTIC_SNAPSHOT_EVERY = 3, 2
+
+
+def placed_corner_check(torch, dev, cfg, card,
+                        routes=("torch", "cuda", "cuda+fused")):
+    """A wave with live reads and NOP padding on key -1 (which reaches the
+    last physical row) and on a key past the last one (clamped to
+    ``slot[n_keys - 1]``), over the placed store, before and after a move
+    that fills the last physical row: each CUDA route's outcomes and store
+    equal the ``torch`` route's.  Not part of the counted path."""
+    import numpy as np
+    from repro_torch.core import (NOP, READ, WaveOut, make_store, run_wave,
+                                  wave_from_numpy)
+    from repro_torch.core.workloads import ycsb_waves
+    from repro_torch.placement import PlacementMap, apply_move, \
+        physical_store
+    n_keys, T = cfg.nodes * cfg.kpn, cfg.service_T
+    pm = PlacementMap(n_keys, cfg.nodes, headroom=ELASTIC_HEADROOM)
+    stores = {r: physical_store(make_store(n_keys, cfg.V, device=dev), pm)
+              for r in routes}
+    waves = ycsb_waves(np.random.RandomState(cfg.seed + 6), 2, T, cfg.nodes,
+                       cfg.kpn, theta=ELASTIC_THETA, read_frac=0.5,
+                       n_ops=ELASTIC_N_OPS, device="cpu")
+    for w, wave in enumerate(waves):
+        kind, key = wave.op_kind.numpy().copy(), wave.op_key.numpy().copy()
+        kind[T - 4:], key[T - 4:] = NOP, -1                  # padding
+        kind[0, 0], key[0, 0] = READ, -1                     # live reads
+        kind[1, 0], key[1, 0] = READ, n_keys + 3
+        kind[2, :], key[2, :] = READ, [-1, n_keys + 3]
+        wave = wave_from_numpy(wave._replace(op_kind=torch.as_tensor(kind),
+                                             op_key=torch.as_tensor(key)),
+                               dev)
+        if w == 1:
+            rec = pm.move(0, cfg.kpn, cfg.nodes - 1)
+            if rec.new_slots[-1] != pm.n_slots - 1:
+                raise AssertionError("the move does not fill the last row")
+            for r in routes:
+                apply_move(stores[r], rec)
+            pm.apply_record(rec)
+        outs = {}
+        for r in routes:
+            stores[r], out, _ = run_wave(stores[r], wave, w + 1, 1,
+                                         cfg.nodes, kernels=r,
+                                         placement=pm.device_arrays(dev))
+            outs[r] = [f.cpu().numpy() for f in out]
+        for r in routes[1:]:
+            for f, a, b in zip(WaveOut._fields, outs[routes[0]], outs[r]):
+                if not np.array_equal(a, b):
+                    raise AssertionError(f"placed corner wave {w} [{r}]: "
+                                         f"WaveOut.{f} differs from torch")
+            for f, a, b in zip(stores[r]._fields, stores[routes[0]],
+                               stores[r]):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"placed corner wave {w} [{r}]: "
+                                         f"store.{f} differs from torch")
+    print(f"[elastic] keys -1 and {n_keys + 3} on live reads and padding "
+          f"over the placed store ({pm.n_slots} rows), before and after a "
+          f"{cfg.kpn}-key move that fills row {pm.n_slots - 1}: "
+          f"{', '.join(routes[1:])} equal {routes[0]} in every WaveOut "
+          f"field and the store ({card})", flush=True)
+
+
+def elastic_phase(torch, dev, cfg, card, checked,
+                  routes=("torch", "cuda", "cuda+fused")):
+    """Elastic placement on the card: elastic = static on both CUDA routes,
+    replicas, a placed streaming session under the dispatch check, a
+    durable session with its recoveries, a crash after the first move
+    record and a restart.  Returns nothing; every check raises."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from repro_torch.core.workloads import zipf_hot_keys
+    from repro_torch.durability import DurabilityManager, recover
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.placement import PlacementMap, logical_store
+    from repro_torch.service import TxnService, ycsb_txn_gen
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    plain, cuda, fused = routes
+    n_keys, T = cfg.nodes * cfg.kpn, cfg.service_T
+    ticks = cfg.elastic_ticks
+    hot = zipf_hot_keys(cfg.nodes, cfg.kpn, ELASTIC_THETA, mass=ELASTIC_MASS,
+                        max_frac=ELASTIC_MAX_FRAC)
+    tag = f"({card})"
+
+    def service(kernels, elastic, replicas=False, durability=None):
+        return TxnService(
+            n_keys=n_keys, n_versions=cfg.V, T=T, O=ELASTIC_N_OPS,
+            sched="postsi", n_nodes=cfg.nodes, seed=0, kernels=kernels,
+            device=dev, durability=durability,
+            placement=(PlacementMap(n_keys, cfg.nodes,
+                                    headroom=ELASTIC_HEADROOM)
+                       if elastic else None),
+            balancer=True if elastic else None,
+            replicas=hot if replicas else None,
+            replica_refresh=ELASTIC_REFRESH)
+
+    def instrument(svc, log):
+        """Time each move and each replica refresh with the device synced
+        on both sides, record the balancer's load imbalance around each
+        move, and check the replica floor after each refresh."""
+        if svc.placement is not None:
+            move = svc.move_range
+
+            def timed_move(lo, hi, dst):
+                # the imbalance readings are instrumentation: their host
+                # time is taken back out of the report's wall
+                t_in = time.perf_counter()
+                lb = svc.balancer
+                before = lb.imbalance(svc.placement) if lb else None
+                sync()
+                t0 = time.perf_counter()
+                rec = move(lo, hi, dst)
+                sync()
+                t1 = time.perf_counter()
+                if rec is not None:
+                    after = lb.imbalance(svc.placement) if lb else None
+                    log["moves"].append((lo, hi, dst, int(rec.keys.size),
+                                         (t1 - t0) * 1e3, before, after))
+                svc._wall_s -= (t0 - t_in) + (time.perf_counter() - t1)
+                return rec
+            svc.move_range = timed_move
+        if svc.replicas is not None:
+            rep = svc.replicas
+            if rep.max_cid() > rep.floor:
+                raise AssertionError("bootstrap replica above its floor")
+            refresh = rep.refresh
+
+            def timed_refresh(store, floor, slot_of=None):
+                sync()
+                t0 = time.perf_counter()
+                refresh(store, floor, slot_of=slot_of)
+                log["refresh_ms"].append((time.perf_counter() - t0) * 1e3)
+                if rep.max_cid() > rep.floor:
+                    raise AssertionError(f"replica max_cid {rep.max_cid()} "
+                                         f"above its floor {rep.floor}")
+            rep.refresh = timed_refresh
+
+    def session(kernels, elastic, replicas=False, n_ticks=ticks,
+                move_at=ELASTIC_MOVE_AT, streaming=None, durability=None,
+                drain=True, crash=False):
+        """Serve the elastic stream; an elastic session makes the explicit
+        move after tick ``move_at``.  Returns (svc, report, log)."""
+        gen = ycsb_txn_gen(np.random.RandomState(ELASTIC_SEED), cfg.nodes,
+                           cfg.kpn, theta=ELASTIC_THETA,
+                           read_frac=ELASTIC_READ_FRAC, n_ops=ELASTIC_N_OPS)
+        svc = service(kernels, elastic, replicas, durability)
+        log = {"moves": [], "refresh_ms": [], "wall": 0.0}
+        instrument(svc, log)
+        if streaming and on_card and kernels.startswith("cuda"):
+            check_dispatch(torch, svc, checked)
+        B, K = streaming or (None, None)
+        arr = [ELASTIC_LOAD * T] * n_ticks
+
+        def run(part, last):
+            if streaming:
+                return svc.run_streaming(part, gen, B=B, K=K,
+                                         drain=last and drain)
+            return svc.run_stream(part, gen, drain=last and drain)
+        sync()
+        before = dict(LAUNCHES)
+        t0 = time.perf_counter()
+        rep = run(arr[:move_at], False)
+        if elastic:
+            svc.move_range(0, cfg.kpn // 4, 1)
+        if crash:
+            return svc, None, log
+        if move_at < n_ticks:
+            rep = run(arr[move_at:], True)
+        sync()
+        log["wall"] = time.perf_counter() - t0
+        label = (f"{'elastic' if elastic else 'static'}"
+                 f"{'+replicas' if replicas else ''} "
+                 f"[{kernels}{f' B={B} K={K}' if streaming else ''}]")
+        check_route_launches(label, kernels, svc.wave_idx, before, LAUNCHES)
+        if drain:
+            served_ok(label, svc, rep)
+        elif svc.verify():
+            raise AssertionError(f"{label}: history fails")
+        return svc, rep, log
+
+    def placed(svc):
+        return (fates_of(svc), svc.history,
+                logical_store(svc.store, svc.placement))
+
+    def show(label, svc, rep, log, ref=None):
+        moves = "; ".join(
+            f"[{lo},{hi})->{dst}: {k} keys {ms:.2f} ms"
+            + (f", load imbalance {b:.4f} -> {a:.4f}" if b is not None
+               else "") for lo, hi, dst, k, ms, b, a in log["moves"])
+        ref_s = (f", {rep.goodput_tps / ref.goodput_tps:.3f}x static "
+                 f"{ref.goodput_tps} txn/s" if ref is not None else "")
+        print(f"[elastic] {label}: offered={rep.offered} rejected="
+              f"{rep.rejected} committed={rep.committed} (replica "
+              f"{rep.replica_commits}) dropped={rep.dropped} waves="
+              f"{rep.waves} blocks={rep.blocks} wall={log['wall']:.3f} s "
+              f"(report {rep.wall_s:.3f} s) goodput={rep.goodput_tps} txn/s"
+              f"{ref_s}; moves={rep.placement_moves} moved_keys="
+              f"{rep.moved_keys} occupancy={rep.occupancy} imbalance="
+              f"{rep.imbalance} {tag}", flush=True)
+        if moves:
+            print(f"[elastic]   moves of {label}: {moves} {tag}", flush=True)
+        if log["refresh_ms"]:
+            r = log["refresh_ms"]
+            print(f"[elastic]   replica refreshes of {label}: {len(r)} of "
+                  f"{svc.replicas.keys.size} keys, ms "
+                  f"{', '.join(f'{x:.3f}' for x in r)}; served reads "
+                  f"{svc.replicas.served}, floor {svc.replicas.floor}, "
+                  f"max_cid {svc.replicas.max_cid()} {tag}", flush=True)
+
+    # 1. elastic = static, both CUDA routes
+    statics = {}
+    for kernels in (cuda, fused):
+        svc, rep, log = session(kernels, False)
+        show(f"static [{kernels}]", svc, rep, log)
+        statics[kernels] = ((fates_of(svc), svc.history, svc.store), rep)
+        del svc
+    (s_run, s_rep), (f_run, _) = statics[cuda], statics[fused]
+    same_session(torch, np, f"static [{fused}]", f"static [{cuda}]", s_run,
+                 f_run)
+    del f_run
+    elastic = {}
+    for kernels in (cuda, fused):
+        svc, rep, log = session(kernels, True)
+        label = f"elastic [{kernels}]"
+        if rep.placement_moves < 1 or not log["moves"]:
+            raise AssertionError(f"{label}: {rep.placement_moves} moves")
+        same_session(torch, np, label, f"the static {cuda} session", s_run,
+                     placed(svc))
+        show(label, svc, rep, log, statics[kernels][1])
+        elastic[kernels] = svc
+    e_c, e_f = elastic[cuda], elastic[fused]
+    if not np.array_equal(e_c.placement.slot, e_f.placement.slot):
+        raise AssertionError("elastic sessions moved different keys")
+    same_run(torch, np, f"elastic [{fused}] placed store", e_c.history,
+             e_c.store, e_f.history, e_f.store)
+    print(f"[elastic] elastic = static on {cuda} and {fused}: fates, "
+          f"history rows and the logical store equal the static {cuda} "
+          f"session; the placed stores equal each other; verify() == []; "
+          f"commit_loop once a wave {tag}", flush=True)
+    e_run = (fates_of(e_c), e_c.history, e_c.store)
+    e_logical = placed(e_c)
+    e_map = (e_c.placement.slot.copy(), e_c.placement.owner.copy())
+    del elastic, e_f, e_c, statics
+
+    # 2. replicas
+    rep_runs = {}
+    for kernels in (cuda, fused):
+        svc, rep, log = session(kernels, True, replicas=True)
+        label = f"elastic+replicas [{kernels}]"
+        if rep.replica_commits <= 0 or not log["refresh_ms"]:
+            raise AssertionError(f"{label}: {rep.replica_commits} replica "
+                                 f"commits, {len(log['refresh_ms'])} "
+                                 f"refreshes")
+        show(label, svc, rep, log, s_rep)
+        rep_runs[kernels] = (fates_of(svc), svc.history, svc.store)
+        del svc
+    same_session(torch, np, f"elastic+replicas [{fused}]",
+                 f"elastic+replicas [{cuda}]", rep_runs[cuda],
+                 rep_runs[fused])
+    del rep_runs
+    short = {}
+    for kernels in (plain, cuda):
+        svc, rep, log = session(kernels, True, replicas=True,
+                                n_ticks=ELASTIC_SHORT, move_at=ELASTIC_CRASH_AT,
+                                drain=False)
+        show(f"elastic+replicas, {ELASTIC_SHORT} ticks [{kernels}]", svc,
+             rep, log)
+        short[kernels] = (fates_of(svc), svc.history, svc.store)
+        del svc
+    same_session(torch, np, f"elastic+replicas {ELASTIC_SHORT} ticks "
+                 f"[{cuda}]", f"the {plain} route", short[plain], short[cuda])
+    print(f"[elastic] replicas: {cuda} equals {fused}; {cuda} equals "
+          f"{plain} over {ELASTIC_SHORT} ticks; max_cid <= floor after "
+          f"every refresh {tag}", flush=True)
+    del short
+
+    # 3. the placed streaming sessions, every block dispatch checked: B=1,
+    # K=1 is the step loop (same fates and history rows; the driver's
+    # retire does not run the balancer, so only the explicit move is made
+    # and the stores are compared in key order); B=4, K=2 forms up to a
+    # block of waves a tick, so it admits another request set, held to
+    # the static B=4, K=2 session instead
+    n_checked = checked[0]
+    o_svc, o_rep, o_log = session(cuda, True, streaming=(1, 1))
+    same_session(torch, np, f"elastic [{cuda} B=1 K=1]",
+                 f"the placed {cuda} step loop", e_logical, placed(o_svc))
+    show(f"elastic [{cuda} B=1 K=1]", o_svc, o_rep, o_log)
+    p_svc, p_rep, p_log = session(cuda, True, streaming=(4, 2))
+    q_svc, q_rep, q_log = session(cuda, False, streaming=(4, 2))
+    same_session(torch, np, f"elastic [{cuda} B=4 K=2]",
+                 f"the static {cuda} B=4 K=2 session",
+                 (fates_of(q_svc), q_svc.history, q_svc.store),
+                 placed(p_svc))
+    show(f"elastic [{cuda} B=4 K=2]", p_svc, p_rep, p_log, q_rep)
+    show(f"static [{cuda} B=4 K=2]", q_svc, q_rep, q_log)
+    if on_card:
+        n = checked[0] - n_checked
+        if n < o_rep.blocks + p_rep.blocks:
+            raise AssertionError("placed block dispatches went unchecked")
+        print(f"[elastic] dispatch check: {n} block dispatches of the placed "
+              f"B=1 K=1 and B=4 K=2 sessions and the static one ran under "
+              f"sync debug mode 'error', none waited on the card {tag}",
+              flush=True)
+    print(f"[elastic] streaming under the placement: B=1 K=1 equals the "
+          f"placed step loop (fates, histories, logical store); B=4 K=2 "
+          f"equals the static B=4 K=2 session (fates, histories, logical "
+          f"store) {tag}", flush=True)
+    del o_svc, p_svc, q_svc
+
+    # 4. durable: the first session logged, recovered; a crash and restart
+    root = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    try:
+        d = os.path.join(root, "durable")
+        mgr = DurabilityManager(d, fsync_every=1,
+                                snapshot_every=ELASTIC_SNAPSHOT_EVERY)
+        svc, rep, log = session(cuda, True, durability=mgr)
+        mgr.close()
+        same_session(torch, np, f"durable elastic [{cuda}]",
+                     f"the elastic {cuda} session", e_run,
+                     (fates_of(svc), svc.history, svc.store))
+        if not (np.array_equal(svc.placement.slot, e_map[0])
+                and mgr.snapshots_taken):
+            raise AssertionError("durable elastic session: map or snapshots")
+        show(f"durable elastic [{cuda}]", svc, rep, log)
+        print(f"[elastic] durable elastic [{cuda}] equals the non-durable "
+              f"session; {mgr.snapshots_taken} snapshots of "
+              f"{sum(t.numel() * t.element_size() for t in svc.store)} "
+              f"bytes, {rep.placement_moves} REC_MOVE records {tag}",
+              flush=True)
+
+        def recovered(lbl, dd, live, kernels, use_snapshot):
+            sync()
+            before = dict(LAUNCHES)
+            t0 = time.perf_counter()
+            st = recover(dd, kernels=kernels, device=dev,
+                         use_snapshot=use_snapshot)
+            sync()
+            dt = time.perf_counter() - t0
+            check_route_launches(lbl, kernels, len(st.history), before,
+                                 LAUNCHES)
+            same_state(torch, lbl, st, live)
+            for f in ("slot", "owner"):
+                if not np.array_equal(getattr(st.placement_map, f),
+                                      getattr(live.placement, f)):
+                    raise AssertionError(f"{lbl}: {f} differs from live")
+            sec = st.seconds
+            print(f"[elastic] {lbl}: {dt:.3f} s (scan {sec['scan']:.4f}, "
+                  f"snapshot restore {sec['snapshot']:.4f}, replay "
+                  f"{sec['replay']:.4f}), {st.n_replayed} of {st.n_blocks} "
+                  f"blocks and {st.n_records - st.n_blocks} moves in the "
+                  f"log, snapshot {st.snapshot_seq}; equal to the live "
+                  f"store, slot, owner, clock, wave index, GC clock, next "
+                  f"TID {tag}", flush=True)
+        recovered(f"recover [{cuda}, snapshot + suffix]", d, svc, cuda,
+                  True)
+        recovered(f"recover [{fused}, full replay]", d, svc, fused, False)
+        del svc
+
+        c_d = os.path.join(root, "crashed")
+        c_mgr = DurabilityManager(c_d, fsync_every=1,
+                                  snapshot_every=ELASTIC_SNAPSHOT_EVERY)
+        crashed, _, _ = session(cuda, True, durability=c_mgr,
+                                n_ticks=ELASTIC_SHORT,
+                                move_at=ELASTIC_CRASH_AT, crash=True)
+        c_mgr.crash()
+        from repro_torch.durability import wal
+        recs = wal.scan(c_mgr.wal_path).records
+        if recs[-1][0] != wal.REC_MOVE or sum(
+                rt == wal.REC_MOVE for rt, _ in recs) != 1:
+            raise AssertionError("the crash did not follow the first move")
+        for kernels, use_snapshot in ((cuda, True), (fused, False),
+                                      (plain, True)):
+            recovered(f"recover after the crash [{kernels}, "
+                      f"{'snapshot' if use_snapshot else 'full replay'}]",
+                      c_d, crashed, kernels, use_snapshot)
+        t0 = time.perf_counter()
+        r_mgr = DurabilityManager(c_d, fsync_every=1,
+                                  snapshot_every=ELASTIC_SNAPSHOT_EVERY)
+        svc2 = service(cuda, True, durability=r_mgr)
+        t_restart = time.perf_counter() - t0
+        if not np.array_equal(svc2.placement.slot, crashed.placement.slot):
+            raise AssertionError("the restart did not adopt the map")
+        gen = ycsb_txn_gen(np.random.RandomState(ELASTIC_SEED + 1),
+                           cfg.nodes, cfg.kpn, theta=ELASTIC_THETA,
+                           read_frac=ELASTIC_READ_FRAC, n_ops=ELASTIC_N_OPS)
+        r_rep = svc2.run_stream([ELASTIC_LOAD * T] * 2, gen)
+        r_mgr.close()
+        served_ok("restarted elastic service", svc2, r_rep)
+        print(f"[elastic] crash right after the first REC_MOVE record "
+              f"({len(recs)} records); restart {t_restart:.3f} s adopted "
+              f"the replayed map, served 2 more ticks ({r_rep.committed} "
+              f"committed), verify() == [] {tag}", flush=True)
+        del svc2, crashed
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def parse_config(argv=None) -> Config:
     """The fixed configuration, with only its depth taken from the flags."""
     full = Config()
@@ -2005,6 +2456,8 @@ def parse_config(argv=None) -> Config:
                     help="service ticks of arrivals before the drain")
     ap.add_argument("--planned-waves", type=int, default=full.planned_waves,
                     help="waves run_workload_planned replays")
+    ap.add_argument("--elastic-ticks", type=int, default=full.elastic_ticks,
+                    help="ticks of arrivals of phase 5d's elastic stream")
     ap.add_argument("--serve-batches", type=int, default=full.serve_batches,
                     choices=range(1, len(SERVE_PROMPTS) + 1),
                     help="served batches, the first ones of SERVE_PROMPTS")
@@ -2014,7 +2467,8 @@ def parse_config(argv=None) -> Config:
     return full._replace(waves=args.waves, scheds=args.scheds,
                          ticks=args.ticks, serve_batches=args.serve_batches,
                          new_tokens=args.new_tokens,
-                         planned_waves=args.planned_waves)
+                         planned_waves=args.planned_waves,
+                         elastic_ticks=args.elastic_ticks)
 
 
 def main(argv=None) -> int:
@@ -2085,6 +2539,17 @@ def main(argv=None) -> int:
           f"of durable serving, recovery and restart {durable_counts}",
           flush=True)
     engine_counts = {k: v + durable_counts[k]
+                     for k, v in engine_counts.items()}
+    placed_corner_check(torch, dev, cfg, card)
+    reset_launch_counts()
+    t1 = time.perf_counter()
+    elastic_phase(torch, dev, cfg, card, checked)
+    elastic_counts = dict(LAUNCHES)
+    print(f"[main path] elastic placement: {time.perf_counter() - t1:.1f} s,"
+          f" {checked[0]} block dispatches checked in all; kernel launches "
+          f"of the placed sessions and their recoveries {elastic_counts}",
+          flush=True)
+    engine_counts = {k: v + elastic_counts[k]
                      for k, v in engine_counts.items()}
     t0 = time.perf_counter()
     serve_counts = serve_phase(torch, dev, cfg, card)

@@ -30,10 +30,14 @@ an empty directory gets a CONFIG head record; thereafter every retired
 block is appended durable-before-ack and snapshots are taken at
 pipeline-empty retire boundaries every ``snapshot_every`` blocks.
 
-Not ported yet, each raising ``NotImplementedError`` naming the ROADMAP.md
-queue-1 item that brings it: a ``mesh`` ("Mesh substrate + dist_engine"),
-and a log under an elastic placement — a CONFIG record with a placement, a
-``REC_MOVE`` record, ``DurabilityManager.log_move`` ("Elastic placement").
+Under an elastic placement the CONFIG record names the initial layout
+(``PlacementMap.to_config``) and the store's row count, each live range
+move is a ``REC_MOVE`` record in the blocks' seq space, and snapshots hold
+the rings in physical slot order: ``recover`` rebuilds the map, replays
+moves and blocks in log order and returns the map beside the store.
+
+Not ported yet: ``mesh=`` raises ``NotImplementedError`` naming the
+ROADMAP.md queue-1 item "Mesh substrate + dist_engine".
 """
 from __future__ import annotations
 
@@ -48,6 +52,9 @@ import torch
 from repro_torch.core.engine import Wave, WaveOut, step_block
 from repro_torch.core.store import MVStore, make_store, store_from_numpy
 from repro_torch.kernels import resolve, resolve_device
+from repro_torch.placement import (PlacementMap, apply_move_local,
+                                   move_payload, physical_store,
+                                   record_from_payload)
 
 from . import wal
 from .snapshot import SnapshotStore
@@ -60,12 +67,6 @@ _FORMAT = 1
 _REPLAY_FIELDS = ("sched", "n_nodes", "n_keys", "n_versions", "O",
                   "gc_block", "n_slots", "placement")
 _MESH = "Mesh substrate + dist_engine"
-_PLACEMENT = "Elastic placement"
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: see ROADMAP.md "
-                               f"queue 1, item '{item}'")
 
 
 class RecoveryError(RuntimeError):
@@ -77,7 +78,8 @@ class RecoveryError(RuntimeError):
 class RecoveredState:
     """Everything a service needs to resume exactly after the retired
     prefix."""
-    store: MVStore               # on the device recovery ran on
+    store: MVStore               # on the device recovery ran on, in
+                                 # physical slot order under a placement
     clock: int
     wave_idx: int                # last executed wave index
     gc_clock: int                # watermark tracker clock (= recovered wm)
@@ -94,7 +96,9 @@ class RecoveredState:
     snapshot_seq: Optional[int]  # snapshot id used, or None
     torn_bytes: int              # damaged tail bytes the scan absorbed
     config: Dict[str, Any]
-    n_records: int = 0           # durable records total (next WAL seq)
+    placement_map: Optional[PlacementMap] = None  # the map after the prefix
+    n_records: int = 0           # durable records total (next WAL seq —
+                                 # blocks AND moves share one seq space)
     folded_requests: int = 0     # member requests that rode folded RMW rows
                                  # in the replayed suffix
     # host seconds of the three steps: "scan", "snapshot", "replay" (the
@@ -111,21 +115,18 @@ def service_config(svc) -> Dict[str, Any]:
     head record, written once and checked on every reattach.  Field for
     field the reference's; ``backend`` is the port's route name."""
     hs = svc.host_skew
+    pm = getattr(svc, "placement", None)
     return {
         "format": _FORMAT, "sched": svc.sched, "n_nodes": svc.n_nodes,
         "n_keys": svc.n_keys, "n_versions": svc.store.n_versions,
         "T": svc.T, "O": svc.O, "gc_block": svc.gc.block,
         "host_skew": None if hs is None else np.asarray(hs, np.int32),
         "backend": svc.kernels.backend,
+        # the INITIAL layout's identity; moves replay from explicit
+        # REC_MOVE records on top of it
         "n_slots": int(svc.store.head.shape[0]),
-        "placement": None,
+        "placement": None if pm is None else pm.to_config(),
     }
-
-
-def _refuse_placement(cfg: Dict[str, Any]) -> None:
-    if cfg.get("placement") is not None:
-        raise _not_ported("a durable log written under an elastic "
-                          "placement", _PLACEMENT)
 
 
 def check_config(logged: Dict[str, Any], current: Dict[str, Any]) -> None:
@@ -173,14 +174,16 @@ def _block_record(seq: int, stacked, wave_idx0: int, wm: Optional[int],
     return rec
 
 
-def _replay_block(store, rec: Dict, cfg: Dict, clock, kernels):
+def _replay_block(store, rec: Dict, cfg: Dict, clock, kernels,
+                  placement=None):
     """Re-execute one logged block; returns (store, outs_np, clock')."""
     stacked = Wave(op_kind=rec["op_kind"], op_key=rec["op_key"],
                    op_val=rec["op_val"], host=rec["host"], tid=rec["tid"])
     return step_block(store, stacked, rec["wave_idx0"], clock,
                       sched=cfg["sched"], n_nodes=cfg["n_nodes"],
                       host_skew=cfg["host_skew"], watermark=rec["wm"],
-                      gc_block=cfg["gc_block"], kernels=kernels)
+                      gc_block=cfg["gc_block"], kernels=kernels,
+                      placement=placement)
 
 
 def recover(directory: str, mesh=None, kernels=None,
@@ -193,7 +196,8 @@ def recover(directory: str, mesh=None, kernels=None,
     every choice gives the same bits.  ``use_snapshot=False`` forces a
     full-WAL replay (the differential path)."""
     if mesh is not None:
-        raise _not_ported("recover(mesh=...)", _MESH)
+        raise NotImplementedError(f"recover(mesh=...) is not ported yet: see "
+                                  f"ROADMAP.md queue 1, item '{_MESH}'")
     dev = resolve_device(device)
     kernels = resolve(kernels, dev)
     t0 = time.perf_counter()
@@ -201,12 +205,11 @@ def recover(directory: str, mesh=None, kernels=None,
     if scan.config is None:
         return None
     cfg = scan.config
-    _refuse_placement(cfg)
-    if scan.moves:
-        raise _not_ported("replay of a placement move (REC_MOVE)",
-                          _PLACEMENT)
     n_keys, n_versions = cfg["n_keys"], cfg["n_versions"]
     n_slots = cfg.get("n_slots") or n_keys
+    pm = None
+    if cfg.get("placement") is not None:
+        pm = PlacementMap.from_config(cfg["placement"])
     t1 = time.perf_counter()
 
     snap = None
@@ -223,6 +226,8 @@ def recover(directory: str, mesh=None, kernels=None,
 
     if snap is None:
         store = make_store(n_keys, n_versions, device=dev)
+        if pm is not None:
+            store = physical_store(store, pm)
         clock = 1
         wave_idx, gc_clock, next_tid, start = 0, 0, 1, 0
     else:
@@ -230,14 +235,31 @@ def recover(directory: str, mesh=None, kernels=None,
         clock = snap.clock
         wave_idx, gc_clock = snap.wave_idx, snap.gc_clock
         next_tid, start = snap.next_tid, snap.wal_seq
+        if pm is not None:
+            # fold pre-snapshot moves into the map ONLY: the snapshot's
+            # store already holds the rings at their moved slots
+            for rt, rec in scan.records[:start]:
+                if rt == wal.REC_MOVE:
+                    pm.apply_record(record_from_payload(rec))
+    # the snapshot's rings are in PHYSICAL slot order and the verifiers
+    # speak logical keys: keep the snapshot-time permutation before the
+    # suffix's moves change the map
+    snap_perm = None if pm is None else pm.slot.copy()
     t2 = time.perf_counter()
 
     history: List[Tuple[np.ndarray, WaveOut]] = []
     evicted = 0
     n_replayed = 0
     folded = 0
-    for _, rec in scan.records[start:]:
-        store, outs, clock = _replay_block(store, rec, cfg, clock, kernels)
+    for rt, rec in scan.records[start:]:
+        if rt == wal.REC_MOVE:
+            mrec = record_from_payload(rec)
+            store = apply_move_local(store, mrec)
+            pm.apply_record(mrec)
+            continue
+        store, outs, clock = _replay_block(
+            store, rec, cfg, clock, kernels,
+            placement=None if pm is None else pm.device_arrays(dev))
         n_replayed += 1
         if verify_outcomes:
             for name in ("status", "s", "c"):
@@ -260,16 +282,21 @@ def recover(directory: str, mesh=None, kernels=None,
     clock = int(clock)
     t3 = time.perf_counter()
 
+    base_store = None if snap is None else snap.store
+    if base_store is not None and snap_perm is not None:
+        base_store = {f: np.asarray(a)[snap_perm]
+                      for f, a in snap.store.items()}
     return RecoveredState(
         store=store, clock=clock, wave_idx=wave_idx,
         gc_clock=gc_clock, next_tid=next_tid, evicted_visible=evicted,
         history=history,
-        base_store=None if snap is None else snap.store,
+        base_store=base_store,
         n_blocks=len(scan.blocks),
         n_replayed=n_replayed,
         snapshot_seq=None if snap is None else snap.snap_id,
         torn_bytes=scan.torn_bytes, config=cfg,
-        n_records=len(scan.records), folded_requests=folded,
+        placement_map=pm, n_records=len(scan.records),
+        folded_requests=folded,
         seconds={"scan": t1 - t0, "snapshot": t2 - t1, "replay": t3 - t2})
 
 
@@ -309,12 +336,13 @@ class DurabilityManager:
         cfg = service_config(svc)
         scan = wal.scan(self.wal_path)
         if self.snaps is None:
+            # snapshots hold PHYSICAL rows: sized by n_slots (== n_keys
+            # under the identity layout)
             self.snaps = SnapshotStore(self.dir,
                                        cfg.get("n_slots") or cfg["n_keys"],
                                        cfg["n_versions"],
                                        keep_latest=self.keep_snapshots)
         if scan.config is not None:
-            _refuse_placement(scan.config)
             check_config(scan.config, cfg)
             state = recover(self.dir, kernels=svc.kernels, snaps=self.snaps,
                             device=svc.device)
@@ -327,6 +355,10 @@ class DurabilityManager:
             svc.former.next_tid = state.next_tid
             svc.history = list(state.history)
             svc.base_store = state.base_store
+            if state.placement_map is not None:
+                # adopt the replayed map (same initial layout + all logged
+                # moves) so routing resumes exactly where the crash left it
+                svc.placement = state.placement_map
             self.seq = state.n_records
             self.last_recovery = state
         self.writer = wal.WalWriter(self.wal_path, self.fsync_every,
@@ -351,8 +383,14 @@ class DurabilityManager:
         self._since_snap += 1
 
     def log_move(self, rec, clock: int = 0) -> None:
-        """A placement range move's record: comes with elastic placement."""
-        raise _not_ported("DurabilityManager.log_move", _PLACEMENT)
+        """Append one executed placement range move with its explicit slot
+        arrays — replay applies the arrays verbatim and never re-runs the
+        allocator.  Moves share the block seq space and are synced at once:
+        a move is a placement commit point, and every block logged after it
+        replays under the moved layout."""
+        self.writer.append(wal.REC_MOVE, move_payload(rec, self.seq, clock))
+        self.writer.sync()
+        self.seq += 1
 
     def maybe_snapshot(self, svc, pipeline_empty: bool) -> bool:
         """Snapshot when the cadence is due AND the device store is exactly

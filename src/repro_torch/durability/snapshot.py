@@ -51,32 +51,35 @@ class SnapshotState:
     snap_id: int                 # the checkpointer step that produced it
 
 
-def _tree_example(n_keys: int, n_versions: int) -> dict:
+def _tree_example(n_slots: int, n_versions: int) -> dict:
     """The fixed tree every snapshot of this store uses — dict leaves (not
     the MVStore NamedTuple) so the checkpointer's leaf paths are stable
     strings, the reference's."""
-    kv = (n_keys, n_versions)
+    kv = (n_slots, n_versions)
     return {
         "store": {
             "val": np.zeros(kv, np.int32), "tid": np.zeros(kv, np.int32),
             "cid": np.zeros(kv, np.int32), "sid": np.zeros(kv, np.int32),
-            "head": np.zeros((n_keys,), np.int32),
-            "wave": np.zeros((n_keys,), np.int32),
+            "head": np.zeros((n_slots,), np.int32),
+            "wave": np.zeros((n_slots,), np.int32),
         },
         "meta": np.zeros((_META_LEN,), np.int64),
     }
 
 
 class SnapshotStore:
-    """Snapshot save/restore for one durable service directory."""
+    """Snapshot save/restore for one durable service directory.  A snapshot
+    holds the store's physical rows: ``n_slots`` of them, which is
+    ``n_keys`` under the identity layout and ``PlacementMap.n_slots``
+    under an elastic placement."""
 
     SUBDIR = "snaps"
 
-    def __init__(self, directory: str, n_keys: int, n_versions: int,
+    def __init__(self, directory: str, n_slots: int, n_versions: int,
                  keep_latest: int = 2):
         self.dir = os.path.join(directory, self.SUBDIR)
         self.keep_latest = keep_latest
-        self.example = _tree_example(n_keys, n_versions)
+        self.example = _tree_example(n_slots, n_versions)
         self.ckpt = PostSICheckpointer(self.dir, self.example)
         self._next_id = 1
 

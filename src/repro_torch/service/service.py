@@ -30,10 +30,17 @@ service started on an existing directory recovers it first (through its
 own device and kernels); ``faults=`` (a ``runtime.FaultSchedule``) fires
 injected crashes and delays at the dispatch, retire and post-log seams.
 
-This slice serves from one device.  The mesh, placement, replica and
-balancer planes are not ported yet: their arguments must be ``None`` and
-anything else raises ``NotImplementedError`` naming the ROADMAP item that
-brings it.
+With ``placement=`` (a ``placement.PlacementMap``) the rings live at the
+physical rows ``slot[key]`` of a store with headroom, every dispatch
+translates keys through the map's cached device tables, ``move_range``
+moves a key range live at a wave boundary (WAL-logged when durable), and
+``balancer=True`` plans such moves from the committed traffic;
+``replicas=`` (hot logical keys) answers read-only transactions over them
+at submit time from host snapshots refreshed at the GC watermark every
+``replica_refresh`` ticks.
+
+This slice serves from one device: ``mesh=`` raises
+``NotImplementedError`` naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -45,7 +52,7 @@ from typing import Callable, Dict, Iterable, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.commit_phase import ABORTED, COMMITTED
+from repro_torch.core.commit_phase import ABORTED, COMMITTED, NOP
 from repro_torch.core.engine import Wave, WaveOut, run_block, stage_block, \
     step_wave
 from repro_torch.core.store import make_store
@@ -53,21 +60,17 @@ from repro_torch.core.verify import final_values_ok, verify_cv, verify_si
 from repro_torch.core.workloads import (SMALLBANK_O, rmw_hot_txn,
                                         smallbank_txn, ycsb_txn)
 from repro_torch.kernels import resolve, resolve_device
+from repro_torch.placement import (HotKeyReplicas, LoadBalancer,
+                                   apply_move, logical_store, physical_store)
 from repro_torch.planner import HybridSwitch
 
 from .former import TxnRequest, WaveFormer, fold_counts
 from .gc import VisibilityGC
 from .retry import RetryPolicy
 
-# arguments of the reference TxnService that this slice does not serve yet,
-# with the ROADMAP.md queue-1 item (by title) that brings each
-_NOT_YET = {
-    "mesh": "Mesh substrate + dist_engine",
-    "placement": "Elastic placement",
-    "replicas": "Elastic placement",
-    "replica_refresh": "Elastic placement",
-    "balancer": "Elastic placement",
-}
+# the ROADMAP.md queue-1 item (by title) that brings ``mesh=``, the one
+# argument of the reference TxnService this slice does not serve yet
+_MESH = "Mesh substrate + dist_engine"
 
 
 def _pct(xs: List[int], q: float) -> float:
@@ -104,11 +107,12 @@ class ServiceReport:
     planned_lane_waves: int = 0  # lane + spill waves they expanded to
     planned_spilled: int = 0     # txns spilled past the lane budget
     planner_switches: int = 0    # hybrid mode flips (either direction)
-    replica_commits: int = 0
-    replica_refreshes: int = 0
-    placement_moves: int = 0
-    moved_keys: int = 0
-    imbalance: float = 0.0
+    # elastic placement plane: all 0/empty when static
+    replica_commits: int = 0     # read-only txns answered from replicas
+    replica_refreshes: int = 0   # replica snapshot refreshes
+    placement_moves: int = 0     # executed live range moves
+    moved_keys: int = 0          # keys relocated across all moves
+    imbalance: float = 0.0       # max/mean per-node committed-txn occupancy
     occupancy: List[int] = dataclasses.field(default_factory=list)
     tenants: Dict[str, Dict] = dataclasses.field(default_factory=dict)
     fold_groups: int = 0         # wave rows that carried a same-key RMW fold
@@ -132,24 +136,47 @@ class TxnService:
                  host_skew: Optional[np.ndarray] = None, seed: int = 0,
                  mesh=None, kernels=None, durability=None, faults=None,
                  planner=None, placement=None, replicas=None, balancer=None,
-                 replica_refresh: Optional[int] = None,
+                 replica_refresh: int = 1,
                  tenants: Optional[Dict[int, float]] = None,
                  fold_rmw: bool = False, fold_max: int = 256, device=None):
-        given = dict(mesh=mesh, placement=placement, replicas=replicas,
-                     replica_refresh=replica_refresh, balancer=balancer)
-        for name, value in given.items():
-            if value is not None:
-                raise NotImplementedError(
-                    f"TxnService({name}=...) is not ported yet: see "
-                    f"ROADMAP.md queue 1, item '{_NOT_YET[name]}'")
+        if mesh is not None:
+            raise NotImplementedError(
+                f"TxnService(mesh=...) is not ported yet: see ROADMAP.md "
+                f"queue 1, item '{_MESH}'")
         self.device = resolve_device(device)
         self.sched = sched
         self.n_nodes = n_nodes
         self.host_skew = host_skew
         self.T, self.O = T, O
         self.kernels = resolve(kernels, self.device)
+        # elastic placement plane: with a PlacementMap the rings live at
+        # physical rows ``placement.slot[key]`` and every dispatch
+        # translates logical keys through the map's cached device tables;
+        # the default (None) is the identity layout
+        self.placement = placement
+        if placement is not None and placement.n_keys != n_keys:
+            raise ValueError(f"placement covers {placement.n_keys} keys, "
+                             f"service has {n_keys}")
         self.store = make_store(n_keys, n_versions, device=self.device)
+        if placement is not None:
+            self.store = physical_store(self.store, placement)
         self.n_keys = n_keys
+        if replicas is not None and not isinstance(replicas, HotKeyReplicas):
+            replicas = HotKeyReplicas(replicas)
+        self.replicas = replicas
+        self.replica_refresh = max(1, int(replica_refresh))
+        self.replica_commits = 0
+        if balancer is True:
+            if placement is None:
+                raise ValueError("balancer=True needs an elastic placement")
+            balancer = LoadBalancer(n_keys, placement.n_nodes)
+        if balancer is not None and placement is None:
+            raise ValueError("a balancer needs an elastic placement to move")
+        self.balancer = balancer
+        self.placement_moves = 0
+        self.moved_keys = 0
+        self._occupancy = (np.zeros(placement.n_nodes, np.int64)
+                           if placement is not None else None)
         self.clock = torch.ones((), dtype=torch.int32, device=self.device)
         self.former = WaveFormer(T, O, max_queue=max_queue, tenants=tenants,
                                  fold_rmw=fold_rmw, fold_max=fold_max)
@@ -190,6 +217,10 @@ class TxnService:
         self.durability = durability
         if durability is not None:
             durability.attach(self)
+        if self.replicas is not None:
+            # bootstrap snapshot at floor 0 so pre-first-tick submits can
+            # already be answered (every ring starts with the cid-0 version)
+            self._refresh_replicas()
 
     # ------------------------------------------------------------ intake
     def _tstat(self, tenant: int) -> Dict:
@@ -210,6 +241,28 @@ class TxnService:
                          tenant=int(tenant))
         self.requests.append(req)
         self._tstat(req.tenant)["offered"] += 1
+        if (self.replicas is not None
+                and self.replicas.can_serve(req.op_kind, req.op_key)):
+            # a read-only txn over replicated keys commits AT SUBMIT TIME
+            # with s = c = the replica's visibility floor and never enters
+            # the engine (versions visible at the floor are immutable)
+            _, floor = self.replicas.serve(req.op_kind, req.op_key)
+            req.status = "committed"
+            req.replica = True
+            req.arrive_tick = self.tick
+            req.commit_tick = self.tick
+            req.s = req.c = int(floor)
+            req.attempts = 1
+            self.committed += 1
+            self.replica_commits += 1
+            self.latencies.append(req.latency)
+            st = self._tstat(req.tenant)
+            st["committed"] += 1
+            st["replica_commits"] += 1
+            st["latencies"].append(req.latency)
+            self.gc.observe_replica(
+                floor, n_reads=int((req.op_kind != NOP).sum()))
+            return req
         self.former.offer(req, self.tick + 1)     # eligible from next tick
         return req
 
@@ -219,6 +272,9 @@ class TxnService:
         Returns the numpy ``WaveOut`` or ``None`` for an idle tick."""
         self.tick += 1
         t0 = time.perf_counter()
+        if (self.replicas is not None
+                and self.tick % self.replica_refresh == 0):
+            self._refresh_replicas()
         formed = self.former.form(self.tick)
         if formed is None:
             self.idle_ticks += 1
@@ -235,7 +291,8 @@ class TxnService:
         self.store, out, self.clock = step_wave(
             self.store, wave, self.wave_idx, self.clock, sched=self.sched,
             n_nodes=self.n_nodes, host_skew=self.host_skew,
-            watermark=wm, gc_block=self.gc.block, kernels=self.kernels)
+            watermark=wm, gc_block=self.gc.block, kernels=self.kernels,
+            placement=self._placement_arrays())
         if self.faults is not None:
             self.faults.at_retire(self)
         self.gc.observe(out, int(self.clock))
@@ -253,6 +310,7 @@ class TxnService:
             if self.faults is not None:
                 self.faults.post_log(self)
         self._route(out, slots)
+        self._observe_placement(wave, out, slots)
         if self.planner is not None:
             self.planner.observe_optimistic(
                 len(slots), int((out.status[:len(slots)] == ABORTED).sum()))
@@ -277,7 +335,8 @@ class TxnService:
             next_tid=self.former.next_tid, sched=self.sched,
             n_nodes=self.n_nodes, kernels=self.kernels,
             watermark=wm, host_skew=self.host_skew,
-            gc_block=self.gc.block, max_lanes=self.planner.max_lanes)
+            gc_block=self.gc.block, max_lanes=self.planner.max_lanes,
+            placement=self._placement_arrays())
         if self.faults is not None:
             self.faults.at_retire(self)
         # the planner relabeled every row with fresh contiguous tids (lane
@@ -314,6 +373,7 @@ class TxnService:
                 r.tid = int(pw.exec_tid[i])
                 r.tids[-1] = r.tid
         self._route(out, slots)
+        self._observe_placement(wave, out, slots)
         self.planner.observe_planned(
             len(slots), pw.plan.conflicted + pw.plan.n_spilled)
         if self.durability is not None:
@@ -375,8 +435,76 @@ class TxnService:
         self.store, outs, self.clock = run_block(
             self.store, staged, None, self.clock, sched=self.sched,
             n_nodes=self.n_nodes, host_skew=self.host_skew,
-            gc_block=self.gc.block, kernels=self.kernels)
+            gc_block=self.gc.block, kernels=self.kernels,
+            placement=self._placement_arrays())
         return outs, self.clock, staged
+
+    # ------------------------------------------------- elastic placement
+    def _placement_arrays(self):
+        """The placement's (owner, slot) tables on the service's device, or
+        ``None`` when static.  Cached by the PlacementMap and remade only
+        by a move, so a dispatch copies nothing from the host."""
+        return (None if self.placement is None
+                else self.placement.device_arrays(self.device))
+
+    def _refresh_replicas(self):
+        """Re-snapshot the hot-key replicas at the current visibility floor
+        (the GC watermark; the tracker's clock when no pins exist).  The
+        floor only moves forward, so one batched gather is the whole
+        replication protocol."""
+        wm = self._watermark()
+        floor = int(self.gc.clock) if wm is None else int(wm)
+        slot_of = None if self.placement is None else self.placement.slot
+        self.replicas.refresh(self.store, floor, slot_of=slot_of)
+
+    def _observe_placement(self, wave, out, slots):
+        """Fold one retired wave into the placement plane's accounting
+        (per-node committed-txn occupancy under the CURRENT placement) and
+        let the balancer trigger live range moves at its block boundary.
+        Reads the host copies of the wave and of its outcomes only."""
+        if self.placement is None:
+            return
+        T = len(slots)
+        kinds = np.asarray(wave.op_kind)[:T]
+        keys = np.asarray(wave.op_key)[:T]
+        status = np.asarray(out.status)[:T]
+        owner = self.placement.owner
+        active = kinds != NOP
+        committed = status == COMMITTED
+        sel = committed & active.any(axis=1)
+        if sel.any():
+            first = np.argmax(active, axis=1)
+            np.add.at(self._occupancy,
+                      owner[keys[np.arange(T), first][sel]], 1)
+        if self.balancer is None:
+            return
+        self.balancer.observe(keys, active, committed, owner)
+        if self.balancer.end_block():
+            for lo, hi, dst in self.balancer.plan(self.placement):
+                self.move_range(lo, hi, dst)
+
+    def move_range(self, lo: int, hi: int, dst: int):
+        """Live-repartition logical keys ``[lo, hi)`` onto node ``dst`` at a
+        wave boundary: plan the slots on the PlacementMap, move the rings
+        in the store on the device, commit the map (which remakes its
+        device tables) and WAL-log the explicit record so recovery replays
+        the move bit for bit.  A live streaming driver is flushed first, so
+        no dispatched block is in flight.  Returns the applied
+        ``MoveRecord`` (``None`` if nothing moved)."""
+        if self.placement is None:
+            raise ValueError("move_range needs an elastic placement")
+        if self.stream is not None:
+            self.stream.flush()          # no dispatched block may be in flight
+        rec = self.placement.move(lo, hi, dst)
+        if rec.keys.size == 0:
+            return None
+        self.store = apply_move(self.store, rec)
+        self.placement.apply_record(rec)
+        self.placement_moves += 1
+        self.moved_keys += int(rec.keys.size)
+        if self.durability is not None:
+            self.durability.log_move(rec, int(self.clock))
+        return rec
 
     def drain(self, max_ticks: Optional[int] = None) -> int:
         """Run ticks until no request is pending (or the safety cap).
@@ -477,6 +605,14 @@ class TxnService:
             planned_spilled=self.planned_spilled,
             planner_switches=(self.planner.switches
                               if self.planner is not None else 0),
+            replica_commits=self.replica_commits,
+            replica_refreshes=(self.replicas.refreshes
+                               if self.replicas is not None else 0),
+            placement_moves=self.placement_moves,
+            moved_keys=self.moved_keys,
+            imbalance=self._imbalance(),
+            occupancy=([] if self._occupancy is None
+                       else self._occupancy.tolist()),
             tenants=self._tenant_report(),
             fold_groups=self.former.fold_groups,
             folded_requests=self.former.folded_requests,
@@ -507,12 +643,23 @@ class TxnService:
             }
         return rows
 
+    def _imbalance(self) -> float:
+        """Max/mean per-node committed-txn occupancy under the current
+        placement (1.0 = perfectly balanced; 0.0 when static or empty)."""
+        if self._occupancy is None or self._occupancy.sum() == 0:
+            return 0.0
+        occ = self._occupancy.astype(np.float64)
+        return round(float(occ.max() / occ.mean()), 4)
+
     def verify(self) -> List[str]:
         """Post-hoc correctness of the served history: SI (or CV) validity
-        plus final-store-matches-serial-replay, via ``core.verify``."""
+        plus final-store-matches-serial-replay, via ``core.verify``.  The
+        history speaks logical keys, so a placed store is gathered back
+        into key order first (moves do not change ring contents)."""
         check = verify_cv if self.sched == "cv" else verify_si
         errors = check(self.history, base_store=self.base_store)
-        errors += final_values_ok(self.store, self.history, self.n_keys)
+        errors += final_values_ok(logical_store(self.store, self.placement),
+                                  self.history, self.n_keys)
         return errors
 
 

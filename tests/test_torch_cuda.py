@@ -31,7 +31,13 @@ CUDA route must dispatch under sync debug mode "error" and write the
 write-ahead log the ``torch`` route writes, record for record, and
 ``recover`` on both CUDA routes (from the snapshot and by full replay,
 one ``commit_loop`` launch a replayed wave) must give the ``torch``
-route's state.
+route's state.  Under an elastic placement (headroom 2, the balancer's
+live moves, an explicit ``move_range``, hot-key replicas) a session on
+``cuda`` and ``cuda+fused`` must equal ``torch`` per request, per wave and
+in the placed store, a placed streaming session's block dispatches must
+run under sync debug mode "error" after a move, and ``apply_move_local``
+on the card must equal the CPU, including a move that fills the last
+physical row.
 """
 import numpy as np
 import pytest
@@ -640,3 +646,99 @@ def test_recovery_cuda_routes_equal_torch(dev, tmp_path):
                         state.next_tid) == (int(live.clock), live.wave_idx,
                                             live.gc.clock,
                                             live.former.next_tid)
+
+
+# ------------------------------------------------ elastic placement
+def _placed_session(route, dev, replicas=False, streaming=False,
+                    checked=None):
+    from repro_torch.core.workloads import zipf_hot_keys
+    from repro_torch.placement import PlacementMap
+    svc = ts.TxnService(
+        160, T=16, O=2, n_nodes=4, kernels=route, device=dev,
+        placement=PlacementMap(160, 4, headroom=2), balancer=True,
+        replicas=zipf_hot_keys(4, 40, 0.99, mass=0.95, max_frac=0.4)
+        if replicas else None, replica_refresh=4)
+    if checked is not None:
+        run = svc._run_block
+
+        def run_checked(waves):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = run(waves)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            checked[0] += 1
+            return out
+        svc._run_block = run_checked
+    gen = ts.ycsb_txn_gen(np.random.RandomState(31), 4, 40, theta=0.99,
+                          read_frac=0.97, n_ops=2)
+    if streaming:
+        svc.run_streaming([48] * 6, gen, B=4, K=2, drain=False)
+        svc.move_range(0, 10, 1)           # flushes, then the next blocks
+        svc.run_streaming([48] * 6, gen, B=4, K=2)
+    else:
+        svc.run_stream([48] * 6, gen, drain=False)
+        svc.move_range(0, 10, 1)
+        svc.run_stream([48] * 6, gen)
+    assert svc.verify() == [] and svc.placement_moves > 0
+    fates = [(r.status, tuple(r.tids), r.s, r.c, r.replica)
+             for r in svc.requests]
+    return svc, fates
+
+
+@pytest.mark.parametrize("replicas", [False, True])
+def test_placed_session_cuda_routes_equal_torch(dev, replicas):
+    ref, ref_fates = _placed_session("torch", dev, replicas)
+    for route in ("cuda", "cuda+fused"):
+        before = LAUNCHES["commit_loop"]
+        svc, fates = _placed_session(route, dev, replicas)
+        assert LAUNCHES["commit_loop"] - before == svc.wave_idx
+        assert fates == ref_fates, route
+        assert svc.report().placement_moves == ref.report().placement_moves
+        np.testing.assert_array_equal(svc.placement.slot, ref.placement.slot)
+        for (ta, oa), (tb, ob) in zip(svc.history, ref.history):
+            np.testing.assert_array_equal(ta, tb)
+            for x, y in zip(oa, ob):
+                np.testing.assert_array_equal(x, y)
+        for a, b in zip(svc.store, ref.store):
+            assert torch.equal(a, b), route
+        if replicas:
+            assert svc.replica_commits > 0
+            assert svc.replicas.max_cid() <= svc.replicas.floor
+
+
+def test_placed_block_dispatch_without_host_waits(dev):
+    """Every block dispatch of a placed streaming session, moves between
+    them, runs under sync debug mode "error": the placement tables are on
+    the card before the dispatch, remade by the move, never copied in it."""
+    ref, ref_fates = _placed_session("torch", dev, streaming=True)
+    for route in ("cuda", "cuda+fused"):
+        checked = [0]
+        svc, fates = _placed_session(route, dev, streaming=True,
+                                     checked=checked)
+        assert checked[0] == svc.blocks > 0
+        assert fates == ref_fates, route
+        for a, b in zip(svc.store, ref.store):
+            assert torch.equal(a, b), route
+
+
+def test_apply_move_on_card_equals_cpu(dev):
+    """The in-place move on the card equals the CPU's, field by field,
+    for a move within a block, one that fills the last physical row, and
+    moves back."""
+    from repro_torch.placement import PlacementMap, apply_move_local
+    pm = PlacementMap(64, 4, headroom=2)
+    rng = np.random.RandomState(1)
+    fields = {f: rng.randint(-5, 50, (pm.n_slots, 4) if f in (
+        "val", "tid", "cid", "sid") else (pm.n_slots,)).astype(np.int32)
+        for f in tc.MVStore._fields}
+    cpu = tc.store_from_numpy(fields, "cpu")
+    card = tc.store_from_numpy(fields, dev)
+    for lo, hi, dst in ((4, 12, 2), (0, 16, 3), (0, 4, 0), (48, 56, 1)):
+        rec = pm.move(lo, hi, dst)
+        apply_move_local(cpu, rec)
+        apply_move_local(card, rec)
+        pm.apply_record(rec)
+        for f, a, b in zip(tc.MVStore._fields, cpu, card):
+            assert torch.equal(a, b.cpu()), (lo, hi, dst, f)
+    assert (pm.slot == pm.n_slots - 1).any()

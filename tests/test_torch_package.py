@@ -31,6 +31,7 @@ from repro_torch.kernels.ssd_scan import ssd_cuda, ssd_smem_bytes
 from repro_torch.launch.serve import Server
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.model import build as build_model
+from repro_torch.placement import PlacementMap
 from repro_torch.service import TxnService
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -76,7 +77,8 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.service, repro_torch.kernels.ops, "
             "repro_torch.configs, repro_torch.models.convert, "
             "repro_torch.launch.serve, repro_torch.durability, "
-            "repro_torch.checkpoint, repro_torch.runtime; "
+            "repro_torch.checkpoint, repro_torch.runtime, "
+            "repro_torch.placement, repro_torch.planner; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'repro.')) or m == 'repro']; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -95,6 +97,8 @@ def test_default_entry_points_need_cuda(monkeypatch):
         tw.smallbank_waves(np.random.RandomState(0), 1, 4, 2, 4)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TxnService(16, T=4, n_nodes=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PlacementMap(16, 2, headroom=2).device_arrays()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tc.wave_from_numpy(tw.smallbank_waves(
             np.random.RandomState(0), 1, 4, 2, 4, device="cpu")[0])
@@ -221,11 +225,7 @@ def test_reference_only_knobs_refuse_other_values(field, value):
     assert cfg.replace(**{field: getattr(cfg, field)}) == cfg
 
 
-@pytest.mark.parametrize("arg,item", [
-    ("mesh", "Mesh substrate"), ("placement", "Elastic placement"),
-    ("replicas", "Elastic placement"),
-    ("replica_refresh", "Elastic placement"),
-    ("balancer", "Elastic placement")])
+@pytest.mark.parametrize("arg,item", [("mesh", "Mesh substrate")])
 def test_unported_service_planes_raise(arg, item):
     with pytest.raises(NotImplementedError, match=item):
         TxnService(16, T=4, n_nodes=2, device="cpu", **{arg: object()})

@@ -262,8 +262,7 @@ def test_planned_service_matches_jax(planner, mode, seed, n_ticks):
 
 
 # ------------------------------------------- what this slice leaves out
-@pytest.mark.parametrize("arg,item", [
-    ("mesh", "Mesh substrate"), ("placement", "Elastic placement")])
+@pytest.mark.parametrize("arg,item", [("mesh", "Mesh substrate")])
 def test_unported_planes_still_raise(arg, item):
     with pytest.raises(NotImplementedError, match=item):
         ts.TxnService(N_KEYS, T=4, n_nodes=N_NODES, device="cpu",

@@ -17,8 +17,8 @@ and by the port's (``device="cpu"``), each with a ``DurabilityManager``:
   resubmission harness of ``tests/test_recovery.py`` commits every
   request exactly once across the port's restart; so do the pinned chaos
   seeds 11, 23 and 47;
-* what the port does not serve yet raises: a placement config, a
-  ``REC_MOVE`` record and ``mesh=``.
+* what the port does not serve yet raises: ``mesh=``.  (Logs under an
+  elastic placement: ``tests/test_torch_placement_recovery.py``.)
 """
 import numpy as np
 import pytest
@@ -404,32 +404,9 @@ def test_config_mismatch_rejected_with_clear_error(tmp_path):
                       device="cpu")
 
 
-@pytest.mark.parametrize("what", ["placement-config", "move-record", "mesh",
-                                  "log-move"])
+@pytest.mark.parametrize("what", ["mesh"])
 def test_unported_durability_planes_raise(what, tmp_path):
     svc, mgr = _service("torch", tmp_path / "log", "postsi")
     assert not _serve("torch", svc, mgr, n_ticks=4)
-    d = str(tmp_path / "log")
-    if what == "mesh":
-        with pytest.raises(NotImplementedError, match="Mesh substrate"):
-            td.recover(d, mesh=object(), device="cpu")
-        return
-    if what == "log-move":
-        with pytest.raises(NotImplementedError, match="Elastic placement"):
-            mgr.log_move(object())
-        return
-    if what == "placement-config":
-        cfg = td.wal.scan(td.wal_path(d)).config
-        d = str(tmp_path / "placed")
-        w = td.WalWriter(td.wal_path(d))
-        w.append(td.wal.REC_CONFIG, {**cfg, "placement": {"slot": [0]}})
-        w.close()
-    else:
-        w = td.WalWriter(td.wal_path(d))
-        w.append(td.wal.REC_MOVE, {"seq": mgr.seq, "keys": np.zeros(1)})
-        w.close()
-    with pytest.raises(NotImplementedError, match="Elastic placement"):
-        td.recover(d, device="cpu")
-    if what == "placement-config":
-        with pytest.raises(NotImplementedError, match="Elastic placement"):
-            _service("torch", d, "postsi")
+    with pytest.raises(NotImplementedError, match="Mesh substrate"):
+        td.recover(str(tmp_path / "log"), mesh=object(), device="cpu")
