@@ -45,7 +45,7 @@ Phases (any failure raises, so the process exits non-zero):
    plain loop there, and the wrapper's host time a call at T=1;
    one profiled postsi wave on each CUDA route, with its launches (one
    ``commit_loop`` a wave);
-4. engine: 16 SmallBank waves of T=256 over a 1,000,000-account store
+4. engine: 8 SmallBank waves of T=256 over a 1,000,000-account store
    (8 nodes x 125,000 accounts, V=8, 20% distributed) through
    ``run_workload_fused`` for all six schedulers under the ``cuda``,
    ``cuda+fused``, ``torch`` and ``torch+fused`` routes; every route equal
@@ -142,6 +142,31 @@ Phases (any failure raises, so the process exits non-zero):
      of elastic against static on each CUDA route, the balancer's load
      imbalance before and after each move, occupancy, replica-served
      reads, recovery seconds;
+   4m. the engine on the node mesh: phase 4's store sharded over
+   ``make_node_mesh(8)`` (125,000 rows a node; the nodes emulated as the
+   leading dimension of a view of the one store), ``--mesh-waves`` of
+   phase 4's waves for all six schedulers through
+   ``run_workload_fused_dist`` and ``run_workload_dist`` on ``cuda`` and
+   ``cuda+fused``, each equal to the single-device ``cuda`` run (WaveOut,
+   stats, store), ms a wave beside the single device's; launches a mesh
+   wave asserted: ``version_scan`` N (T + 1) = 2,056 and
+   ``potential_matrix`` 1 on ``cuda``, ``wave_commit`` 8 and
+   ``version_scan`` N T = 2,048 on ``cuda+fused``, ``commit_loop`` 0 (the
+   mesh runs the plain commit loop); one postsi wave on the mesh's
+   ``torch`` route equal to it too;
+   5m. the service on the node mesh, phase 5's stream for ``--mesh-ticks``
+   ticks: ``TxnService(mesh=...)`` on both CUDA routes equal to the
+   single-device ``cuda`` session (fates, history, store), ``verify() ==
+   []``, goodput beside the single device's; ``run_streaming`` B=4, K=2 on
+   the mesh equal to the single-device B=4, K=2 session, every mesh block
+   dispatch under sync debug mode "error"; a durable mesh session
+   (``fsync_every=1``, ``snapshot_every=4``) recovered onto the mesh on
+   ``cuda`` (from the snapshot and by full replay) and onto one device on
+   ``cuda+fused`` by full replay, each
+   equal to the live state; phase 5d's elastic deployment on the mesh
+   (2,000,000 rows, the balancer, one explicit ``move_range``) equal to
+   the static mesh session; the mesh phases' launches on a line of their
+   own (not in the kernels line);
 6. serve: zamba2-2.7b at full width (2.42 B parameters, random weights
    from a seeded generator on the card) behind ``launch.serve.Server`` on
    the ``cuda`` route, batch 4: 3 batches (prompts of 1,024, 1,024 and
@@ -163,8 +188,8 @@ Phases (any failure raises, so the process exits non-zero):
 
 The store, wave, stream and model sizes are fixed (the constants below);
 the flags cut only the depth: ``--waves``, ``--scheds``, ``--ticks``,
-``--planned-waves``, ``--elastic-ticks``, ``--serve-batches`` and
-``--new-tokens``.
+``--planned-waves``, ``--elastic-ticks``, ``--mesh-waves``,
+``--mesh-ticks``, ``--serve-batches`` and ``--new-tokens``.
 
 Without a CUDA device, or in a directory that does not hold the repository,
 it exits non-zero and prints no result.
@@ -209,13 +234,15 @@ class Config(NamedTuple):
     service_T: int = 64
     rate: float = 48.0             # Poisson arrivals per tick
     seed: int = 0
-    waves: int = 16
+    waves: int = 8                 # cut from 16 to make room for 4m, 5m
     scheds: str = "all"
     ticks: int = 32
     serve_batches: int = 3         # of SERVE_PROMPTS
     new_tokens: int = 16
-    planned_waves: int = 4         # hot SmallBank waves the planner replays
+    planned_waves: int = 2         # hot SmallBank waves the planner replays
     elastic_ticks: int = 20        # ticks of phase 5d's elastic stream
+    mesh_waves: int = 2            # waves a scheduler and route, phase 4m
+    mesh_ticks: int = 8            # ticks of phase 5m's mesh sessions
 
 
 KERNELS = {
@@ -2444,6 +2471,273 @@ def elastic_phase(torch, dev, cfg, card, checked,
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ------------------------------------------------------- phases 4m and 5m
+def mesh_wave_launches(route, n_nodes, T, n_waves):
+    """The launches ``n_waves`` mesh waves make on ``route``: the read
+    phase on every node's block (``version_scan`` once a node on ``cuda``
+    with one ``potential_matrix`` from the global keys, ``wave_commit``
+    once a node on ``cuda+fused``) and the plain commit loop's per-step
+    read on every node (``version_scan`` N a step); never ``commit_loop``."""
+    if route == "cuda":
+        return {"version_scan": n_waves * n_nodes * (T + 1),
+                "potential_matrix": n_waves, "wave_commit": 0,
+                "commit_loop": 0}
+    return {"version_scan": n_waves * n_nodes * T, "potential_matrix": 0,
+            "wave_commit": n_waves * n_nodes, "commit_loop": 0}
+
+
+def mesh_engine_phase(torch, dev, cfg, card, routes=("cuda", "cuda+fused"),
+                      plain="torch"):
+    """Phase 4m: phase 4's store sharded over ``make_node_mesh(nodes)``
+    and ``--mesh-waves`` of its waves for every scheduler through
+    ``run_workload_fused_dist`` and ``run_workload_dist`` on each route of
+    ``routes``, each equal to the single-device ``routes[0]`` run (WaveOut,
+    stats, store) and launching what ``mesh_wave_launches`` says; one
+    postsi wave on the mesh's ``plain`` route equal to it too."""
+    import numpy as np
+    from repro_torch.core import (SCHEDULERS, make_node_mesh, make_store,
+                                  run_workload_dist, run_workload_fused,
+                                  run_workload_fused_dist, shard_store)
+    from repro_torch.core.workloads import smallbank_waves
+    from repro_torch.kernels import LAUNCHES
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    n_keys, W = cfg.nodes * cfg.kpn, cfg.mesh_waves
+    mesh = make_node_mesh(cfg.nodes, dev)
+    waves = smallbank_waves(np.random.RandomState(cfg.seed), W, cfg.T,
+                            cfg.nodes, cfg.kpn, dist_frac=0.2, device=dev)
+    scheds = SCHEDULERS if cfg.scheds == "all" else cfg.scheds.split(",")
+    ref_route = routes[0]
+    for sched in scheds:
+        sync()
+        t0 = time.perf_counter()
+        ref_store, ref_hist, stats = run_workload_fused(
+            make_store(n_keys, cfg.V, device=dev), waves, sched=sched,
+            n_nodes=cfg.nodes, gc_track=True, kernels=ref_route)
+        sync()
+        one_ms = (time.perf_counter() - t0) * 1e3 / W
+        times = []
+        for route in routes:
+            for drv in (run_workload_fused_dist, run_workload_dist):
+                store = shard_store(make_store(n_keys, cfg.V, device=dev),
+                                    mesh)
+                sync()
+                before = dict(LAUNCHES)
+                t0 = time.perf_counter()
+                store, hist, m_stats = drv(store, waves, mesh, sched=sched,
+                                           gc_track=True, kernels=route)
+                sync()
+                ms = (time.perf_counter() - t0) * 1e3 / W
+                label = f"mesh {sched}/{route}/{drv.__name__}"
+                same_run(torch, np, label, ref_hist, ref_store, hist, store)
+                if m_stats != stats:
+                    raise AssertionError(f"{label}: stats {m_stats} vs "
+                                         f"{stats}")
+                if on_card:
+                    got = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+                    want = mesh_wave_launches(route, cfg.nodes, cfg.T, W)
+                    if any(got[k] != v for k, v in want.items()):
+                        raise AssertionError(f"{label}: launches {got}, "
+                                             f"expected {want}")
+                times.append(f"{route} {drv.__name__} {ms:.1f}")
+                del store
+        print(f"[mesh] {sched:8s} {W} waves of T={cfg.T} on {cfg.nodes} "
+              f"nodes x {cfg.kpn} rows equal the single-device {ref_route} "
+              f"run (WaveOut, stats, store); ms a wave: "
+              f"{'; '.join(times)}; single device {ref_route} {one_ms:.2f} "
+              f"({card})", flush=True)
+        del ref_store
+    # the mesh's plain route: one postsi wave
+    one = waves[:1]
+    ref_store, ref_hist, _ = run_workload_fused(
+        make_store(n_keys, cfg.V, device=dev), one, n_nodes=cfg.nodes,
+        gc_track=True, kernels=ref_route)
+    sync()
+    t0 = time.perf_counter()
+    store, hist, _ = run_workload_fused_dist(
+        shard_store(make_store(n_keys, cfg.V, device=dev), mesh), one, mesh,
+        gc_track=True, kernels=plain)
+    sync()
+    same_run(torch, np, f"mesh postsi/{plain}", ref_hist, ref_store, hist,
+             store)
+    print(f"[mesh] postsi 1 wave on the mesh's {plain} route equals the "
+          f"single-device {ref_route} wave: "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms ({card})", flush=True)
+
+
+def mesh_service_phase(torch, dev, cfg, card, checked,
+                       routes=("cuda", "cuda+fused")):
+    """Phase 5m: phase 5's stream (T=64, Poisson arrivals, postsi) for
+    ``--mesh-ticks`` ticks served on ``make_node_mesh(nodes)``:
+    ``TxnService(mesh=...)`` on each route equal to the single-device
+    ``routes[0]`` session; ``run_streaming`` B=4, K=2 on the mesh equal to
+    the single-device B=4, K=2 session, every mesh block dispatch under
+    sync debug mode "error"; a durable mesh session recovered onto the
+    mesh on ``routes[0]`` (from its snapshot and by full replay) and onto
+    one device on ``routes[1]`` by full replay; phase 5d's elastic deployment on the mesh (balancer, one
+    explicit move) equal to the static mesh session."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from repro_torch.core import make_node_mesh
+    from repro_torch.core.workloads import poisson_arrivals
+    from repro_torch.durability import DurabilityManager, recover
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.placement import PlacementMap, logical_store
+    from repro_torch.service import (TxnService, smallbank_txn_gen,
+                                     ycsb_txn_gen)
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    cuda, fused = routes
+    n_keys, T, ticks = cfg.nodes * cfg.kpn, cfg.service_T, cfg.mesh_ticks
+    mesh = make_node_mesh(cfg.nodes, dev)
+    tag = f"({card})"
+    n_checked = checked[0]
+
+    def serve(kernels, on_mesh, streaming=None, durability=None,
+              check=False):
+        rng = np.random.RandomState(cfg.seed + 1)
+        arrivals = poisson_arrivals(rng, cfg.rate, ticks)
+        svc = TxnService(n_keys=n_keys, n_versions=cfg.V, T=T,
+                         sched="postsi", n_nodes=cfg.nodes, kernels=kernels,
+                         device=dev, mesh=mesh if on_mesh else None,
+                         durability=durability)
+        if check and on_card:
+            check_dispatch(torch, svc, checked)
+        gen = smallbank_txn_gen(rng, cfg.nodes, cfg.kpn, dist_frac=0.2)
+        sync()
+        before = dict(LAUNCHES)
+        t0 = time.perf_counter()
+        rep = (svc.run_streaming(arrivals, gen, B=streaming[0],
+                                 K=streaming[1]) if streaming
+               else svc.run_stream(arrivals, gen))
+        sync()
+        wall = time.perf_counter() - t0
+        label = (f"{'mesh' if on_mesh else 'one device'} [{kernels}"
+                 f"{f' B={streaming[0]} K={streaming[1]}' if streaming else ''}"
+                 f"]")
+        served_ok(label, svc, rep)
+        if on_mesh and on_card and (LAUNCHES["commit_loop"]
+                                    != before["commit_loop"]
+                                    or LAUNCHES["version_scan"]
+                                    == before["version_scan"]):
+            raise AssertionError(f"{label}: the mesh ran commit_loop or no "
+                                 f"version_scan")
+        print(f"[mesh] service {label}: offered={rep.offered} committed="
+              f"{rep.committed} dropped={rep.dropped} waves={rep.waves} "
+              f"blocks={rep.blocks} wall={wall:.3f} s (report "
+              f"{rep.wall_s:.3f} s, {rep.wall_s * 1e3 / max(rep.waves, 1):.1f}"
+              f" ms a wave) goodput={rep.goodput_tps} txn/s p50="
+              f"{rep.latency_p50} p99={rep.latency_p99} ticks {tag}",
+              flush=True)
+        return svc, rep
+
+    one, one_rep = serve(cuda, False)
+    ref = (fates_of(one), one.history, one.store)
+    for kernels in routes:
+        svc, rep = serve(kernels, True)
+        same_session(torch, np, f"mesh service [{kernels}]",
+                     f"the single-device {cuda} session", ref,
+                     (fates_of(svc), svc.history, svc.store))
+        print(f"[mesh] service [{kernels}] on {cfg.nodes} nodes equals the "
+              f"single-device {cuda} session (fates, history, store), "
+              f"verify() == []; goodput {rep.goodput_tps} txn/s beside "
+              f"{one_rep.goodput_tps} txn/s on one device "
+              f"({rep.goodput_tps / one_rep.goodput_tps:.4f}x) {tag}",
+              flush=True)
+        del svc
+    del one, ref
+
+    s_one, _ = serve(cuda, False, streaming=(4, 2))
+    s_ref = (fates_of(s_one), s_one.history, s_one.store)
+    del s_one
+    for kernels in routes:
+        svc, rep = serve(kernels, True, streaming=(4, 2), check=True)
+        same_session(torch, np, f"mesh streaming [{kernels} B=4 K=2]",
+                     f"the single-device {cuda} B=4 K=2 session", s_ref,
+                     (fates_of(svc), svc.history, svc.store))
+        del svc
+    if on_card:
+        print(f"[mesh] dispatch check: {checked[0] - n_checked} mesh block "
+              f"dispatches ran under sync debug mode 'error', none waited "
+              f"on the card {tag}", flush=True)
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        d = os.path.join(root, "durable")
+        mgr = DurabilityManager(d, fsync_every=DURABLE_FSYNC_EVERY,
+                                snapshot_every=DURABLE_SNAPSHOT_EVERY)
+        live, rep = serve(cuda, True, streaming=(4, 2), durability=mgr,
+                          check=True)
+        mgr.close()
+        same_session(torch, np, f"durable mesh [{cuda} B=4 K=2]",
+                     "the non-durable mesh session", s_ref,
+                     (fates_of(live), live.history, live.store))
+        for lbl, kw in ((f"recover onto the mesh [{cuda}]",
+                         dict(mesh=mesh, kernels=cuda)),
+                        (f"recover onto the mesh [{cuda}, full replay]",
+                         dict(mesh=mesh, kernels=cuda, use_snapshot=False)),
+                        (f"recover onto one device [{fused}, full replay]",
+                         dict(kernels=fused, device=dev,
+                              use_snapshot=False))):
+            sync()
+            t0 = time.perf_counter()
+            st = recover(d, **kw)
+            sync()
+            same_state(torch, lbl, st, live)
+            sec = st.seconds
+            print(f"[mesh] {lbl}: {time.perf_counter() - t0:.3f} s (scan "
+                  f"{sec['scan']:.4f}, snapshot restore "
+                  f"{sec['snapshot']:.4f}, replay {sec['replay']:.4f}), "
+                  f"{st.n_replayed} of {st.n_blocks} blocks replayed, "
+                  f"snapshot {st.snapshot_seq}; equal to the live mesh "
+                  f"session {tag}", flush=True)
+        del live, st
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del s_ref
+
+    # phase 5d's elastic deployment on the mesh, against the static mesh
+    def elastic(placed):
+        gen = ycsb_txn_gen(np.random.RandomState(ELASTIC_SEED), cfg.nodes,
+                           cfg.kpn, theta=ELASTIC_THETA,
+                           read_frac=ELASTIC_READ_FRAC, n_ops=ELASTIC_N_OPS)
+        svc = TxnService(
+            n_keys=n_keys, n_versions=cfg.V, T=T, O=ELASTIC_N_OPS,
+            sched="postsi", n_nodes=cfg.nodes, seed=0, kernels=cuda,
+            mesh=mesh, placement=(PlacementMap(n_keys, cfg.nodes,
+                                               headroom=ELASTIC_HEADROOM)
+                                  if placed else None),
+            balancer=True if placed else None)
+        arr = [ELASTIC_LOAD * T] * ticks
+        sync()
+        t0 = time.perf_counter()
+        svc.run_stream(arr[:ticks // 2], gen, drain=False)
+        if placed:
+            svc.move_range(0, cfg.kpn // 4, 1)
+        rep = svc.run_stream(arr[ticks // 2:], gen)
+        sync()
+        wall = time.perf_counter() - t0
+        label = f"{'elastic' if placed else 'static'} mesh [{cuda}]"
+        served_ok(label, svc, rep)
+        print(f"[mesh] {label}: rows={svc.store.n_keys} committed="
+              f"{rep.committed} waves={rep.waves} wall={wall:.3f} s "
+              f"goodput={rep.goodput_tps} txn/s moves={rep.placement_moves}"
+              f" moved_keys={rep.moved_keys} {tag}", flush=True)
+        return svc, rep
+    st_svc, _ = elastic(False)
+    el_svc, el_rep = elastic(True)
+    if el_rep.placement_moves < 1:
+        raise AssertionError("elastic mesh: no move")
+    same_session(torch, np, f"elastic mesh [{cuda}]", "the static mesh",
+                 (fates_of(st_svc), st_svc.history, st_svc.store),
+                 (fates_of(el_svc), el_svc.history,
+                  logical_store(el_svc.store, el_svc.placement)))
+    print(f"[mesh] elastic mesh equals the static mesh session (fates, "
+          f"history rows, logical store) over {ticks} ticks, "
+          f"{el_rep.placement_moves} moves {tag}", flush=True)
+
+
 def parse_config(argv=None) -> Config:
     """The fixed configuration, with only its depth taken from the flags."""
     full = Config()
@@ -2458,6 +2752,10 @@ def parse_config(argv=None) -> Config:
                     help="waves run_workload_planned replays")
     ap.add_argument("--elastic-ticks", type=int, default=full.elastic_ticks,
                     help="ticks of arrivals of phase 5d's elastic stream")
+    ap.add_argument("--mesh-waves", type=int, default=full.mesh_waves,
+                    help="waves of phase 4m's mesh engine runs")
+    ap.add_argument("--mesh-ticks", type=int, default=full.mesh_ticks,
+                    help="ticks of arrivals of phase 5m's mesh sessions")
     ap.add_argument("--serve-batches", type=int, default=full.serve_batches,
                     choices=range(1, len(SERVE_PROMPTS) + 1),
                     help="served batches, the first ones of SERVE_PROMPTS")
@@ -2468,7 +2766,9 @@ def parse_config(argv=None) -> Config:
                          ticks=args.ticks, serve_batches=args.serve_batches,
                          new_tokens=args.new_tokens,
                          planned_waves=args.planned_waves,
-                         elastic_ticks=args.elastic_ticks)
+                         elastic_ticks=args.elastic_ticks,
+                         mesh_waves=args.mesh_waves,
+                         mesh_ticks=args.mesh_ticks)
 
 
 def main(argv=None) -> int:
@@ -2551,6 +2851,18 @@ def main(argv=None) -> int:
           flush=True)
     engine_counts = {k: v + elastic_counts[k]
                      for k, v in engine_counts.items()}
+    reset_launch_counts()
+    t1 = time.perf_counter()
+    mesh_engine_phase(torch, dev, cfg, card)
+    mesh_service_phase(torch, dev, cfg, card, checked)
+    mesh_counts = dict(LAUNCHES)
+    for name in ("version_scan", "potential_matrix", "wave_commit"):
+        if mesh_counts[name] <= 0:
+            raise AssertionError(f"{name} never launched on the mesh path")
+    print(f"[main path] node mesh: {time.perf_counter() - t1:.1f} s, "
+          f"{checked[0]} block dispatches checked in all; kernel launches "
+          f"of the mesh engine and service runs and their single-device "
+          f"references (not in the kernels line) {mesh_counts}", flush=True)
     t0 = time.perf_counter()
     serve_counts = serve_phase(torch, dev, cfg, card)
     print(f"[main path] serve: {time.perf_counter() - t0:.1f} s with its "

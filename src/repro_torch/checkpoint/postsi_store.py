@@ -22,9 +22,10 @@ the leaf paths.  So each package restores the other's checkpoints:
   import anything.
 
 ``restore`` puts the leaves on the device the caller names (the CUDA
-device by default).  The reference's ``reshard_tree``, a
-``jax.device_put`` onto a mesh, comes with the mesh substrate (ROADMAP.md
-queue 1, item "Mesh substrate + dist_engine").
+device by default).  ``reshard_tree`` is the reference's elastic reshard,
+a ``jax.device_put`` of every leaf onto a new mesh's sharding: on the
+port's emulated node mesh a node's block is a view of one device's tensor,
+so resharding is a move of every leaf to that device.
 """
 from __future__ import annotations
 
@@ -241,3 +242,11 @@ class PostSICheckpointer:
                 os.remove(os.path.join(self.dir, fn))
                 removed += 1
         return removed
+
+
+def reshard_tree(tree, device):
+    """Elastic reshard: every leaf of a nested dict of arrays on ``device``
+    (a node mesh's ``.device``), as tensors."""
+    if isinstance(tree, dict):
+        return {k: reshard_tree(v, device) for k, v in tree.items()}
+    return torch.as_tensor(tree, device=torch.device(device))

@@ -59,7 +59,7 @@ def rw_edge_to_creator(w_i, local, creator_committed, potential_row):
 def ongoing_readers_of(i, potential, status):
     """Mask of still-RUNNING txns that read a key txn i writes (self off)."""
     readers = potential[:, i] & (status == RUNNING)
-    readers[i] = False
+    readers[i].fill_(False)     # a fill: assigning a host bool would copy it
     return readers
 
 

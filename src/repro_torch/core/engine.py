@@ -573,6 +573,18 @@ def _run_stacked(sub, store, blk: StagedBlock, clock, **kw):
     return store, WaveOut(*(torch.stack(f) for f in zip(*outs))), clock
 
 
+def _run_fused(sub, store, blk: StagedBlock, **kw):
+    """Every wave of ``blk`` from clock 1 with no host sync between them,
+    then one copy of the stacked outcomes: (store, history, stats)."""
+    store, outs, _ = _run_stacked(sub, store, blk, _scalar(1, store.device),
+                                  **kw)
+    outs = _out_to_numpy(outs)
+    tids = blk.wave.tid.cpu().numpy()
+    history = [(tids[i], WaveOut(*(f[i] for f in outs)))
+               for i in range(tids.shape[0])]
+    return store, history, _stats_of(history)
+
+
 def run_workload_fused(store: MVStore, waves, sched: str = "postsi",
                        host_skew=None, n_nodes: int = 8,
                        gc_track: bool = False, gc_block: bool = False,
@@ -583,15 +595,20 @@ def run_workload_fused(store: MVStore, waves, sched: str = "postsi",
     stats) contract as ``run_workload``, bit-identical history."""
     blk = stage_block(list(waves), 1, None, store.device)
     sub, hs, pl = _prepare(store, kernels, host_skew, placement)
-    store, outs, _ = _run_stacked(
-        sub, store, blk, _scalar(1, store.device), n_nodes=n_nodes,
-        sched=sched, host_skew=hs, gc_track=gc_track, gc_block=gc_block,
-        placement=pl)
-    outs = _out_to_numpy(outs)
-    tids = blk.wave.tid.cpu().numpy()
-    history = [(tids[i], WaveOut(*(f[i] for f in outs)))
-               for i in range(len(waves))]
-    return store, history, _stats_of(history)
+    return _run_fused(sub, store, blk, n_nodes=n_nodes, sched=sched,
+                      host_skew=hs, gc_track=gc_track, gc_block=gc_block,
+                      placement=pl)
+
+
+def _as_staged(store: MVStore, stacked, wave_idx0, watermark) -> StagedBlock:
+    """``stacked`` if it is a ``StagedBlock`` (which carries its own wave
+    indices and watermark), else staged on the store's device."""
+    if isinstance(stacked, StagedBlock):
+        if wave_idx0 is not None or watermark is not None:
+            raise ValueError("a StagedBlock carries its own wave indices "
+                             "and watermark")
+        return stacked
+    return stage_block(stacked, wave_idx0, watermark, store.device)
 
 
 def run_block(store: MVStore, stacked, wave_idx0, clock,
@@ -611,13 +628,7 @@ def run_block(store: MVStore, stacked, wave_idx0, clock,
     page-locked memory and ``clock`` may be an int or a device scalar; a
     caller that passes host arrays keeps nothing alive, a caller that
     passes a ``StagedBlock`` keeps it until it reads ``outs``."""
-    if isinstance(stacked, StagedBlock):
-        if wave_idx0 is not None or watermark is not None:
-            raise ValueError("run_block: a StagedBlock carries its own "
-                             "wave indices and watermark")
-        blk = stacked
-    else:
-        blk = stage_block(stacked, wave_idx0, watermark, store.device)
+    blk = _as_staged(store, stacked, wave_idx0, watermark)
     sub, hs, pl = _prepare(store, kernels, host_skew, placement)
     return _run_stacked(sub, store, blk, _scalar(clock, store.device),
                         n_nodes=n_nodes, sched=sched, host_skew=hs,

@@ -1,5 +1,5 @@
 """Crash recovery: snapshot restore + WAL replay (port of
-``repro.durability.recovery``, single device).
+``repro.durability.recovery``).
 
 ``recover()`` rebuilds a durable service directory into the exact state of
 an uninterrupted run over the retired prefix:
@@ -8,7 +8,8 @@ an uninterrupted run over the retired prefix:
    store) — version rings, SID state, clock, wave index, GC clock, TID
    counter;
 2. replay every WAL block with ``seq >= snapshot.wal_seq`` through the
-   port's ``engine.run_block`` with the logged wave-index origin and
+   port's ``engine.run_block`` (``dist_engine.run_block_dist`` onto a node
+   mesh) with the logged wave-index origin and
    dispatch-time watermark, on the kernels of the route asked for (on
    ``cuda`` one ``commit_loop`` launch a replayed wave; a kernel that
    cannot build or launch raises, nothing falls back to the plain loop);
@@ -36,8 +37,12 @@ move is a ``REC_MOVE`` record in the blocks' seq space, and snapshots hold
 the rings in physical slot order: ``recover`` rebuilds the map, replays
 moves and blocks in log order and returns the map beside the store.
 
-Not ported yet: ``mesh=`` raises ``NotImplementedError`` naming the
-ROADMAP.md queue-1 item "Mesh substrate + dist_engine".
+``mesh=`` (a ``core.dist_engine.NodeMesh``) recovers onto the mesh: the
+restored store is sharded over its nodes and the blocks and moves replay
+through ``run_block_dist`` and ``apply_move_mesh``.  The substrate is a
+free choice: a log served on a mesh recovers bit for bit onto one device,
+and the reverse.  A service on a mesh recovers onto its own mesh; after a
+``drop_node`` fault a fresh mesh of the same arity takes it up.
 """
 from __future__ import annotations
 
@@ -49,12 +54,13 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.dist_engine import (check_mesh, mesh_device,
+                                          shard_store, step_block_dist)
 from repro_torch.core.engine import Wave, WaveOut, step_block
 from repro_torch.core.store import MVStore, make_store, store_from_numpy
 from repro_torch.kernels import resolve, resolve_device
-from repro_torch.placement import (PlacementMap, apply_move_local,
-                                   move_payload, physical_store,
-                                   record_from_payload)
+from repro_torch.placement import (PlacementMap, apply_move, move_payload,
+                                   physical_store, record_from_payload)
 
 from . import wal
 from .snapshot import SnapshotStore
@@ -66,7 +72,6 @@ _FORMAT = 1
 # the kernel backend: every backend replays bit-identically
 _REPLAY_FIELDS = ("sched", "n_nodes", "n_keys", "n_versions", "O",
                   "gc_block", "n_slots", "placement")
-_MESH = "Mesh substrate + dist_engine"
 
 
 class RecoveryError(RuntimeError):
@@ -175,15 +180,18 @@ def _block_record(seq: int, stacked, wave_idx0: int, wm: Optional[int],
 
 
 def _replay_block(store, rec: Dict, cfg: Dict, clock, kernels,
-                  placement=None):
-    """Re-execute one logged block; returns (store, outs_np, clock')."""
+                  placement=None, mesh=None):
+    """Re-execute one logged block on the chosen substrate; returns
+    (store, outs_np, clock')."""
     stacked = Wave(op_kind=rec["op_kind"], op_key=rec["op_key"],
                    op_val=rec["op_val"], host=rec["host"], tid=rec["tid"])
-    return step_block(store, stacked, rec["wave_idx0"], clock,
-                      sched=cfg["sched"], n_nodes=cfg["n_nodes"],
-                      host_skew=cfg["host_skew"], watermark=rec["wm"],
-                      gc_block=cfg["gc_block"], kernels=kernels,
-                      placement=placement)
+    kw = dict(sched=cfg["sched"], n_nodes=cfg["n_nodes"],
+              host_skew=cfg["host_skew"], watermark=rec["wm"],
+              gc_block=cfg["gc_block"], kernels=kernels, placement=placement)
+    if mesh is None:
+        return step_block(store, stacked, rec["wave_idx0"], clock, **kw)
+    return step_block_dist(store, stacked, rec["wave_idx0"], clock, mesh,
+                           **kw)
 
 
 def recover(directory: str, mesh=None, kernels=None,
@@ -192,13 +200,12 @@ def recover(directory: str, mesh=None, kernels=None,
             ) -> Optional[RecoveredState]:
     """Rebuild the durable state of ``directory``; ``None`` when it holds
     no log.  The recovered store lives on ``device`` (``None``: the CUDA
-    device) and the blocks replay through ``kernels`` resolved against it;
-    every choice gives the same bits.  ``use_snapshot=False`` forces a
-    full-WAL replay (the differential path)."""
-    if mesh is not None:
-        raise NotImplementedError(f"recover(mesh=...) is not ported yet: see "
-                                  f"ROADMAP.md queue 1, item '{_MESH}'")
-    dev = resolve_device(device)
+    device; with a ``mesh``, sharded over it on its device) and the blocks
+    replay through ``kernels`` resolved against it; every choice gives the
+    same bits.  ``use_snapshot=False`` forces a full-WAL replay (the
+    differential path)."""
+    dev = (resolve_device(device) if check_mesh(mesh) is None
+           else mesh_device(mesh, device))
     kernels = resolve(kernels, dev)
     t0 = time.perf_counter()
     scan = wal.scan(wal_path(directory))
@@ -241,6 +248,8 @@ def recover(directory: str, mesh=None, kernels=None,
             for rt, rec in scan.records[:start]:
                 if rt == wal.REC_MOVE:
                     pm.apply_record(record_from_payload(rec))
+    if mesh is not None:
+        store = shard_store(store, mesh)
     # the snapshot's rings are in PHYSICAL slot order and the verifiers
     # speak logical keys: keep the snapshot-time permutation before the
     # suffix's moves change the map
@@ -254,12 +263,13 @@ def recover(directory: str, mesh=None, kernels=None,
     for rt, rec in scan.records[start:]:
         if rt == wal.REC_MOVE:
             mrec = record_from_payload(rec)
-            store = apply_move_local(store, mrec)
+            store = apply_move(store, mrec, mesh=mesh)
             pm.apply_record(mrec)
             continue
         store, outs, clock = _replay_block(
             store, rec, cfg, clock, kernels,
-            placement=None if pm is None else pm.device_arrays(dev))
+            placement=None if pm is None else pm.device_arrays(dev),
+            mesh=mesh)
         n_replayed += 1
         if verify_outcomes:
             for name in ("status", "s", "c"):
@@ -344,8 +354,8 @@ class DurabilityManager:
                                        keep_latest=self.keep_snapshots)
         if scan.config is not None:
             check_config(scan.config, cfg)
-            state = recover(self.dir, kernels=svc.kernels, snaps=self.snaps,
-                            device=svc.device)
+            state = recover(self.dir, mesh=svc.mesh, kernels=svc.kernels,
+                            snaps=self.snaps, device=svc.device)
             svc.store = state.store
             svc.clock = torch.full((), state.clock, dtype=torch.int32,
                                    device=svc.device)

@@ -130,6 +130,10 @@ def _put_(flat, idx, live, src, lo):
 
 
 def _i32(x, like):
+    """``x`` as int32 on ``like``'s device; a Python int by a fill there,
+    since a copy of a host scalar to the card makes the host wait."""
+    if isinstance(x, int):
+        return torch.full((), x, dtype=torch.int32, device=like.device)
     return torch.as_tensor(x, dtype=torch.int32, device=like.device)
 
 

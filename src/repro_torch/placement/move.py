@@ -1,5 +1,5 @@
 """Executing a key-range move against the version store (port of
-``repro.placement.move``, single device).
+``repro.placement.move``).
 
 A move copies the full version rings of the moving keys from their old
 physical slots to freshly allocated slots inside the destination node's
@@ -15,20 +15,27 @@ has already written.  The move runs **under the GC watermark** like any
 writer: the service fires it only at a wave boundary, with no block in
 flight, so no visibility computation can observe a half-moved store.
 
-The mesh move (``apply_move_mesh``) comes with the mesh substrate.
+On a node mesh (``core.dist_engine``: the store's rows split into
+``n_nodes`` equal blocks, emulated as the leading dimension of a view) the
+move is the reference's peer program: each node answers the source rows it
+owns and the answers merge by a sum over the nodes (the reference's
+``psum``), then each node scatters the rings into, and clears, only the
+rows of its own block.  A row outside a node's block is DROPPED on that
+node, never clamped into it (a clamp would write the block's last row).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core.dist_engine import NodeMesh, check_mesh
 from repro_torch.core.store import MVStore, NO_TID
+from repro_torch.kernels.ops import I32_MAX, I32_MIN, _put_
 
 from .map import MoveRecord
 
 _EMPTY = {"val": 0, "tid": int(NO_TID), "cid": 0, "sid": 0,
           "head": 0, "wave": 0}
-_MESH = "Mesh substrate + dist_engine"
 
 
 def apply_move_local(store: MVStore, rec: MoveRecord) -> MVStore:
@@ -46,14 +53,63 @@ def apply_move_local(store: MVStore, rec: MoveRecord) -> MVStore:
     return store
 
 
-def apply_move_mesh(store: MVStore, rec: MoveRecord, mesh) -> MVStore:
-    raise NotImplementedError(
-        f"apply_move_mesh is not ported yet: see ROADMAP.md queue 1, item "
-        f"'{_MESH}'")
+def _set_owned_(blocks, rows, live, src) -> None:
+    """``blocks[i, rows[i, m]] = src[i, m]`` in place wherever ``live[i,
+    m]``: each node writes its own block only.  ``blocks``: a field's [N,
+    n_local, ...] view; ``rows``/``live``: [N, M]; ``src`` broadcasts to
+    [N, M, ...].  A dead entry (a row off the node's block, clamped to a
+    real one) contributes the identities of a min and a max scatter, so it
+    is dropped, not written (``ops._put_``)."""
+    N, n_local = blocks.shape[:2]
+    w = blocks[0, 0].numel()                         # cells a row
+    node = torch.arange(N, device=rows.device)[:, None]
+    cells = ((node * n_local + rows) * w)[..., None] + torch.arange(
+        w, device=rows.device)
+    live = live[..., None].expand(cells.shape).reshape(-1)
+    shape = (*rows.shape, *blocks.shape[2:])
+    src = (torch.broadcast_to(src, shape) if isinstance(src, torch.Tensor)
+           else torch.full(shape, src, dtype=torch.int32,
+                           device=rows.device))
+    _put_(blocks.view(-1), cells.reshape(-1), live,
+          src.reshape(-1),
+          torch.where(live, I32_MIN, I32_MAX).to(torch.int32))
 
 
-def apply_move(store: MVStore, rec: MoveRecord, mesh=None) -> MVStore:
-    if mesh is None:
+def apply_move_mesh(store: MVStore, rec: MoveRecord,
+                    mesh: NodeMesh) -> MVStore:
+    """Mesh move, in place, on every node at once: each node gathers the
+    source rings it owns (the others give 0) and the answers merge by a
+    sum over the nodes; then each node scatters the rings into the
+    destination rows of its block and clears the source rows of its block.
+    Rows off a node's block are dropped there."""
+    if rec.keys.size == 0:
+        return store
+    N = mesh.n_nodes
+    if store.n_keys % N:
+        raise ValueError(f"apply_move_mesh: {store.n_keys} rows do not "
+                         f"divide over {N} nodes")
+    n_local = store.n_keys // N
+    dev = store.device
+    idx = torch.as_tensor(np.stack([rec.old_slots, rec.new_slots]).astype(
+        np.int64), device=dev)
+    base = torch.arange(N, dtype=torch.int64, device=dev)[:, None] * n_local
+    lk = idx[:, None, :] - base                      # [2, N, M] local rows
+    mine = (lk >= 0) & (lk < n_local)
+    (src, dst), (mine_src, mine_dst) = lk.clamp(0, n_local - 1), mine
+    node = torch.arange(N, device=dev)[:, None]
+    for name, a in zip(MVStore._fields, store):
+        blocks = a.view(N, n_local, *a.shape[1:])
+        owned = mine_src.view(*mine_src.shape, *[1] * (a.dim() - 1))
+        rows = torch.where(owned, blocks[node, src], 0).sum(
+            0, dtype=torch.int32)                    # the psum gather
+        _set_owned_(blocks, dst, mine_dst, rows)
+        _set_owned_(blocks, src, mine_src, _EMPTY[name])
+    return store
+
+
+def apply_move(store: MVStore, rec: MoveRecord,
+               mesh: NodeMesh | None = None) -> MVStore:
+    if check_mesh(mesh) is None:
         return apply_move_local(store, rec)
     return apply_move_mesh(store, rec, mesh)
 

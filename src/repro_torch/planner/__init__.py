@@ -1,5 +1,5 @@
-"""Deterministic conflict-graph planner plane (port of ``repro.planner``,
-single device; DESIGN.md §10).
+"""Deterministic conflict-graph planner plane (port of ``repro.planner``;
+DESIGN.md §10).
 
 The wave former holds every transaction's declared read/write set on the
 host before dispatch, so each wave's conflict graph is knowable *before*

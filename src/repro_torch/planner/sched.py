@@ -1,12 +1,12 @@
 """The seventh scheduler: ``"planned"`` — deterministic lane execution that
-commits abort-free (port of ``repro.planner.sched``, single device;
-DESIGN.md §10).
+commits abort-free (port of ``repro.planner.sched``; DESIGN.md §10).
 
 This module is the planner's back half: it takes one wave plus its ``Plan``
 (lanes.py) and turns it into ONE ordinary wave *block* for the existing
 engine — every lane becomes a wave in the stack, the spill set (if any)
 becomes the final wave, and the whole block runs through
-``engine.step_block``, i.e. through ``engine.run_wave_on`` (on the
+``engine.step_block`` (``dist_engine.step_block_dist`` on a node mesh),
+i.e. through ``engine.run_wave_on`` (on the
 ``cuda`` routes the read-phase kernels and one ``commit_loop`` launch a
 lane wave).  There is **zero new copy of the CC rules**: a lane is just a
 wave the planner has proven conflict-free, and the engine's own rules then
@@ -36,8 +36,7 @@ the caller's rows is returned (``PlannedWave.exec_tid``).
 Host-side planning (graph build + coloring + packing, all numpy) is on the
 critical path: planned wins only where the abort rate it avoids exceeds
 what the planning and extra lane dispatch cost, which is the high-skew
-regime.  The reference's mesh branch is not ported: ``mesh=`` raises
-(ROADMAP.md queue 1, item 6).
+regime.
 """
 from __future__ import annotations
 
@@ -48,6 +47,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.commit_phase import ABORTED, NOP
+from repro_torch.core.dist_engine import check_mesh, step_block_dist
 from repro_torch.core.engine import (SCHEDULERS, Wave, WaveOut, step_block,
                                      _stats_of, wave_to_numpy)
 
@@ -167,7 +167,8 @@ def run_wave_planned(store, wave: Wave, clock, *, wave_idx0: int,
 
     Plans on the host (graph → lanes → pow2 block), relabels every row with
     a fresh contiguous tid from ``next_tid``, dispatches the block through
-    ``engine.step_block`` (``engine.run_wave_on`` per lane), asserts zero
+    ``engine.step_block`` (``engine.run_wave_on`` per lane; with ``mesh``, a
+    ``NodeMesh``, ``dist_engine.step_block_dist``), asserts zero
     aborts on planned lanes, and scatters outcomes back to input-row order.
     ``wave`` may hold numpy arrays or tensors; ``store`` is updated in
     place.
@@ -178,10 +179,7 @@ def run_wave_planned(store, wave: Wave, clock, *, wave_idx0: int,
     if sched not in SCHEDULERS:
         raise ValueError(f"base scheduler must be one of {SCHEDULERS}, "
                          f"got {sched!r}")
-    if mesh is not None:
-        raise NotImplementedError(
-            "run_wave_planned(mesh=...) is not ported yet: see ROADMAP.md "
-            "queue 1, item 'Mesh substrate + dist_engine'")
+    check_mesh(mesh)
     wave = wave_to_numpy(wave)
     plan = plan_wave(wave.op_kind, wave.op_key, max_lanes=max_lanes)
     stacked, rows, T_pad = build_planned_block(wave, plan, next_tid)
@@ -190,7 +188,12 @@ def run_wave_planned(store, wave: Wave, clock, *, wave_idx0: int,
     kw = dict(sched=sched, n_nodes=n_nodes, host_skew=host_skew,
               watermark=watermark, gc_track=gc_track, gc_block=gc_block,
               kernels=kernels, placement=placement)
-    store, outs, clock = step_block(store, stacked, wave_idx0, clock, **kw)
+    if mesh is None:
+        store, outs, clock = step_block(store, stacked, wave_idx0, clock,
+                                        **kw)
+    else:
+        store, outs, clock = step_block_dist(store, stacked, wave_idx0,
+                                             clock, mesh, **kw)
     # zero-abort invariant on planned lanes (spill wave exempt — it is the
     # optimistic path); gc_block / host_skew legitimately abort laned
     # writers for reasons the conflict graph cannot see, so only assert

@@ -104,8 +104,9 @@ class VisibilityGC:
         """Per-node snapshot floors for the decentralized mesh merge: node
         ``k``'s entry is the min floor over its live pinned readers, or the
         engine clock when it hosts none (neutral in the min — the wave
-        boundary is every unpinned reader's floor).  ``lax.pmin`` over
-        these equals ``watermark()`` by construction."""
+        boundary is every unpinned reader's floor).  Their min
+        (``dist_engine.mesh_watermark``) equals ``watermark()`` by
+        construction."""
         floors = [self.clock] * n_nodes
         for h, f in self._pins.items():
             node = self._pin_node[h]

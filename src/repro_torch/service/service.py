@@ -1,5 +1,5 @@
 """Closed-loop transaction service over the wave engine (port of
-``repro.service.service``, single device).
+``repro.service.service``).
 
     arrivals ──> WaveFormer ──> engine.step_wave ──> outcomes
                    ^  (admission, packing)   │
@@ -39,8 +39,12 @@ moves a key range live at a wave boundary (WAL-logged when durable), and
 at submit time from host snapshots refreshed at the GC watermark every
 ``replica_refresh`` ticks.
 
-This slice serves from one device: ``mesh=`` raises
-``NotImplementedError`` naming the ROADMAP item that brings it.
+``mesh=`` (a ``core.dist_engine.NodeMesh``) switches the data plane: the
+store is sharded over the mesh's emulated nodes (``shard_store``) and every
+wave or block runs through ``step_wave_dist`` / ``run_block_dist``, the
+same commit loop over the ``MeshSubstrate``, with the GC watermark merged
+from the per-node reader floors (``mesh_watermark``).  Outcomes are
+bit-identical between the two data planes.
 """
 from __future__ import annotations
 
@@ -53,6 +57,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.commit_phase import ABORTED, COMMITTED, NOP
+from repro_torch.core.dist_engine import (check_mesh, mesh_device,
+                                          mesh_watermark, run_block_dist,
+                                          shard_store, step_wave_dist)
 from repro_torch.core.engine import Wave, WaveOut, run_block, stage_block, \
     step_wave
 from repro_torch.core.store import make_store
@@ -67,10 +74,6 @@ from repro_torch.planner import HybridSwitch
 from .former import TxnRequest, WaveFormer, fold_counts
 from .gc import VisibilityGC
 from .retry import RetryPolicy
-
-# the ROADMAP.md queue-1 item (by title) that brings ``mesh=``, the one
-# argument of the reference TxnService this slice does not serve yet
-_MESH = "Mesh substrate + dist_engine"
 
 
 def _pct(xs: List[int], q: float) -> float:
@@ -126,8 +129,8 @@ class TxnService:
     """Closed-loop transaction service: open stream in, commits out.
 
     The version store lives on ``device`` (``None``: the CUDA device; pass
-    ``"cpu"`` for the CPU) and every wave runs through ``kernels``, resolved
-    once against that device."""
+    ``"cpu"`` for the CPU; with a ``mesh``, the mesh's device) and every
+    wave runs through ``kernels``, resolved once against that device."""
 
     def __init__(self, n_keys: int, n_versions: int = 8, T: int = 64,
                  O: int = SMALLBANK_O, sched: str = "postsi",
@@ -139,11 +142,9 @@ class TxnService:
                  replica_refresh: int = 1,
                  tenants: Optional[Dict[int, float]] = None,
                  fold_rmw: bool = False, fold_max: int = 256, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                f"TxnService(mesh=...) is not ported yet: see ROADMAP.md "
-                f"queue 1, item '{_MESH}'")
-        self.device = resolve_device(device)
+        self.mesh = check_mesh(mesh)
+        self.device = (resolve_device(device) if mesh is None
+                       else mesh_device(mesh, device))
         self.sched = sched
         self.n_nodes = n_nodes
         self.host_skew = host_skew
@@ -154,12 +155,19 @@ class TxnService:
         # translates logical keys through the map's cached device tables;
         # the default (None) is the identity layout
         self.placement = placement
-        if placement is not None and placement.n_keys != n_keys:
-            raise ValueError(f"placement covers {placement.n_keys} keys, "
-                             f"service has {n_keys}")
+        if placement is not None:
+            if placement.n_keys != n_keys:
+                raise ValueError(f"placement covers {placement.n_keys} keys, "
+                                 f"service has {n_keys}")
+            if mesh is not None and placement.n_nodes != mesh.n_nodes:
+                raise ValueError(f"placement is laid out for "
+                                 f"{placement.n_nodes} nodes, mesh has "
+                                 f"{mesh.n_nodes}")
         self.store = make_store(n_keys, n_versions, device=self.device)
         if placement is not None:
             self.store = physical_store(self.store, placement)
+        if mesh is not None:
+            self.store = shard_store(self.store, mesh)
         self.n_keys = n_keys
         if replicas is not None and not isinstance(replicas, HotKeyReplicas):
             replicas = HotKeyReplicas(replicas)
@@ -182,7 +190,8 @@ class TxnService:
                                  fold_rmw=fold_rmw, fold_max=fold_max)
         self._tenant_stats: Dict[int, Dict] = {}
         self.retry = retry or RetryPolicy()
-        self.gc = VisibilityGC(block=gc_block)
+        self.gc = VisibilityGC(
+            block=gc_block, n_nodes=None if mesh is None else mesh.n_nodes)
         self.rng = np.random.RandomState(seed)       # backoff jitter only
         self.tick = 0
         self.wave_idx = 0
@@ -288,11 +297,7 @@ class TxnService:
         wm = self._watermark()
         if self.faults is not None:
             self.faults.at_dispatch(self)
-        self.store, out, self.clock = step_wave(
-            self.store, wave, self.wave_idx, self.clock, sched=self.sched,
-            n_nodes=self.n_nodes, host_skew=self.host_skew,
-            watermark=wm, gc_block=self.gc.block, kernels=self.kernels,
-            placement=self._placement_arrays())
+        self.store, out, self.clock = self._step_wave(wave, wm)
         if self.faults is not None:
             self.faults.at_retire(self)
         self.gc.observe(out, int(self.clock))
@@ -333,7 +338,7 @@ class TxnService:
         self.store, self.clock, pw = run_wave_planned(
             self.store, wave, self.clock, wave_idx0=wave_idx0,
             next_tid=self.former.next_tid, sched=self.sched,
-            n_nodes=self.n_nodes, kernels=self.kernels,
+            n_nodes=self.n_nodes, mesh=self.mesh, kernels=self.kernels,
             watermark=wm, host_skew=self.host_skew,
             gc_block=self.gc.block, max_lanes=self.planner.max_lanes,
             placement=self._placement_arrays())
@@ -412,11 +417,32 @@ class TxnService:
 
     def _watermark(self):
         """The GC watermark for the next dispatch: the tracker's min over
-        pins, or ``None`` for the engine's wave-boundary collapse.  Under
-        pipelined streaming the tracker's clock is the clock of the
-        *retired* prefix, which can only under-estimate the true floor — a
-        lower watermark is conservative, never unsafe."""
-        return self.gc.watermark()
+        pins, or ``None`` for the engine's wave-boundary collapse.  On the
+        mesh the per-node reader floors merge by ``mesh_watermark`` (a min
+        over the host floors) when pins exist.  Under pipelined streaming
+        the tracker's clock is the clock of the *retired* prefix, which can
+        only under-estimate the true floor — a lower watermark is
+        conservative, never unsafe."""
+        if self.mesh is None:
+            return self.gc.watermark()
+        if not self.gc.pinned:
+            return None
+        return mesh_watermark(self.mesh,
+                              self.gc.node_floors(self.mesh.n_nodes))
+
+    def _step_wave(self, wave, wm):
+        """Run one formed wave on the configured data plane under the
+        watermark ``wm`` (computed once by the caller, so the WAL logs
+        exactly what ran); returns ``(store, out_np, clock)``."""
+        kw = dict(sched=self.sched, n_nodes=self.n_nodes,
+                  host_skew=self.host_skew, watermark=wm,
+                  gc_block=self.gc.block, kernels=self.kernels,
+                  placement=self._placement_arrays())
+        if self.mesh is None:
+            return step_wave(self.store, wave, self.wave_idx, self.clock,
+                             **kw)
+        return step_wave_dist(self.store, wave, self.wave_idx, self.clock,
+                              self.mesh, **kw)
 
     def _run_block(self, waves):
         """Dispatch B formed waves as one block WITHOUT waiting on the
@@ -432,11 +458,15 @@ class TxnService:
         wm = self._watermark()
         self._last_dispatch = (wave_idx0, wm)
         staged = stage_block(waves, wave_idx0, wm, self.device)
-        self.store, outs, self.clock = run_block(
-            self.store, staged, None, self.clock, sched=self.sched,
-            n_nodes=self.n_nodes, host_skew=self.host_skew,
-            gc_block=self.gc.block, kernels=self.kernels,
-            placement=self._placement_arrays())
+        kw = dict(sched=self.sched, n_nodes=self.n_nodes,
+                  host_skew=self.host_skew, gc_block=self.gc.block,
+                  kernels=self.kernels, placement=self._placement_arrays())
+        if self.mesh is None:
+            self.store, outs, self.clock = run_block(
+                self.store, staged, None, self.clock, **kw)
+        else:
+            self.store, outs, self.clock = run_block_dist(
+                self.store, staged, None, self.clock, self.mesh, **kw)
         return outs, self.clock, staged
 
     # ------------------------------------------------- elastic placement
@@ -498,7 +528,7 @@ class TxnService:
         rec = self.placement.move(lo, hi, dst)
         if rec.keys.size == 0:
             return None
-        self.store = apply_move(self.store, rec)
+        self.store = apply_move(self.store, rec, mesh=self.mesh)
         self.placement.apply_record(rec)
         self.placement_moves += 1
         self.moved_keys += int(rec.keys.size)

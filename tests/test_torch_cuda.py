@@ -37,7 +37,14 @@ live moves, an explicit ``move_range``, hot-key replicas) a session on
 in the placed store, a placed streaming session's block dispatches must
 run under sync debug mode "error" after a move, and ``apply_move_local``
 on the card must equal the CPU, including a move that fills the last
-physical row.
+physical row.  On the node mesh emulated on the card (8 nodes), the
+``cuda`` and ``cuda+fused`` routes must equal the mesh's ``torch`` route
+and the single-device ``cuda`` route, launching ``version_scan`` N (T + 1)
+times and ``potential_matrix`` once a wave on ``cuda``, ``wave_commit`` N
+and ``version_scan`` N T times a wave on ``cuda+fused`` and ``commit_loop``
+never; also where the node blocks start off a 16-byte boundary (odd rows a
+node, V=3); a mesh block dispatch must run under sync debug mode "error";
+and ``apply_move_mesh`` on the card must equal the CPU.
 """
 import numpy as np
 import pytest
@@ -741,4 +748,122 @@ def test_apply_move_on_card_equals_cpu(dev):
         pm.apply_record(rec)
         for f, a, b in zip(tc.MVStore._fields, cpu, card):
             assert torch.equal(a, b.cpu()), (lo, hi, dst, f)
+    assert (pm.slot == pm.n_slots - 1).any()
+
+
+# ------------------------------------------------------------- node mesh
+def _mesh_run(dev, route, drv, n=8, kpn=16, V=8, W=2, T=32, sched="postsi",
+              seed=4):
+    mesh = tc.make_node_mesh(n, dev)
+    waves = tw.smallbank_waves(np.random.RandomState(seed), W, T, n, kpn,
+                               dist_frac=0.5, hot_frac=0.5, hot_per_node=3,
+                               device=dev)
+    hs = (np.array([0, 1, 1, 2, 0, 1, 2, 0][:n], np.int32)
+          if sched == "clocksi" else None)
+    before = dict(LAUNCHES)
+    st, hist, stats = drv(tc.shard_store(tc.make_store(n * kpn, V,
+                                                       device=dev), mesh),
+                          waves, mesh, sched=sched, host_skew=hs,
+                          gc_track=True, kernels=route)
+    torch.cuda.synchronize()
+    got = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+    return st, hist, stats, got
+
+
+def _same_runs(a, b, label):
+    assert a[2] == b[2], label
+    for (ta, oa), (tb, ob) in zip(a[1], b[1]):
+        np.testing.assert_array_equal(ta, tb)
+        for f, x, y in zip(oa._fields, oa, ob):
+            np.testing.assert_array_equal(x, y, err_msg=f"{label} {f}")
+    for f, x, y in zip(tc.MVStore._fields, a[0], b[0]):
+        assert torch.equal(x, y), (label, f)
+
+
+@pytest.mark.parametrize("sched", ["postsi", "clocksi", "si"])
+def test_mesh_cuda_routes_equal_torch_and_one_card(dev, sched):
+    n, T, W = 8, 32, 2
+    ref = _mesh_run(dev, "torch", tc.run_workload_fused_dist, sched=sched)
+    assert not any(ref[3].values())
+    hs = (np.array([0, 1, 1, 2, 0, 1, 2, 0], np.int32)
+          if sched == "clocksi" else None)
+    one = tc.run_workload_fused(
+        tc.make_store(n * 16, 8, device=dev),
+        tw.smallbank_waves(np.random.RandomState(4), W, T, n, 16,
+                           dist_frac=0.5, hot_frac=0.5, hot_per_node=3,
+                           device=dev), sched=sched, n_nodes=n, host_skew=hs,
+        gc_track=True, kernels="cuda")
+    _same_runs(ref, one, f"{sched} mesh torch vs one card cuda")
+    want = {"cuda": {"version_scan": W * n * (T + 1), "potential_matrix": W,
+                     "wave_commit": 0, "commit_loop": 0},
+            "cuda+fused": {"version_scan": W * n * T, "potential_matrix": 0,
+                           "wave_commit": W * n, "commit_loop": 0}}
+    for route in ("cuda", "cuda+fused"):
+        for drv in (tc.run_workload_fused_dist, tc.run_workload_dist):
+            run = _mesh_run(dev, route, drv, sched=sched)
+            _same_runs(run, ref, f"{sched} {route} {drv.__name__}")
+            got = {k: run[3][k] for k in want[route]}
+            assert got == want[route], (route, drv.__name__, got)
+
+
+def test_mesh_block_views_off_a_16_byte_boundary(dev):
+    """37 rows a node and V=3: node i's block starts 444 i bytes into the
+    ring tables, off a 16-byte boundary for most nodes."""
+    ref = _mesh_run(dev, "torch", tc.run_workload_fused_dist, kpn=37, V=3,
+                    T=24)
+    offsets = [(i * 37 * 3 * 4) % 16 for i in range(8)]
+    assert any(offsets)
+    for route in ("cuda", "cuda+fused"):
+        run = _mesh_run(dev, route, tc.run_workload_fused_dist, kpn=37, V=3,
+                        T=24)
+        _same_runs(run, ref, f"odd blocks {route}")
+
+
+@pytest.mark.parametrize("route", ["cuda", "cuda+fused"])
+def test_mesh_run_block_dispatches_without_host_waits(dev, route):
+    mesh = tc.make_node_mesh(4, dev)
+    store = tc.shard_store(tc.make_store(160, 4, device=dev), mesh)
+    ref = tc.make_store(160, 4, device=dev)
+    clock = torch.ones((), dtype=torch.int32, device=dev)
+    ref_clock = clock.clone()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for wm in (None, 1):
+            blk = tc.stage_block(_host_block(4), 1, wm, device=dev)
+            store, outs, clock = tc.run_block_dist(
+                store, blk, None, clock, mesh, sched="postsi",
+                kernels=route)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for wm in (None, 1):
+        ref, ref_outs, ref_clock = tc.run_block(
+            ref, tc.stage_block(_host_block(4), 1, wm, device=dev), None,
+            ref_clock, sched="postsi", n_nodes=4, kernels=route)
+    for x, y in zip(outs, ref_outs):
+        assert torch.equal(x, y)
+    for x, y in zip(store, ref):
+        assert torch.equal(x, y)
+
+
+def test_apply_move_mesh_on_card_equals_cpu(dev):
+    from repro_torch.placement import (PlacementMap, apply_move_local,
+                                       apply_move_mesh)
+    pm = PlacementMap(64, 4, headroom=2)
+    rng = np.random.RandomState(1)
+    fields = {f: rng.randint(-5, 50, (pm.n_slots, 4) if f in (
+        "val", "tid", "cid", "sid") else (pm.n_slots,)).astype(np.int32)
+        for f in tc.MVStore._fields}
+    cpu = tc.store_from_numpy(fields, "cpu")
+    cpu_mesh = tc.store_from_numpy(fields, "cpu")
+    card = tc.store_from_numpy(fields, dev)
+    m_cpu, m_card = tc.make_node_mesh(4, "cpu"), tc.make_node_mesh(4, dev)
+    for lo, hi, dst in ((4, 12, 2), (0, 16, 3), (0, 4, 0), (48, 56, 1)):
+        rec = pm.move(lo, hi, dst)
+        apply_move_local(cpu, rec)
+        apply_move_mesh(cpu_mesh, rec, m_cpu)
+        apply_move_mesh(card, rec, m_card)
+        pm.apply_record(rec)
+        for f, a, b, c in zip(tc.MVStore._fields, cpu, cpu_mesh, card):
+            assert torch.equal(a, b) and torch.equal(a, c.cpu()), (lo, f)
     assert (pm.slot == pm.n_slots - 1).any()

@@ -7,8 +7,9 @@
   one — they never quietly run on the CPU;
 * a ``cuda`` kernel config with CPU tensors raises — it is never served by
   the plain version;
-* the service planes, model families and architectures the port does not
-  serve yet raise ``NotImplementedError`` instead of being ignored;
+* the model families and architectures the port does not serve yet raise
+  ``NotImplementedError`` instead of being ignored, and a ``mesh`` that is
+  not a ``NodeMesh`` raises ``TypeError``;
 * the backend registry resolves and round-trips like the reference's.
 """
 import os
@@ -225,10 +226,20 @@ def test_reference_only_knobs_refuse_other_values(field, value):
     assert cfg.replace(**{field: getattr(cfg, field)}) == cfg
 
 
-@pytest.mark.parametrize("arg,item", [("mesh", "Mesh substrate")])
-def test_unported_service_planes_raise(arg, item):
-    with pytest.raises(NotImplementedError, match=item):
-        TxnService(16, T=4, n_nodes=2, device="cpu", **{arg: object()})
+def test_service_mesh_is_a_node_mesh():
+    """``mesh=`` takes a ``NodeMesh``: anything else raises ``TypeError``,
+    and a NodeMesh serves the stream the single device serves."""
+    with pytest.raises(TypeError, match="NodeMesh"):
+        TxnService(16, T=4, n_nodes=2, device="cpu", mesh=object())
+    read_one = lambda: (np.array([tc.READ, tc.NOP, tc.NOP, tc.NOP]),
+                        np.array([3, 0, 0, 0]), np.zeros(4), 1)
+    fates = []
+    for mesh in (None, tc.make_node_mesh(2, "cpu")):
+        svc = TxnService(16, T=4, n_nodes=2, device="cpu", mesh=mesh)
+        rep = svc.run_stream([2, 2], read_one)
+        assert rep.committed == 4 and svc.verify() == []
+        fates.append([(r.status, r.s, r.c) for r in svc.requests])
+    assert fates[0] == fates[1]
 
 
 def test_run_streaming_not_ported(tmp_path):

@@ -263,15 +263,20 @@ def test_live_move_mid_workload_bit_identical(route):
 
 def test_move_on_store_with_empty_and_full_records():
     """``apply_move_local`` is in place and returns the same store; an
-    empty record moves nothing; ``mesh=`` names the mesh item."""
+    empty record moves nothing; ``mesh=`` takes a ``NodeMesh`` only, and
+    on one the move is in place and equal to the local move."""
     tpm, jpm = _both_maps()
     st = tp.physical_store(tc.make_store(N_KEYS, V, device="cpu"), tpm)
     none = tpm.move(0, 4, 0)                 # already on node 0
     assert none.keys.size == 0 and tp.apply_move(st, none) is st
     rec = tpm.move(0, 4, 1)
+    on_mesh = tc.MVStore(*(t.clone() for t in st))
     assert tp.apply_move_local(st, rec) is st
-    with pytest.raises(NotImplementedError, match="Mesh substrate"):
+    with pytest.raises(TypeError, match="NodeMesh"):
         tp.apply_move(st, rec, mesh=object())
+    mesh = tc.make_node_mesh(tpm.n_nodes, "cpu")
+    assert tp.apply_move(on_mesh, rec, mesh=mesh) is on_mesh
+    assert_same_store(on_mesh, st, "mesh move")
 
 
 # ----------------------------------------------------------------- balancer

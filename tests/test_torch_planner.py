@@ -12,7 +12,8 @@
 * ``HybridSwitch`` takes the reference's decisions on the same signals.
 * ``TxnService(planner="planned"|"hybrid")`` serves what the reference
   serves, in ``run_stream`` and in ``run_streaming(B=2, K=2)``.
-* The planes this slice does not port still raise, naming their items.
+* A ``mesh`` that is not a ``NodeMesh`` raises ``TypeError``; a NodeMesh
+  serves the planned lanes equal to the single device.
 """
 import numpy as np
 import pytest
@@ -261,17 +262,34 @@ def test_planned_service_matches_jax(planner, mode, seed, n_ticks):
         assert t_rep.retries == t_rep.planned_spilled == 0
 
 
-# ------------------------------------------- what this slice leaves out
-@pytest.mark.parametrize("arg,item", [("mesh", "Mesh substrate")])
-def test_unported_planes_still_raise(arg, item):
-    with pytest.raises(NotImplementedError, match=item):
+# ----------------------------------------------------------- the mesh
+def test_hybrid_service_mesh_is_a_node_mesh():
+    with pytest.raises(TypeError, match="NodeMesh"):
         ts.TxnService(N_KEYS, T=4, n_nodes=N_NODES, device="cpu",
-                      planner="hybrid", **{arg: object()})
+                      planner="hybrid", mesh=object())
+    mesh = tc.make_node_mesh(N_NODES, "cpu")
+    svc = ts.TxnService(N_KEYS, T=4, n_nodes=N_NODES, device="cpu",
+                        planner="planned", mesh=mesh)
+    gen = ts.ycsb_txn_gen(np.random.RandomState(5), N_NODES, KPN, theta=0.9)
+    rep = svc.run_stream([4, 4], gen)
+    assert rep.planned_waves > 0 and svc.verify() == []
 
 
-def test_planned_mesh_branch_not_ported():
+def test_planned_mesh_branch():
+    """``run_wave_planned(mesh=...)``: a non-NodeMesh raises; a NodeMesh
+    runs the lanes through ``step_block_dist``, equal to the single
+    device in outcomes and store."""
     (wave,) = tw.ycsb_waves(np.random.RandomState(3), 1, 4, N_NODES, KPN,
                             device="cpu")
-    with pytest.raises(NotImplementedError, match="Mesh substrate"):
+    with pytest.raises(TypeError, match="NodeMesh"):
         tp.run_wave_planned(tc.make_store(N_KEYS, 4, device="cpu"), wave, 1,
                             wave_idx0=1, next_tid=100, mesh=object())
+    runs = []
+    for mesh in (None, tc.make_node_mesh(N_NODES, "cpu")):
+        store, _, pw = tp.run_wave_planned(
+            tc.make_store(N_KEYS, 4, device="cpu"), wave, 1, wave_idx0=1,
+            next_tid=100, mesh=mesh)
+        runs.append((store, pw.merged))
+    assert_same_history([(0, runs[0][1])], [(0, runs[1][1])], "planned")
+    for a, b in zip(runs[0][0], runs[1][0]):
+        assert torch.equal(a, b)

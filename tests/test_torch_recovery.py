@@ -17,8 +17,10 @@ and by the port's (``device="cpu"``), each with a ``DurabilityManager``:
   resubmission harness of ``tests/test_recovery.py`` commits every
   request exactly once across the port's restart; so do the pinned chaos
   seeds 11, 23 and 47;
-* what the port does not serve yet raises: ``mesh=``.  (Logs under an
-  elastic placement: ``tests/test_torch_placement_recovery.py``.)
+* ``recover(mesh=...)`` takes a ``NodeMesh`` only and recovers onto it.
+  (Logs under an elastic placement:
+  ``tests/test_torch_placement_recovery.py``; logs served on a mesh:
+  ``tests/test_torch_mesh_recovery.py``.)
 """
 import numpy as np
 import pytest
@@ -404,9 +406,12 @@ def test_config_mismatch_rejected_with_clear_error(tmp_path):
                       device="cpu")
 
 
-@pytest.mark.parametrize("what", ["mesh"])
-def test_unported_durability_planes_raise(what, tmp_path):
+def test_recover_mesh_is_a_node_mesh(tmp_path):
     svc, mgr = _service("torch", tmp_path / "log", "postsi")
     assert not _serve("torch", svc, mgr, n_ticks=4)
-    with pytest.raises(NotImplementedError, match="Mesh substrate"):
+    with pytest.raises(TypeError, match="NodeMesh"):
         td.recover(str(tmp_path / "log"), mesh=object(), device="cpu")
+    st = td.recover(str(tmp_path / "log"),
+                    mesh=tc.make_node_mesh(N_NODES, "cpu"))
+    for f in STORE_FIELDS:
+        assert torch.equal(getattr(st.store, f), getattr(svc.store, f)), f
