@@ -179,10 +179,29 @@ Phases (any failure raises, so the process exits non-zero):
    teacher-forced with the served tokens: in float32 compute the logits
    agree within 1e-3 * scale at every step; the bf16 distance is printed
    beside each route's own bf16-vs-float32 distance;
-7. one JSON line of per-kernel results, with the launches each kernel made
+7. decoder: ``DecoderLM`` behind ``Server`` on the ``cuda`` route, as
+   phase 6 serves zamba2, after zamba2's versions are freed, each model's
+   versions freed before the next (``DECODER_RUNS``):
+
+   7a. qwen3-14b at full width and depth (40 layers, 14,769,602,560
+   parameters, 59.1 GB in float32): one weight version (two would not
+   fit), batch 4 of prompts 1,024 and 1,000, 16 new tokens;
+   7b. qwen2-0.5b and qwen2-vl-2b (M-RoPE: ``[B, S, 3]`` positions) at
+   full width and depth, two versions each, published after the first
+   batch, over phase 6's three prompts;
+   7c. deepseek-moe-16b at full width, its depth cut from 28 to 8 layers
+   (the cut printed first), one version; one prefill with every
+   ``moe_ffn`` call under sync debug mode "error".
+
+   Each: one weight version per batch, ``flash_attention`` launched once a
+   layer a prefill, prefill ms, decode ms a step, tokens/s, peak memory
+   and ``profile_call`` profiles, the in-situ kernel checks, and the
+   teacher-forced ``cuda``-vs-``torch`` gates of phase 6 (MoE: the float32
+   distance printed, not gated: routing flips at near-ties);
+8. one JSON line of per-kernel results, with the launches each kernel made
    on its own path (phases 4-5d for the engine's, the streamed, planned,
-   durable, replayed and placed runs included, the served batches of phase 6 for
-   the model plane's;
+   durable, replayed and placed runs included, the served batches of
+   phases 6 and 7 for the model plane's;
    each must be > 0), the card line again,
    and last ``{"ok": true, "device": {...}}``.
 
@@ -218,6 +237,15 @@ BF16_FLOPS_PER_S = 989e12
 SERVE_ARCH = "zamba2-2.7b"
 SERVE_BATCH = 4
 SERVE_PROMPTS = (1024, 1024, 1000)
+# phase 7, the decoder family at full width: (step, arch, weight versions,
+# prompt lengths, layers kept where the full depth does not fit the card
+# in float32 with room to serve, else None)
+DECODER_RUNS = (
+    ("7a", "qwen3-14b", 1, (1024, 1000), None),
+    ("7b", "qwen2-0.5b", 2, SERVE_PROMPTS, None),
+    ("7b", "qwen2-vl-2b", 2, SERVE_PROMPTS, None),
+    ("7c", "deepseek-moe-16b", 1, (1024, 1000), 8),
+)
 
 
 class Config(NamedTuple):
@@ -967,7 +995,6 @@ def model_kernel_phase(torch, dev):
     """flash_attention and ssd_scan against their plain versions on the
     card, at the serve path's shapes and on edge cases; returns the two
     per-kernel records (times at the serve path's shapes)."""
-    import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                      flash_attention_plain)
     from repro_torch.kernels.ssd_scan import ssd_cuda, ssd_plain
@@ -995,7 +1022,11 @@ def model_kernel_phase(torch, dev):
                 (2, 200, 4, 2, 80, f32, False),
                 (1, 70, 2, 1, 48, f32, True),
                 (1, 1, 4, 4, 16, f32, True),
-                (1, 2048, 32, 8, 128, bf16, True)]
+                (1, 2048, 32, 8, 128, bf16, True),
+                # phase 7's prefills: qwen3-14b, qwen2-vl-2b, deepseek-moe
+                (4, 1024, 40, 8, 128, bf16, True),
+                (4, 1000, 12, 2, 128, bf16, True),
+                (4, 1024, 16, 16, 128, bf16, True)]
     for B, S, H, KH, D, dt, causal in fa_cases:
         q = rn((B, S, H, D), 2.0, dt)
         k, v = rn((B, S, KH, D), 2.0, dt), rn((B, S, KH, D), 1.0, dt)
@@ -1062,66 +1093,91 @@ def model_kernel_phase(torch, dev):
           flush=True)
 
     # times at the serve path's shapes
-    B, S, H, D = SERVE_BATCH, SERVE_PROMPTS[0], 32, 80
-    q, k, v = (rn((B, S, H, D), 0.5, bf16) for _ in range(3))
-    qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
-    BH, P, N, Q = SERVE_BATCH * 80, 64, 64, 128
+    probes = scripts_module("probes")
+    records = {"flash_attention": attention_times(
+        torch, rn, probes, SERVE_BATCH, SERVE_PROMPTS[0], 32, 32, 80)}
+    S, BH, P, N, Q = SERVE_PROMPTS[0], SERVE_BATCH * 80, 64, 64, 128
     # the scan in the layout the path gives it (views of [B, S, H, .])
     x, dA = model_layout(rn((BH, S, P), 0.5, bf16),
                          -torch.rand((BH, S), generator=g, device=dev) * 1.4,
                          SERVE_BATCH, 80)
     Bm, Cm = rn((SERVE_BATCH, S, N), 0.3, bf16), rn((SERVE_BATCH, S, N), 0.3,
                                                      bf16)
-    calls = {
-        "flash_attention": (lambda: flash_attention_cuda(q, k, v, True),
-                            lambda: flash_attention_plain(q, k, v, True),
-                            lambda: F.scaled_dot_product_attention(
-                                qt, kt, vt, is_causal=True)),
-        "ssd_scan": (lambda: ssd_cuda(x, dA, Bm, Cm, 80, Q),
-                     lambda: ssd_plain(x, dA, Bm, Cm, 80, Q), None),
-    }
-    # bytes: inputs read once, outputs written once; operations: the causal
-    # products (half of S^2 for attention, Q(Q+1)/2 per chunk for the
-    # SSD's two intra-chunk products, plus its two state products)
-    pairs = B * H * S * (S + 1) // 2
+    kern = lambda: ssd_cuda(x, dA, Bm, Cm, 80, Q)
+    # bytes: inputs read once, outputs written once; operations: Q(Q+1)/2
+    # per chunk for the SSD's two intra-chunk products, plus its two state
+    # products
     nc = -(-S // Q)
-    work = {
-        "flash_attention": (4 * B * S * H * D * 2, 4 * pairs * D),
-        "ssd_scan": (2 * BH * S * P * 2 + BH * S * 4 + 2 * SERVE_BATCH * S
-                     * N * 2 + BH * N * P * 4,
-                     2 * BH * nc * (Q * (Q + 1) // 2 * (N + P)
-                                    + 2 * Q * N * P)),
-    }
-    records = {}
-    for name, (kern, plain, lib) in calls.items():
-        k_ms = cuda_ms(torch, kern, iters=20, warmup=3)
-        p_ms = cuda_ms(torch, plain, iters=10, warmup=2)
-        l_ms = None if lib is None else cuda_ms(torch, lib, iters=20,
-                                                warmup=3)
-        b_ms, b_by = bound(*work[name], BF16_FLOPS_PER_S)
+    b_ms, b_by = bound(
+        2 * BH * S * P * 2 + BH * S * 4 + 2 * SERVE_BATCH * S * N * 2
+        + BH * N * P * 4,
+        2 * BH * nc * (Q * (Q + 1) // 2 * (N + P) + 2 * Q * N * P),
+        BF16_FLOPS_PER_S)
+    records["ssd_scan"] = {
+        "ms": cuda_ms(torch, kern, iters=20, warmup=3),
+        "plain_ms": cuda_ms(torch, lambda: ssd_plain(x, dA, Bm, Cm, 80, Q),
+                            iters=10, warmup=2),
+        "library_ms": None,
+        "device_ms": probes.profile_device_ms(
+            {"ssd_scan": (kern, "ssd_scan_")}, iters=10)["ssd_scan"],
+        "bound_ms": b_ms, "bound_by": b_by}
+    for name, rec in records.items():
         records[name] = {
             "name": name, "route": "cuda", "source": KERNELS[name][0],
             "replaces": KERNELS[name][1], "launches": 0,
-            "max_abs_err": max(errs[name]), "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms}
-        print(f"[kernels] {name}: {k_ms:.4f} ms/call (plain {p_ms:.4f}, "
-              f"library {l_ms}), bound {b_ms:.5f} ms by {b_by}", flush=True)
-    probes = scripts_module("probes")
-    got = probes.profile_device_ms(
-        {n: (c[0], f"{n}_") for n, c in calls.items()}, iters=10)
-    for name, rec in records.items():
-        rec["device_ms"] = got[name]
-    print("[kernels] profiler device ms/launch: "
-          + ", ".join(f"{n}={r['device_ms']}" for n, r in records.items()),
-          flush=True)
+            "max_abs_err": max(errs[name]), **rec}
+        print(f"[kernels] {name}: {rec['ms']:.4f} ms/call (plain "
+              f"{rec['plain_ms']:.4f}, library {rec['library_ms']}), "
+              f"profiler device {rec['device_ms']} ms/launch, bound "
+              f"{rec['bound_ms']:.5f} ms by {rec['bound_by']}", flush=True)
+    # phase 7a's prefill: printed, not in the JSON line
+    B, S, H, KH, D = SERVE_BATCH, 1024, 40, 8, 128
+    rec = attention_times(torch, rn, probes, B, S, H, KH, D)
+    print(f"[kernels] flash_attention at qwen3-14b's prefill shape (B={B} "
+          f"S={S} H={H} KH={KH} D={D} bf16 causal): {rec['ms']:.4f} ms/call, "
+          f"device {rec['device_ms']} ms (plain {rec['plain_ms']:.4f}, SDPA "
+          f"{rec['library_ms']:.4f}), bound {rec['bound_ms']:.5f} ms by "
+          f"{rec['bound_by']}", flush=True)
     return records
 
 
+def attention_times(torch, rn, probes, B, S, H, KH, D):
+    """flash_attention at one bf16 causal shape: CUDA events ms of the
+    kernel, its plain version and SDPA (the library call, reading the KH kv
+    heads as the kernel does), the profiler's device ms of the kernel and
+    the bytes-or-operations bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain)
+    q = rn((B, S, H, D), 0.5, torch.bfloat16)
+    k, v = (rn((B, S, KH, D), 0.5, torch.bfloat16) for _ in range(2))
+    qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+    kern = lambda: flash_attention_cuda(q, k, v, True)
+    # bytes: inputs read once, the output written once; operations: the
+    # two products over the causal half of S^2
+    pairs = B * H * S * (S + 1) // 2
+    b_ms, b_by = bound((2 * H + 2 * KH) * B * S * D * 2, 4 * pairs * D,
+                       BF16_FLOPS_PER_S)
+    return {
+        "ms": cuda_ms(torch, kern, iters=20, warmup=3),
+        "plain_ms": cuda_ms(torch, lambda: flash_attention_plain(q, k, v,
+                                                                 True),
+                            iters=10, warmup=2),
+        "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=H != KH),
+            iters=20, warmup=3),
+        "device_ms": probes.profile_device_ms(
+            {"flash_attention": (kern, "flash_attention_")},
+            iters=10)["flash_attention"],
+        "bound_ms": b_ms, "bound_by": b_by}
+
+
 # ------------------------------------------------------------ phase 6
-def forced_logits(torch, model, params, toks, forced, max_len):
-    """Logits of every generated position when the batch is fed the tokens
-    ``forced`` ([B, n]) instead of its own: [B, n, vocab] float32."""
-    logits, cache = model.prefill(params, {"tokens": toks}, max_len)
+def forced_logits(torch, model, params, batch, forced, max_len):
+    """Logits of every generated position when the prefill ``batch`` is fed
+    the tokens ``forced`` ([B, n]) instead of its own: [B, n, vocab]
+    float32."""
+    logits, cache = model.prefill(params, batch, max_len)
     out = [logits[:, -1]]
     for i in range(forced.shape[1] - 1):
         logits, cache = model.decode(params, cache,
@@ -1130,15 +1186,15 @@ def forced_logits(torch, model, params, toks, forced, max_len):
     return torch.stack(out, dim=1)
 
 
-def profile_call(torch, label, fn, card):
+def profile_call(torch, label, fn, card, tag="serve"):
     """Device kernels, busy share and top device ops of one call of
     ``fn``."""
-    prof = start_profiler("serve")
+    prof = start_profiler(tag)
     t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    if not stop_profiler(prof, "serve"):
+    if not stop_profiler(prof, tag):
         return
     try:
         kernels = [e for e in prof.events()
@@ -1147,47 +1203,66 @@ def profile_call(torch, label, fn, card):
         busy = sum(getattr(e, "device_time", 0) for e in kernels) / 1e6
         tops = sorted(prof.key_averages(),
                       key=lambda e: -getattr(e, "device_time_total", 0))[:8]
-        print(f"[serve] profile of {label}: wall "
+        print(f"[{tag}] profile of {label}: wall "
               f"{wall * 1e3:.1f} ms, {len(kernels)} device kernels, device "
               f"busy {busy * 1e3:.2f} ms ({100 * busy / wall:.1f}% of wall)"
               f" [{card}]", flush=True)
-        print("[serve]   top device time: " + "; ".join(
+        print(f"[{tag}]   top device time: " + "; ".join(
             f"{e.key[:48]} {getattr(e, 'device_time_total', 0) / 1e3:.2f}"
             f" ms x{e.count}" for e in tops), flush=True)
     except Exception as exc:           # reading the trace is optional here
-        print(f"[serve] profile unavailable: {exc!r}", flush=True)
+        print(f"[{tag}] profile unavailable: {exc!r}", flush=True)
 
 
-def serve_phase(torch, dev, cfg, card, mcfg=None, route="cuda"):
-    """zamba2-2.7b (or ``mcfg``) behind ``Server`` on ``route``.  Returns
-    the launch counts of the served batches (the counted path); measures
-    and cross-checks against the ``torch`` route after reading them."""
+def prefill_launches(mcfg) -> dict:
+    """Kernel launches of one prefill on the ``cuda`` route: the hybrid
+    family attends once a group and scans once a layer, the decoder family
+    attends once a layer."""
+    if mcfg.family == "hybrid":
+        return {"flash_attention": mcfg.n_layers // mcfg.attn_every,
+                "ssd_scan": mcfg.n_layers}
+    return {"flash_attention": mcfg.n_layers, "ssd_scan": 0}
+
+
+def serve_phase(torch, dev, cfg, card, mcfg=None, route="cuda",
+                n_versions=2, prompts=None, tag="serve"):
+    """zamba2-2.7b (or ``mcfg``) behind ``Server`` on ``route``, with
+    ``n_versions`` random weight versions (the second published after the
+    first batch) over ``prompts`` (default ``SERVE_PROMPTS``; the first
+    ``cfg.serve_batches`` of them).  Returns the launch counts of the
+    served batches (the counted path); measures and cross-checks against
+    the ``torch`` route after reading them."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.kernels import LAUNCHES, reset_launch_counts
-    from repro_torch.launch.serve import Server
+    from repro_torch.launch.serve import Server, prompt_batch
     from repro_torch.models.model import build
     from repro_torch.models.module import tree_leaves
     mcfg = get_config(SERVE_ARCH) if mcfg is None else mcfg
-    n = min(cfg.serve_batches, len(SERVE_PROMPTS))
+    prompts = SERVE_PROMPTS if prompts is None else prompts
+    n = min(cfg.serve_batches, len(prompts))
     gen = torch.Generator(device=dev).manual_seed(cfg.seed)
     t0 = time.perf_counter()
-    versions = [build(mcfg).init(gen) for _ in range(2)]
+    versions = [build(mcfg).init(gen) for _ in range(n_versions)]
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in tree_leaves(versions[0]))
-    print(f"[serve] {mcfg.name}: {n_params:,} parameters per version "
-          f"(param_count {mcfg.param_count():,}), 2 versions made on the "
-          f"card in {time.perf_counter() - t0:.1f} s", flush=True)
+    n_bytes = sum(t.numel() * t.element_size()
+                  for t in tree_leaves(versions[0]))
+    print(f"[{tag}] {mcfg.name}: {n_params:,} parameters per version "
+          f"(param_count {mcfg.param_count():,}; {n_bytes / 1e9:.1f} GB in "
+          f"{str(mcfg.param_dtype).split('.')[-1]}), {n_versions} "
+          f"version(s) made on the card in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     rng = np.random.RandomState(cfg.seed + 3)
     prompts = [rng.randint(0, mcfg.vocab_size, (SERVE_BATCH, S))
-               .astype(np.int32) for S in SERVE_PROMPTS[:n]]
+               .astype(np.int32) for S in prompts[:n]]
     srv = Server(mcfg, versions[0], batch_size=SERVE_BATCH, kernels=route,
                  device=dev)
     torch.cuda.reset_peak_memory_stats()
     results = []
     reset_launch_counts()
     for i, toks in enumerate(prompts):
-        if i == 1 and not srv.publish(versions[1]):
+        if i == 1 and n_versions > 1 and not srv.publish(versions[1]):
             raise AssertionError("publish of weight version 1 failed")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1195,37 +1270,45 @@ def serve_phase(torch, dev, cfg, card, mcfg=None, route="cuda"):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         results.append(r)
-        print(f"[serve] batch {i}: {SERVE_BATCH} x {toks.shape[1]} prompt "
+        print(f"[{tag}] batch {i}: {SERVE_BATCH} x {toks.shape[1]} prompt "
               f"tokens + {cfg.new_tokens} new, weight version "
               f"{r['weight_version']}, {wall:.3f} s, "
               f"{SERVE_BATCH * cfg.new_tokens / wall:.1f} generated tokens/s"
               f" [{card}]", flush=True)
     counts = dict(LAUNCHES)
-    want = [0, 1, 1][:n]
+    want = ([0, 1, 1] if n_versions > 1 else [0, 0, 0])[:n]
     got = [r["weight_version"] for r in results]
     if got != want or srv.stats.versions_served != want:
         raise AssertionError(f"weight versions served {got}, expected {want}")
-    if srv.stats.batches != n or srv.stats.publishes != min(n - 1, 1):
+    if srv.stats.batches != n or srv.stats.publishes != min(
+            n - 1, n_versions - 1):
         raise AssertionError(f"serve stats {srv.stats}")
     for r in results:
         g_ = r["generated"]
         if g_.shape != (SERVE_BATCH, cfg.new_tokens) or g_.min() < 0 \
                 or g_.max() >= mcfg.vocab_size:
             raise AssertionError(f"generated ids {g_.shape} out of range")
-    print(f"[serve] versions {got}, stats {srv.stats}; peak device memory "
+    per = prefill_launches(mcfg)
+    expected = {k: v * n if srv.kernels.use_kernel else 0
+                for k, v in per.items()}
+    print(f"[{tag}] versions {got}, stats {srv.stats}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launches "
-          f"{counts} ({n} prefills: expected flash_attention "
-          f"{9 * n}, ssd_scan {54 * n}) [{card}]", flush=True)
+          f"{counts} ({n} prefills: expected {expected}) [{card}]",
+          flush=True)
+    if {k: counts[k] for k in expected} != expected:
+        raise AssertionError(f"{mcfg.name}: launches {counts}, expected "
+                             f"{expected}")
 
     # ---- measurement (not counted): prefill and decode times, a profile
     params = versions[0]
     toks = torch.as_tensor(prompts[0], device=dev)
+    batch = prompt_batch(mcfg, toks)
     max_len = toks.shape[1] + srv.cache_margin
     times = []
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _, cache = srv.prefill(params, {"tokens": toks}, max_len)
+        _, cache = srv.prefill(params, batch, max_len)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     tok = torch.zeros((SERVE_BATCH, 1), dtype=torch.int32, device=dev)
@@ -1236,43 +1319,49 @@ def serve_phase(torch, dev, cfg, card, mcfg=None, route="cuda"):
         tok, cache = srv.decode(params, cache, {"token": tok})
     torch.cuda.synchronize()
     dec = (time.perf_counter() - t0) / steps
-    print(f"[serve] prefill {SERVE_BATCH} x {toks.shape[1]}: "
+    print(f"[{tag}] {mcfg.name} prefill {SERVE_BATCH} x {toks.shape[1]}: "
           + ", ".join(f"{t * 1e3:.1f}" for t in times)
           + f" ms ({SERVE_BATCH * toks.shape[1] / min(times):.0f} prompt "
           f"tokens/s); decode {dec * 1e3:.2f} ms/step "
-          f"({SERVE_BATCH / dec:.1f} tokens/s at batch {SERVE_BATCH}) "
-          f"[{card}]", flush=True)
-    profile_call(torch, "one decode step", lambda: srv.decode(
-        params, cache, {"token": tok}), card)
+          f"({SERVE_BATCH / dec:.1f} tokens/s at batch {SERVE_BATCH}); peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f}"
+          f" GiB [{card}]", flush=True)
+    profile_call(torch, f"one {mcfg.name} decode step", lambda: srv.decode(
+        params, cache, {"token": tok}), card, tag)
     del cache
-    profile_call(torch, f"one prefill (S={toks.shape[1]})",
-                 lambda: srv.prefill(params, {"tokens": toks}, max_len), card)
+    profile_call(torch, f"one {mcfg.name} prefill (S={toks.shape[1]})",
+                 lambda: srv.prefill(params, batch, max_len), card, tag)
 
     # ---- the kernels on the path's own activations
-    in_situ_check(torch, srv, params, toks, max_len)
+    in_situ_check(torch, srv, params, batch, max_len, tag)
+    if mcfg.moe:
+        moe_sync_check(torch, srv, params, batch, max_len, tag)
 
     # ---- the served route against the torch route, teacher-forced with
     # the served tokens.  In float32 compute the two differ only in the
     # order of sums: gated at 1e-3 * scale.  In bf16, the served type, the
     # two round at different places (attention's probabilities, the scan's
-    # sums) and 54 layers of random weights amplify that far past
+    # sums) and dozens of layers of random weights amplify that far past
     # 0.06 * scale, so bf16 is gated against the rounding noise of the
     # torch route itself: cuda vs torch in bf16 within 1.5 times the torch
-    # route's own bf16-vs-float32 distance.
+    # route's own bf16-vs-float32 distance.  An MoE layer's routing is a
+    # discontinuous function of its input: where two experts nearly tie,
+    # float32 sums in another order can flip the choice, so the float32
+    # distance of an MoE model is printed, not gated.
     f32 = mcfg.replace(compute_dtype=torch.float32)
     models = {(dt, r): build(c, kernels=k)
               for dt, c in (("bf16", mcfg), ("fp32", f32))
               for r, k in (("cuda", route), ("torch", "torch"))}
     for i, (toks, r) in enumerate(zip(prompts, results)):
         params = versions[r["weight_version"]]
-        t = torch.as_tensor(toks, device=dev)
+        batch = prompt_batch(mcfg, torch.as_tensor(toks, device=dev))
         forced = torch.as_tensor(r["generated"], device=dev)
-        lg = {key: forced_logits(torch, m, params, t, forced,
+        lg = {key: forced_logits(torch, m, params, batch, forced,
                                  toks.shape[1] + srv.cache_margin)
               [..., :mcfg.vocab_size] for key, m in models.items()}
         for key, v in lg.items():
             if not bool(torch.isfinite(v).all()):
-                raise AssertionError(f"serve: {key} logits not finite")
+                raise AssertionError(f"{tag}: {key} logits not finite")
         diff = lambda a, b: float((lg[a] - lg[b]).abs().max())
         scale = max(float(lg["fp32", "torch"].abs().max()), 1.0)
         e32 = diff(("fp32", "cuda"), ("fp32", "torch"))
@@ -1281,9 +1370,9 @@ def serve_phase(torch, dev, cfg, card, mcfg=None, route="cuda"):
         first = float((lg["bf16", "cuda"][:, 0]
                        - lg["bf16", "torch"][:, 0]).abs().max())
         same = float((lg["bf16", "cuda"].argmax(-1) == forced).float().mean())
-        print(f"[serve] batch {i} teacher-forced ({forced.shape[1]} steps):"
-              f" float32 cuda vs torch logits max abs diff {e32:.3g} (bound "
-              f"{1e-3 * scale:.3g} = 1e-3 * {scale:.3f}); bf16 cuda vs torch "
+        print(f"[{tag}] {mcfg.name} batch {i} teacher-forced "
+              f"({forced.shape[1]} steps): float32 cuda vs torch logits max "
+              f"abs diff {e32:.3g} (bound {1e-3 * scale:.3g} = 1e-3 * {scale:.3f}); bf16 cuda vs torch "
               f"{e16:.4f} (bound {1.5 * own:.4f} = 1.5 * the torch route's "
               f"bf16 vs float32 {own:.4f}; at the prefill's token "
               f"{first:.4f}), bf16 vs float32 on the cuda route "
@@ -1291,17 +1380,62 @@ def serve_phase(torch, dev, cfg, card, mcfg=None, route="cuda"):
               f"bf16 cuda argmax = served token at {100 * same:.1f}% of "
               f"steps", flush=True)
         if e32 > 1e-3 * scale:
-            raise AssertionError(f"serve batch {i}: cuda route logits differ "
+            raise AssertionError(f"{tag} batch {i}: cuda route logits differ "
                                  f"from the torch route by {e32} in float32")
         if e16 > 1.5 * own:
-            raise AssertionError(f"serve batch {i}: cuda route bf16 logits "
+            raise AssertionError(f"{tag} batch {i}: cuda route bf16 logits "
                                  f"differ from the torch route's by {e16}, "
                                  f"more than 1.5 x its own bf16 rounding "
                                  f"distance {own}")
     return counts
 
 
-def in_situ_check(torch, srv, params, toks, max_len):
+def decoder_phase(torch, dev, cfg, card, runs=None, route="cuda"):
+    """Phase 7: ``DecoderLM`` behind ``Server`` at full width, one
+    ``serve_phase`` a configuration of ``runs`` (default ``DECODER_RUNS``,
+    built from the registry; tuples of step, config, weight versions,
+    prompt lengths and a note printed first), each model's versions freed
+    before the next is made.
+    Returns the launch counts of all their served batches."""
+    import gc
+    from repro_torch.configs import get_config
+    if runs is None:
+        runs = []
+        for step, arch, n_versions, prompts, layers in DECODER_RUNS:
+            mcfg, note = get_config(arch), ""
+            if layers is not None:
+                gb = lambda c: c.param_count() * c.param_dtype.itemsize / 1e9
+                cut = mcfg.replace(n_layers=layers)
+                note = (f"full width, depth cut from {mcfg.n_layers} to "
+                        f"{layers} layers: {gb(mcfg):.1f} GB at full depth "
+                        f"in {str(mcfg.param_dtype).split('.')[-1]}, the "
+                        f"config's param_dtype, {gb(cut):.1f} GB cut")
+                mcfg = cut
+            runs.append((step, mcfg, n_versions, prompts, note))
+    total = {}
+    for step, mcfg, n_versions, prompts, note in runs:
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        if note:
+            print(f"[decoder] {step} {mcfg.name}: {note}", flush=True)
+        print(f"[decoder] {step} {mcfg.name}: {mcfg.family}, "
+              f"{mcfg.n_layers} layers, d_model {mcfg.d_model}, "
+              f"{mcfg.n_heads} heads over {mcfg.n_kv_heads} kv heads of "
+              f"{mcfg.head_dim}, {n_versions} weight version(s) on "
+              f"{route} [{card}]", flush=True)
+        counts = serve_phase(torch, dev, cfg, card, mcfg=mcfg, route=route,
+                             n_versions=n_versions, prompts=prompts,
+                             tag="decoder")
+        print(f"[decoder] {step} {mcfg.name}: {time.perf_counter() - t0:.1f}"
+              f" s with its measurements", flush=True)
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def in_situ_check(torch, srv, params, batch, max_len, tag="serve"):
     """One prefill with every ``ops.flash_attention`` / ``ops.ssd`` call
     also run on the plain version with the same (real) inputs, each pair
     held to the kernel tolerances.  Measurement only: not counted."""
@@ -1346,14 +1480,49 @@ def in_situ_check(torch, srv, params, toks, max_len):
     ops.flash_attention = recorder("flash_attention")
     ops.ssd = recorder("ssd")
     try:
-        srv.prefill(params, {"tokens": toks}, max_len)
+        srv.prefill(params, batch, max_len)
     finally:
         ops.flash_attention, ops.ssd = orig["flash_attention"], orig["ssd"]
-    print(f"[serve] in situ: every flash_attention and ssd call of one "
-          f"prefill within tolerance of its plain version on the same "
-          f"activations (max abs err {worst})", flush=True)
-    print(f"[serve] in situ, closest to the limit: {limit_use_line(use)}",
+    print(f"[{tag}] in situ: every flash_attention and ssd call of one "
+          f"{srv.cfg.name} prefill within tolerance of its plain version on "
+          f"the same activations (max abs err {worst})", flush=True)
+    print(f"[{tag}] in situ, closest to the limit: {limit_use_line(use)}",
           flush=True)
+
+
+def moe_sync_check(torch, srv, params, batch, max_len, tag):
+    """One prefill with every ``moe_ffn`` call under
+    ``torch.cuda.set_sync_debug_mode("error")``: the layer's routing, sort,
+    capacity drops and combine must not wait on the card.  Needs the card;
+    skipped elsewhere."""
+    import repro_torch.models.model as model_module
+    if not batch["tokens"].is_cuda:
+        print(f"[{tag}] moe_ffn sync check skipped: it needs the card",
+              flush=True)
+        return
+    orig = model_module.moe_ffn
+    calls = [0]
+
+    def checked(*args):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = orig(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        calls[0] += 1
+        return out
+
+    model_module.moe_ffn = checked
+    try:
+        srv.prefill(params, batch, max_len)
+    finally:
+        model_module.moe_ffn = orig
+    if calls[0] != srv.cfg.n_layers:
+        raise AssertionError(f"moe_ffn ran {calls[0]} times in a prefill of "
+                             f"{srv.cfg.n_layers} layers")
+    print(f"[{tag}] moe_ffn under sync debug mode 'error': {calls[0]} calls "
+          f"of one prefill, 0 host waits", flush=True)
 
 
 # ---------------------------------------------------------------- phase 4
@@ -2867,9 +3036,14 @@ def main(argv=None) -> int:
     serve_counts = serve_phase(torch, dev, cfg, card)
     print(f"[main path] serve: {time.perf_counter() - t0:.1f} s with its "
           f"measurements, kernel launches {serve_counts}", flush=True)
+    t0 = time.perf_counter()
+    decoder_counts = decoder_phase(torch, dev, cfg, card)
+    print(f"[main path] decoder: {time.perf_counter() - t0:.1f} s with its "
+          f"measurements, kernel launches {decoder_counts}", flush=True)
+    model_counts = {k: v + decoder_counts[k] for k, v in serve_counts.items()}
     paths = {"version_scan": engine_counts, "potential_matrix": engine_counts,
              "wave_commit": engine_counts, "commit_loop": engine_counts,
-             "flash_attention": serve_counts,
+             "flash_attention": model_counts,
              "ssd_scan": serve_counts}
     for name, counts in paths.items():
         if counts[name] <= 0:

@@ -25,7 +25,9 @@ _MODULES = {
     "deepseek-moe-16b": "deepseek_moe_16b",
     "seamless-m4t-large-v2": "seamless_m4t_large_v2",
 }
-PORTED = ("zamba2-2.7b",)
+PORTED = ("zamba2-2.7b", "qwen2-vl-2b", "qwen2-0.5b", "qwen3-14b",
+          "deepseek-coder-33b", "yi-9b", "phi3.5-moe-42b-a6.6b",
+          "deepseek-moe-16b")
 
 ARCH_IDS: List[str] = list(_MODULES)
 
@@ -36,7 +38,7 @@ def _mod(arch: str):
     if arch not in PORTED:
         raise NotImplementedError(
             f"arch {arch!r} is not ported to repro_torch yet ({NOT_YET}: "
-            f"DecoderLM, SSMModel, EncDecModel); "
+            f"SSMModel, EncDecModel); "
             f"ported: {list(PORTED)}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
 

@@ -12,9 +12,11 @@ Differences from the reference, none of them visible in what a batch
 returns: the steps run eagerly (no jit, no buffer donation); the KV cache
 is written in place into a buffer of ``S + cache_margin`` positions that
 prefill allocates, instead of concatenating zeros after it; the generated
-ids are gathered on the device and copied to the host once per batch.  The
-``mrope`` (vision-language) and ``encdec`` branches belong to families the
-port does not serve yet and raise ``NotImplementedError``.
+ids are gathered on the device and copied to the host once per batch.
+Under ``mrope`` (vision-language) a batch carries the ``[B, S, 3]`` text
+positions of the reference (0 ... S-1 in each section), made on the
+server's device.  The ``encdec`` branch belongs to a family the port does
+not serve yet and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -34,6 +36,19 @@ from repro_torch.models.module import tree_leaves
 from .train import greedy_decode
 
 
+def prompt_batch(cfg: ModelConfig, tokens: torch.Tensor) -> Dict:
+    """The prefill batch of a [B, S] prompt tensor: the tokens and, under
+    ``mrope``, their text positions ([B, S, 3], 0 ... S-1 in each of the
+    three sections), made on the tokens' device."""
+    batch = {"tokens": tokens}
+    if cfg.mrope:
+        B, S = tokens.shape
+        batch["positions"] = torch.arange(
+            S, dtype=torch.int32, device=tokens.device)[None, :, None] \
+            .expand(B, S, 3)
+    return batch
+
+
 @dataclasses.dataclass
 class ServeStats:
     batches: int = 0
@@ -45,10 +60,10 @@ class ServeStats:
 class Server:
     def __init__(self, cfg: ModelConfig, params, batch_size: int = 4,
                  cache_margin: int = 128, kernels=None, device=None):
-        if cfg.mrope or cfg.family == "encdec":
+        if cfg.family == "encdec":
             raise NotImplementedError(
-                f"serving {cfg.name!r} ({'mrope' if cfg.mrope else 'encdec'})"
-                f" is not ported to repro_torch yet ({NOT_YET})")
+                f"serving {cfg.name!r} (encdec) is not ported to repro_torch "
+                f"yet ({NOT_YET})")
         self.cfg = cfg
         self.batch_size = batch_size
         self.cache_margin = cache_margin
@@ -105,9 +120,8 @@ class Server:
             raise NotImplementedError(
                 f"encoder inputs (encdec) are not ported yet ({NOT_YET})")
         vid, params = self._snapshot()
-        batch = {"tokens": torch.as_tensor(np.asarray(tokens),
-                                           dtype=torch.int32,
-                                           device=self.device)}
+        batch = prompt_batch(self.cfg, torch.as_tensor(
+            np.asarray(tokens), dtype=torch.int32, device=self.device))
         # the cache has room for the new tokens
         logits, cache = self.prefill(params, batch,
                                      max_len=S + self.cache_margin)

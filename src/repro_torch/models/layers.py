@@ -1,8 +1,9 @@
-"""Core NN layers of the port: RMSNorm, RoPE, GQA attention, SwiGLU MLP,
+"""Core NN layers of the port: RMSNorm, RoPE and M-RoPE, GQA attention
+(with the optional qkv bias and qk-norm), SwiGLU MLP, sort-based top-k MoE,
 embedding and head.
 
-Port of the subset of ``repro.models.layers`` that the hybrid family
-(zamba2) runs.  Layouts as in the reference: activations ``[B, S, D]``,
+Port of ``repro.models.layers`` for the decoder (dense, MoE, VLM) and
+hybrid families.  Layouts as in the reference: activations ``[B, S, D]``,
 attention tensors ``[B, S, H, Dh]``.  Matrix products run in
 ``compute_dtype`` (bf16 by default), softmax and statistics in float32.
 
@@ -12,10 +13,10 @@ the ``torch`` route.  That takes the place of the reference's chunked XLA
 attention (``_chunked_attention`` / ``_tri_chunked_attention``), which
 exists to bound XLA's memory; ``ModelConfig`` refuses an ``attn_chunk``
 other than its default.
-Not ported: LayerNorm, M-RoPE, qk-norm, qkv-bias, MoE and the
-cross-entropy loss (the dense/MoE/encoder families and training), the
-``cast_grad_bf16`` boundary (training) and every ``shard_activation`` /
-``fsdp_gather`` constraint (GSPMD, no mesh on one card).
+Not ported: LayerNorm (the encoder-decoder family), the cross-entropy loss
+and the ``cast_grad_bf16`` boundary (training), and every
+``shard_activation`` / ``fsdp_gather`` constraint (GSPMD, no mesh on one
+card).
 """
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops, resolve
 from repro_torch.kernels.flash_attention import NEG_INF
 
-from .config import NOT_YET, ModelConfig
+from .config import ModelConfig
 from .module import spec
 
 
@@ -64,16 +65,40 @@ def _rope_freqs(half: int, theta: float, device=None) -> torch.Tensor:
                      / half)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
-    """x: [B, S, H, D]; positions: [B, S] int."""
+def _rotate(x: torch.Tensor, ang: torch.Tensor):
+    """Rotate the two halves of x [B, S, H, D] by angles [B, S, D/2] (float32
+    arithmetic, cast back to x's dtype)."""
     half = x.shape[-1] // 2
-    freqs = _rope_freqs(half, theta, x.device)
-    ang = positions.float()[..., None] * freqs                   # [B,S,half]
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
+    """x: [B, S, H, D]; positions: [B, S] int."""
+    half = x.shape[-1] // 2
+    freqs = _rope_freqs(half, theta, x.device)
+    ang = positions.float()[..., None] * freqs                   # [B,S,half]
+    return _rotate(x, ang)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections):
+    """Qwen2-VL multimodal RoPE.  x: [B, S, H, D]; positions3: [B, S, 3]
+    (t, h, w) ids.  The frequency slots fall into (t, h, w) sections of
+    ``sections`` half-dims; each slot rotates by its section's id."""
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"mrope sections {tuple(sections)} do not sum to "
+                         f"half the head dim {half}")
+    freqs = _rope_freqs(half, theta, x.device)
+    slot = torch.arange(half, device=x.device)
+    sec_id = ((slot >= sections[0]).long()
+              + (slot >= sections[0] + sections[1]).long())      # [half]
+    pos = positions3.float().index_select(-1, sec_id)            # [B,S,half]
+    return _rotate(x, pos * freqs)
 
 
 # ---------------------------------------------------------------------------
@@ -118,40 +143,57 @@ def decode_attention(q, K, V, k_new, v_new, kv_len):
 # attention block (params + forward)
 # ---------------------------------------------------------------------------
 
-def _plain_attention_only(cfg: ModelConfig):
-    for flag in ("qkv_bias", "qk_norm", "mrope"):
-        if getattr(cfg, flag):
-            raise NotImplementedError(
-                f"{flag} attention is not ported to repro_torch yet "
-                f"({NOT_YET})")
-
-
 def attn_specs(cfg: ModelConfig, layers: Optional[int] = None):
-    _plain_attention_only(cfg)
     d, hd = cfg.d_model, cfg.head_dim
     H, KH = cfg.n_heads, cfg.n_kv_heads
     dt = cfg.param_dtype
     L = (layers,) if layers else ()
     La = ("layers",) if layers else ()
-    return {
+    p = {
         "wq": spec(L + (d, H * hd), La + ("embed", "heads"), dtype=dt),
         "wk": spec(L + (d, KH * hd), La + ("embed", "kv_heads"), dtype=dt),
         "wv": spec(L + (d, KH * hd), La + ("embed", "kv_heads"), dtype=dt),
         "wo": spec(L + (H * hd, d), La + ("heads", "embed"), dtype=dt),
     }
+    if cfg.qkv_bias:
+        p["bq"] = spec(L + (H * hd,), La + ("heads",), dtype=dt, init="zeros")
+        p["bk"] = spec(L + (KH * hd,), La + ("kv_heads",), dtype=dt,
+                       init="zeros")
+        p["bv"] = spec(L + (KH * hd,), La + ("kv_heads",), dtype=dt,
+                       init="zeros")
+    if cfg.qk_norm:
+        p["q_norm"] = spec(L + (hd,), La + ("head_dim",), dtype=dt,
+                           init="ones")
+        p["k_norm"] = spec(L + (hd,), La + ("head_dim",), dtype=dt,
+                           init="ones")
+    return p
 
 
 def attn_qkv(p, x, cfg: ModelConfig, positions=None):
-    """Project to (q, k, v) with RoPE applied."""
-    _plain_attention_only(cfg)
+    """Project to (q, k, v) with the qkv bias, qk-norm and RoPE / M-RoPE
+    applied, in the reference's order: the bias added in ``compute_dtype``
+    after each product, the per-head RMSNorm before the rotation.
+    ``positions``: [B, S] ids, or [B, S, 3] under ``mrope``."""
     B, S, _ = x.shape
     hd, cd = cfg.head_dim, cfg.compute_dtype
-    q = _mm(x, p["wq"], cd).reshape(B, S, cfg.n_heads, hd)
-    k = _mm(x, p["wk"], cd).reshape(B, S, cfg.n_kv_heads, hd)
-    v = _mm(x, p["wv"], cd).reshape(B, S, cfg.n_kv_heads, hd)
+    xq, xk, xv = (_mm(x, p[w], cd) for w in ("wq", "wk", "wv"))
+    if cfg.qkv_bias:
+        xq = xq + p["bq"].to(cd)
+        xk = xk + p["bk"].to(cd)
+        xv = xv + p["bv"].to(cd)
+    q = xq.reshape(B, S, cfg.n_heads, hd)
+    k = xk.reshape(B, S, cfg.n_kv_heads, hd)
+    v = xv.reshape(B, S, cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
     if positions is not None:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        if cfg.mrope:
+            q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+            k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+        else:
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -162,7 +204,7 @@ def attn_out(p, o, cfg: ModelConfig):
 
 
 # ---------------------------------------------------------------------------
-# MLP
+# MLP / MoE
 # ---------------------------------------------------------------------------
 
 def mlp_specs(d: int, ff: int, layers: Optional[int] = None, dtype=None):
@@ -180,6 +222,94 @@ def mlp(p, x, cfg: ModelConfig):
     cd = cfg.compute_dtype
     h = silu(_mm(x, p["w1"], cd)) * _mm(x, p["w3"], cd)
     return _mm(h, p["w2"], cd)
+
+
+def moe_specs(cfg: ModelConfig, layers: Optional[int] = None):
+    d, fe, E = cfg.d_model, cfg.d_ff_expert, cfg.n_experts
+    L = (layers,) if layers else ()
+    La = ("layers",) if layers else ()
+    dt = cfg.param_dtype
+    p = {
+        "router": spec(L + (d, E), La + ("embed", None), dtype=dt,
+                       scale=1.0 / math.sqrt(d)),
+        "we1": spec(L + (E, d, fe), La + ("experts", "embed", "expert_mlp"),
+                    dtype=dt),
+        "we3": spec(L + (E, d, fe), La + ("experts", "embed", "expert_mlp"),
+                    dtype=dt),
+        "we2": spec(L + (E, fe, d), La + ("experts", "expert_mlp", "embed"),
+                    dtype=dt),
+    }
+    if cfg.n_shared_experts:
+        p["shared"] = mlp_specs(d, cfg.n_shared_experts * fe, layers,
+                                dtype=dt)
+    return p
+
+
+def moe_capacity(T: int, cfg: ModelConfig) -> int:
+    """The reference's static expert capacity for T routed (token, choice)
+    pairs a row: ``max(4, round_up(ceil(T / E * capacity_factor), 4))``."""
+    C = int(math.ceil(T / cfg.n_experts * cfg.capacity_factor))
+    return max(4, ((C + 3) // 4) * 4)
+
+
+def moe_ffn(p, x, cfg: ModelConfig):
+    """Token-choice top-k MoE with per-batch-row sort-based dispatch (the
+    reference's ``moe_ffn``).  Each expert takes at most ``moe_capacity``
+    pairs a row, in token order; the overflow is dropped through a scratch
+    row past the ``E * C`` rows of the dispatch buffer, so every shape is
+    static and nothing here waits on the device.  The expert products are
+    plain batched matrix products, as in the reference.  Returns
+    ``(out [B, S, D] in x's dtype, aux)``, ``aux`` the Switch-style load
+    balance loss."""
+    B, S, D = x.shape
+    cd = cfg.compute_dtype
+    E, K = cfg.n_experts, cfg.top_k
+    T = S * K                                                    # per row
+    dev = x.device
+
+    logits = torch.matmul(x.float(), p["router"].float())        # [B,S,E]
+    probs = torch.softmax(logits, dim=-1)
+    topv, topi = torch.topk(probs, K, dim=-1)                    # [B,S,K]
+    topv = topv / topv.sum(-1, keepdim=True).clamp_min(1e-9)
+
+    # load-balance aux loss (Switch-style), per row then averaged
+    me = probs.mean(dim=1)                                       # [B,E]
+    flat_e = topi.reshape(B, T)
+    hot = torch.zeros((B, E), dtype=torch.float32, device=dev).scatter_add_(
+        1, flat_e, torch.ones((B, T), dtype=torch.float32, device=dev)) / T
+    aux = (E * (me * hot).sum(dim=-1)).mean()
+
+    C = moe_capacity(T, cfg)
+    order = torch.argsort(flat_e, dim=-1, stable=True)           # [B,T]
+    sorted_e = torch.gather(flat_e, 1, order)
+    rank = (torch.arange(T, device=dev)[None, :]
+            - torch.searchsorted(sorted_e, sorted_e, side="left"))
+    keep = rank < C
+    dest = torch.where(keep, sorted_e * C + rank, E * C)        # E*C: drop
+    src_tok = order // K                                         # [B,T]
+
+    xs = torch.gather(x.to(cd), 1, src_tok[..., None].expand(B, T, D))
+    buf = torch.zeros((B, E * C + 1, D), dtype=cd, device=dev)
+    buf.scatter_(1, dest[..., None].expand(B, T, D), xs)
+    buf = buf[:, :E * C].reshape(B, E, C, D)
+
+    h = silu(torch.einsum("becd,edf->becf", buf, p["we1"].to(cd))) \
+        * torch.einsum("becd,edf->becf", buf, p["we3"].to(cd))
+    y = torch.einsum("becf,efd->becd", h, p["we2"].to(cd)).reshape(
+        B, E * C, D)
+
+    safe = dest.clamp_max(E * C - 1)
+    contrib = torch.where(keep[..., None],
+                          torch.gather(y, 1, safe[..., None].expand(B, T, D)),
+                          0).float()
+    w = torch.gather(topv.reshape(B, T), 1, order)
+    out = torch.zeros((B, S, D), dtype=torch.float32, device=dev)
+    out.scatter_add_(1, src_tok[..., None].expand(B, T, D),
+                     contrib * w[..., None])
+
+    if cfg.n_shared_experts:
+        out = out + mlp(p["shared"], x, cfg).float()
+    return out.to(x.dtype), aux
 
 
 # ---------------------------------------------------------------------------

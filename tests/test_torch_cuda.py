@@ -20,7 +20,10 @@ bf16 output: one bf16 rounding), also at 128-row attention q tiles, in the
 model's strided layout, at N=128 and with slow decay (where every block of
 the scan carries weight), the bf16 outputs also against the plain versions
 in float32 on the same inputs, and reduced zamba2 behind ``Server`` on the
-``cuda`` route must serve what the ``torch`` route serves.  The block
+``cuda`` route must serve what the ``torch`` route serves; so must the
+reduced decoder models (dense, MoE, VLM with a head dim of 32; the
+reduced VLM's 24 is refused on ``cuda``), their logits within 1e-3 of
+scale, and ``moe_ffn`` must run under sync debug mode "error".  The block
 dispatch (``run_block`` on a staged or a host block) must run under
 ``torch.cuda.set_sync_debug_mode("error")``, which must raise on a known
 blocking copy; a block's page-locked staging must stay alive, unchanged,
@@ -458,6 +461,125 @@ def test_server_cuda_route_serves_what_torch_serves(dev):
     for a, b in zip(c_out, t_out):
         assert a["weight_version"] == b["weight_version"]
         np.testing.assert_array_equal(a["generated"], b["generated"])
+
+
+# ------------------------------------------------ the decoder family
+# reduced configurations with a head dim the attention kernel takes (the
+# reduced qwen2-vl-2b's 24 is not a multiple of 16: refused, below)
+DECODER_CARD = {
+    "qwen2-0.5b": {},
+    "qwen3-14b": {},
+    "qwen2-vl-2b": {"d_head": 32, "mrope_sections": (4, 6, 6)},
+    "deepseek-moe-16b": {},
+    "phi3.5-moe-42b-a6.6b": {},
+}
+
+
+@pytest.mark.parametrize("arch", sorted(DECODER_CARD))
+def test_decoder_cuda_route_serves_what_torch_serves(dev, arch):
+    """A reduced decoder model (float32) behind Server across a publish:
+    the cuda route gives the torch route's ids and versions, its logits
+    teacher-forced within 1e-3 * scale of the torch route's, and each
+    prefill launches flash_attention once a layer."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.launch.serve import prompt_batch
+    cfg = get_reduced(arch).replace(compute_dtype=torch.float32,
+                                    **DECODER_CARD[arch])
+    model = build(cfg)
+    g = torch.Generator(device=dev).manual_seed(0)
+    versions = [model.init(g) for _ in range(2)]
+    for p in versions:              # bias and norms off their init values
+        for blk in (p["blocks"]["attn"], p["blocks"]):
+            for k in ("bq", "bk", "bv", "q_norm", "k_norm", "ln1", "ln2"):
+                if k in blk:
+                    blk[k].add_(0.3 * torch.randn(blk[k].shape,
+                                                  generator=g, device=dev))
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab_size, (2, S)).astype(np.int32)
+               for S in (64, 37)]
+    served = {}
+    for route in ("torch", "cuda"):
+        srv = Server(cfg, versions[0], batch_size=2, kernels=route,
+                     device=dev)
+        before = dict(LAUNCHES)
+        out = []
+        for i, toks in enumerate(prompts):
+            if i == 1:
+                assert srv.publish(versions[1])
+            out.append(srv.serve_batch(toks, max_new_tokens=4))
+        launched = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+        served[route] = (out, srv.stats, launched)
+    (t_out, t_stats, t_l), (c_out, c_stats, c_l) = served["torch"], \
+        served["cuda"]
+    assert t_l["flash_attention"] == 0
+    assert c_l["flash_attention"] == 2 * cfg.n_layers
+    assert c_l["ssd_scan"] == 0
+    assert c_stats == t_stats and c_stats.versions_served == [0, 1]
+    for i, (a, b) in enumerate(zip(c_out, t_out)):
+        assert a["weight_version"] == b["weight_version"]
+        np.testing.assert_array_equal(a["generated"], b["generated"])
+        toks = torch.as_tensor(prompts[i], device=dev)
+        forced = torch.as_tensor(a["generated"], device=dev)
+        lg = []
+        for route in ("cuda", "torch"):
+            m = build(cfg, kernels=route)
+            logits, cache = m.prefill(versions[i], prompt_batch(cfg, toks),
+                                      toks.shape[1] + 4)
+            steps = [logits]
+            for j in range(3):
+                logits, cache = m.decode(versions[i], cache,
+                                         {"token": forced[:, j:j + 1]})
+                steps.append(logits)
+            lg.append(torch.cat(steps, dim=1))
+        scale = max(float(lg[1].abs().max()), 1.0)
+        assert float((lg[0] - lg[1]).abs().max()) <= 1e-3 * scale
+
+
+def test_reduced_vlm_head_dim_is_refused_on_cuda(dev):
+    """The reduced qwen2-vl-2b's head dim of 24 is refused by the kernel
+    on the cuda route (no fallback); the torch route serves it."""
+    cfg = get_reduced("qwen2-vl-2b")
+    assert cfg.head_dim == 24
+    params = build(cfg).init(torch.Generator(device=dev).manual_seed(0))
+    toks = np.zeros((2, 16), np.int32)
+    before = LAUNCHES["flash_attention"]
+    with pytest.raises(ValueError, match="head dim 24"):
+        Server(cfg, params, batch_size=2, kernels="cuda",
+               device=dev).serve_batch(toks, max_new_tokens=2)
+    assert LAUNCHES["flash_attention"] == before
+    out = Server(cfg, params, batch_size=2, kernels="torch",
+                 device=dev).serve_batch(toks, max_new_tokens=2)
+    assert out["generated"].shape == (2, 2)
+
+
+@pytest.mark.parametrize("cf", [1.25, 0.25])
+def test_moe_ffn_runs_without_host_waits(dev, cf):
+    """moe_ffn (routing, stable sort, capacity drops through the scratch
+    row, combine) runs under sync debug mode "error" on the card, and
+    equals its run on the CPU."""
+    from repro_torch.models.layers import moe_ffn
+    cfg = get_reduced("deepseek-moe-16b").replace(
+        compute_dtype=torch.float32, capacity_factor=cf)
+    params = build(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    lp = {k: v[0] for k, v in params["blocks"]["moe"].items()
+          if not isinstance(v, dict)}
+    lp["shared"] = {k: v[0] for k, v in
+                    params["blocks"]["moe"]["shared"].items()}
+    x = torch.randn((3, 64, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(1))
+    want, want_aux = moe_ffn(lp, x, cfg)
+    lp_d = {k: v.to(dev) if torch.is_tensor(v) else
+            {kk: vv.to(dev) for kk, vv in v.items()} for k, v in lp.items()}
+    x_d = x.to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, aux = moe_ffn(lp_d, x_d, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert float((got.cpu() - want).abs().max()) <= 1e-4 * max(
+        float(want.abs().max()), 1.0)
+    assert abs(float(aux) - float(want_aux)) <= 1e-5
 
 
 # ------------------------------------------ streaming plane and planner
