@@ -26,11 +26,16 @@ Phases (any failure raises, so the process exits non-zero):
    the model plane's ``flash_attention`` and
    ``ssd_scan`` likewise, within their tolerances, at the serve path's
    shapes plus ragged, GQA, non-causal, initial-state, float32, 128-row
-   q tile, N=128, model-layout and slow-decay cases, each bf16 output also
+   q tile, N=128 (bf16 and float32), model-layout and slow-decay cases and
+   phase 8's cross-attention (Sq = 128 and 1 over Sk = 1,024 and 1,000
+   encoder rows) and encoder shapes, each bf16 output also
    against its plain version in float32 on the same inputs, the element
    closest to its limit printed per check, with
    ``scaled_dot_product_attention`` timed beside attention as a yardstick
-   (never called by the port); ``commit_loop`` against the engine's plain
+   (never called by the port), the times also at qwen3-14b's prefill and
+   seamless' cross-attention, and ``ssd_scan``'s at mamba2-130m's prefill
+   (bf16 and float32) and zamba2's in float32; ``commit_loop`` against the
+   engine's plain
    loop, bit-equal in its outputs and the store, for the six schedulers x
    {no GC, ``gc_track``, ``gc_block``} on corner waves (V=2 rings read and
    read-modify-written in one wave, duplicate write keys, T=1, T=33, O=12,
@@ -198,10 +203,31 @@ Phases (any failure raises, so the process exits non-zero):
    and ``profile_call`` profiles, the in-situ kernel checks, and the
    teacher-forced ``cuda``-vs-``torch`` gates of phase 6 (MoE: the float32
    distance printed, not gated: routing flips at near-ties);
-8. one JSON line of per-kernel results, with the launches each kernel made
+8. the SSM and encoder-decoder families behind ``Server`` on the ``cuda``
+   route at full width and depth, after phase 7's models are freed, as
+   phase 7 serves its models (``SSM_ENCDEC_RUNS``; batch 4, 16 new tokens,
+   bf16 over float32 weights, two weight versions and a publish after the
+   first batch):
+
+   8a. mamba2-130m (24 layers, N=128, chunk 128, tied embeddings), prompts
+   of 1,024 and 1,000 tokens (a ragged last chunk);
+   8b. seamless-m4t-large-v2 (24 encoder + 24 decoder layers, 2.03 B
+   parameters), decoder prompts of 128 tokens over seeded frame
+   embeddings (``randn * 0.05``, ``make_batch``'s scale) of 1,024 and
+   1,000 encoder frames.
+
+   Each: one weight version per batch; the launches (``ssd_scan`` 24 a
+   mamba2 prefill; ``flash_attention`` 72 a seamless prefill and 24 a
+   decode step), over the served batches and for one prefill and one
+   decode step apart; the in-situ checks; the teacher-forced ``cuda``-vs-
+   ``torch`` logits in float32 within 1e-3 * scale (the bf16 distance
+   printed beside the ``torch`` route's own bf16-vs-float32 distance, not
+   gated); prefill ms, decode ms a step, tokens/s, peak memory,
+   ``profile_call`` profiles;
+9. one JSON line of per-kernel results, with the launches each kernel made
    on its own path (phases 4-5d for the engine's, the streamed, planned,
    durable, replayed and placed runs included, the served batches of
-   phases 6 and 7 for the model plane's;
+   phases 6, 7 and 8 for the model plane's;
    each must be > 0), the card line again,
    and last ``{"ok": true, "device": {...}}``.
 
@@ -246,6 +272,16 @@ DECODER_RUNS = (
     ("7b", "qwen2-vl-2b", 2, SERVE_PROMPTS, None),
     ("7c", "deepseek-moe-16b", 1, (1024, 1000), 8),
 )
+# phase 8, the SSM and encoder-decoder families at full width and depth:
+# (step, arch, weight versions, prompt lengths, encoder frames a batch or
+# None), a second version published after the first batch
+SSM_ENCDEC_RUNS = (
+    ("8a", "mamba2-130m", 2, (1024, 1000), None),
+    ("8b", "seamless-m4t-large-v2", 2, (128, 128), (1024, 1000)),
+)
+# the scale of the encoder's seeded frame embeddings (launch/inputs.py
+# make_batch draws them as randn * 0.05)
+ENC_SCALE = 0.05
 
 
 class Config(NamedTuple):
@@ -269,7 +305,9 @@ class Config(NamedTuple):
     new_tokens: int = 16
     planned_waves: int = 2         # hot SmallBank waves the planner replays
     elastic_ticks: int = 20        # ticks of phase 5d's elastic stream
-    mesh_waves: int = 2            # waves a scheduler and route, phase 4m
+    mesh_waves: int = 1            # waves a scheduler and route, phase 4m
+                                   # (cut from 2 to make room for phase 8;
+                                   # 5m carries state across mesh waves)
     mesh_ticks: int = 8            # ticks of phase 5m's mesh sessions
 
 
@@ -1009,29 +1047,39 @@ def model_kernel_phase(torch, dev):
 
     errs = {"flash_attention": [], "ssd_scan": []}
     use = {}
-    # (B, S, H, KH, D, dtype, causal): the path in bf16 and float32,
+    # (B, Sq, Sk, H, KH, D, dtype, causal): the path in bf16 and float32,
     # ragged, GQA, non-causal and small odd shapes.  q and k at scale 2
     # make the softmax peaked (scores of std 4), so outputs are of the
     # order of v and a wrong tile shows well above the tolerances.
-    fa_cases = [(4, 1024, 32, 32, 80, bf16, True),
-                (4, 1024, 32, 32, 80, f32, True),
-                (4, 1000, 32, 32, 80, bf16, True),
-                (2, 1024, 14, 2, 64, bf16, True),
-                (4, 1024, 32, 32, 80, bf16, False),
-                (2, 256, 4, 2, 128, f32, True),
-                (2, 200, 4, 2, 80, f32, False),
-                (1, 70, 2, 1, 48, f32, True),
-                (1, 1, 4, 4, 16, f32, True),
-                (1, 2048, 32, 8, 128, bf16, True),
+    fa_cases = [(4, 1024, 1024, 32, 32, 80, bf16, True),
+                (4, 1024, 1024, 32, 32, 80, f32, True),
+                (4, 1000, 1000, 32, 32, 80, bf16, True),
+                (2, 1024, 1024, 14, 2, 64, bf16, True),
+                (4, 1024, 1024, 32, 32, 80, bf16, False),
+                (2, 256, 256, 4, 2, 128, f32, True),
+                (2, 200, 200, 4, 2, 80, f32, False),
+                (1, 70, 70, 2, 1, 48, f32, True),
+                (1, 1, 1, 4, 4, 16, f32, True),
+                (1, 2048, 2048, 32, 8, 128, bf16, True),
                 # phase 7's prefills: qwen3-14b, qwen2-vl-2b, deepseek-moe
-                (4, 1024, 40, 8, 128, bf16, True),
-                (4, 1000, 12, 2, 128, bf16, True),
-                (4, 1024, 16, 16, 128, bf16, True)]
-    for B, S, H, KH, D, dt, causal in fa_cases:
-        q = rn((B, S, H, D), 2.0, dt)
-        k, v = rn((B, S, KH, D), 2.0, dt), rn((B, S, KH, D), 1.0, dt)
+                (4, 1024, 1024, 40, 8, 128, bf16, True),
+                (4, 1000, 1000, 12, 2, 128, bf16, True),
+                (4, 1024, 1024, 16, 16, 128, bf16, True),
+                # phase 8b, seamless: cross-attention of the 128-token
+                # prompt over 1,024 and 1,000 encoder frames (Sq != Sk, the
+                # key tail masked), a decode step's one query row, and the
+                # encoder's full self-attention
+                (4, 128, 1024, 16, 16, 64, bf16, False),
+                (4, 128, 1000, 16, 16, 64, bf16, False),
+                (4, 1, 1000, 16, 16, 64, bf16, False),
+                (4, 1, 1000, 16, 16, 64, f32, False),
+                (4, 1024, 1024, 16, 16, 64, bf16, False)]
+    for B, Sq, Sk, H, KH, D, dt, causal in fa_cases:
+        q = rn((B, Sq, H, D), 2.0, dt)
+        k, v = rn((B, Sk, KH, D), 2.0, dt), rn((B, Sk, KH, D), 1.0, dt)
         tol = 2e-2 if dt == bf16 else 2e-5
-        label = f"B={B} S={S} H={H} KH={KH} D={D} {dt} causal={causal}"
+        label = (f"B={B} Sq={Sq} Sk={Sk} H={H} KH={KH} D={D} {dt} "
+                 f"causal={causal}")
         o = flash_attention_cuda(q, k, v, causal)
         errs["flash_attention"].append(close_err(
             torch, "flash_attention", label, (o,),
@@ -1062,7 +1110,11 @@ def model_kernel_phase(torch, dev):
                  (2, 3, 300, 64, 64, 128, f32, True, 0.3, True),
                  (4, 80, 1024, 64, 64, 128, bf16, True, 0.01, True),
                  (4, 24, 1024, 64, 128, 128, bf16, True, 0.01, False),
-                 (2, 3, 300, 32, 64, 64, bf16, True, 0.01, False)]
+                 (2, 3, 300, 32, 64, 64, bf16, True, 0.01, False),
+                 # the float32 kernel at mamba2-130m's N=128, chunk 128
+                 # (its [M | C] rows staged in strips), both layouts
+                 (2, 24, 1000, 64, 128, 128, f32, True, 0.3, False),
+                 (2, 24, 1000, 64, 128, 128, f32, True, 0.01, True)]
     for Bg, H, S, P, N, Q, dt, with_h0, decay, model in ssd_cases:
         x = rn((Bg * H, S, P), 0.5, dt)
         dA = -torch.rand((Bg * H, S), generator=g, device=dev) * decay
@@ -1096,31 +1148,8 @@ def model_kernel_phase(torch, dev):
     probes = scripts_module("probes")
     records = {"flash_attention": attention_times(
         torch, rn, probes, SERVE_BATCH, SERVE_PROMPTS[0], 32, 32, 80)}
-    S, BH, P, N, Q = SERVE_PROMPTS[0], SERVE_BATCH * 80, 64, 64, 128
-    # the scan in the layout the path gives it (views of [B, S, H, .])
-    x, dA = model_layout(rn((BH, S, P), 0.5, bf16),
-                         -torch.rand((BH, S), generator=g, device=dev) * 1.4,
-                         SERVE_BATCH, 80)
-    Bm, Cm = rn((SERVE_BATCH, S, N), 0.3, bf16), rn((SERVE_BATCH, S, N), 0.3,
-                                                     bf16)
-    kern = lambda: ssd_cuda(x, dA, Bm, Cm, 80, Q)
-    # bytes: inputs read once, outputs written once; operations: Q(Q+1)/2
-    # per chunk for the SSD's two intra-chunk products, plus its two state
-    # products
-    nc = -(-S // Q)
-    b_ms, b_by = bound(
-        2 * BH * S * P * 2 + BH * S * 4 + 2 * SERVE_BATCH * S * N * 2
-        + BH * N * P * 4,
-        2 * BH * nc * (Q * (Q + 1) // 2 * (N + P) + 2 * Q * N * P),
-        BF16_FLOPS_PER_S)
-    records["ssd_scan"] = {
-        "ms": cuda_ms(torch, kern, iters=20, warmup=3),
-        "plain_ms": cuda_ms(torch, lambda: ssd_plain(x, dA, Bm, Cm, 80, Q),
-                            iters=10, warmup=2),
-        "library_ms": None,
-        "device_ms": probes.profile_device_ms(
-            {"ssd_scan": (kern, "ssd_scan_")}, iters=10)["ssd_scan"],
-        "bound_ms": b_ms, "bound_by": b_by}
+    records["ssd_scan"] = ssd_times(torch, dev, rn, probes, SERVE_BATCH, 80,
+                                    SERVE_PROMPTS[0], 64, 64, 128, bf16)
     for name, rec in records.items():
         records[name] = {
             "name": name, "route": "cuda", "source": KERNELS[name][0],
@@ -1130,45 +1159,101 @@ def model_kernel_phase(torch, dev):
               f"{rec['plain_ms']:.4f}, library {rec['library_ms']}), "
               f"profiler device {rec['device_ms']} ms/launch, bound "
               f"{rec['bound_ms']:.5f} ms by {rec['bound_by']}", flush=True)
-    # phase 7a's prefill: printed, not in the JSON line
-    B, S, H, KH, D = SERVE_BATCH, 1024, 40, 8, 128
-    rec = attention_times(torch, rn, probes, B, S, H, KH, D)
-    print(f"[kernels] flash_attention at qwen3-14b's prefill shape (B={B} "
-          f"S={S} H={H} KH={KH} D={D} bf16 causal): {rec['ms']:.4f} ms/call, "
-          f"device {rec['device_ms']} ms (plain {rec['plain_ms']:.4f}, SDPA "
-          f"{rec['library_ms']:.4f}), bound {rec['bound_ms']:.5f} ms by "
-          f"{rec['bound_by']}", flush=True)
+    # phase 7a's prefill and phase 8b's cross-attention: printed, not in
+    # the JSON line
+    for what, (B, Sq, Sk, H, KH, D, causal) in (
+            ("qwen3-14b's prefill", (SERVE_BATCH, 1024, 1024, 40, 8, 128,
+                                     True)),
+            ("seamless' cross-attention", (SERVE_BATCH, 128, 1024, 16, 16,
+                                           64, False))):
+        rec = attention_times(torch, rn, probes, B, Sq, H, KH, D, Sk=Sk,
+                              causal=causal)
+        print(f"[kernels] flash_attention at {what} shape (B={B} Sq={Sq} "
+              f"Sk={Sk} H={H} KH={KH} D={D} bf16 causal={causal}): "
+              f"{rec['ms']:.4f} ms/call, device {rec['device_ms']} ms (plain "
+              f"{rec['plain_ms']:.4f}, SDPA {rec['library_ms']:.4f}), bound "
+              f"{rec['bound_ms']:.5f} ms by {rec['bound_by']}", flush=True)
+    # phase 8a's scan (mamba2-130m: N=128) in bf16 and float32, and the
+    # float32 kernel at zamba2's shape: printed, not in the JSON line
+    for what, (Bg, H, N, dt) in (("mamba2-130m", (SERVE_BATCH, 24, 128, bf16)),
+                                 ("mamba2-130m", (SERVE_BATCH, 24, 128, f32)),
+                                 ("zamba2-2.7b", (SERVE_BATCH, 80, 64, f32))):
+        rec = ssd_times(torch, dev, rn, probes, Bg, H, SERVE_PROMPTS[0], 64,
+                        N, 128, dt)
+        print(f"[kernels] ssd_scan at {what}'s prefill shape (BH={Bg}x{H} "
+              f"S={SERVE_PROMPTS[0]} P=64 N={N} chunk 128 {dt}, model "
+              f"layout): {rec['ms']:.4f} ms/call, device {rec['device_ms']} "
+              f"ms (plain {rec['plain_ms']:.4f}), bound "
+              f"{rec['bound_ms']:.5f} ms by {rec['bound_by']}", flush=True)
     return records
 
 
-def attention_times(torch, rn, probes, B, S, H, KH, D):
-    """flash_attention at one bf16 causal shape: CUDA events ms of the
-    kernel, its plain version and SDPA (the library call, reading the KH kv
-    heads as the kernel does), the profiler's device ms of the kernel and
-    the bytes-or-operations bound."""
+def attention_times(torch, rn, probes, B, S, H, KH, D, Sk=None,
+                    causal=True):
+    """flash_attention at one bf16 shape (S query rows over Sk key rows,
+    default S): CUDA events ms of the kernel, its plain version and SDPA
+    (the library call, reading the KH kv heads as the kernel does), the
+    profiler's device ms of the kernel and the bytes-or-operations
+    bound."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                      flash_attention_plain)
+    Sk = S if Sk is None else Sk
     q = rn((B, S, H, D), 0.5, torch.bfloat16)
-    k, v = (rn((B, S, KH, D), 0.5, torch.bfloat16) for _ in range(2))
+    k, v = (rn((B, Sk, KH, D), 0.5, torch.bfloat16) for _ in range(2))
     qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
-    kern = lambda: flash_attention_cuda(q, k, v, True)
+    kern = lambda: flash_attention_cuda(q, k, v, causal)
     # bytes: inputs read once, the output written once; operations: the
-    # two products over the causal half of S^2
-    pairs = B * H * S * (S + 1) // 2
-    b_ms, b_by = bound((2 * H + 2 * KH) * B * S * D * 2, 4 * pairs * D,
+    # two products over the (query, key) pairs the mask keeps, the causal
+    # half of S^2 or all of S x Sk
+    pairs = B * H * (S * (S + 1) // 2 if causal else S * Sk)
+    b_ms, b_by = bound((2 * H * S + 2 * KH * Sk) * B * D * 2, 4 * pairs * D,
                        BF16_FLOPS_PER_S)
     return {
         "ms": cuda_ms(torch, kern, iters=20, warmup=3),
         "plain_ms": cuda_ms(torch, lambda: flash_attention_plain(q, k, v,
-                                                                 True),
+                                                                 causal),
                             iters=10, warmup=2),
         "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=H != KH),
+            qt, kt, vt, is_causal=causal, enable_gqa=H != KH),
             iters=20, warmup=3),
         "device_ms": probes.profile_device_ms(
             {"flash_attention": (kern, "flash_attention_")},
             iters=10)["flash_attention"],
+        "bound_ms": b_ms, "bound_by": b_by}
+
+
+def ssd_times(torch, dev, rn, probes, Bg, H, S, P, N, Q, dtype):
+    """ssd_scan at one shape, x and dA as the views of the model's
+    [B, S, H, .] layout the path passes: CUDA events ms of the kernel and
+    its plain version, the profiler's device ms of the kernel and the
+    bytes-or-operations bound (bf16 products over the tensor rate, float32
+    ones over the FMA rate)."""
+    from repro_torch.kernels.ssd_scan import ssd_cuda, ssd_plain
+    BH = Bg * H
+    g = torch.Generator(device=dev).manual_seed(BH + N)
+    x, dA = model_layout(rn((BH, S, P), 0.5, dtype),
+                         -torch.rand((BH, S), generator=g, device=dev) * 1.4,
+                         Bg, H)
+    Bm, Cm = rn((Bg, S, N), 0.3, dtype), rn((Bg, S, N), 0.3, dtype)
+    kern = lambda: ssd_cuda(x, dA, Bm, Cm, H, Q)
+    # bytes: inputs read once, outputs written once; operations: Q(Q+1)/2
+    # per chunk for the SSD's two intra-chunk products, plus its two state
+    # products
+    nc = -(-S // Q)
+    isz = 2 if dtype == torch.bfloat16 else 4
+    b_ms, b_by = bound(
+        2 * BH * S * P * isz + BH * S * 4 + 2 * Bg * S * N * isz
+        + BH * N * P * 4,
+        2 * BH * nc * (Q * (Q + 1) // 2 * (N + P) + 2 * Q * N * P),
+        BF16_FLOPS_PER_S if dtype == torch.bfloat16 else ALU_OPS_PER_S)
+    return {
+        "ms": cuda_ms(torch, kern, iters=20, warmup=3),
+        "plain_ms": cuda_ms(torch, lambda: ssd_plain(x, dA, Bm, Cm, H, Q),
+                            iters=10, warmup=2),
+        "library_ms": None,
+        "device_ms": probes.profile_device_ms(
+            {"ssd_scan": (kern, "ssd_scan_")}, iters=10)["ssd_scan"],
         "bound_ms": b_ms, "bound_by": b_by}
 
 
@@ -1214,24 +1299,40 @@ def profile_call(torch, label, fn, card, tag="serve"):
         print(f"[{tag}] profile unavailable: {exc!r}", flush=True)
 
 
-def prefill_launches(mcfg) -> dict:
-    """Kernel launches of one prefill on the ``cuda`` route: the hybrid
-    family attends once a group and scans once a layer, the decoder family
-    attends once a layer."""
+def model_launches(mcfg):
+    """Kernel launches on the ``cuda`` route of one prefill and of one
+    decode step: the hybrid family attends once a group and scans once a
+    layer, the SSM family scans once a layer, the decoder family attends
+    once a layer; the encoder-decoder family attends once an encoder layer
+    and twice a decoder layer (itself, then the encoder's output), and in
+    a decode step once a decoder layer (cross-attention of the one new
+    row).  Every other decode step is plain PyTorch."""
+    step = {"flash_attention": 0, "ssd_scan": 0}
     if mcfg.family == "hybrid":
-        return {"flash_attention": mcfg.n_layers // mcfg.attn_every,
-                "ssd_scan": mcfg.n_layers}
-    return {"flash_attention": mcfg.n_layers, "ssd_scan": 0}
+        pre = {"flash_attention": mcfg.n_layers // mcfg.attn_every,
+               "ssd_scan": mcfg.n_layers}
+    elif mcfg.family == "ssm":
+        pre = {"flash_attention": 0, "ssd_scan": mcfg.n_layers}
+    elif mcfg.family == "encdec":
+        pre = {"flash_attention": mcfg.n_enc_layers + 2 * mcfg.n_layers,
+               "ssd_scan": 0}
+        step = {"flash_attention": mcfg.n_layers, "ssd_scan": 0}
+    else:
+        pre = {"flash_attention": mcfg.n_layers, "ssd_scan": 0}
+    return pre, step
 
 
 def serve_phase(torch, dev, cfg, card, mcfg=None, route="cuda",
-                n_versions=2, prompts=None, tag="serve"):
+                n_versions=2, prompts=None, tag="serve", src_lens=None,
+                gate_bf16=True):
     """zamba2-2.7b (or ``mcfg``) behind ``Server`` on ``route``, with
     ``n_versions`` random weight versions (the second published after the
     first batch) over ``prompts`` (default ``SERVE_PROMPTS``; the first
-    ``cfg.serve_batches`` of them).  Returns the launch counts of the
-    served batches (the counted path); measures and cross-checks against
-    the ``torch`` route after reading them."""
+    ``cfg.serve_batches`` of them), an encoder-decoder model over seeded
+    frame embeddings of ``src_lens`` frames a batch.  Returns the launch
+    counts of the served batches (the counted path); measures and
+    cross-checks against the ``torch`` route after reading them (the bf16
+    distance gated only where ``gate_bf16``)."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.kernels import LAUNCHES, reset_launch_counts
@@ -1256,6 +1357,11 @@ def serve_phase(torch, dev, cfg, card, mcfg=None, route="cuda",
     rng = np.random.RandomState(cfg.seed + 3)
     prompts = [rng.randint(0, mcfg.vocab_size, (SERVE_BATCH, S))
                .astype(np.int32) for S in prompts[:n]]
+    frames = [None] * n
+    if src_lens is not None:
+        erng = np.random.RandomState(cfg.seed + 5)
+        frames = [(erng.randn(SERVE_BATCH, S, mcfg.d_model) * ENC_SCALE)
+                  .astype(np.float32) for S in src_lens[:n]]
     srv = Server(mcfg, versions[0], batch_size=SERVE_BATCH, kernels=route,
                  device=dev)
     torch.cuda.reset_peak_memory_stats()
@@ -1266,12 +1372,15 @@ def serve_phase(torch, dev, cfg, card, mcfg=None, route="cuda",
             raise AssertionError("publish of weight version 1 failed")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        r = srv.serve_batch(toks, max_new_tokens=cfg.new_tokens)
+        r = srv.serve_batch(toks, max_new_tokens=cfg.new_tokens,
+                            enc_embeds=frames[i])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         results.append(r)
+        src = ("" if frames[i] is None else
+               f" over {frames[i].shape[1]} encoder frames")
         print(f"[{tag}] batch {i}: {SERVE_BATCH} x {toks.shape[1]} prompt "
-              f"tokens + {cfg.new_tokens} new, weight version "
+              f"tokens{src} + {cfg.new_tokens} new, weight version "
               f"{r['weight_version']}, {wall:.3f} s, "
               f"{SERVE_BATCH * cfg.new_tokens / wall:.1f} generated tokens/s"
               f" [{card}]", flush=True)
@@ -1288,35 +1397,47 @@ def serve_phase(torch, dev, cfg, card, mcfg=None, route="cuda",
         if g_.shape != (SERVE_BATCH, cfg.new_tokens) or g_.min() < 0 \
                 or g_.max() >= mcfg.vocab_size:
             raise AssertionError(f"generated ids {g_.shape} out of range")
-    per = prefill_launches(mcfg)
-    expected = {k: v * n if srv.kernels.use_kernel else 0
-                for k, v in per.items()}
+    pre, step = model_launches(mcfg)
+    use = srv.kernels.use_kernel
+    expected = {k: (v + (cfg.new_tokens - 1) * step[k]) * n if use else 0
+                for k, v in pre.items()}
     print(f"[{tag}] versions {got}, stats {srv.stats}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launches "
-          f"{counts} ({n} prefills: expected {expected}) [{card}]",
-          flush=True)
+          f"{counts} ({n} prefills and {n * (cfg.new_tokens - 1)} decode "
+          f"steps: expected {expected}) [{card}]", flush=True)
     if {k: counts[k] for k in expected} != expected:
         raise AssertionError(f"{mcfg.name}: launches {counts}, expected "
                              f"{expected}")
 
-    # ---- measurement (not counted): prefill and decode times, a profile
+    # ---- measurement (not counted): prefill and decode times, a profile,
+    # and the launches of one prefill and of one decode step apart
     params = versions[0]
     toks = torch.as_tensor(prompts[0], device=dev)
-    batch = prompt_batch(mcfg, toks)
+    batch = prompt_batch(mcfg, toks, frames[0])
     max_len = toks.shape[1] + srv.cache_margin
+    launched = lambda before: {k: LAUNCHES[k] - before[k] for k in pre}
     times = []
     for _ in range(3):
+        before = dict(LAUNCHES)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         _, cache = srv.prefill(params, batch, max_len)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+        if launched(before) != {k: v * use for k, v in pre.items()}:
+            raise AssertionError(f"{mcfg.name}: one prefill launched "
+                                 f"{launched(before)}, expected {pre}")
     tok = torch.zeros((SERVE_BATCH, 1), dtype=torch.int32, device=dev)
     steps = max(cfg.new_tokens - 1, 1)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(steps):
+    for i in range(steps):
+        before = dict(LAUNCHES)
         tok, cache = srv.decode(params, cache, {"token": tok})
+        if i == 0 and launched(before) != {k: v * use
+                                           for k, v in step.items()}:
+            raise AssertionError(f"{mcfg.name}: one decode step launched "
+                                 f"{launched(before)}, expected {step}")
     torch.cuda.synchronize()
     dec = (time.perf_counter() - t0) / steps
     print(f"[{tag}] {mcfg.name} prefill {SERVE_BATCH} x {toks.shape[1]}: "
@@ -1354,7 +1475,8 @@ def serve_phase(torch, dev, cfg, card, mcfg=None, route="cuda",
               for r, k in (("cuda", route), ("torch", "torch"))}
     for i, (toks, r) in enumerate(zip(prompts, results)):
         params = versions[r["weight_version"]]
-        batch = prompt_batch(mcfg, torch.as_tensor(toks, device=dev))
+        batch = prompt_batch(mcfg, torch.as_tensor(toks, device=dev),
+                             frames[i])
         forced = torch.as_tensor(r["generated"], device=dev)
         lg = {key: forced_logits(torch, m, params, batch, forced,
                                  toks.shape[1] + srv.cache_margin)
@@ -1370,10 +1492,12 @@ def serve_phase(torch, dev, cfg, card, mcfg=None, route="cuda",
         first = float((lg["bf16", "cuda"][:, 0]
                        - lg["bf16", "torch"][:, 0]).abs().max())
         same = float((lg["bf16", "cuda"].argmax(-1) == forced).float().mean())
+        gate = (f"bound {1.5 * own:.4f} = 1.5 *" if gate_bf16 else
+                "printed, not gated, beside")
         print(f"[{tag}] {mcfg.name} batch {i} teacher-forced "
               f"({forced.shape[1]} steps): float32 cuda vs torch logits max "
               f"abs diff {e32:.3g} (bound {1e-3 * scale:.3g} = 1e-3 * {scale:.3f}); bf16 cuda vs torch "
-              f"{e16:.4f} (bound {1.5 * own:.4f} = 1.5 * the torch route's "
+              f"{e16:.4f} ({gate} the torch route's "
               f"bf16 vs float32 {own:.4f}; at the prefill's token "
               f"{first:.4f}), bf16 vs float32 on the cuda route "
               f"{diff(('bf16', 'cuda'), ('fp32', 'cuda')):.4f}; "
@@ -1382,7 +1506,7 @@ def serve_phase(torch, dev, cfg, card, mcfg=None, route="cuda",
         if e32 > 1e-3 * scale:
             raise AssertionError(f"{tag} batch {i}: cuda route logits differ "
                                  f"from the torch route by {e32} in float32")
-        if e16 > 1.5 * own:
+        if gate_bf16 and e16 > 1.5 * own:
             raise AssertionError(f"{tag} batch {i}: cuda route bf16 logits "
                                  f"differ from the torch route's by {e16}, "
                                  f"more than 1.5 x its own bf16 rounding "
@@ -1429,6 +1553,50 @@ def decoder_phase(torch, dev, cfg, card, runs=None, route="cuda"):
                              tag="decoder")
         print(f"[decoder] {step} {mcfg.name}: {time.perf_counter() - t0:.1f}"
               f" s with its measurements", flush=True)
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def ssm_encdec_phase(torch, dev, cfg, card, runs=None, route="cuda"):
+    """Phase 8: ``SSMModel`` (mamba2-130m) and ``EncDecModel``
+    (seamless-m4t-large-v2) behind ``Server`` at full width and depth, one
+    ``serve_phase`` a configuration of ``runs`` (default
+    ``SSM_ENCDEC_RUNS``, built from the registry; tuples of step, config,
+    weight versions, prompt lengths and encoder frames a batch or None),
+    each model's versions freed before the next is made.  At full depth
+    two bf16 routes that round at different places can differ by most of
+    the logits' scale (phase 6), so only float32 is gated.
+    Returns the launch counts of all their served batches."""
+    import gc
+    from repro_torch.configs import get_config
+    if runs is None:
+        runs = [(step, get_config(arch), n_versions, prompts, src)
+                for step, arch, n_versions, prompts, src in SSM_ENCDEC_RUNS]
+    total = {}
+    for step, mcfg, n_versions, prompts, src in runs:
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        shape = (f"{mcfg.n_layers} layers of d_model {mcfg.d_model}, "
+                 f"{mcfg.ssm_heads} SSD heads of {mcfg.headdim}, N="
+                 f"{mcfg.d_state}, chunk {mcfg.ssd_chunk}"
+                 if mcfg.family == "ssm" else
+                 f"{mcfg.n_enc_layers} encoder + {mcfg.n_layers} decoder "
+                 f"layers of d_model {mcfg.d_model}, {mcfg.n_heads} heads of "
+                 f"{mcfg.head_dim}, d_ff {mcfg.d_ff}, vocab "
+                 f"{mcfg.vocab_size:,} (padded {mcfg.padded_vocab:,})")
+        print(f"[ssm-encdec] {step} {mcfg.name}: {mcfg.family}, {shape}, "
+              f"{n_versions} weight version(s) on {route} [{card}]",
+              flush=True)
+        counts = serve_phase(torch, dev, cfg, card, mcfg=mcfg, route=route,
+                             n_versions=n_versions, prompts=prompts,
+                             tag="ssm-encdec", src_lens=src,
+                             gate_bf16=False)
+        print(f"[ssm-encdec] {step} {mcfg.name}: "
+              f"{time.perf_counter() - t0:.1f} s with its measurements",
+              flush=True)
         total = {k: total.get(k, 0) + v for k, v in counts.items()}
     gc.collect()
     torch.cuda.empty_cache()
@@ -3040,11 +3208,16 @@ def main(argv=None) -> int:
     decoder_counts = decoder_phase(torch, dev, cfg, card)
     print(f"[main path] decoder: {time.perf_counter() - t0:.1f} s with its "
           f"measurements, kernel launches {decoder_counts}", flush=True)
-    model_counts = {k: v + decoder_counts[k] for k, v in serve_counts.items()}
+    t0 = time.perf_counter()
+    family_counts = ssm_encdec_phase(torch, dev, cfg, card)
+    print(f"[main path] ssm and encdec: {time.perf_counter() - t0:.1f} s "
+          f"with their measurements, kernel launches {family_counts}",
+          flush=True)
+    model_counts = {k: v + decoder_counts[k] + family_counts[k]
+                    for k, v in serve_counts.items()}
     paths = {"version_scan": engine_counts, "potential_matrix": engine_counts,
              "wave_commit": engine_counts, "commit_loop": engine_counts,
-             "flash_attention": model_counts,
-             "ssd_scan": serve_counts}
+             "flash_attention": model_counts, "ssd_scan": model_counts}
     for name, counts in paths.items():
         if counts[name] <= 0:
             raise AssertionError(f"{name} never launched on its path")

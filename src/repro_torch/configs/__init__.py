@@ -1,9 +1,7 @@
 """Architecture registry of the port: ``get_config`` / ``get_reduced``.
 
-Port of ``repro.configs``.  The registry knows every architecture id of
-the reference, but only the families the port serves resolve: an id whose
-family is not ported yet raises ``NotImplementedError`` naming the
-ROADMAP.md item that brings it.  Unknown ids raise ``KeyError`` as in the
+Port of ``repro.configs``: every architecture id of the reference
+resolves, full and reduced.  Unknown ids raise ``KeyError`` as in the
 reference.
 """
 from __future__ import annotations
@@ -11,7 +9,7 @@ from __future__ import annotations
 import importlib
 from typing import List
 
-from repro_torch.models.config import NOT_YET, ModelConfig
+from repro_torch.models.config import ModelConfig
 
 _MODULES = {
     "qwen2-vl-2b": "qwen2_vl_2b",
@@ -25,9 +23,8 @@ _MODULES = {
     "deepseek-moe-16b": "deepseek_moe_16b",
     "seamless-m4t-large-v2": "seamless_m4t_large_v2",
 }
-PORTED = ("zamba2-2.7b", "qwen2-vl-2b", "qwen2-0.5b", "qwen3-14b",
-          "deepseek-coder-33b", "yi-9b", "phi3.5-moe-42b-a6.6b",
-          "deepseek-moe-16b")
+# the ids the port serves: all of the reference's
+PORTED = tuple(_MODULES)
 
 ARCH_IDS: List[str] = list(_MODULES)
 
@@ -35,11 +32,6 @@ ARCH_IDS: List[str] = list(_MODULES)
 def _mod(arch: str):
     if arch not in _MODULES:
         raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
-    if arch not in PORTED:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported to repro_torch yet ({NOT_YET}: "
-            f"SSMModel, EncDecModel); "
-            f"ported: {list(PORTED)}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
 
 

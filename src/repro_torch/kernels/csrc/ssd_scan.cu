@@ -50,12 +50,16 @@
 //   100,352 at Q = 128, N = P = 64, so two blocks fit on an SM; 165,888 at
 //   mamba2-130m's N = 128.
 // * float32, ssd_scan_fma_kernel: shared-memory tile products by fmaf, each
-//   of 256 threads owning a 4 x 4 block in registers; the [Q, Q]
-//   decay-weighted scores sit beside C (scaled by exp(cs)) in one row so
-//   that y = [M | C'] [x ; h] is a single product over Q + N, whose causal
-//   half above the diagonal is skipped.  All arithmetic fp32, which the
-//   float32 checks (1e-3) rely on.  Shared memory 4 (Q (Q + N + 1) +
-//   Q (N + 1) + (Q + N) P + Q) bytes, 181,760 at the path's sizes.
+//   of 256 threads owning a 4 x 4 block in registers; the decay-weighted
+//   scores sit beside C (scaled by exp(cs)) in one row so that
+//   y = [M | C'] [x ; h] is a single product over Q + N, whose causal half
+//   above the diagonal is skipped.  Those rows are formed and consumed one
+//   strip of Qs = min(Q, 64) rows (the tile height) at a time, so a chunk
+//   of Q = 128 rows fits at N = 128: shared memory is 4 (Qs (Q + N + 1) +
+//   Q (N + 1) + (Q + N) P + Q) bytes, 132,352 at zamba2's N = P = 64 and
+//   197,888 at mamba2-130m's N = 128, P = 64 (a whole chunk of [M | C]
+//   would need 263,680, past the 232,448 a block may use).  All arithmetic
+//   fp32, which the float32 checks (1e-3) rely on.
 #include <cuda_runtime.h>
 
 #include "mma.cuh"
@@ -112,11 +116,16 @@ __device__ __forceinline__ void zero_tile(float (&acc)[4][4]) {
 }
 
 // ---------------------------------------------------------------- float32
+// Rows of [M | C] staged at a time: the tile height of tile_mma.
+#define SSD_STRIP 64
+
 // x, y: element (g, h, s, p) at [g sd.x[0] + h sd.x[1] + s sd.x[2] + p]
 // (row bh = g H + h; y likewise with sd.y); dA: (g, h, s) at sd.a; Bm, Cm:
 // (g, s, n) at [g sd.bc[0] + s sd.bc[1] + n]; h0: [BH, N, P] or NULL.
 // Writes y and h: [BH, N, P].  grid BH, SSD_THREADS threads; Q rows per
-// chunk.
+// chunk.  The [M | C] rows of a chunk are formed and consumed one strip of
+// SSD_STRIP rows at a time: a strip's y rows need M's columns at or below
+// the strip's last row only, and its own rows of C.
 __global__ void __launch_bounds__(SSD_THREADS)
     ssd_scan_fma_kernel(const float* __restrict__ x,
                         const float* __restrict__ dA,
@@ -127,9 +136,10 @@ __global__ void __launch_bounds__(SSD_THREADS)
                         int P, int N, int H, int Q) {
   const int LDA = Q + N + 1;   // row of [M | C]: Q scores, then N of C
   const int LDB = N + 1;
+  const int QS = Q < SSD_STRIP ? Q : SSD_STRIP;
   extern __shared__ float smem[];
-  float* As = smem;             // [Q][LDA]
-  float* Bs = As + Q * LDA;     // [Q][LDB]
+  float* As = smem;             // [QS][LDA]: one strip of [M | C]
+  float* Bs = As + QS * LDA;    // [Q][LDB]
   float* Xs = Bs + Q * LDB;     // [Q + N][P]: x rows, then h rows
   float* Hs = Xs + Q * P;       // h [N][P]
   float* cs = Xs + (Q + N) * P; // [Q]
@@ -148,16 +158,14 @@ __global__ void __launch_bounds__(SSD_THREADS)
     Hs[i] = h0 ? h0[(long long)bh * N * P + i] : 0.f;
 
   for (int c0 = 0; c0 < S; c0 += Q) {
-    // ---- load the chunk (rows past S: zero) ----
+    // ---- load the chunk's x, B and dA (rows past S: zero) ----
     for (int i = tid; i < Q * P; i += SSD_THREADS) {
       const int s = c0 + i / P;
       Xs[i] = s < S ? xb[s * sd.x[2] + i % P] : 0.f;
     }
     for (int i = tid; i < Q * N; i += SSD_THREADS) {
       const int r = i / N, n = i - (i / N) * N;
-      const bool in = c0 + r < S;
-      Bs[r * LDB + n] = in ? bb[(c0 + r) * sd.bc[1] + n] : 0.f;
-      As[r * LDA + Q + n] = in ? cb[(c0 + r) * sd.bc[1] + n] : 0.f;
+      Bs[r * LDB + n] = c0 + r < S ? bb[(c0 + r) * sd.bc[1] + n] : 0.f;
     }
     for (int r = tid; r < Q; r += SSD_THREADS)
       cs[r] = c0 + r < S ? ab[(c0 + r) * sd.a[2]] : 0.f;
@@ -185,48 +193,55 @@ __global__ void __launch_bounds__(SSD_THREADS)
     }
     __syncthreads();
 
-    // ---- M = (C B^T) .* L into As[:, :Q]; tiles above the diagonal: 0 ----
-    for (int m0 = 0; m0 < Q; m0 += 64)
-      for (int n0 = 0; n0 < Q; n0 += 64) {
+    // ---- y, one strip of rows m0 .. m0 + R - 1 at a time ----
+    for (int m0 = 0; m0 < Q; m0 += SSD_STRIP) {
+      const int R = Q - m0 < SSD_STRIP ? Q - m0 : SSD_STRIP;
+      const int kd = m0 + R;   // M is lower triangular: columns < kd
+      for (int i = tid; i < R * N; i += SSD_THREADS) {
+        const int r = i / N, n = i - (i / N) * N;
+        const int s = c0 + m0 + r;
+        As[r * LDA + Q + n] = s < S ? cb[s * sd.bc[1] + n] : 0.f;
+      }
+      __syncthreads();
+      // M = (C B^T) .* L into As[:, :kd]
+      for (int n0 = 0; n0 < kd; n0 += 64) {
         float acc[4][4];
         zero_tile(acc);
-        if (n0 <= m0 + 63)
-          tile_mma(acc, As + Q, LDA, 1, Q, Bs, 1, LDB, Q, m0, n0, 0, N);
+        tile_mma(acc, As + Q, LDA, 1, R, Bs, 1, LDB, Q, 0, n0, 0, N);
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
-            const int r = m0 + ty * 4 + i, c = n0 + tx + 16 * j;
-            if (r < Q && c < Q)
-              As[r * LDA + c] = c <= r ? acc[i][j] * expf(cs[r] - cs[c]) : 0.f;
+            const int rl = ty * 4 + i, c = n0 + tx + 16 * j, r = m0 + rl;
+            if (rl < R && c < kd)
+              As[rl * LDA + c] =
+                  c <= r ? acc[i][j] * expf(cs[r] - cs[c]) : 0.f;
           }
       }
-    __syncthreads();
-    // C' = exp(cs) .* C, in place
-    for (int i = tid; i < Q * N; i += SSD_THREADS) {
-      const int r = i / N, n = i - (i / N) * N;
-      As[r * LDA + Q + n] *= expf(cs[r]);
-    }
-    __syncthreads();
-
-    // ---- y = M x + C' h = [M | C'] [x ; h] ----
-    for (int m0 = 0; m0 < Q; m0 += 64)
+      __syncthreads();
+      // C' = exp(cs) .* C, in place
+      for (int i = tid; i < R * N; i += SSD_THREADS) {
+        const int r = i / N, n = i - (i / N) * N;
+        As[r * LDA + Q + n] *= expf(cs[m0 + r]);
+      }
+      __syncthreads();
+      // y = M x + C' h = [M | C'] [x ; h]
       for (int n0 = 0; n0 < P; n0 += 64) {
         float acc[4][4];
         zero_tile(acc);
-        const int kd = m0 + 64 < Q ? m0 + 64 : Q;   // M is lower triangular
-        tile_mma(acc, As, LDA, 1, Q, Xs, P, 1, P, m0, n0, 0, kd);
-        tile_mma(acc, As, LDA, 1, Q, Xs, P, 1, P, m0, n0, Q, Q + N);
+        tile_mma(acc, As, LDA, 1, R, Xs, P, 1, P, 0, n0, 0, kd);
+        tile_mma(acc, As, LDA, 1, R, Xs, P, 1, P, 0, n0, Q, Q + N);
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
-            const int r = m0 + ty * 4 + i, c = n0 + tx + 16 * j;
-            if (r < Q && c < P && c0 + r < S)
-              yb[(c0 + r) * sd.y[2] + c] = acc[i][j];
+            const int rl = ty * 4 + i, c = n0 + tx + 16 * j;
+            if (rl < R && c < P && c0 + m0 + rl < S)
+              yb[(c0 + m0 + rl) * sd.y[2] + c] = acc[i][j];
           }
       }
-    __syncthreads();
+      __syncthreads();
+    }
     // x~ = exp(cs_Q - cs) .* x, in place
     const float cq = cs[Q - 1];
     for (int i = tid; i < Q * P; i += SSD_THREADS)
@@ -625,8 +640,9 @@ __global__ void __launch_bounds__(32 * SSD_WARPS, NT <= 4 ? 2 : 1)
 // ---------------------------------------------------------------- launch
 // Shared memory of one block of ssd_scan_fma_kernel, in bytes.
 static int ssd_fma_smem_bytes(int P, int N, int Q) {
+  const int QS = Q < SSD_STRIP ? Q : SSD_STRIP;
   return (int)sizeof(float) *
-         (Q * (Q + N + 1) + Q * (N + 1) + (Q + N) * P + Q);
+         (QS * (Q + N + 1) + Q * (N + 1) + (Q + N) * P + Q);
 }
 
 static int ssd_fma_launch(const void* x, const void* dA, const void* Bm,

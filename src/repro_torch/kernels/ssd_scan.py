@@ -30,6 +30,7 @@ __all__ = ["ssd_chunked", "ssd_cuda", "ssd_plain", "ssd_scan",
            "ssd_smem_bytes"]
 
 NEG_INF = -1.0e30
+SSD_STRIP = 64          # the float32 kernel's strip of [M | C] rows
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -134,7 +135,8 @@ def ssd_smem_bytes(P: int, N: int, Q: int,
     if dtype == torch.bfloat16:
         Qp = -(-Q // 16) * 16
         return 4 * Qp * (P + N) + 2 * Qp * N + 16 * Qp + 4 * N * P
-    return 4 * (Q * (Q + N + 1) + Q * (N + 1) + (Q + N) * P + Q)
+    Qs = min(Q, SSD_STRIP)          # rows of [M | C] staged at a time
+    return 4 * (Qs * (Q + N + 1) + Q * (N + 1) + (Q + N) * P + Q)
 
 
 def ssd_cuda(x, dA, Bm, Cm, n_heads_per_group: int, chunk: int = 128,

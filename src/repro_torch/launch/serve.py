@@ -15,8 +15,10 @@ prefill allocates, instead of concatenating zeros after it; the generated
 ids are gathered on the device and copied to the host once per batch.
 Under ``mrope`` (vision-language) a batch carries the ``[B, S, 3]`` text
 positions of the reference (0 ... S-1 in each section), made on the
-server's device.  The ``encdec`` branch belongs to a family the port does
-not serve yet and raises ``NotImplementedError``.
+server's device; an ``encdec`` batch carries the encoder's frame
+embeddings (``enc_embeds`` [B, S_src, d_model], float32) on the server's
+device.  An ``ssm`` model has no KV cache: prefill takes ``max_len`` and
+ignores it, as the reference pads only the k/v it finds in the cache.
 """
 from __future__ import annotations
 
@@ -29,23 +31,32 @@ import torch
 
 from repro_torch.core.seq import SeqScheduler
 from repro_torch.kernels import resolve, resolve_device
-from repro_torch.models.config import NOT_YET, ModelConfig
+from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import build
 from repro_torch.models.module import tree_leaves
 
 from .train import greedy_decode
 
 
-def prompt_batch(cfg: ModelConfig, tokens: torch.Tensor) -> Dict:
-    """The prefill batch of a [B, S] prompt tensor: the tokens and, under
-    ``mrope``, their text positions ([B, S, 3], 0 ... S-1 in each of the
-    three sections), made on the tokens' device."""
+def prompt_batch(cfg: ModelConfig, tokens: torch.Tensor,
+                 enc_embeds=None) -> Dict:
+    """The prefill batch of a [B, S] prompt tensor: the tokens; under
+    ``mrope`` their text positions ([B, S, 3], 0 ... S-1 in each of the
+    three sections), made on the tokens' device; for ``encdec`` the
+    encoder's frame embeddings ``enc_embeds`` ([B, S_src, d_model], any
+    array), as float32 on the tokens' device."""
     batch = {"tokens": tokens}
     if cfg.mrope:
         B, S = tokens.shape
         batch["positions"] = torch.arange(
             S, dtype=torch.int32, device=tokens.device)[None, :, None] \
             .expand(B, S, 3)
+    if cfg.family == "encdec":
+        if enc_embeds is None:
+            raise ValueError(f"{cfg.name} (encdec) needs enc_embeds "
+                             f"[B, S_src, {cfg.d_model}]")
+        batch["enc_embeds"] = torch.as_tensor(
+            enc_embeds, dtype=torch.float32, device=tokens.device)
     return batch
 
 
@@ -60,10 +71,6 @@ class ServeStats:
 class Server:
     def __init__(self, cfg: ModelConfig, params, batch_size: int = 4,
                  cache_margin: int = 128, kernels=None, device=None):
-        if cfg.family == "encdec":
-            raise NotImplementedError(
-                f"serving {cfg.name!r} (encdec) is not ported to repro_torch "
-                f"yet ({NOT_YET})")
         self.cfg = cfg
         self.batch_size = batch_size
         self.cache_margin = cache_margin
@@ -111,17 +118,16 @@ class Server:
     # ------------------------------------------------------------- serving
     def serve_batch(self, tokens: np.ndarray, max_new_tokens: int = 8,
                     enc_embeds: Optional[np.ndarray] = None) -> Dict:
-        """tokens: [B, S] int32 prompt batch -> dict with generated ids."""
+        """tokens: [B, S] int32 prompt batch (and, for ``encdec``,
+        enc_embeds [B, S_src, d_model]) -> dict with generated ids."""
         B, S = tokens.shape
         if B != self.batch_size:
             raise ValueError(f"batch of {B} prompts, the server takes "
                              f"{self.batch_size}")
-        if enc_embeds is not None:
-            raise NotImplementedError(
-                f"encoder inputs (encdec) are not ported yet ({NOT_YET})")
         vid, params = self._snapshot()
         batch = prompt_batch(self.cfg, torch.as_tensor(
-            np.asarray(tokens), dtype=torch.int32, device=self.device))
+            np.asarray(tokens), dtype=torch.int32, device=self.device),
+            enc_embeds)
         # the cache has room for the new tokens
         logits, cache = self.prefill(params, batch,
                                      max_len=S + self.cache_margin)

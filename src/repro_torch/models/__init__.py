@@ -1,3 +1,4 @@
 """Model plane of the PyTorch port: configs, parameter specs, layers, the
-Mamba2 mixer and the hybrid (zamba2) model (counterpart of
+Mamba2 mixer and the models of every family -- decoder (dense, MoE, VLM),
+SSM, hybrid (zamba2) and encoder-decoder (counterpart of
 ``repro.models``)."""

@@ -16,8 +16,9 @@ from typing import Any, Optional, Tuple
 
 import torch
 
-# where the families, options and entry points the port does not serve yet
-# are queued (named by every NotImplementedError they raise)
+# where what the port does not serve yet is queued (named by every
+# NotImplementedError it raises): the reference-only knobs below, and
+# training (the loss, the train step, the optimizer)
 NOT_YET = "ROADMAP.md queue 1, 'Model plane'"
 
 

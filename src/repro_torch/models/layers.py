@@ -2,21 +2,22 @@
 (with the optional qkv bias and qk-norm), SwiGLU MLP, sort-based top-k MoE,
 embedding and head.
 
-Port of ``repro.models.layers`` for the decoder (dense, MoE, VLM) and
-hybrid families.  Layouts as in the reference: activations ``[B, S, D]``,
+Port of ``repro.models.layers`` for every model family.  Layouts as in the reference: activations ``[B, S, D]``,
 attention tensors ``[B, S, H, Dh]``.  Matrix products run in
 ``compute_dtype`` (bf16 by default), softmax and statistics in float32.
 
-Prefill attention goes through ``kernels.ops.flash_attention``: the
+Attention of a whole sequence (prefill self-attention, the encoder's,
+cross-attention) goes through ``kernels.ops.flash_attention``: the
 hand-written CUDA kernel on the ``cuda`` route, the dense plain version on
 the ``torch`` route.  That takes the place of the reference's chunked XLA
 attention (``_chunked_attention`` / ``_tri_chunked_attention``), which
 exists to bound XLA's memory; ``ModelConfig`` refuses an ``attn_chunk``
-other than its default.
-Not ported: LayerNorm (the encoder-decoder family), the cross-entropy loss
-and the ``cast_grad_bf16`` boundary (training), and every
-``shard_activation`` / ``fsdp_gather`` constraint (GSPMD, no mesh on one
-card).
+other than its default.  ``layernorm`` is ported with the reference's
+``layers`` API, though no model calls it (the encoder-decoder family uses
+RMSNorm, as in the reference).
+Not ported: the cross-entropy loss and the ``cast_grad_bf16`` boundary
+(training), and every ``shard_activation`` / ``fsdp_gather`` constraint
+(GSPMD, no mesh on one card).
 """
 from __future__ import annotations
 
@@ -54,6 +55,18 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5):
     xf = x.float()
     y = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
     return (y * w.float()).to(dt)
+
+
+def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+              eps: float = 1e-5):
+    """LayerNorm over the last dimension: mean and variance in float32,
+    the result in x's dtype."""
+    dt = x.dtype
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * w.float() + b.float()).to(dt)
 
 
 # ---------------------------------------------------------------------------
@@ -106,11 +119,13 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
 # ---------------------------------------------------------------------------
 
 def attention(q, k, v, *, causal: bool = True, kernels=None):
-    """Dispatch (reference ``layers.attention``): prefill self-attention
-    through ``ops.flash_attention`` on the route of ``kernels`` (a backend
-    name or ``KernelConfig``, resolved against q's device).  Decode, the
-    reference's ``q_offset`` / ``kv_len`` calls, goes through
-    :func:`decode_attention`."""
+    """Dispatch (reference ``layers.attention``): attention of q [B, Sq, H,
+    D] over k/v [B, Sk, KH, D] through ``ops.flash_attention`` on the route
+    of ``kernels`` (a backend name or ``KernelConfig``, resolved against q's
+    device): prefill self-attention (Sq = Sk), and non-causal
+    cross-attention at any Sq, one query row in decode included.  Decode
+    self-attention, the reference's ``q_offset`` / ``kv_len`` calls, goes
+    through :func:`decode_attention`."""
     return ops.flash_attention(
         q, k, v, causal=causal,
         use_kernel=resolve(kernels, q.device).use_kernel)

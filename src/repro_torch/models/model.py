@@ -1,39 +1,44 @@
-"""Model assembly of the port: the decoder (dense, MoE, VLM) and hybrid
-(zamba2) families.
+"""Model assembly of the port for every family.
 
-Port of ``repro.models.model`` for the families this port serves:
+Port of ``repro.models.model``:
 
   dense / vlm -- decoder-only transformer (GQA, RoPE or M-RoPE, optional
                  qk-norm / qkv-bias), SwiGLU MLP;
   moe         -- the same backbone with a token-choice top-k MoE FFN
                  (+ shared experts);
+  ssm         -- Mamba2 (SSD) stack, attention-free;
   hybrid      -- Zamba2-style: a Mamba2 backbone with one *shared-weight*
                  attention+MLP block applied before every group of
-                 ``attn_every`` layers (separate KV cache per application).
+                 ``attn_every`` layers (separate KV cache per application);
+  encdec      -- encoder-decoder (the Seamless text path): the encoder takes
+                 precomputed frame embeddings (the modality frontend is a
+                 stub, as in the reference), the decoder attends to itself
+                 and, without RoPE, to the encoder's output.
 
-``DecoderLM`` and ``HybridModel`` expose ``param_specs`` / ``init`` /
-``prefill`` / ``decode`` / ``init_cache`` as the reference does, over
-parameter trees with the reference's keys and stacked ``[L, ...]`` leaves.
-PyTorch runs eagerly, so the reference's ``lax.scan`` over layers is a
-Python loop, and the caches are written in place: ``prefill`` into a buffer
-of ``max_len`` positions (the serving margin included, instead of
-concatenating zeros), ``decode`` at position ``cache["len"]`` (a Python
-int), raising on a full cache where the reference clamps.  ``kernels`` (a
-backend name or ``KernelConfig``, resolved against the tokens' device;
-``+fused`` has no meaning here and is ignored) picks the route of
-prefill's attention and SSD scan.
+``DecoderLM``, ``SSMModel``, ``HybridModel`` and ``EncDecModel`` expose
+``param_specs`` / ``init`` / ``prefill`` / ``decode`` / ``init_cache`` as
+the reference does, over parameter trees with the reference's keys and
+stacked ``[L, ...]`` leaves.  PyTorch runs eagerly, so the reference's
+``lax.scan`` over layers is a Python loop, and the caches are written in
+place: ``prefill`` into a buffer of ``max_len`` positions (the serving
+margin included, instead of concatenating zeros), ``decode`` at position
+``cache["len"]`` (a Python int), raising on a full KV cache where the
+reference clamps.  ``SSMModel`` has no KV cache: its ``prefill`` takes
+``max_len`` and ignores it.  ``kernels`` (a backend name or
+``KernelConfig``, resolved against the tokens' device; ``+fused`` has no
+meaning here and is ignored) picks the route of the attention (prefill,
+the encoder, cross-attention) and of prefill's SSD scan.
 
-Not ported: ``SSMModel`` and ``EncDecModel`` (``build`` raises
-``NotImplementedError`` for them), the training loss, ``remat`` (XLA
-rematerialization) and the ``fsdp_gather`` / ``shard_activation``
-constraints (GSPMD).
+Not ported: the training loss and ``hidden`` / ``decode_hidden``,
+``remat`` (XLA rematerialization) and the ``fsdp_gather`` /
+``shard_activation`` constraints (GSPMD).
 """
 from __future__ import annotations
 
 import torch
 
-from .config import NOT_YET, ModelConfig
-from .layers import (attention, attn_out, attn_qkv, attn_specs,
+from .config import ModelConfig
+from .layers import (_mm, attention, attn_out, attn_qkv, attn_specs,
                      decode_attention, embed, embed_specs, mlp, mlp_specs,
                      moe_ffn, moe_specs, rmsnorm, unembed)
 from .module import materialize, spec
@@ -180,6 +185,88 @@ class DecoderLM:
                 "len": 0}
 
 
+class SSMModel:
+    """Mamba2 (SSD) stack: ``n_layers`` pre-norm mixers over one
+    ``[L, ...]`` stack of layer weights, attention-free."""
+
+    def __init__(self, cfg: ModelConfig, kernels=None):
+        self.cfg = cfg
+        self.kernels = kernels
+
+    def param_specs(self):
+        cfg = self.cfg
+        L, d = cfg.n_layers, cfg.d_model
+        return {
+            "embed": embed_specs(cfg),
+            "blocks": {
+                "ln": spec((L, d), ("layers", "embed"),
+                           dtype=cfg.param_dtype, init="ones"),
+                "mix": mamba2_specs(cfg, layers=L),
+            },
+            "final_norm": spec((d,), ("embed",), dtype=cfg.param_dtype,
+                               init="ones"),
+        }
+
+    def init(self, generator: torch.Generator, device=None):
+        return materialize(self.param_specs(), generator, device)
+
+    def layer_specs(self):
+        """The specs of one layer's slice of ``blocks``."""
+        cfg = self.cfg
+        return {"ln": spec((cfg.d_model,), ("embed",), init="ones"),
+                "mix": mamba2_specs(cfg)}
+
+    def prefill(self, params, batch, max_len: int | None = None):
+        """batch["tokens"]: [B, S] -> (logits [B, 1, V] of the last position,
+        cache with each layer's SSM state and conv tail).  ``max_len`` is
+        taken and ignored: the cache does not grow with the sequence."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        cache = self.init_cache(B, device=tokens.device)
+        h = embed(params["embed"], tokens, cfg)
+        for l in range(cfg.n_layers):
+            lp = _layer(params["blocks"], l)
+            y, st, tail = mamba2_forward(
+                lp["mix"], rmsnorm(h, lp["ln"], cfg.norm_eps), cfg,
+                kernels=self.kernels)
+            h = h + y
+            cache["ssm"][l] = st
+            cache["conv"][l] = tail
+        h = rmsnorm(h[:, -1:], params["final_norm"], cfg.norm_eps)
+        cache["len"] = S
+        return unembed(params["embed"], h, cfg), cache
+
+    def decode(self, params, cache, batch):
+        """batch["token"]: [B, 1] -> (logits [B, 1, V], cache) with the
+        states advanced in place; no KV cache, so no room to run out of."""
+        cfg = self.cfg
+        h = embed(params["embed"], batch["token"], cfg)
+        for l in range(cfg.n_layers):
+            lp = _layer(params["blocks"], l)
+            y, st, conv = mamba2_decode_step(
+                lp["mix"], rmsnorm(h, lp["ln"], cfg.norm_eps), cfg,
+                cache["ssm"][l], cache["conv"][l])
+            h = h + y
+            cache["ssm"][l] = st
+            cache["conv"][l] = conv
+        h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
+        cache["len"] = int(cache["len"]) + 1
+        return unembed(params["embed"], h, cfg), cache
+
+    def init_cache(self, B: int, max_len: int = 0, device=None):
+        cfg = self.cfg
+        convc = cfg.d_inner + 2 * cfg.d_state
+        return {
+            "ssm": torch.zeros((cfg.n_layers, B, cfg.ssm_heads, cfg.headdim,
+                                cfg.d_state), dtype=torch.float32,
+                               device=device),
+            "conv": torch.zeros((cfg.n_layers, B, cfg.d_conv - 1, convc),
+                                dtype=cfg.compute_dtype, device=device),
+            "len": 0,
+        }
+
+
 class HybridModel:
     def __init__(self, cfg: ModelConfig, kernels=None):
         assert cfg.n_layers % cfg.attn_every == 0
@@ -306,13 +393,177 @@ class HybridModel:
         }
 
 
+class EncDecModel:
+    """Encoder-decoder (the Seamless text path): ``n_enc_layers`` encoder
+    blocks (RoPE, non-causal self-attention) over precomputed frame
+    embeddings, then ``n_layers`` decoder blocks of causal self-attention,
+    cross-attention to the encoder's output (no bias, no norm, no RoPE on
+    its projections) and an MLP; RMSNorm throughout, as in the reference."""
+
+    def __init__(self, cfg: ModelConfig, kernels=None):
+        self.cfg = cfg
+        self.kernels = kernels
+
+    def _norms(self, names, L=None):
+        cfg = self.cfg
+        shape, axes = ((L, cfg.d_model), ("layers", "embed")) if L else (
+            (cfg.d_model,), ("embed",))
+        return {n: spec(shape, axes, dtype=cfg.param_dtype, init="ones")
+                for n in names}
+
+    def param_specs(self):
+        cfg = self.cfg
+        d = cfg.d_model
+        Le, Ld = cfg.n_enc_layers, cfg.n_layers
+        return {
+            "embed": embed_specs(cfg),
+            "enc": {**self._norms(("ln1", "ln2"), Le),
+                    "attn": attn_specs(cfg, layers=Le),
+                    "mlp": mlp_specs(d, cfg.d_ff, layers=Le,
+                                     dtype=cfg.param_dtype)},
+            "enc_norm": spec((d,), ("embed",), dtype=cfg.param_dtype,
+                             init="ones"),
+            "dec": {**self._norms(("ln1", "ln2", "ln3"), Ld),
+                    "attn": attn_specs(cfg, layers=Ld),
+                    "xattn": attn_specs(cfg, layers=Ld),
+                    "mlp": mlp_specs(d, cfg.d_ff, layers=Ld,
+                                     dtype=cfg.param_dtype)},
+            "final_norm": spec((d,), ("embed",), dtype=cfg.param_dtype,
+                               init="ones"),
+        }
+
+    def init(self, generator: torch.Generator, device=None):
+        return materialize(self.param_specs(), generator, device)
+
+    def enc_layer_specs(self):
+        """The specs of one layer's slice of ``enc``."""
+        cfg = self.cfg
+        return {**self._norms(("ln1", "ln2")), "attn": attn_specs(cfg),
+                "mlp": mlp_specs(cfg.d_model, cfg.d_ff,
+                                 dtype=cfg.param_dtype)}
+
+    def dec_layer_specs(self):
+        """The specs of one layer's slice of ``dec``."""
+        cfg = self.cfg
+        return {**self._norms(("ln1", "ln2", "ln3")), "attn": attn_specs(cfg),
+                "xattn": attn_specs(cfg),
+                "mlp": mlp_specs(cfg.d_model, cfg.d_ff,
+                                 dtype=cfg.param_dtype)}
+
+    def encode(self, params, enc_embeds):
+        """enc_embeds [B, S_src, d_model] -> the encoder's output
+        [B, S_src, d_model] in ``compute_dtype``."""
+        cfg = self.cfg
+        B, S, _ = enc_embeds.shape
+        positions = default_positions(B, S, enc_embeds.device)
+        h = enc_embeds.to(cfg.compute_dtype)
+        for l in range(cfg.n_enc_layers):
+            lp = _layer(params["enc"], l)
+            a_in = rmsnorm(h, lp["ln1"], cfg.norm_eps)
+            q, k, v = attn_qkv(lp["attn"], a_in, cfg, positions)
+            o = attention(q, k, v, causal=False, kernels=self.kernels)
+            h = h + attn_out(lp["attn"], o, cfg)
+            h = h + mlp(lp["mlp"], rmsnorm(h, lp["ln2"], cfg.norm_eps), cfg)
+        return rmsnorm(h, params["enc_norm"], cfg.norm_eps)
+
+    def _cross_kv(self, lp, enc_out):
+        cfg = self.cfg
+        B, S, _ = enc_out.shape
+        k = _mm(enc_out, lp["wk"], cfg.compute_dtype)
+        v = _mm(enc_out, lp["wv"], cfg.compute_dtype)
+        return (k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim),
+                v.reshape(B, S, cfg.n_kv_heads, cfg.head_dim))
+
+    def _cross_q(self, lp, x):
+        cfg = self.cfg
+        B, S, _ = x.shape
+        q = _mm(x, lp["wq"], cfg.compute_dtype)
+        return q.reshape(B, S, cfg.n_heads, cfg.head_dim)
+
+    def _cross_mlp(self, lp, h, ck, cv):
+        """A decoder layer after its self-attention: cross-attention of the
+        rows of h to the encoder's k/v (non-causal), then the MLP."""
+        cfg = self.cfg
+        xq = self._cross_q(lp["xattn"], rmsnorm(h, lp["ln2"], cfg.norm_eps))
+        xo = attention(xq, ck, cv, causal=False, kernels=self.kernels)
+        h = h + attn_out(lp["xattn"], xo, cfg)
+        return h + mlp(lp["mlp"], rmsnorm(h, lp["ln3"], cfg.norm_eps), cfg)
+
+    def prefill(self, params, batch, max_len: int | None = None):
+        """batch["tokens"]: [B, S] decoder prompt, batch["enc_embeds"]:
+        [B, S_src, d_model] -> (logits [B, 1, V] of the last position, cache
+        with the decoder's k/v of ``max_len`` (default S) positions, S of
+        them filled, and the cross-attention k/v ``ck``/``cv`` of the S_src
+        encoder positions)."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        dev = tokens.device
+        positions = default_positions(B, S, dev)
+        enc_out = self.encode(params, batch["enc_embeds"])
+        cache = self.init_cache(B, max_len or S, enc_out.shape[1], device=dev)
+        h = embed(params["embed"], tokens, cfg)
+        for l in range(cfg.n_layers):
+            lp = _layer(params["dec"], l)
+            a_in = rmsnorm(h, lp["ln1"], cfg.norm_eps)
+            q, k, v = attn_qkv(lp["attn"], a_in, cfg, positions)
+            o = attention(q, k, v, causal=True, kernels=self.kernels)
+            h = h + attn_out(lp["attn"], o, cfg)
+            ck, cv = self._cross_kv(lp["xattn"], enc_out)
+            h = self._cross_mlp(lp, h, ck, cv)
+            cache["k"][l, :, :S] = k
+            cache["v"][l, :, :S] = v
+            cache["ck"][l] = ck
+            cache["cv"][l] = cv
+        h = rmsnorm(h[:, -1:], params["final_norm"], cfg.norm_eps)
+        cache["len"] = S
+        return unembed(params["embed"], h, cfg), cache
+
+    def decode(self, params, cache, batch):
+        """batch["token"]: [B, 1] -> (logits [B, 1, V], cache) with the new
+        position written in place and ``cache["len"]`` advanced; the
+        cross-attention k/v are read only."""
+        cfg = self.cfg
+        token = batch["token"]
+        B = token.shape[0]
+        _check_room(cache)
+        pos = int(cache["len"])
+        dev = token.device
+        positions = torch.full((B, 1), pos, dtype=torch.int32, device=dev)
+        kv_len = torch.full((B,), pos, dtype=torch.int32, device=dev)
+        h = embed(params["embed"], token, cfg)
+        for l in range(cfg.n_layers):
+            lp = _layer(params["dec"], l)
+            ck, cv = cache["k"][l], cache["v"][l]
+            a_in = rmsnorm(h, lp["ln1"], cfg.norm_eps)
+            q, k, v = attn_qkv(lp["attn"], a_in, cfg, positions)
+            k, v = k.to(ck.dtype), v.to(cv.dtype)
+            # the live prefix only: the stale tail would be masked anyway
+            o = decode_attention(q, ck[:, :pos], cv[:, :pos], k, v, kv_len)
+            h = h + attn_out(lp["attn"], o, cfg)
+            h = self._cross_mlp(lp, h, cache["ck"][l], cache["cv"][l])
+            ck[:, pos] = k[:, 0]
+            cv[:, pos] = v[:, 0]
+        h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
+        cache["len"] = pos + 1
+        return unembed(params["embed"], h, cfg), cache
+
+    def init_cache(self, B: int, max_len: int, src_len: int, device=None):
+        cfg = self.cfg
+        kd = (cfg.n_layers, B, max_len, cfg.n_kv_heads, cfg.head_dim)
+        xd = (cfg.n_layers, B, src_len, cfg.n_kv_heads, cfg.head_dim)
+        z = lambda shape: torch.zeros(shape, dtype=cfg.compute_dtype,
+                                      device=device)
+        return {"k": z(kd), "v": z(kd), "ck": z(xd), "cv": z(xd), "len": 0}
+
+
 def build(cfg: ModelConfig, kernels=None):
     if cfg.family in ("dense", "moe", "vlm"):
         return DecoderLM(cfg, kernels)
+    if cfg.family == "ssm":
+        return SSMModel(cfg, kernels)
     if cfg.family == "hybrid":
         return HybridModel(cfg, kernels)
-    if cfg.family in ("ssm", "encdec"):
-        raise NotImplementedError(
-            f"the {cfg.family!r} family is not ported to repro_torch yet "
-            f"({NOT_YET})")
+    if cfg.family == "encdec":
+        return EncDecModel(cfg, kernels)
     raise ValueError(f"unknown family {cfg.family}")

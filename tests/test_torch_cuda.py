@@ -23,7 +23,13 @@ in float32 on the same inputs, and reduced zamba2 behind ``Server`` on the
 ``cuda`` route must serve what the ``torch`` route serves; so must the
 reduced decoder models (dense, MoE, VLM with a head dim of 32; the
 reduced VLM's 24 is refused on ``cuda``), their logits within 1e-3 of
-scale, and ``moe_ffn`` must run under sync debug mode "error".  The block
+scale, and ``moe_ffn`` must run under sync debug mode "error".  The
+float32 SSD kernel must take mamba2-130m's N=128 at chunk 128 (both
+layouts), ``flash_attention`` must hold at Sq != Sk and Sq = 1
+(cross-attention), and the reduced mamba2-130m and seamless behind
+``Server`` on ``cuda`` must serve what ``torch`` serves, with their
+launches counted, in float32 (logits within 1e-3 of scale, the same ids)
+and bf16 (logits within 0.06 of scale).  The block
 dispatch (``run_block`` on a staged or a host block) must run under
 ``torch.cuda.set_sync_debug_mode("error")``, which must raise on a known
 blocking copy; a block's page-locked staging must stay alive, unchanged,
@@ -402,9 +408,9 @@ def test_ssd_kernel_model_layout(dev, Bg, H, S, P, N, chunk, with_h0,
 
 
 def test_ssd_kernel_bf16_state_128(dev):
-    """mamba2-130m's state size, N=128 with P=64 at chunk 128, which only
-    the bf16 kernel's shared-memory budget admits; with an initial state
-    (slow decay at N=128: test_ssd_kernel_slow_decay)."""
+    """mamba2-130m's state size, N=128 with P=64 at chunk 128, in bf16;
+    with an initial state (slow decay at N=128: test_ssd_kernel_slow_decay;
+    float32: test_ssd_kernel_fp32_state_128)."""
     g = torch.Generator(device=dev).manual_seed(128)
     rn = lambda *shape: torch.randn(shape, generator=g, device=dev)
     Bg, H, S, P, N = 2, 24, 1000, 64, 128
@@ -421,11 +427,64 @@ def test_ssd_kernel_bf16_state_128(dev):
     assert LAUNCHES["ssd_scan"] == before + 1
 
 
+@pytest.mark.parametrize("model_layout", [False, True])
+def test_ssd_kernel_fp32_state_128(dev, model_layout):
+    """The float32 kernel at mamba2-130m's N=128, P=64, chunk 128 (its
+    [M | C] rows staged in strips of 64 fit the shared memory a block may
+    use), ragged S with an initial state, folded and as the views of the
+    model's layout; slow decay in the latter, so every block carries
+    weight."""
+    from repro_torch.kernels.build import SMEM_LIMIT
+    from repro_torch.kernels.ssd_scan import ssd_smem_bytes
+    assert ssd_smem_bytes(64, 128, 128, torch.float32) <= SMEM_LIMIT
+    g = torch.Generator(device=dev).manual_seed(129)
+    rn = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    Bg, H, S, P, N = 2, 24, 1000, 64, 128
+    x = rn(Bg * H, S, P) * 0.5
+    dA = -torch.rand((Bg * H, S), generator=g, device=dev) * (
+        0.01 if model_layout else 0.3)
+    if model_layout:
+        x = x.reshape(Bg, H, S, P).transpose(1, 2).contiguous().transpose(1, 2)
+        dA = dA.reshape(Bg, H, S).transpose(1, 2).contiguous().transpose(1, 2)
+    Bm, Cm = (rn(Bg, S, N) * 0.3 for _ in range(2))
+    h0 = rn(Bg * H, N, P) * 0.2
+    before = LAUNCHES["ssd_scan"]
+    y, h = ssd_cuda(x, dA, Bm, Cm, H, 128, h0)
+    assert LAUNCHES["ssd_scan"] == before + 1
+    yp, hp = ssd_plain(x, dA, Bm, Cm, H, 128, h0)
+    _close(y, yp, 1e-3)
+    _close(h, hp, 1e-3)
+
+
 def test_ssd_kernel_refuses_too_much_shared_memory(dev):
     x = torch.zeros((2, 256, 64), device=dev)
-    bc = torch.zeros((1, 256, 128), device=dev)
+    bc = torch.zeros((1, 256, 256), device=dev)
     with pytest.raises(ValueError, match="shared memory"):
         ssd_cuda(x, torch.zeros((2, 256), device=dev), bc, bc, 2, 128)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KH,D", [
+    (2, 128, 1000, 4, 4, 64), (2, 1, 1000, 4, 4, 64), (1, 130, 77, 4, 2, 64),
+    (2, 1, 16, 4, 4, 16), (1, 300, 1024, 16, 16, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_cross_shapes(dev, B, Sq, Sk, H, KH, D, dtype):
+    """Non-causal attention of Sq query rows over Sk key rows, Sq != Sk,
+    as cross-attention calls it (one query row in decode): the key tail
+    past Sk is masked in the last tile.  Against the plain version and, in
+    bf16, the float32 oracle."""
+    g = torch.Generator(device=dev).manual_seed(Sq + Sk + D)
+    q = (torch.randn((B, Sq, H, D), generator=g, device=dev) * 2.0).to(dtype)
+    k, v = ((torch.randn((B, Sk, KH, D), generator=g, device=dev) * sc)
+            .to(dtype) for sc in (2.0, 1.0))
+    before = LAUNCHES["flash_attention"]
+    got = flash_attention_cuda(q, k, v, False)
+    assert LAUNCHES["flash_attention"] == before + 1
+    _close(got, flash_attention_plain(q, k, v, False),
+           2e-2 if dtype == torch.bfloat16 else 2e-5)
+    if dtype == torch.bfloat16:
+        want = flash_attention_plain(q.float(), k.float(), v.float(), False)
+        torch.testing.assert_close(got.float(), want, rtol=1e-2,
+                                   atol=1e-3 * float(want.abs().max()))
 
 
 def test_server_cuda_route_serves_what_torch_serves(dev):
@@ -580,6 +639,73 @@ def test_moe_ffn_runs_without_host_waits(dev, cf):
     assert float((got.cpu() - want).abs().max()) <= 1e-4 * max(
         float(want.abs().max()), 1.0)
     assert abs(float(aux) - float(want_aux)) <= 1e-5
+
+
+# ------------------------------------ the SSM and encoder-decoder families
+@pytest.mark.parametrize("fp32", [True, False], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("arch", ["mamba2-130m", "seamless-m4t-large-v2"])
+def test_ssm_and_encdec_cuda_route_serves_what_torch_serves(dev, arch, fp32):
+    """A reduced SSM or encoder-decoder model behind Server across a
+    publish, on the cuda and the torch route: one version a batch, the
+    launches of the cuda route (ssd_scan once a layer a prefill; attention
+    once an encoder layer and twice a decoder layer a prefill, once a
+    decoder layer a decode step) and none on torch; the logits,
+    teacher-forced with the cuda route's tokens, within 1e-3 * scale in
+    float32 (where the generated ids are equal too) and 0.06 * scale in
+    bf16.  Prompts of 64 and 37 tokens (ragged against the chunk), 40 and
+    27 encoder frames."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.launch.serve import prompt_batch
+    cfg = get_reduced(arch)
+    if fp32:
+        cfg = cfg.replace(compute_dtype=torch.float32)
+    g = torch.Generator(device=dev).manual_seed(0)
+    versions = [build(cfg).init(g) for _ in range(2)]
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab_size, (2, S)).astype(np.int32)
+               for S in (64, 37)]
+    enc = [None, None]
+    if cfg.family == "encdec":
+        enc = [(rng.randn(2, S, cfg.d_model) * 0.05).astype(np.float32)
+               for S in (40, 27)]
+    new = 4
+    served = {}
+    for route in ("torch", "cuda"):
+        srv = Server(cfg, versions[0], batch_size=2, kernels=route,
+                     device=dev)
+        before = dict(LAUNCHES)
+        out = []
+        for i, toks in enumerate(prompts):
+            if i == 1:
+                assert srv.publish(versions[1])
+            out.append(srv.serve_batch(toks, max_new_tokens=new,
+                                       enc_embeds=enc[i]))
+        launched = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+        served[route] = (out, srv.stats, launched)
+    (t_out, t_stats, t_l), (c_out, c_stats, c_l) = served["torch"], \
+        served["cuda"]
+    assert t_l["flash_attention"] == t_l["ssd_scan"] == 0
+    if cfg.family == "ssm":
+        want = {"ssd_scan": 2 * cfg.n_layers, "flash_attention": 0}
+    else:
+        want = {"ssd_scan": 0, "flash_attention": 2 * (
+            cfg.n_enc_layers + 2 * cfg.n_layers
+            + (new - 1) * cfg.n_layers)}
+    assert {k: c_l[k] for k in want} == want
+    assert c_stats == t_stats and c_stats.versions_served == [0, 1]
+    for i, (a, b) in enumerate(zip(c_out, t_out)):
+        assert a["weight_version"] == b["weight_version"] == i
+        if fp32:
+            np.testing.assert_array_equal(a["generated"], b["generated"])
+        batch = prompt_batch(cfg, torch.as_tensor(prompts[i], device=dev),
+                             enc[i])
+        forced = torch.as_tensor(a["generated"], device=dev)
+        lg = [CS.forced_logits(torch, build(cfg, kernels=route), versions[i],
+                               batch, forced, prompts[i].shape[1] + new)
+              for route in ("cuda", "torch")]
+        scale = max(float(lg[1].abs().max()), 1.0)
+        assert float((lg[0] - lg[1]).abs().max()) <= (
+            1e-3 if fp32 else 0.06) * scale
 
 
 # ------------------------------------------ streaming plane and planner

@@ -7,9 +7,10 @@
   one — they never quietly run on the CPU;
 * a ``cuda`` kernel config with CPU tensors raises — it is never served by
   the plain version;
-* the model families and architectures the port does not serve yet raise
-  ``NotImplementedError`` instead of being ignored, and a ``mesh`` that is
-  not a ``NodeMesh`` raises ``TypeError``;
+* every architecture id resolves, an unknown family raises ``ValueError``,
+  the reference-only config knobs raise ``NotImplementedError`` instead of
+  being ignored, and a ``mesh`` that is not a ``NodeMesh`` raises
+  ``TypeError``;
 * the backend registry resolves and round-trips like the reference's.
 """
 import os
@@ -177,26 +178,27 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_bad_inputs():
 
 
 def test_ssd_kernel_shared_memory_limit():
-    """The SSD kernel keeps a chunk in shared memory: the path's sizes fit,
-    mamba2-130m's N=128 at chunk 128 does not (checked, not launched)."""
-    assert ssd_smem_bytes(64, 64, 128) == 181_760 <= build.SMEM_LIMIT
-    assert ssd_smem_bytes(64, 128, 128) > build.SMEM_LIMIT
-
-
-@pytest.mark.parametrize("arch", ["mamba2-130m", "seamless-m4t-large-v2"])
-def test_unported_archs_raise(arch):
-    with pytest.raises(NotImplementedError, match="Model plane"):
-        get_config(arch)
-    with pytest.raises(NotImplementedError, match="Model plane"):
-        get_reduced(arch)
+    """The SSD kernel keeps a chunk in shared memory, the float32 kernel's
+    [M | C] rows one strip of 64 at a time: zamba2's sizes fit, and so
+    does mamba2-130m's N=128 at chunk 128, in float32 and in bf16 (checked,
+    not launched); N=256 does not."""
+    assert ssd_smem_bytes(64, 64, 128) == 132_352 <= build.SMEM_LIMIT
+    assert ssd_smem_bytes(64, 128, 128) == 197_888 <= build.SMEM_LIMIT
+    assert ssd_smem_bytes(64, 128, 128, torch.float32) <= build.SMEM_LIMIT
+    assert ssd_smem_bytes(64, 128, 128, torch.bfloat16) == 165_888
+    assert ssd_smem_bytes(64, 256, 128) > build.SMEM_LIMIT
+    # chunks under one strip stage whole
+    assert ssd_smem_bytes(16, 16, 16) == 4 * (16 * 33 + 16 * 17 + 32 * 16
+                                              + 16)
 
 
 @pytest.mark.parametrize("arch", [
     "qwen2-vl-2b", "qwen2-0.5b", "qwen3-14b", "deepseek-coder-33b", "yi-9b",
-    "phi3.5-moe-42b-a6.6b", "deepseek-moe-16b"])
+    "phi3.5-moe-42b-a6.6b", "deepseek-moe-16b", "mamba2-130m",
+    "seamless-m4t-large-v2"])
 def test_ported_archs_resolve(arch):
-    """The decoder family's ids resolve, full and reduced, and their
-    parameter trees have the reference's leaves."""
+    """Every id resolves, full and reduced, and its parameter tree has the
+    reference's leaves."""
     from repro.configs import get_config as j_get_config
     from repro.configs import get_reduced as j_get_reduced
     from repro.models.model import build as j_build
@@ -207,25 +209,27 @@ def test_ported_archs_resolve(arch):
         assert ours.name == ref.name and ours.family == ref.family
         # both trees are nested dicts of specs, walked in sorted-key order
         model = build_model(ours)
-        blocks = tree_leaves(model.param_specs()["blocks"])
         assert [s.shape for s in tree_leaves(model.param_specs())] == [
             s.shape for s in tree_leaves(j_build(ref).param_specs())]
         # a layer's specs are the stacked blocks without their layer axis
-        assert [s.shape for s in tree_leaves(model.layer_specs())] == [
-            s.shape[1:] for s in blocks]
+        if ours.family == "encdec":
+            pairs = ((model.enc_layer_specs(), model.param_specs()["enc"]),
+                     (model.dec_layer_specs(), model.param_specs()["dec"]))
+        else:
+            pairs = ((model.layer_specs(), model.param_specs()["blocks"]),)
+        for one, stacked in pairs:
+            assert [s.shape for s in tree_leaves(one)] == [
+                s.shape[1:] for s in tree_leaves(stacked)]
 
 
 def test_unported_families_and_options_raise():
+    """Every architecture id is served; an unknown family or id raises."""
     cfg = get_reduced("zamba2-2.7b")
-    for family in ("ssm", "encdec"):
-        with pytest.raises(NotImplementedError, match="Model plane"):
-            build_model(cfg.replace(family=family))
-    with pytest.raises(NotImplementedError, match="Model plane"):
-        Server(cfg.replace(family="encdec"), {}, device="cpu")
+    assert list(ARCH_IDS) == list(PORTED) and len(ARCH_IDS) == 10
+    with pytest.raises(ValueError, match="unknown family"):
+        build_model(cfg.replace(family="rnn"))
     with pytest.raises(KeyError):
         get_config("gpt-5")
-    assert set(ARCH_IDS) == set(PORTED) | {"mamba2-130m",
-                                           "seamless-m4t-large-v2"}
 
 
 @pytest.mark.parametrize("field,value", [
