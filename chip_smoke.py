@@ -10,8 +10,8 @@ Phases (any failure raises, so the process exits non-zero):
 1. the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc),
    then disassemble the library (``cuobjdump -sass``): every bf16
-   instantiation of ``flash_attention`` and ``ssd_scan`` must run
-   tensor-core (HMMA / HGMMA) instructions;
+   instantiation of ``flash_attention``, its two backward kernels and
+   ``ssd_scan`` must run tensor-core (HMMA / HGMMA) instructions;
 3. each engine kernel against its plain PyTorch version on the card,
    bit-equal, at the main path's shapes and on adversarial inputs
    (the read-phase corners: tied visible CIDs, empty rings, V = 1 / 3 /
@@ -34,7 +34,16 @@ Phases (any failure raises, so the process exits non-zero):
    ``scaled_dot_product_attention`` timed beside attention as a yardstick
    (never called by the port), the times also at qwen3-14b's prefill and
    seamless' cross-attention, and ``ssd_scan``'s at mamba2-130m's prefill
-   (bf16 and float32) and zamba2's in float32; ``commit_loop`` against the
+   (bf16 and float32) and zamba2's in float32; the attention backward's
+   two kernels (``flash_attention_bwd_dq``, ``_dkdv``) against
+   ``flash_attention_bwd_plain`` on the forward kernel's o and lse (and
+   that lse against the plain version's) at phase 9's training shape
+   (qwen2-0.5b: B=4, S=1,024, H=14, KH=2, D=64) in bf16 and float32,
+   ragged S=1,000, GQA at G=1 and 7, seamless' cross shape (Sq=128 over
+   Sk=1,024 and 1,000), Sq=1 and small odd shapes, the element closest to
+   its limit printed, with CUDA-event times of each kernel at the training
+   shape beside the plain backward's and SDPA's backward (a yardstick the
+   port never calls); ``commit_loop`` against the
    engine's plain
    loop, bit-equal in its outputs and the store, for the six schedulers x
    {no GC, ``gc_track``, ``gc_block``} on corner waves (V=2 rings read and
@@ -224,12 +233,31 @@ Phases (any failure raises, so the process exits non-zero):
    printed beside the ``torch`` route's own bf16-vs-float32 distance, not
    gated); prefill ms, decode ms a step, tokens/s, peak memory,
    ``profile_call`` profiles;
-9. one JSON line of per-kernel results, with the launches each kernel made
+9. training on the ``cuda`` route, after phase 8's models are freed:
+
+   9a. qwen2-0.5b at full width and depth (24 layers, 494,147,456
+   parameters), bf16 compute over float32 parameters, ``TrainRunner`` over
+   ``TokenStream`` batches of 4 x 1,024 with a checkpoint every 4 steps, 8
+   steps and a failure injected at step 6: restarts 1, final step 8, 10
+   finite losses, the last below the first; every step launches the
+   forward kernel 48 times (24 layers, again under remat) and each
+   backward kernel 24 times; ms a step, tokens/s, peak memory, checkpoint
+   save and restore seconds, a ``profile_call`` profile; then one float32
+   loss and gradient on ``cuda`` against the ``torch`` route (the loss
+   and every gradient leaf within 1e-3 of scale), and ``ops.ssd``'s
+   refusal of a gradient on the kernel route;
+   9b. deepseek-moe-16b at full width cut to 2 layers, and 9c.
+   seamless-m4t-large-v2 at full width cut to 4 + 4 layers (1,000 encoder
+   frames under 512 decoder tokens: cross-attention at Sq != Sk): one
+   float32 step each on ``cuda`` against ``torch`` with the same gate and
+   its launches; the MoE step's backward under sync debug mode "warn",
+   its host waits printed;
+10. one JSON line of per-kernel results, with the launches each kernel made
    on its own path (phases 4-5d for the engine's, the streamed, planned,
    durable, replayed and placed runs included, the served batches of
-   phases 6, 7 and 8 for the model plane's;
-   each must be > 0), the card line again,
-   and last ``{"ok": true, "device": {...}}``.
+   phases 6, 7 and 8 and phase 9's training for the model plane's, phase
+   9 alone for the backward kernels; each must be > 0), the card line
+   again, and last ``{"ok": true, "device": {...}}``.
 
 The store, wave, stream and model sizes are fixed (the constants below);
 the flags cut only the depth: ``--waves``, ``--scheds``, ``--ticks``,
@@ -243,6 +271,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -282,6 +311,21 @@ SSM_ENCDEC_RUNS = (
 # the scale of the encoder's seeded frame embeddings (launch/inputs.py
 # make_batch draws them as randn * 0.05)
 ENC_SCALE = 0.05
+# phase 9, training: qwen2-0.5b at full width and depth (the one decoder
+# whose float32 training state fits the card), TokenStream batches of
+# TRAIN_BATCH x TRAIN_SEQ, TrainRunner with a checkpoint every
+# TRAIN_CKPT_EVERY steps and a failure injected at TRAIN_FAIL_AT
+TRAIN_ARCH = "qwen2-0.5b"
+TRAIN_BATCH, TRAIN_SEQ = 4, 1024
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 8, 4, 6
+TRAIN_LR = 3e-4
+# one float32 step each of two more families at full width, depth cut:
+# (step, arch, decoder layers, encoder layers or None, batch, seq)
+TRAIN_FAMILY_RUNS = (("9b", "deepseek-moe-16b", 2, None, 2, 512),
+                     ("9c", "seamless-m4t-large-v2", 4, 4, 2, 512))
+# encoder frames of the encoder-decoder step: not the decoder's length
+# (cross-attention at Sq != Sk) and not a multiple of the kernels' tile
+TRAIN_ENC_FRAMES = 1000
 
 
 class Config(NamedTuple):
@@ -324,6 +368,14 @@ KERNELS = {
                         "src/repro/kernels/flash_attention.py:74"),
     "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd_scan.py:67"),
+    # no Pallas kernel: the reference differentiates its plain attention
+    # (layers._dense_attention / _chunked_attention) with XLA's autodiff
+    "flash_attention_bwd_dq": (
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/models/layers.py:123"),
+    "flash_attention_bwd_dkdv": (
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/models/layers.py:123"),
 }
 
 
@@ -593,8 +645,7 @@ def tensor_core_counts(sass: str) -> dict:
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
-            fn = fn if kernel_of(fn) in ("flash_attention", "ssd_scan") \
-                else None
+            fn = fn if kernel_of(fn) in MODEL_KERNELS else None
             if fn:
                 counts[fn] = 0
         elif fn and ("HMMA" in line or "HGMMA" in line):
@@ -602,15 +653,22 @@ def tensor_core_counts(sass: str) -> dict:
     return counts
 
 
+# the model plane's kernels, each with a bf16 (tensor-core) and a float32
+# (FMA) form
+MODEL_KERNELS = ("flash_attention", "ssd_scan", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkdv")
+
+
 def tensor_core_check(lib_path, nvcc):
     """Disassemble the built library; raise unless every bf16 instantiation
-    of flash_attention and ssd_scan (``*_mma_kernel``) runs tensor-core
-    instructions.  Prints the counts per kernel and dtype."""
+    of the model kernels (``*_mma_kernel``: attention, its backward and the
+    SSD scan) runs tensor-core instructions.  Prints the counts per kernel
+    and dtype."""
     tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     sass = subprocess.run([tool, "-sass", lib_path], check=True,
                           capture_output=True, text=True).stdout
     counts = tensor_core_counts(sass)
-    for name in ("flash_attention", "ssd_scan"):
+    for name in MODEL_KERNELS:
         for kind in ("mma", "fma"):
             got = {f: n for f, n in counts.items()
                    if kernel_of(f) == name and f"_{kind}_kernel" in f}
@@ -1257,6 +1315,147 @@ def ssd_times(torch, dev, rn, probes, Bg, H, S, P, N, Q, dtype):
         "bound_ms": b_ms, "bound_by": b_by}
 
 
+def attention_bwd_phase(torch, dev):
+    """The two attention backward kernels against their plain version
+    (``flash_attention_bwd_plain``, the same formulas in float32) on the
+    card, on the lse and o of the forward kernel: at phase 9's training
+    shape (qwen2-0.5b) in bf16 and float32, ragged, GQA at G = 1 and 7,
+    seamless' cross-attention, one query row and small odd shapes; the
+    forward's lse against the plain version's.  Then CUDA-event times at
+    the training shape beside the plain version's and SDPA's backward (one
+    ``scaled_dot_product_attention`` call's gradient: a yardstick the port
+    never calls).  Returns the two kernels' records."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_bwd_dkdv_cuda,
+        flash_attention_bwd_dq_cuda, flash_attention_bwd_plain,
+        flash_attention_cuda, flash_attention_plain)
+    g = torch.Generator(device=dev).manual_seed(2)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def rn(shape, scale, dtype):
+        return (torch.randn(shape, generator=g, device=dev)
+                * scale).to(dtype)
+
+    B, S, H, KH, D = TRAIN_BATCH, TRAIN_SEQ, 14, 2, 64
+    # (B, Sq, Sk, H, KH, D, dtype, causal); q and k at scale 2 make the
+    # softmax peaked, as in the forward's checks
+    cases = [(B, S, S, H, KH, D, bf16, True),
+             (B, S, S, H, KH, D, f32, True),
+             (B, 1000, 1000, H, KH, D, bf16, True),
+             (2, 1000, 1000, H, KH, D, f32, True),
+             (2, S, S, 16, 16, D, bf16, True),
+             (2, S, S, 7, 1, 128, bf16, True),
+             (4, 128, 1024, 16, 16, 64, bf16, False),
+             (4, 128, 1000, 16, 16, 64, f32, False),
+             (4, 1, 1000, 16, 16, 64, bf16, False),
+             (4, 1, 1000, 16, 16, 64, f32, False),
+             (1, 70, 70, 2, 1, 48, f32, True),
+             (2, 200, 200, 4, 2, 80, bf16, False)]
+    errs, use = [], {}
+    for b, Sq, Sk, h, kh, d, dt, causal in cases:
+        q = rn((b, Sq, h, d), 2.0, dt)
+        k, v = rn((b, Sk, kh, d), 2.0, dt), rn((b, Sk, kh, d), 1.0, dt)
+        do = rn((b, Sq, h, d), 1.0, dt)
+        label = (f"B={b} Sq={Sq} Sk={Sk} H={h} KH={kh} D={d} {dt} "
+                 f"causal={causal}")
+        o, lse = flash_attention_cuda(q, k, v, causal, with_lse=True)
+        _, lse_p = flash_attention_plain(q, k, v, causal, with_lse=True)
+        close_err(torch, "flash_attention lse", label, (lse,), (lse_p,),
+                  1e-4, 1e-5, use)
+        got = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
+        want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+        # float32: sums in another order; bf16: both round one float32
+        # value once (rtol 1e-2 > 2^-8), plus 1e-3 of the largest |want|
+        # for the order of sums
+        rtol = 1e-2 if dt == bf16 else 1e-4
+        for name, a, w in zip(("dq", "dk", "dv"), got, want):
+            atol = (1e-3 if dt == bf16 else 1e-5) * float(
+                w.float().abs().max())
+            errs.append(close_err(torch, f"flash_attention_bwd {name}",
+                                  label, (a,), (w,), atol, rtol, use))
+        del q, k, v, do, o, lse, lse_p, got, want
+    print(f"[kernels] flash_attention_bwd: {len(cases)} checks of dq, dk, "
+          f"dv against flash_attention_bwd_plain, all within tolerance "
+          f"(max abs err {max(errs):.3g})", flush=True)
+    print(f"[kernels] closest to the limit: {limit_use_line(use)}",
+          flush=True)
+
+    # times at the training shape, bf16
+    probes = scripts_module("probes")
+    q = rn((B, S, H, D), 0.5, bf16)
+    k, v = (rn((B, S, KH, D), 0.5, bf16) for _ in range(2))
+    do = rn((B, S, H, D), 0.5, bf16)
+    o, lse = flash_attention_cuda(q, k, v, True, with_lse=True)
+    _, delta = flash_attention_bwd_dq_cuda(q, k, v, o, lse, do, True)
+    fns = {"flash_attention_bwd_dq": lambda: flash_attention_bwd_dq_cuda(
+               q, k, v, o, lse, do, True),
+           "flash_attention_bwd_dkdv": lambda: flash_attention_bwd_dkdv_cuda(
+               q, k, v, do, lse, delta, True)}
+    ms = {n: cuda_ms(torch, fn, iters=10, warmup=2) for n, fn in fns.items()}
+    both_ms = cuda_ms(torch, lambda: flash_attention_bwd_cuda(
+        q, k, v, o, lse, do, True), iters=10, warmup=2)
+    fwd_ms = cuda_ms(torch, lambda: flash_attention_cuda(
+        q, k, v, True, with_lse=True), iters=20, warmup=3)
+    plain_ms = cuda_ms(torch, lambda: flash_attention_bwd_plain(
+        q, k, v, o, lse, do, True), iters=5, warmup=1)
+    device = probes.profile_device_ms(
+        {"flash_attention_bwd_dq": (fns["flash_attention_bwd_dq"],
+                                    "flash_attention_bwd_dq_"),
+         "flash_attention_bwd_dkdv": (fns["flash_attention_bwd_dkdv"],
+                                      "flash_attention_bwd_dkdv_")},
+        iters=5)
+    qt, kt, vt = (a.transpose(1, 2).contiguous().requires_grad_(True)
+                  for a in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=H != KH)
+    ot = sdpa()
+    sdpa_bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+        ot, (qt, kt, vt), dot, retain_graph=True), iters=10, warmup=2)
+    sdpa_both_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+        sdpa(), (qt, kt, vt), dot), iters=10, warmup=2)
+    # bytes: inputs read once, outputs written once; operations: each
+    # product over the (query, key) pairs the causal mask keeps: s, dp and
+    # dq in the first kernel, s, dp, dv and dk in the second, five in the
+    # backward as a whole
+    pairs = B * H * S * (S + 1) // 2
+    big, small, rows = B * S * H * D * 2, B * S * KH * D * 2, B * H * S * 4
+    bounds = {"flash_attention_bwd_dq": bound(4 * big + 2 * small + 2 * rows,
+                                              3 * 2 * pairs * D,
+                                              BF16_FLOPS_PER_S),
+              "flash_attention_bwd_dkdv": bound(
+                  2 * big + 4 * small + 2 * rows, 4 * 2 * pairs * D,
+                  BF16_FLOPS_PER_S)}
+    whole = bound(4 * big + 4 * small + rows, 5 * 2 * pairs * D,
+                  BF16_FLOPS_PER_S)
+    print(f"[kernels] attention backward at phase 9's training shape (B={B} "
+          f"S={S} H={H} KH={KH} D={D} bf16 causal): dq kernel "
+          f"{ms['flash_attention_bwd_dq']:.4f} ms, dk/dv kernel "
+          f"{ms['flash_attention_bwd_dkdv']:.4f} ms, both "
+          f"{both_ms:.4f} ms (device {device}); bound of the backward "
+          f"{whole[0]:.5f} ms by {whole[1]}; forward with lse "
+          f"{fwd_ms:.4f} ms; plain backward {plain_ms:.4f} ms; SDPA "
+          f"backward {sdpa_bwd_ms:.4f} ms, SDPA forward + backward "
+          f"{sdpa_both_ms:.4f} ms", flush=True)
+    records = {}
+    for name in fns:
+        records[name] = {
+            "name": name, "route": "cuda", "source": KERNELS[name][0],
+            "replaces": KERNELS[name][1], "launches": 0,
+            "max_abs_err": max(errs), "ms": ms[name], "plain_ms": plain_ms,
+            "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+            "library_ms": None, "device_ms": device[name],
+            "sdpa_backward_ms": sdpa_bwd_ms}
+        print(f"[kernels] {name}: {ms[name]:.4f} ms/call (plain backward "
+              f"{plain_ms:.4f}), profiler device {device[name]} ms/launch, "
+              f"bound {bounds[name][0]:.5f} ms by {bounds[name][1]}",
+              flush=True)
+    return records
+
+
 # ------------------------------------------------------------ phase 6
 def forced_logits(torch, model, params, batch, forced, max_len):
     """Logits of every generated position when the prefill ``batch`` is fed
@@ -1600,6 +1799,260 @@ def ssm_encdec_phase(torch, dev, cfg, card, runs=None, route="cuda"):
         total = {k: total.get(k, 0) + v for k, v in counts.items()}
     gc.collect()
     torch.cuda.empty_cache()
+    return total
+
+
+# ------------------------------------------------------------ phase 9
+def train_launches(mcfg):
+    """Kernel launches of one loss and its gradient on the ``cuda`` route:
+    every attention call runs the forward kernel twice (the forward, then
+    its layer's recomputation under remat) and each backward kernel once.
+    The decoder family attends once a layer, the encoder-decoder family
+    once an encoder layer and twice a decoder layer."""
+    calls = (mcfg.n_enc_layers + 2 * mcfg.n_layers
+             if mcfg.family == "encdec" else mcfg.n_layers)
+    return {"flash_attention": 2 * calls, "flash_attention_bwd_dq": calls,
+            "flash_attention_bwd_dkdv": calls}
+
+
+def launch_delta(before, after, keys):
+    return {k: after[k] - before[k] for k in keys}
+
+
+def f32_gate(torch, mcfg, params, batch, route, tag, label, card,
+             sync_warn=False):
+    """One float32 loss and gradient of ``mcfg`` on ``route`` against the
+    ``torch`` route on the same parameters and batch: the loss within
+    1e-3 of its size and every gradient leaf within 1e-3 of that leaf's
+    scale (max |torch route|).  ``sync_warn``: the ``route``'s call under
+    sync debug mode "warn" (on the card), its host waits counted and
+    printed.  Returns the launches of the ``route`` call."""
+    import warnings
+    from repro_torch.checkpoint.postsi_store import _leaf_paths
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.launch.train import loss_and_grads
+    from repro_torch.models.model import build
+    from repro_torch.models.module import tree_leaves
+    f32 = mcfg.replace(compute_dtype=torch.float32)
+    ref_loss, _, ref = loss_and_grads(build(f32, "torch"), params, batch)
+    model = build(f32, route)
+    before = dict(LAUNCHES)
+    waits = None
+    if sync_warn and batch["tokens"].is_cuda:
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                loss, _, got = loss_and_grads(model, params, batch)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        # the mode's own notice on being switched on is not a wait
+        waits = [str(w.message).splitlines()[0][:80] for w in caught
+                 if "synchronizing CUDA operation" in str(w.message)]
+    else:
+        loss, _, got = loss_and_grads(model, params, batch)
+    torch.cuda.synchronize()
+    counts = launch_delta(before, LAUNCHES, LAUNCHES)
+    if not abs(float(loss) - float(ref_loss)) <= 1e-3 * abs(float(ref_loss)):
+        raise AssertionError(f"[{tag}] {label}: float32 loss {float(loss)} "
+                             f"on {route}, {float(ref_loss)} on torch")
+    worst = (0.0, "")
+    for path, a, b in zip(_leaf_paths(params), tree_leaves(got),
+                          tree_leaves(ref)):
+        scale = float(b.float().abs().max())
+        err = float((a.float() - b.float()).abs().max())
+        if not bool(torch.isfinite(a).all()) or err > 1e-3 * scale:
+            raise AssertionError(f"[{tag}] {label}: float32 gradient {path} "
+                                 f"on {route} {err} from the torch route's, "
+                                 f"scale {scale}")
+        worst = max(worst, (err / max(scale, 1e-30), path))
+    print(f"[{tag}] {label}: float32 {route} vs torch: loss {float(loss):.6f}"
+          f" vs {float(ref_loss):.6f}, {len(tree_leaves(got))} gradient "
+          f"leaves within 1e-3 of scale (largest {worst[0]:.3g} of scale at "
+          f"{worst[1]}) [{card}]", flush=True)
+    if waits is not None:
+        print(f"[{tag}] {label}: host waits of the {route} loss and gradient "
+              f"under sync debug mode 'warn' (moe_ffn's forward has none: "
+              f"phase 7): {len(waits)}"
+              + (f" ({'; '.join(sorted(set(waits))[:4])})" if waits else ""),
+              flush=True)
+    return counts
+
+
+def train_phase(torch, dev, cfg, card, mcfg=None, family_runs=None,
+                route="cuda"):
+    """Phase 9: training on ``route``.  qwen2-0.5b (or ``mcfg``) at full
+    width and depth, bf16 compute over float32 parameters: ``TrainRunner``
+    over ``TokenStream`` batches of TRAIN_BATCH x TRAIN_SEQ, a checkpoint
+    every TRAIN_CKPT_EVERY steps, TRAIN_STEPS steps and a failure injected
+    at step TRAIN_FAIL_AT; its launches checked step by step; ms a step,
+    tokens/s, peak memory, checkpoint save and restore seconds and a
+    profile; one float32 step on ``route`` against the ``torch`` route;
+    ``ops.ssd``'s refusal of a gradient on the kernel route.  Then one
+    float32 step of each of ``family_runs`` (default TRAIN_FAMILY_RUNS:
+    tuples of step, config and batch, seq) against the ``torch`` route.
+    Returns the launch counts of the phase."""
+    import gc
+    import tempfile
+    from repro_torch.checkpoint import PostSICheckpointer
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels import LAUNCHES, ops, reset_launch_counts
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.model import build
+    from repro_torch.models.module import tree_leaves
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime import FailureInjector, TrainRunner
+    gc.collect()
+    torch.cuda.empty_cache()
+    mcfg = mcfg or get_config(TRAIN_ARCH)
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    t_phase = time.perf_counter()
+    model, step_fn = make_train_step(mcfg, lr=TRAIN_LR, kernels=route)
+    params = model.init(torch.Generator(device=dev).manual_seed(cfg.seed),
+                        dev)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    opt = adamw_init(params)
+    print(f"[train] 9a {mcfg.name}: {mcfg.n_layers} layers, d_model "
+          f"{mcfg.d_model}, {mcfg.n_heads} heads over {mcfg.n_kv_heads} kv "
+          f"heads of {mcfg.head_dim}, vocab {mcfg.vocab_size:,} (padded "
+          f"{mcfg.padded_vocab:,}), {n_params:,} parameters in "
+          f"{str(mcfg.param_dtype).split('.')[-1]}, compute "
+          f"{str(mcfg.compute_dtype).split('.')[-1]}; batch {B} x {S}, "
+          f"{TRAIN_STEPS} steps, a checkpoint every {TRAIN_CKPT_EVERY}, a "
+          f"failure at step {TRAIN_FAIL_AT}, on {route} [{card}]",
+          flush=True)
+    want = train_launches(mcfg) if route == "cuda" else \
+        dict.fromkeys(train_launches(mcfg), 0)
+    step_s, step_counts = [], []
+
+    def timed_step(p, o, batch):
+        torch.cuda.synchronize()
+        before = dict(LAUNCHES)
+        t0 = time.perf_counter()
+        out = step_fn(p, o, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        step_counts.append(launch_delta(before, LAUNCHES, want))
+        return out
+
+    def timed(fn, secs):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            secs.append(time.perf_counter() - t0)
+            return out
+        return call
+
+    reset_launch_counts()     # the phase's path starts here
+    save_s, restore_s = [], []
+    with tempfile.TemporaryDirectory(prefix="train_ckpt_") as ckdir:
+        tree_ex = {"params": params, "opt": opt,
+                   "data": {"step": torch.tensor(0, dtype=torch.int32)}}
+        ck = PostSICheckpointer(ckdir, tree_ex)
+        ck.save = timed(ck.save, save_s)
+        ck.restore = timed(ck.restore, restore_s)
+        runner = TrainRunner(timed_step, TokenStream(
+            mcfg, B, S, seed=cfg.seed, device=dev), ck,
+            ckpt_every=TRAIN_CKPT_EVERY)
+        torch.cuda.reset_peak_memory_stats()
+        out = runner.run(params, opt, TRAIN_STEPS,
+                         injector=FailureInjector(fail_at=(TRAIN_FAIL_AT,)))
+        peak = torch.cuda.max_memory_allocated()
+    del params, opt, tree_ex
+    losses = out["losses"]
+    n_runs = TRAIN_STEPS + TRAIN_FAIL_AT - (TRAIN_FAIL_AT // TRAIN_CKPT_EVERY
+                                            * TRAIN_CKPT_EVERY)
+    if out["restarts"] != 1 or out["final_step"] != TRAIN_STEPS:
+        raise AssertionError(f"[train] restarts {out['restarts']}, final "
+                             f"step {out['final_step']}")
+    if len(losses) != n_runs or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"[train] losses {losses}: expected {n_runs} "
+                             f"finite ones")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"[train] the loss did not fall: {losses}")
+    for i, got in enumerate(step_counts):
+        if got != want:
+            raise AssertionError(f"[train] step run {i} launched {got}, "
+                                 f"expected {want}")
+    steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    print(f"[train] 9a {mcfg.name}: restarts {out['restarts']}, final step "
+          f"{out['final_step']}, {len(losses)} losses "
+          f"[{', '.join(f'{x:.4f}' for x in losses)}]", flush=True)
+    print(f"[train] 9a {mcfg.name}: {steady * 1e3:.1f} ms a step (median of "
+          f"{len(step_s) - 1} after the first, {step_s[0] * 1e3:.1f} ms), "
+          f"{B * S / steady:.0f} tokens/s, peak memory "
+          f"{peak / 2**30:.2f} GiB, launches a step {want}, checkpoint "
+          f"save {', '.join(f'{s:.2f}' for s in save_s)} s, restore "
+          f"{', '.join(f'{s:.2f}' for s in restore_s)} s [{card}]",
+          flush=True)
+    params, opt = out["state"]["params"], out["state"]["opt"]
+    stream = TokenStream(mcfg, B, S, seed=cfg.seed + 1, device=dev)
+    batch = stream.next()
+    profile_call(torch, f"one {mcfg.name} train step",
+                 lambda: step_fn(params, opt, batch), card, tag="train")
+    del opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32_gate(torch, mcfg, params, batch, route, "train", f"9a {mcfg.name}",
+             card)
+    del params, batch
+    # the SSD scan kernel has no backward: a gradient on its route raises
+    x = torch.randn((2, 64, 16), device=dev, requires_grad=True)
+    bm = torch.randn((1, 64, 16), device=dev)
+    try:
+        ops.ssd(x, -torch.rand((2, 64), device=dev), bm, bm,
+                n_heads_per_group=2, chunk=64, use_kernel=True)
+    except NotImplementedError as exc:
+        print(f"[train] ops.ssd on the kernel route under a gradient "
+              f"raises: {exc}", flush=True)
+    else:
+        raise AssertionError("ops.ssd ran a gradient on the kernel route")
+
+    if family_runs is None:
+        family_runs = []
+        for step, arch, layers, enc_layers, b, s in TRAIN_FAMILY_RUNS:
+            full = get_config(arch)
+            cut = full.replace(n_layers=layers, **(
+                {"n_enc_layers": enc_layers} if enc_layers else {}))
+            family_runs.append((step, cut, full, b, s))
+    for step, fcfg, full, b, s in family_runs:
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        depth = (f"{fcfg.n_enc_layers} + {fcfg.n_layers} of "
+                 f"{full.n_enc_layers} + {full.n_layers} layers"
+                 if fcfg.family == "encdec" else
+                 f"{fcfg.n_layers} of {full.n_layers} layers")
+        print(f"[train] {step} {fcfg.name}: {fcfg.family} at full width, "
+              f"depth cut to {depth}, {fcfg.param_count():,} parameters, "
+              f"batch {b} x {s}, one float32 step on {route} [{card}]",
+              flush=True)
+        fparams = build(fcfg).init(
+            torch.Generator(device=dev).manual_seed(cfg.seed), dev)
+        fbatch = TokenStream(fcfg, b, s, seed=cfg.seed, device=dev).next()
+        if fcfg.family == "encdec":
+            fbatch["enc_embeds"] = torch.randn(
+                (b, TRAIN_ENC_FRAMES, fcfg.d_model), device=dev,
+                generator=torch.Generator(device=dev).manual_seed(
+                    cfg.seed)) * ENC_SCALE
+        counts = f32_gate(torch, fcfg, fparams, fbatch, route, "train",
+                          f"{step} {fcfg.name}", card,
+                          sync_warn=fcfg.moe)
+        fwant = train_launches(fcfg) if route == "cuda" else \
+            dict.fromkeys(want, 0)
+        if {k: counts[k] for k in fwant} != fwant:
+            raise AssertionError(f"[train] {step}: launches {counts}, "
+                                 f"expected {fwant}")
+        print(f"[train] {step} {fcfg.name}: launches {fwant}, "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        del fparams, fbatch
+    total = dict(LAUNCHES)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[train] phase 9: {time.perf_counter() - t_phase:.1f} s, kernel "
+          f"launches {total}", flush=True)
     return total
 
 
@@ -3146,6 +3599,7 @@ def main(argv=None) -> int:
                      cfg.O)
     del tables
     records.update(model_kernel_phase(torch, dev))
+    records.update(attention_bwd_phase(torch, dev))
 
     profile_wave(torch, dev, cfg)
     # each path with the counts set to 0 just before it and read just after
@@ -3213,11 +3667,17 @@ def main(argv=None) -> int:
     print(f"[main path] ssm and encdec: {time.perf_counter() - t0:.1f} s "
           f"with their measurements, kernel launches {family_counts}",
           flush=True)
+    t0 = time.perf_counter()
+    train_counts = train_phase(torch, dev, cfg, card)
+    print(f"[main path] train: {time.perf_counter() - t0:.1f} s with its "
+          f"measurements, kernel launches {train_counts}", flush=True)
     model_counts = {k: v + decoder_counts[k] + family_counts[k]
-                    for k, v in serve_counts.items()}
+                    + train_counts[k] for k, v in serve_counts.items()}
     paths = {"version_scan": engine_counts, "potential_matrix": engine_counts,
              "wave_commit": engine_counts, "commit_loop": engine_counts,
-             "flash_attention": model_counts, "ssd_scan": model_counts}
+             "flash_attention": model_counts, "ssd_scan": model_counts,
+             "flash_attention_bwd_dq": train_counts,
+             "flash_attention_bwd_dkdv": train_counts}
     for name, counts in paths.items():
         if counts[name] <= 0:
             raise AssertionError(f"{name} never launched on its path")

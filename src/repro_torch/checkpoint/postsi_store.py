@@ -12,9 +12,10 @@ leaf and ``postsi_meta.pkl`` holding the scheduler, the next file id and
 the leaf paths.  So each package restores the other's checkpoints:
 
 * a leaf is named as ``jax.tree_util.keystr`` names it (``"['store']
-  ['cid']"``) and the leaves are taken in the order JAX flattens a nested
-  dict, by sorted keys.  The trees are nested dicts of arrays; anything
-  that is not a dict is a leaf;
+  ['cid']"``, ``"['opt'].m['w']"``) and the leaves are taken in the order
+  JAX flattens the tree: a dict by sorted keys, a NamedTuple (the
+  optimizer's ``AdamWState``) by its fields in declared order.  The trees
+  are nested dicts and NamedTuples of arrays; anything else is a leaf;
 * the meta pickle names the scheduler's classes by the reference's module,
   ``repro.core.seq``.  Writing it takes no import of that module
   (``_MetaPickler``); reading maps it to ``repro_torch.core.seq`` and
@@ -47,22 +48,31 @@ _SEQ_CLASSES = {c.__name__: c for c in (_seq.SeqScheduler, _seq.Version,
                                         _seq.Txn)}
 
 
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
 def _flatten(tree, prefix: str = "") -> List[Tuple[str, Any]]:
-    """(path, leaf) pairs of a nested dict, in JAX's flattening order
-    (sorted keys) with ``jax.tree_util.keystr``'s path strings."""
-    if not isinstance(tree, dict):
-        return [(prefix, tree)]
-    out: List[Tuple[str, Any]] = []
-    for k in sorted(tree):
-        out += _flatten(tree[k], f"{prefix}[{k!r}]")
-    return out
+    """(path, leaf) pairs of a tree of dicts and NamedTuples, in JAX's
+    flattening order (sorted keys, declared fields) with
+    ``jax.tree_util.keystr``'s path strings (``[key]``, ``.field``)."""
+    if isinstance(tree, dict):
+        return [pl for k in sorted(tree)
+                for pl in _flatten(tree[k], f"{prefix}[{k!r}]")]
+    if _is_namedtuple(tree):
+        return [pl for f in tree._fields
+                for pl in _flatten(getattr(tree, f), f"{prefix}.{f}")]
+    return [(prefix, tree)]
 
 
 def _unflatten(tree, leaves):
     """A tree shaped like ``tree`` holding ``leaves`` in flattening order."""
-    if not isinstance(tree, dict):
-        return next(leaves)
-    return {k: _unflatten(tree[k], leaves) for k in sorted(tree)}
+    if isinstance(tree, dict):
+        return {k: _unflatten(tree[k], leaves) for k in sorted(tree)}
+    if _is_namedtuple(tree):
+        return type(tree)(*(_unflatten(getattr(tree, f), leaves)
+                            for f in tree._fields))
+    return next(leaves)
 
 
 def _leaf_paths(tree) -> List[str]:

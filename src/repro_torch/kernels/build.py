@@ -41,14 +41,17 @@ SIGNATURES = {
     "version_scan_launch": [_P] * 6 + [_I] * 3 + [_P],
     "potential_matrix_launch": [_P] * 3 + [_I] * 5 + [_P],
     "wave_commit_launch": [_P] * 16 + [_I] * 10 + [_P],
-    "flash_attention_launch": [_P] * 4 + [_I] * 8 + [_F, _P],
+    "flash_attention_launch": [_P] * 5 + [_I] * 8 + [_F, _P],
+    "flash_attention_bwd_dq_launch": [_P] * 8 + [_I] * 8 + [_F, _P],
+    "flash_attention_bwd_dkdv_launch": [_P] * 8 + [_I] * 8 + [_F, _P],
     "ssd_scan_launch": [_P] * 7 + [_I] * 7 + [_L] * 11 + [_P],
     "commit_loop_launch": [_P] * 28 + [_I] * 10 + [_P, _I, _P],
 }
 
 # launches per kernel since the last reset_launch_counts()
 LAUNCHES = {"version_scan": 0, "potential_matrix": 0, "wave_commit": 0,
-            "commit_loop": 0, "flash_attention": 0, "ssd_scan": 0}
+            "commit_loop": 0, "flash_attention": 0, "ssd_scan": 0,
+            "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkdv": 0}
 
 # shared memory one block may use on the H100 (bytes, dynamic)
 SMEM_LIMIT = 232_448

@@ -60,7 +60,8 @@ __global__ void __launch_bounds__(FA_THREADS)
     flash_attention_fma_kernel(const float* __restrict__ q,
                                const float* __restrict__ k,
                                const float* __restrict__ v,
-                               float* __restrict__ o, int Sq, int Sk, int H,
+                               float* __restrict__ o,
+                               float* __restrict__ lse, int Sq, int Sk, int H,
                                int KH, float scale, int causal) {
   constexpr int D = 16 * DC;
   constexpr int LDQ = D + 1;      // padded rows: conflict-free walks over d
@@ -194,6 +195,8 @@ __global__ void __launch_bounds__(FA_THREADS)
 #pragma unroll
     for (int j = 0; j < DC; ++j)
       ob[qpos * q_stride + tx + 16 * j] = acc[i][j] * inv;
+    if (lse && tx == 0)
+      lse[(long long)bh * Sq + qpos] = m[i] + logf(fmaxf(l[i], 1e-37f));
   }
 }
 
@@ -203,6 +206,7 @@ __global__ void __launch_bounds__(FA_THREADS)
 #define FA_WARPS 4
 #define FA_MT 2   // 16-row m-tiles of a warp: q tiles of 16 FA_MT FA_WARPS
 #define FA_LOG2E 1.4426950408889634f
+#define FA_LN2 0.6931471805599453f
 
 // q: [B, Sq, H, D]; k, v: [B, Sk, KH, D]; o: [B, Sq, H, D], bf16; D = 16 DC.
 // grid (B * H, ceil(Sq / BQ)), BQ = 16 MT FA_WARPS rows, 32 FA_WARPS
@@ -214,7 +218,8 @@ __global__ void __launch_bounds__(32 * FA_WARPS)
     flash_attention_mma_kernel(const bf16* __restrict__ q,
                                const bf16* __restrict__ k,
                                const bf16* __restrict__ v,
-                               bf16* __restrict__ o, int Sq, int Sk, int H,
+                               bf16* __restrict__ o,
+                               float* __restrict__ lse, int Sq, int Sk, int H,
                                int KH, float scale_log2, int causal) {
   constexpr int D = 16 * DC, MT = FA_MT;
   constexpr int LD = D + 8;       // padded rows: an odd count of 16 B chunks
@@ -408,6 +413,9 @@ __global__ void __launch_bounds__(32 * FA_WARPS)
       const int qpos = wq0 + 16 * mt + g + 8 * r;
       if (qpos >= Sq) continue;
       const float inv = 1.f / fmaxf(lr, 1e-37f);
+      if (lse && t4 == 0)   // natural log: the scores were in log2 units
+        lse[(long long)bh * Sq + qpos] =
+            (m[mt][r] + log2f(fmaxf(lr, 1e-37f))) * FA_LN2;
       bf16* orow = ob + qpos * q_stride + 2 * t4;
 #pragma unroll
       for (int j = 0; j < 2 * DC; ++j)
@@ -419,8 +427,8 @@ __global__ void __launch_bounds__(32 * FA_WARPS)
 // ---------------------------------------------------------------- launch
 template <int DC>
 static int fa_fma_launch(const void* q, const void* k, const void* v, void* o,
-                         int B, int Sq, int Sk, int H, int KH, float scale,
-                         int causal, cudaStream_t stream) {
+                         float* lse, int B, int Sq, int Sk, int H, int KH,
+                         float scale, int causal, cudaStream_t stream) {
   constexpr int D = 16 * DC;
   const int smem = (int)sizeof(float) *
                    (2 * FA_BQ * (D + 1) + FA_BK * D + FA_BQ * (FA_BK + 1));
@@ -430,15 +438,15 @@ static int fa_fma_launch(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Sq + FA_BQ - 1) / FA_BQ, B * H);
   flash_attention_fma_kernel<DC><<<grid, FA_THREADS, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, Sq, Sk, H,
-      KH, scale, causal);
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, Sq,
+      Sk, H, KH, scale, causal);
   return (int)cudaGetLastError();
 }
 
 template <int DC>
 static int fa_mma_launch(const void* q, const void* k, const void* v, void* o,
-                         int B, int Sq, int Sk, int H, int KH, float scale,
-                         int causal, cudaStream_t stream) {
+                         float* lse, int B, int Sq, int Sk, int H, int KH,
+                         float scale, int causal, cudaStream_t stream) {
   constexpr int LD = 16 * DC + 8, BQ = 16 * FA_MT * FA_WARPS;
   const int smem = (int)sizeof(bf16) * LD * (BQ + 2 * FA_STAGES * FA_BK);
   cudaError_t err = cudaFuncSetAttribute(
@@ -447,40 +455,814 @@ static int fa_mma_launch(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
   flash_attention_mma_kernel<DC><<<grid, 32 * FA_WARPS, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, Sq, Sk, H, KH,
-      scale * FA_LOG2E, causal);
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lse, Sq, Sk,
+      H, KH, scale * FA_LOG2E, causal);
   return (int)cudaGetLastError();
 }
 
 template <int DC>
 static int fa_launch(const void* q, const void* k, const void* v, void* o,
-                     int B, int Sq, int Sk, int H, int KH, float scale,
-                     int causal, int bf16_in, cudaStream_t s) {
+                     float* lse, int B, int Sq, int Sk, int H, int KH,
+                     float scale, int causal, int bf16_in, cudaStream_t s) {
   if (!bf16_in)
-    return fa_fma_launch<DC>(q, k, v, o, B, Sq, Sk, H, KH, scale, causal, s);
-  return fa_mma_launch<DC>(q, k, v, o, B, Sq, Sk, H, KH, scale, causal, s);
+    return fa_fma_launch<DC>(q, k, v, o, lse, B, Sq, Sk, H, KH, scale,
+                             causal, s);
+  return fa_mma_launch<DC>(q, k, v, o, lse, B, Sq, Sk, H, KH, scale, causal,
+                           s);
 }
 
 // q: [B, Sq, H, D], k/v: [B, Sk, KH, D], o: [B, Sq, H, D], all contiguous,
 // one dtype: bf16 != 0 takes the bfloat16 tensor-core kernel (128-row q
 // tiles), bf16 == 0 the float32 FMA kernel (64-row tiles).  D in {16, 32,
 // ..., 128}, H a multiple of KH; the bf16 pointers 16-byte aligned.
-// Writes o.
+// Writes o, and, where lse is not null, the float32 log-sum-exp of each
+// row's scaled scores, lse [B, H, Sq] (natural log), for the backward.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int B, int Sq,
+                                      const void* v, void* o, void* lse,
+                                      int B, int Sq,
                                       int Sk, int H, int KH, int D, int causal,
                                       int bf16_in, float scale,
                                       void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   switch (D) {
-    case 16: return fa_launch<1>(q, k, v, o, B, Sq, Sk, H, KH, scale, causal, bf16_in, s);
-    case 32: return fa_launch<2>(q, k, v, o, B, Sq, Sk, H, KH, scale, causal, bf16_in, s);
-    case 48: return fa_launch<3>(q, k, v, o, B, Sq, Sk, H, KH, scale, causal, bf16_in, s);
-    case 64: return fa_launch<4>(q, k, v, o, B, Sq, Sk, H, KH, scale, causal, bf16_in, s);
-    case 80: return fa_launch<5>(q, k, v, o, B, Sq, Sk, H, KH, scale, causal, bf16_in, s);
-    case 96: return fa_launch<6>(q, k, v, o, B, Sq, Sk, H, KH, scale, causal, bf16_in, s);
-    case 112: return fa_launch<7>(q, k, v, o, B, Sq, Sk, H, KH, scale, causal, bf16_in, s);
-    case 128: return fa_launch<8>(q, k, v, o, B, Sq, Sk, H, KH, scale, causal, bf16_in, s);
+    case 16: return fa_launch<1>(q, k, v, o, (float*)lse, B, Sq, Sk, H, KH, scale, causal, bf16_in, s);
+    case 32: return fa_launch<2>(q, k, v, o, (float*)lse, B, Sq, Sk, H, KH, scale, causal, bf16_in, s);
+    case 48: return fa_launch<3>(q, k, v, o, (float*)lse, B, Sq, Sk, H, KH, scale, causal, bf16_in, s);
+    case 64: return fa_launch<4>(q, k, v, o, (float*)lse, B, Sq, Sk, H, KH, scale, causal, bf16_in, s);
+    case 80: return fa_launch<5>(q, k, v, o, (float*)lse, B, Sq, Sk, H, KH, scale, causal, bf16_in, s);
+    case 96: return fa_launch<6>(q, k, v, o, (float*)lse, B, Sq, Sk, H, KH, scale, causal, bf16_in, s);
+    case 112: return fa_launch<7>(q, k, v, o, (float*)lse, B, Sq, Sk, H, KH, scale, causal, bf16_in, s);
+    case 128: return fa_launch<8>(q, k, v, o, (float*)lse, B, Sq, Sk, H, KH, scale, causal, bf16_in, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+
+// ================================================================ backward
+// The gradient of the attention above: dq, dk and dv from q, k, v, o, the
+// forward's lse and do.  It replaces no Pallas kernel: the reference takes
+// this gradient by XLA's autodiff of layers._dense_attention /
+// _chunked_attention (src/repro/models/layers.py:123-213), since its
+// flash_attention_pallas has no custom_vjp.  FlashAttention-2's backward:
+// p = exp(s * scale - lse) recomputed tile by tile (never stored),
+// delta = rowsum(do .* o), ds = p .* (dp - delta) with dp = do v^T, then
+// dq = scale ds k, dk = scale ds^T q, dv = p^T do.
+//
+// What bounds it on the H100: operations.  At qwen2-0.5b's training shape
+// (B=4, S=1024, H=14, KH=2, D=64, causal) its five products over the
+// causal half are 18.8 GFLOP, 19 us at the 989 TFLOP/s bf16 tensor rate;
+// it must move q, k, v, o, do, dq, dk, dv and lse, 33.6 MB, 10 us at
+// 3.35 TB/s.
+//
+// What the design does about it: two kernels, each in two forms chosen
+// by dtype in the open, as in the forward (no fallback between them):
+//
+// * flash_attention_bwd_dq_*: one block per (batch * head, 64-row q tile),
+//   heaviest tiles first; it writes delta for its rows (read by the next
+//   kernel), then walks the kv tiles (to the diagonal when causal): s and
+//   dp, then p and ds, then dq += ds k.
+// * flash_attention_bwd_dkdv_*: one block per (batch * kv head, 64-row kv
+//   tile), walking the q tiles (from the diagonal when causal) of every
+//   one of the G = H / KH query heads of its group, so the GQA sum of dk
+//   and dv stays in the block's registers: no atomics, the same bits
+//   every run.  s^T and dp^T, then p^T and ds^T, then dv += p^T do and
+//   dk += ds^T q.
+//
+// bf16 (*_mma_kernel): 4 warps, each owning 16 rows of the tile; every
+// product on mma.sync m16n8k16 (bf16 operands, fp32 sums), operands by
+// ldmatrix from rows padded to D+8 (the forward's layout): the two score
+// products read their tiles as they lie, the two or three accumulating
+// products take the score fragments as their A operand as they stand (p
+// and ds never touch shared memory) and the other tile through
+// ldmatrix.trans.  p and ds go in as a pair of bf16 each, hi + lo (about
+// 16 mantissa bits, split_bf16), two products where FlashAttention-2 rounds
+// them to bf16 once: ds sums to zero along a row, and one bf16 rounding of
+// its terms left dq 1.3x beyond one rounding of the float32 result.  So
+// the kernels round only their inputs and outputs, as the float32 oracle
+// assumes.  The streamed tiles (k and v in the first, q, do, lse and delta
+// in the second) come by cp.async in a ring of two stages, the next one's
+// load under this one's products.
+// float32 (*_fma_kernel): each of 256 threads owns a 4 x 4 block of the
+// 64 x 64 score tile (rows ty*4+i, columns tx+16j) and a 4 x D/16 block
+// of its outputs, products by fmaf from float32 shared memory: full fp32,
+// which the float32 checks (1e-4) rely on.
+//
+// The masks are the forward's: a key past Sk, a query past Sq and, when
+// causal, a key after its query get p = 0.
+#define FB_T 64              // rows of a q tile and of a kv tile
+#define FB_LDS (FB_T + 1)    // padded rows of the score tiles
+
+__device__ __forceinline__ float fb_ld(const float* p) { return *p; }
+__device__ __forceinline__ float fb_ld(const bf16* p) {
+  return __bfloat162float(*p);
+}
+
+// rows [r0, r0 + FB_T) of a [S, heads, D] float32 tensor at one head, into
+// shared rows of ld floats; zeros past S.
+template <int D>
+__device__ __forceinline__ void fb_load_tile(float* dst, int ld,
+                                             const float* src, int r0, int S,
+                                             long long stride) {
+  for (int i = threadIdx.x; i < FB_T * D; i += FA_THREADS) {
+    const int r = i / D, c = i - (i / D) * D;
+    const int s = r0 + r;
+    dst[r * ld + c] = s < S ? src[s * stride + c] : 0.f;
+  }
+}
+
+// delta = rowsum(do .* o) of rows [r0, r0 + FB_T) of one head, one warp a
+// row of nwarps, o and do read from memory; zeros past Sq.  Also stages
+// each row's lse (times lse_scale) in lse_s.
+template <typename T, int D>
+__device__ __forceinline__ void fb_delta(const T* dout, const T* o,
+                                         const float* lse, float* delta,
+                                         float* dl_s, float* lse_s,
+                                         float lse_scale, int r0, int Sq,
+                                         long long stride, int nwarps) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < FB_T; r += nwarps) {
+    const int s = r0 + r;
+    float acc = 0.f;
+    if (s < Sq)
+      for (int c = lane; c < D; c += 32)
+        acc += fb_ld(dout + s * stride + c) * fb_ld(o + s * stride + c);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if (lane == 0) {
+      dl_s[r] = acc;
+      lse_s[r] = s < Sq ? lse[s] * lse_scale : 0.f;
+      if (s < Sq) delta[s] = acc;
+    }
+  }
+}
+
+// ---------------------------------------------------------------- float32
+// q, o, do, dq: [B, Sq, H, D]; k, v: [B, Sk, KH, D]; lse, delta: [B, H, Sq]
+// float32.  grid (ceil(Sq / FB_T), B * H), FA_THREADS threads.
+template <int DC>
+__global__ void __launch_bounds__(FA_THREADS)
+    flash_attention_bwd_dq_fma_kernel(const float* __restrict__ q,
+                                      const float* __restrict__ k,
+                                      const float* __restrict__ v,
+                                      const float* __restrict__ o,
+                                      const float* __restrict__ dout,
+                                      const float* __restrict__ lse,
+                                      float* __restrict__ delta,
+                                      float* __restrict__ dq, int Sq, int Sk,
+                                      int H, int KH, float scale,
+                                      int causal) {
+  constexpr int D = 16 * DC, LD = D + 1;
+  extern __shared__ float fb_smem[];
+  float* qs = fb_smem;             // [T][LD]
+  float* dos = qs + FB_T * LD;     // [T][LD]
+  float* ks = dos + FB_T * LD;     // [T][LD]
+  float* vs = ks + FB_T * LD;      // [T][LD]
+  float* dss = vs + FB_T * LD;     // [T][LDS] ds of one kv tile
+  float* lse_s = dss + FB_T * FB_LDS;
+  float* dl_s = lse_s + FB_T;
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * FB_T;   // heaviest first
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh - (bh / H) * H;
+  const int kh = h / (H / KH);
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const long long q_stride = (long long)H * D, kv_stride = (long long)KH * D;
+  const long long qoff = ((long long)b * Sq * H + h) * D;
+  const long long kvoff = ((long long)b * Sk * KH + kh) * D;
+
+  fb_load_tile<D>(qs, LD, q + qoff, q0, Sq, q_stride);
+  fb_load_tile<D>(dos, LD, dout + qoff, q0, Sq, q_stride);
+  fb_delta<float, D>(dout + qoff, o + qoff, lse + (long long)bh * Sq,
+                     delta + (long long)bh * Sq, dl_s, lse_s, 1.f, q0, Sq,
+                     q_stride, FA_THREADS / 32);
+
+  float acc[4][DC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < DC; ++j) acc[i][j] = 0.f;
+
+  int n_kv = (Sk + FB_T - 1) / FB_T;
+  if (causal) {
+    const int last = (q0 + FB_T - 1) / FB_T;
+    n_kv = last + 1 < n_kv ? last + 1 : n_kv;
+  }
+  for (int t = 0; t < n_kv; ++t) {
+    const int k0 = t * FB_T;
+    __syncthreads();   // the previous tile's readers are done
+    fb_load_tile<D>(ks, LD, k + kvoff, k0, Sk, kv_stride);
+    fb_load_tile<D>(vs, LD, v + kvoff, k0, Sk, kv_stride);
+    __syncthreads();
+
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      float a[4], ad[4], bk[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        a[i] = qs[(ty * 4 + i) * LD + d];
+        ad[i] = dos[(ty * 4 + i) * LD + d];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        bk[j] = ks[(tx + 16 * j) * LD + d];
+        bv[j] = vs[(tx + 16 * j) * LD + d];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(a[i], bk[j], s[i][j]);
+          dp[i][j] = fmaf(ad[i], bv[j], dp[i][j]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty * 4 + i, qpos = q0 + r;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kpos = k0 + tx + 16 * j;
+        const bool live = qpos < Sq && kpos < Sk && !(causal && kpos > qpos);
+        const float p = live ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
+        dss[r * FB_LDS + tx + 16 * j] = p * (dp[i][j] - dl_s[r]);
+      }
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int kk = 0; kk < FB_T; ++kk) {
+      float ds[4], kv[DC];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) ds[i] = dss[(ty * 4 + i) * FB_LDS + kk];
+#pragma unroll
+      for (int j = 0; j < DC; ++j) kv[j] = ks[kk * LD + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < DC; ++j) acc[i][j] = fmaf(ds[i], kv[j], acc[i][j]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qpos = q0 + ty * 4 + i;
+    if (qpos >= Sq) continue;
+#pragma unroll
+    for (int j = 0; j < DC; ++j)
+      dq[qoff + qpos * q_stride + tx + 16 * j] = acc[i][j] * scale;
+  }
+}
+
+// q, do: [B, Sq, H, D]; k, v, dk, dv: [B, Sk, KH, D]; lse, delta:
+// [B, H, Sq] float32 (delta written by the dq kernel).
+// grid (ceil(Sk / FB_T), B * KH), FA_THREADS threads.
+template <int DC>
+__global__ void __launch_bounds__(FA_THREADS)
+    flash_attention_bwd_dkdv_fma_kernel(const float* __restrict__ q,
+                                        const float* __restrict__ k,
+                                        const float* __restrict__ v,
+                                        const float* __restrict__ dout,
+                                        const float* __restrict__ lse,
+                                        const float* __restrict__ delta,
+                                        float* __restrict__ dk,
+                                        float* __restrict__ dv, int Sq,
+                                        int Sk, int H, int KH, float scale,
+                                        int causal) {
+  constexpr int D = 16 * DC, LD = D + 1;
+  extern __shared__ float fb_smem[];
+  float* ks = fb_smem;             // [T][LD]
+  float* vs = ks + FB_T * LD;      // [T][LD]
+  float* qs = vs + FB_T * LD;      // [T][LD]
+  float* dos = qs + FB_T * LD;     // [T][LD]
+  float* ps = dos + FB_T * LD;     // [T][LDS] p^T: kv rows x q columns
+  float* dss = ps + FB_T * FB_LDS; // [T][LDS] ds^T
+  float* lse_s = dss + FB_T * FB_LDS;
+  float* dl_s = lse_s + FB_T;
+
+  const int k0 = blockIdx.x * FB_T;   // tile 0 walks the most q tiles
+  const int bkh = blockIdx.y;
+  const int b = bkh / KH, kh = bkh - (bkh / KH) * KH;
+  const int G = H / KH;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const long long q_stride = (long long)H * D, kv_stride = (long long)KH * D;
+  const long long kvoff = ((long long)b * Sk * KH + kh) * D;
+
+  fb_load_tile<D>(ks, LD, k + kvoff, k0, Sk, kv_stride);
+  fb_load_tile<D>(vs, LD, v + kvoff, k0, Sk, kv_stride);
+
+  float dka[4][DC], dva[4][DC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < DC; ++j) dka[i][j] = dva[i][j] = 0.f;
+
+  const int nq = (Sq + FB_T - 1) / FB_T;
+  const int t0 = causal ? k0 / FB_T : 0;   // q tiles wholly before k0: none
+  for (int g = 0; g < G; ++g) {
+    const int h = kh * G + g;
+    const long long qoff = ((long long)b * Sq * H + h) * D;
+    const long long roff = ((long long)b * H + h) * Sq;
+    for (int t = t0; t < nq; ++t) {
+      const int q0 = t * FB_T;
+      __syncthreads();   // the previous tile's readers are done
+      fb_load_tile<D>(qs, LD, q + qoff, q0, Sq, q_stride);
+      fb_load_tile<D>(dos, LD, dout + qoff, q0, Sq, q_stride);
+      for (int r = tid; r < FB_T; r += FA_THREADS) {
+        const int s = q0 + r;
+        lse_s[r] = s < Sq ? lse[roff + s] : 0.f;
+        dl_s[r] = s < Sq ? delta[roff + s] : 0.f;
+      }
+      __syncthreads();
+
+      float s[4][4], dp[4][4];   // s^T and dp^T: kv rows x q columns
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+      for (int d = 0; d < D; ++d) {
+        float ak[4], av[4], bq[4], bd[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          ak[i] = ks[(ty * 4 + i) * LD + d];
+          av[i] = vs[(ty * 4 + i) * LD + d];
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          bq[j] = qs[(tx + 16 * j) * LD + d];
+          bd[j] = dos[(tx + 16 * j) * LD + d];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = fmaf(ak[i], bq[j], s[i][j]);
+            dp[i][j] = fmaf(av[i], bd[j], dp[i][j]);
+          }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = ty * 4 + i, kpos = k0 + r;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = tx + 16 * j, qpos = q0 + c;
+          const bool live =
+              qpos < Sq && kpos < Sk && !(causal && kpos > qpos);
+          const float p = live ? expf(s[i][j] * scale - lse_s[c]) : 0.f;
+          ps[r * FB_LDS + c] = p;
+          dss[r * FB_LDS + c] = p * (dp[i][j] - dl_s[c]);
+        }
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int c = 0; c < FB_T; ++c) {
+        float pr[4], dr[4], bq[DC], bd[DC];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          pr[i] = ps[(ty * 4 + i) * FB_LDS + c];
+          dr[i] = dss[(ty * 4 + i) * FB_LDS + c];
+        }
+#pragma unroll
+        for (int j = 0; j < DC; ++j) {
+          bq[j] = qs[c * LD + tx + 16 * j];
+          bd[j] = dos[c * LD + tx + 16 * j];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < DC; ++j) {
+            dva[i][j] = fmaf(pr[i], bd[j], dva[i][j]);
+            dka[i][j] = fmaf(dr[i], bq[j], dka[i][j]);
+          }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int kpos = k0 + ty * 4 + i;
+    if (kpos >= Sk) continue;
+#pragma unroll
+    for (int j = 0; j < DC; ++j) {
+      const long long off = kvoff + kpos * kv_stride + tx + 16 * j;
+      dk[off] = dka[i][j] * scale;
+      dv[off] = dva[i][j];
+    }
+  }
+}
+
+
+// ------------------------------------------------------------------- bf16
+#define FB_WARPS 4   // 16 rows of the 64-row tile a warp
+
+// 64 rows [r0, r0 + FB_T) of a [S, heads, D] bf16 tensor at one head into
+// shared rows of LD elements, by cp.async (zeros past S).
+template <int D>
+__device__ __forceinline__ void fb_cp_tile(bf16* dst, const bf16* src,
+                                           int r0, int S, long long stride) {
+  constexpr int CH = D / 8, LD = D + 8;
+  for (int i = threadIdx.x; i < FB_T * CH; i += 32 * FB_WARPS) {
+    const int r = i / CH, c = i - (i / CH) * CH;
+    const int s = r0 + r;
+    cp_async16(dst + r * LD + c * 8, src + (s < S ? s : 0) * stride + c * 8,
+               s < S);
+  }
+}
+
+// acc[16 x 64] += A B^T over d: A's 16 rows (this warp's, at a_rows) and
+// B's 64 rows (b_rows) both from shared rows of D (+8) bf16, d contiguous;
+// the eight n-tiles of 8 columns each.  Two such products at once (the
+// score and its gradient's dp), sharing the loop.
+template <int DC>
+__device__ __forceinline__ void fb_mma_ab_t(float (&acc0)[8][4],
+                                            const bf16* a0, const bf16* b0,
+                                            float (&acc1)[8][4],
+                                            const bf16* a1, const bf16* b1) {
+  constexpr int LD = 16 * DC + 8;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc0[j][e] = acc1[j][e] = 0.f;
+#pragma unroll
+  for (int kd = 0; kd < DC; ++kd) {
+    uint32_t f0[4], f1[4];
+    const int aoff = ((lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                     (2 * kd + (lane >> 4)) * 8;
+    ldsm_x4(f0, a0 + aoff);
+    ldsm_x4(f1, a1 + aoff);
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t g0[4], g1[4];
+      const int boff = (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD +
+                       (2 * kd + ((lane >> 3) & 1)) * 8;
+      ldsm_x4(g0, b0 + boff);
+      ldsm_x4(g1, b1 + boff);
+      mma_bf16(acc0[2 * np], f0, g0[0], g0[1]);
+      mma_bf16(acc0[2 * np + 1], f0, g0[2], g0[3]);
+      mma_bf16(acc1[2 * np], f1, g1[0], g1[1]);
+      mma_bf16(acc1[2 * np + 1], f1, g1[2], g1[3]);
+    }
+  }
+}
+
+// out[16 x D] += P C over the 64 tile rows: P the warp's 16 x 64 float32
+// score fragments, split here into bf16 hi + lo A operands as they stand
+// (about 16 mantissa bits, two products), C 64 shared rows of D (+8) bf16
+// (the B operand, through ldmatrix.trans, used by both).
+template <int DC>
+__device__ __forceinline__ void fb_mma_pc(float (&out)[2 * DC][4],
+                                          const float (&p)[8][4],
+                                          const bf16* c) {
+  constexpr int LD = 16 * DC + 8;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    uint32_t hi[4], lo[4];
+    split_bf16(p[2 * kk][0], p[2 * kk][1], hi[0], lo[0]);
+    split_bf16(p[2 * kk][2], p[2 * kk][3], hi[1], lo[1]);
+    split_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1], hi[2], lo[2]);
+    split_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3], hi[3], lo[3]);
+#pragma unroll
+    for (int dp = 0; dp < DC; ++dp) {
+      uint32_t bc[4];
+      ldsm_x4_t(bc, c + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                        (2 * dp + (lane >> 4)) * 8);
+      mma_bf16(out[2 * dp], hi, bc[0], bc[1]);
+      mma_bf16(out[2 * dp], lo, bc[0], bc[1]);
+      mma_bf16(out[2 * dp + 1], hi, bc[2], bc[3]);
+      mma_bf16(out[2 * dp + 1], lo, bc[2], bc[3]);
+    }
+  }
+}
+
+// q, o, do, dq: [B, Sq, H, D] bf16; k, v: [B, Sk, KH, D] bf16; lse, delta:
+// [B, H, Sq] float32.  grid (ceil(Sq / FB_T), B * H), 32 FB_WARPS threads.
+// scale_log2: the softmax scale times log2(e).
+template <int DC>
+__global__ void __launch_bounds__(32 * FB_WARPS)
+    flash_attention_bwd_dq_mma_kernel(const bf16* __restrict__ q,
+                                      const bf16* __restrict__ k,
+                                      const bf16* __restrict__ v,
+                                      const bf16* __restrict__ o,
+                                      const bf16* __restrict__ dout,
+                                      const float* __restrict__ lse,
+                                      float* __restrict__ delta,
+                                      bf16* __restrict__ dq, int Sq, int Sk,
+                                      int H, int KH, float scale,
+                                      float scale_log2, int causal) {
+  constexpr int D = 16 * DC, LD = D + 8;
+  extern __shared__ __align__(16) unsigned char fb_mma_smem[];
+  bf16* qs = reinterpret_cast<bf16*>(fb_mma_smem);   // [T][LD]
+  bf16* dos = qs + FB_T * LD;                        // [T][LD]
+  bf16* ks = dos + FB_T * LD;                        // [2][T][LD]
+  bf16* vs = ks + 2 * FB_T * LD;                     // [2][T][LD]
+  float* lse_s = reinterpret_cast<float*>(vs + 2 * FB_T * LD);  // log2
+  float* dl_s = lse_s + FB_T;
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * FB_T;   // heaviest first
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh - (bh / H) * H;
+  const int kh = h / (H / KH);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wr = 16 * warp;                 // this warp's first tile row
+  const long long q_stride = (long long)H * D, kv_stride = (long long)KH * D;
+  const long long qoff = ((long long)b * Sq * H + h) * D;
+  const long long kvoff = ((long long)b * Sk * KH + kh) * D;
+
+  int n_kv = (Sk + FB_T - 1) / FB_T;
+  if (causal) {
+    const int last = (q0 + FB_T - 1) / FB_T;
+    n_kv = last + 1 < n_kv ? last + 1 : n_kv;
+  }
+  fb_cp_tile<D>(qs, q + qoff, q0, Sq, q_stride);
+  fb_cp_tile<D>(dos, dout + qoff, q0, Sq, q_stride);
+  fb_cp_tile<D>(ks, k + kvoff, 0, Sk, kv_stride);
+  fb_cp_tile<D>(vs, v + kvoff, 0, Sk, kv_stride);
+  cp_async_commit();   // group 0: q, do and kv tile 0
+  fb_delta<bf16, D>(dout + qoff, o + qoff, lse + (long long)bh * Sq,
+                    delta + (long long)bh * Sq, dl_s, lse_s, FA_LOG2E, q0,
+                    Sq, q_stride, FB_WARPS);
+
+  float acc[2 * DC][4];
+#pragma unroll
+  for (int j = 0; j < 2 * DC; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int t = 0; t < n_kv; ++t) {
+    if (t + 1 < n_kv) {
+      fb_cp_tile<D>(ks + ((t + 1) & 1) * FB_T * LD, k + kvoff, (t + 1) * FB_T,
+                    Sk, kv_stride);
+      fb_cp_tile<D>(vs + ((t + 1) & 1) * FB_T * LD, v + kvoff, (t + 1) * FB_T,
+                    Sk, kv_stride);
+    }
+    cp_async_commit();   // possibly empty: keeps one group per step
+    cp_async_wait<1>();  // tile t (and q, do) landed for this thread
+    __syncthreads();     // ... and for every thread (and lse_s, dl_s)
+    const int k0 = t * FB_T;
+    // a tile wholly above this warp's rows, or rows past Sq: nothing to do
+    if (!(causal && k0 > q0 + wr + 15) && q0 + wr < Sq) {
+      const bf16* kt = ks + (t & 1) * FB_T * LD;
+      const bf16* vt = vs + (t & 1) * FB_T * LD;
+      float s[8][4], dp[8][4];
+      fb_mma_ab_t<DC>(s, qs + wr * LD, kt, dp, dos + wr * LD, vt);
+      const bool need_mask = k0 + FB_T > Sk || q0 + wr + 16 > Sq ||
+                             (causal && k0 + FB_T - 1 > q0 + wr);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = wr + g + 8 * (e >> 1);
+          float p = exp2f(s[j][e] * scale_log2 - lse_s[r]);
+          if (need_mask) {
+            const int kpos = k0 + 8 * j + 2 * t4 + (e & 1), qpos = q0 + r;
+            if (kpos >= Sk || qpos >= Sq || (causal && kpos > qpos)) p = 0.f;
+          }
+          s[j][e] = p * (dp[j][e] - dl_s[r]);   // ds
+        }
+      fb_mma_pc<DC>(acc, s, kt);                // dq += ds k
+    }
+    __syncthreads();   // stage t & 1 is free for tile t + 2
+  }
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int qpos = q0 + wr + g + 8 * rr;
+    if (qpos >= Sq) continue;
+    bf16* row = dq + qoff + qpos * q_stride + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < 2 * DC; ++j)
+      *reinterpret_cast<uint32_t*>(row + 8 * j) =
+          pack_bf16(acc[j][2 * rr] * scale, acc[j][2 * rr + 1] * scale);
+  }
+}
+
+// q, do: [B, Sq, H, D] bf16; k, v, dk, dv: [B, Sk, KH, D] bf16; lse,
+// delta: [B, H, Sq] float32.  grid (ceil(Sk / FB_T), B * KH), 32 FB_WARPS
+// threads.
+template <int DC>
+__global__ void __launch_bounds__(32 * FB_WARPS)
+    flash_attention_bwd_dkdv_mma_kernel(const bf16* __restrict__ q,
+                                        const bf16* __restrict__ k,
+                                        const bf16* __restrict__ v,
+                                        const bf16* __restrict__ dout,
+                                        const float* __restrict__ lse,
+                                        const float* __restrict__ delta,
+                                        bf16* __restrict__ dk,
+                                        bf16* __restrict__ dv, int Sq,
+                                        int Sk, int H, int KH, float scale,
+                                        float scale_log2, int causal) {
+  constexpr int D = 16 * DC, LD = D + 8;
+  extern __shared__ __align__(16) unsigned char fb_mma_smem[];
+  bf16* ks = reinterpret_cast<bf16*>(fb_mma_smem);   // [T][LD]
+  bf16* vs = ks + FB_T * LD;                         // [T][LD]
+  bf16* qs = vs + FB_T * LD;                         // [2][T][LD]
+  bf16* dos = qs + 2 * FB_T * LD;                    // [2][T][LD]
+  float* lse_s = reinterpret_cast<float*>(dos + 2 * FB_T * LD);  // [2][T]
+  float* dl_s = lse_s + 2 * FB_T;                                 // [2][T]
+
+  const int k0 = blockIdx.x * FB_T;   // tile 0 walks the most q tiles
+  const int bkh = blockIdx.y;
+  const int b = bkh / KH, kh = bkh - (bkh / KH) * KH;
+  const int G = H / KH;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wr = 16 * warp;
+  const long long q_stride = (long long)H * D, kv_stride = (long long)KH * D;
+  const long long kvoff = ((long long)b * Sk * KH + kh) * D;
+
+  const int nq = (Sq + FB_T - 1) / FB_T;
+  const int t0 = causal ? k0 / FB_T : 0;   // q tiles wholly before k0: none
+  const int nt = nq > t0 ? nq - t0 : 0;
+  const int n_it = G * nt;                 // (query head, q tile) pairs
+  auto load_q = [&](int it, int st) {
+    const int hq = kh * G + it / nt, q0 = (t0 + it % nt) * FB_T;
+    const long long qoff = ((long long)b * Sq * H + hq) * D;
+    const long long roff = ((long long)b * H + hq) * Sq;
+    fb_cp_tile<D>(qs + st * FB_T * LD, q + qoff, q0, Sq, q_stride);
+    fb_cp_tile<D>(dos + st * FB_T * LD, dout + qoff, q0, Sq, q_stride);
+    for (int i = threadIdx.x; i < FB_T; i += 32 * FB_WARPS) {
+      const int s = q0 + i < Sq ? q0 + i : 0;
+      cp_async4(lse_s + st * FB_T + i, lse + roff + s, q0 + i < Sq);
+      cp_async4(dl_s + st * FB_T + i, delta + roff + s, q0 + i < Sq);
+    }
+  };
+  fb_cp_tile<D>(ks, k + kvoff, k0, Sk, kv_stride);
+  fb_cp_tile<D>(vs, v + kvoff, k0, Sk, kv_stride);
+  if (n_it > 0) load_q(0, 0);
+  cp_async_commit();   // group 0: k, v and the first q tile
+
+  float dka[2 * DC][4], dva[2 * DC][4];
+#pragma unroll
+  for (int j = 0; j < 2 * DC; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    if (it + 1 < n_it) load_q(it + 1, (it + 1) & 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int st = it & 1, q0 = (t0 + it % nt) * FB_T;
+    // kv rows past Sk, or a q tile wholly before this warp's rows
+    if (k0 + wr < Sk && !(causal && q0 + FB_T - 1 < k0 + wr)) {
+      const bf16* qt = qs + st * FB_T * LD;
+      const bf16* dt = dos + st * FB_T * LD;
+      const float* ls = lse_s + st * FB_T;
+      const float* dl = dl_s + st * FB_T;
+      float s[8][4], dp[8][4];   // s^T, dp^T: this warp's kv rows x q
+      fb_mma_ab_t<DC>(s, ks + wr * LD, qt, dp, vs + wr * LD, dt);
+      const bool need_mask = q0 + FB_T > Sq || k0 + wr + 16 > Sk ||
+                             (causal && k0 + wr + 15 > q0);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * j + 2 * t4 + (e & 1);
+          float p = exp2f(s[j][e] * scale_log2 - ls[c] * FA_LOG2E);
+          if (need_mask) {
+            const int kpos = k0 + wr + g + 8 * (e >> 1), qpos = q0 + c;
+            if (kpos >= Sk || qpos >= Sq || (causal && kpos > qpos)) p = 0.f;
+          }
+          s[j][e] = p;                          // p^T
+          dp[j][e] = p * (dp[j][e] - dl[c]);    // ds^T
+        }
+      fb_mma_pc<DC>(dva, s, dt);   // dv += p^T do
+      fb_mma_pc<DC>(dka, dp, qt);  // dk += ds^T q
+    }
+    __syncthreads();   // stage it & 1 is free for pair it + 2
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int kpos = k0 + wr + g + 8 * rr;
+    if (kpos >= Sk) continue;
+    const long long off = kvoff + kpos * kv_stride + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < 2 * DC; ++j) {
+      *reinterpret_cast<uint32_t*>(dk + off + 8 * j) =
+          pack_bf16(dka[j][2 * rr] * scale, dka[j][2 * rr + 1] * scale);
+      *reinterpret_cast<uint32_t*>(dv + off + 8 * j) =
+          pack_bf16(dva[j][2 * rr], dva[j][2 * rr + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------- launch
+template <int DC>
+static int fb_dq_launch(const void* q, const void* k, const void* v,
+                        const void* o, const void* dout, const void* lse,
+                        void* delta, void* dq, int B, int Sq, int Sk, int H,
+                        int KH, float scale, int causal, int bf16_in,
+                        cudaStream_t s) {
+  const dim3 grid((Sq + FB_T - 1) / FB_T, B * H);
+  if (bf16_in) {
+    constexpr int LD = 16 * DC + 8;
+    const int smem = (int)sizeof(bf16) * 6 * FB_T * LD +
+                     (int)sizeof(float) * 2 * FB_T;
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_attention_bwd_dq_mma_kernel<DC>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    flash_attention_bwd_dq_mma_kernel<DC><<<grid, 32 * FB_WARPS, smem, s>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)o,
+        (const bf16*)dout, (const float*)lse, (float*)delta, (bf16*)dq, Sq,
+        Sk, H, KH, scale, scale * FA_LOG2E, causal);
+    return (int)cudaGetLastError();
+  }
+  constexpr int LD = 16 * DC + 1;
+  const int smem =
+      (int)sizeof(float) * (4 * FB_T * LD + FB_T * FB_LDS + 2 * FB_T);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_bwd_dq_fma_kernel<DC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  flash_attention_bwd_dq_fma_kernel<DC><<<grid, FA_THREADS, smem, s>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)o,
+      (const float*)dout, (const float*)lse, (float*)delta, (float*)dq, Sq,
+      Sk, H, KH, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+template <int DC>
+static int fb_dkdv_launch(const void* q, const void* k, const void* v,
+                          const void* dout, const void* lse,
+                          const void* delta, void* dk, void* dv, int B,
+                          int Sq, int Sk, int H, int KH, float scale,
+                          int causal, int bf16_in, cudaStream_t s) {
+  const dim3 grid((Sk + FB_T - 1) / FB_T, B * KH);
+  if (bf16_in) {
+    constexpr int LD = 16 * DC + 8;
+    const int smem = (int)sizeof(bf16) * 6 * FB_T * LD +
+                     (int)sizeof(float) * 4 * FB_T;
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_attention_bwd_dkdv_mma_kernel<DC>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    flash_attention_bwd_dkdv_mma_kernel<DC><<<grid, 32 * FB_WARPS, smem, s>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
+        (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, Sq, Sk,
+        H, KH, scale, scale * FA_LOG2E, causal);
+    return (int)cudaGetLastError();
+  }
+  constexpr int LD = 16 * DC + 1;
+  const int smem =
+      (int)sizeof(float) * (4 * FB_T * LD + 2 * FB_T * FB_LDS + 2 * FB_T);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_bwd_dkdv_fma_kernel<DC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  flash_attention_bwd_dkdv_fma_kernel<DC><<<grid, FA_THREADS, smem, s>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
+      (const float*)lse, (const float*)delta, (float*)dk, (float*)dv, Sq, Sk,
+      H, KH, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+#define FB_SWITCH(D, CALL)                  \
+  switch (D) {                              \
+    case 16: return CALL(1);                \
+    case 32: return CALL(2);                \
+    case 48: return CALL(3);                \
+    case 64: return CALL(4);                \
+    case 80: return CALL(5);                \
+    case 96: return CALL(6);                \
+    case 112: return CALL(7);               \
+    case 128: return CALL(8);               \
+    default: return (int)cudaErrorInvalidValue; \
+  }
+
+// The first backward kernel: q, o, do, dq [B, Sq, H, D], k, v [B, Sk, KH,
+// D], contiguous, one dtype (bf16 != 0: bfloat16, the tensor-core kernel,
+// 16-byte aligned; else float32, the FMA kernel); lse the forward's
+// [B, H, Sq] float32.  Writes dq and delta [B, H, Sq] float32.
+extern "C" int flash_attention_bwd_dq_launch(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const void* lse, void* delta, void* dq, int B, int Sq,
+    int Sk, int H, int KH, int D, int causal, int bf16_in, float scale,
+    void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+#define FB_DQ(DC)                                                         \
+  fb_dq_launch<DC>(q, k, v, o, dout, lse, delta, dq, B, Sq, Sk, H, KH,   \
+                   scale, causal, bf16_in, s)
+  FB_SWITCH(D, FB_DQ)
+#undef FB_DQ
+}
+
+// The second backward kernel, after the first on the same stream: reads
+// its delta.  Writes dk, dv [B, Sk, KH, D] in the inputs' dtype.
+extern "C" int flash_attention_bwd_dkdv_launch(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dk, void* dv, int B, int Sq,
+    int Sk, int H, int KH, int D, int causal, int bf16_in, float scale,
+    void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+#define FB_DKDV(DC)                                                       \
+  fb_dkdv_launch<DC>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, KH, \
+                     scale, causal, bf16_in, s)
+  FB_SWITCH(D, FB_DKDV)
+#undef FB_DKDV
 }

@@ -32,6 +32,7 @@ import torch
 from . import ref
 from .commit_loop import commit_loop as _commit_loop
 from .commit_loop import commit_loop_plain
+from .flash_attention import FlashAttentionFn
 from .flash_attention import flash_attention as _flash_attention
 from .flash_attention import flash_attention_plain
 from .interval_negotiate import potential_matrix as _potential_matrix
@@ -85,18 +86,39 @@ def commit_loop(store, inputs, *, sched, n_nodes, gc_track, gc_block,
               gc_track=gc_track, gc_block=gc_block)
 
 
+def _wants_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in ts)
+
+
 def flash_attention(q, k, v, *, causal=True, use_kernel=True):
-    """q: [B, Sq, H, D]; k, v: [B, Sk, KH, D] -> [B, Sq, H, D]."""
+    """q: [B, Sq, H, D]; k, v: [B, Sk, KH, D] -> [B, Sq, H, D].  Under a
+    gradient the kernel route goes through ``FlashAttentionFn`` (the
+    forward kernel with its lse, the backward kernels); the plain route
+    is differentiated by autograd."""
+    if use_kernel and _wants_grad(q, k, v):
+        return FlashAttentionFn.apply(q, k, v, causal)
     if use_kernel:
         return _flash_attention(q, k, v, causal)
     return flash_attention_plain(q, k, v, causal)
+
+
+# where the SSD scan's backward kernel is queued
+SSD_BWD_NOT_YET = ("ROADMAP.md queue 1, 'Model plane': the ssd_scan "
+                   "backward kernel (SSM and hybrid training on the card)")
 
 
 def ssd(x, dA, Bm, Cm, *, n_heads_per_group, chunk=128, h0=None,
         use_kernel=True):
     """x: [BH, S, P] (or the [Bg, H, S, P] view of [Bg, S, H, P]); dA:
     [BH, S] (or [Bg, H, S]); Bm/Cm: [Bg, S, N]; h0: [BH, N, P] or None ->
-    (y in x's shape, final state [BH, N, P])."""
+    (y in x's shape, final state [BH, N, P]).  The kernel route has no
+    backward yet: under a gradient it raises rather than run the plain
+    scan in its place; the plain route is differentiated by autograd."""
+    if use_kernel and _wants_grad(x, dA, Bm, Cm, h0):
+        raise NotImplementedError(
+            f"ops.ssd: the SSD scan kernel has no backward ({SSD_BWD_NOT_YET})"
+            f"; train the SSM and hybrid families on the 'torch' route")
     if use_kernel:
         return _ssd_scan(x, dA, Bm, Cm, n_heads_per_group, chunk, h0)
     return ssd_plain(x, dA, Bm, Cm, n_heads_per_group, chunk, h0)

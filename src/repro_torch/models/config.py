@@ -5,7 +5,8 @@ and ``compute_dtype`` bfloat16, as in the reference.  The fields that only
 steer GSPMD/XLA there (``attn_seq_shard``, ``decode_seq_shard``,
 ``remat_policy``) are kept so that configurations read alike, but only at
 their defaults: another value raises ``NotImplementedError`` rather than
-meaning nothing on one card.  ``attn_chunk`` too: the reference uses it to
+meaning nothing on one card.  ``remat_policy="full"``, the default, is
+what the port's training does: ``torch.utils.checkpoint`` of each layer.  ``attn_chunk`` too: the reference uses it to
 pick its chunked XLA attention; here the flash kernel (``cuda`` route) or
 the dense plain version (``torch`` route) takes that place.
 """
@@ -16,9 +17,11 @@ from typing import Any, Optional, Tuple
 
 import torch
 
-# where what the port does not serve yet is queued (named by every
-# NotImplementedError it raises): the reference-only knobs below, and
-# training (the loss, the train step, the optimizer)
+# where what the port does not run yet is queued (named by every
+# NotImplementedError it raises): the reference-only knobs below.  Training
+# is ported (the loss, the train step, AdamW, the runner); what still waits
+# is the SSD scan's backward kernel, so the SSM and hybrid families train
+# on the 'torch' route only (kernels.ops.SSD_BWD_NOT_YET)
 NOT_YET = "ROADMAP.md queue 1, 'Model plane'"
 
 

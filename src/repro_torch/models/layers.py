@@ -14,9 +14,14 @@ attention (``_chunked_attention`` / ``_tri_chunked_attention``), which
 exists to bound XLA's memory; ``ModelConfig`` refuses an ``attn_chunk``
 other than its default.  ``layernorm`` is ported with the reference's
 ``layers`` API, though no model calls it (the encoder-decoder family uses
-RMSNorm, as in the reference).
-Not ported: the cross-entropy loss and the ``cast_grad_bf16`` boundary
-(training), and every ``shard_activation`` / ``fsdp_gather`` constraint
+RMSNorm, as in the reference).  Training: ``cross_entropy`` (the masked
+token mean over all ``padded_vocab`` columns) and ``cast_grad_bf16`` (an
+autograd boundary that rounds a float32 cotangent through bf16), which,
+as in the reference, no model calls.  Under a gradient, attention on the
+``cuda`` route runs the hand-written backward kernels
+(``kernels.flash_attention.FlashAttentionFn``); every other layer here is
+differentiated by autograd.
+Not ported: every ``shard_activation`` / ``fsdp_gather`` constraint
 (GSPMD, no mesh on one card).
 """
 from __future__ import annotations
@@ -32,6 +37,25 @@ from repro_torch.kernels.flash_attention import NEG_INF
 
 from .config import ModelConfig
 from .module import spec
+
+
+class _CastGradBf16(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.bfloat16().to(g.dtype) if g.dtype == torch.float32 else g
+
+
+def cast_grad_bf16(x):
+    """Identity forward; on the way back a float32 cotangent is rounded
+    through bf16 and keeps its dtype (the reference's ``_cg_bwd``, the one
+    its ``defvjp`` registers).  A boundary for the unembed input, where the
+    loss's float32 dlogits would otherwise flow down the residual stream in
+    float32; no model calls it, as in the reference."""
+    return _CastGradBf16.apply(x)
 
 
 def _mm(x, w, cd):
@@ -353,3 +377,16 @@ def unembed(p, x, cfg: ModelConfig):
     float32, so the product is taken there."""
     head = p.get("head", p["tok"])
     return torch.matmul(x.float(), head.to(cfg.compute_dtype).float().T)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab: int):
+    """Masked token-mean cross entropy; labels < 0 are ignored.  logits:
+    float32 [B, S, V] with V = ``padded_vocab``; the log-sum-exp runs over
+    all V columns, as in the reference (``vocab`` is taken and unused, as
+    there)."""
+    mask = (labels >= 0).float()
+    safe = labels.clamp_min(0).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = (lse - ll) * mask
+    return nll.sum() / mask.sum().clamp_min(1.0)

@@ -16,8 +16,9 @@ Port of ``repro.models.model``:
                  and, without RoPE, to the encoder's output.
 
 ``DecoderLM``, ``SSMModel``, ``HybridModel`` and ``EncDecModel`` expose
-``param_specs`` / ``init`` / ``prefill`` / ``decode`` / ``init_cache`` as
-the reference does, over parameter trees with the reference's keys and
+``param_specs`` / ``init`` / ``prefill`` / ``decode`` / ``init_cache`` and
+the training pair ``hidden`` (``decode_hidden`` for the encoder-decoder)
+/ ``loss`` as the reference does, over parameter trees with the reference's keys and
 stacked ``[L, ...]`` leaves.  PyTorch runs eagerly, so the reference's
 ``lax.scan`` over layers is a Python loop, and the caches are written in
 place: ``prefill`` into a buffer of ``max_len`` positions (the serving
@@ -27,33 +28,62 @@ reference clamps.  ``SSMModel`` has no KV cache: its ``prefill`` takes
 ``max_len`` and ignores it.  ``kernels`` (a backend name or
 ``KernelConfig``, resolved against the tokens' device; ``+fused`` has no
 meaning here and is ignored) picks the route of the attention (prefill,
-the encoder, cross-attention) and of prefill's SSD scan.
+the encoder, cross-attention) and of the SSD scan.  ``prefill`` and the
+training forward share one layer function per family (``_block``, and
+``_group`` for the hybrid), and ``decode`` its FFN half.
 
-Not ported: the training loss and ``hidden`` / ``decode_hidden``,
-``remat`` (XLA rematerialization) and the ``fsdp_gather`` /
-``shard_activation`` constraints (GSPMD).
+Training: ``loss(params, batch)`` returns ``(loss, {"ce", ...})`` as the
+reference does: the masked token-mean cross entropy over all
+``padded_vocab`` columns, plus ``AUX_COEF`` times the layers' mean MoE
+load-balance loss for the decoder family (``{"ce", "aux"}``).  The
+reference's ``remat_policy="full"`` (``jax.checkpoint`` of each scanned
+layer) is ``torch.utils.checkpoint`` of each layer (a hybrid group, as
+there) while a gradient is being taken (:func:`_remat`).  On the ``cuda``
+route the gradient of attention runs the hand-written backward kernels;
+the SSD scan kernel has none yet, so an SSM or hybrid loss under a
+gradient raises there and trains on the ``torch`` route.
+
+Not ported: the ``fsdp_gather`` / ``shard_activation`` constraints
+(GSPMD).
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .config import ModelConfig
 from .layers import (_mm, attention, attn_out, attn_qkv, attn_specs,
-                     decode_attention, embed, embed_specs, mlp, mlp_specs,
-                     moe_ffn, moe_specs, rmsnorm, unembed)
+                     cross_entropy, decode_attention, embed, embed_specs,
+                     mlp, mlp_specs, moe_ffn, moe_specs, rmsnorm, unembed)
 from .module import materialize, spec
 from .ssm import mamba2_decode_step, mamba2_forward, mamba2_specs
+
+AUX_COEF = 0.01
+
+
+def _remat(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward instead of
+    kept (the reference's ``remat_policy="full"``, the only one the config
+    takes) while a gradient is being taken; a plain call otherwise."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def default_positions(B: int, S: int, device=None):
     return torch.arange(S, device=device).expand(B, S)
 
 
-def _layer(tree, l: int):
-    """Slice ``l`` of every stacked ``[L, ...]`` leaf of ``tree`` (views)."""
+def _layers(tree) -> list:
+    """Every layer's slice of the stacked ``[L, ...]`` leaves of ``tree``,
+    a list of L trees of views, by one ``unbind`` a leaf: under a gradient
+    the layers' gradients are stacked once a leaf, where slicing one layer
+    at a time would scatter each into a zero tensor of the whole stack."""
     if isinstance(tree, dict):
-        return {k: _layer(v, l) for k, v in tree.items()}
-    return tree[l]
+        per = {k: _layers(v) for k, v in tree.items()}
+        n = len(next(iter(per.values())))
+        return [{k: v[l] for k, v in per.items()} for l in range(n)]
+    return list(tree.unbind(0))
 
 
 def _check_room(cache):
@@ -111,12 +141,49 @@ class DecoderLM:
         return materialize(self.param_specs(), generator, device)
 
     def _ffn(self, lp, h):
+        """The FFN half of a layer: (h + FFN(norm(h)), the MoE aux loss or
+        a float32 zero)."""
         cfg = self.cfg
         f_in = rmsnorm(h, lp["ln2"], cfg.norm_eps)
         if cfg.moe:
-            y, _ = moe_ffn(lp["moe"], f_in, cfg)
-            return h + y
-        return h + mlp(lp["mlp"], f_in, cfg)
+            y, aux = moe_ffn(lp["moe"], f_in, cfg)
+            return h + y, aux
+        return (h + mlp(lp["mlp"], f_in, cfg),
+                torch.zeros((), dtype=torch.float32, device=h.device))
+
+    def _block(self, lp, h, positions):
+        """One layer over the whole sequence: (h, k, v, aux)."""
+        cfg = self.cfg
+        a_in = rmsnorm(h, lp["ln1"], cfg.norm_eps)
+        q, k, v = attn_qkv(lp["attn"], a_in, cfg, positions)
+        o = attention(q, k, v, causal=True, kernels=self.kernels)
+        h, aux = self._ffn(lp, h + attn_out(lp["attn"], o, cfg))
+        return h, k, v, aux
+
+    def hidden(self, params, tokens, positions):
+        """tokens [B, S] -> (final-normed hidden states [B, S, d_model],
+        the layers' mean MoE aux loss: a float32 zero for dense)."""
+        cfg = self.cfg
+        h = embed(params["embed"], tokens, cfg)
+        auxs = []
+        for lp in _layers(params["blocks"]):
+            h, aux = _remat(lambda lp, x: self._block(lp, x, positions)[::3],
+                            lp, h)
+            auxs.append(aux)
+        return (rmsnorm(h, params["final_norm"], cfg.norm_eps),
+                torch.stack(auxs).mean())
+
+    def loss(self, params, batch):
+        """(ce + AUX_COEF * aux, {"ce", "aux"}) of batch["tokens"] /
+        batch["labels"] [B, S] (and ``positions`` under ``mrope``)."""
+        cfg = self.cfg
+        tokens, labels = batch["tokens"], batch["labels"]
+        B, S = tokens.shape
+        h, aux = self.hidden(params, tokens,
+                             self._positions(batch, B, S, tokens.device))
+        logits = unembed(params["embed"], h, cfg)
+        ce = cross_entropy(logits, labels, cfg.padded_vocab)
+        return ce + AUX_COEF * aux, {"ce": ce, "aux": aux}
 
     def _positions(self, batch, B, S, device):
         if self.cfg.mrope:
@@ -135,12 +202,8 @@ class DecoderLM:
         positions = self._positions(batch, B, S, dev)
         cache = self.init_cache(B, max_len or S, device=dev)
         h = embed(params["embed"], tokens, cfg)
-        for l in range(cfg.n_layers):
-            lp = _layer(params["blocks"], l)
-            a_in = rmsnorm(h, lp["ln1"], cfg.norm_eps)
-            q, k, v = attn_qkv(lp["attn"], a_in, cfg, positions)
-            o = attention(q, k, v, causal=True, kernels=self.kernels)
-            h = self._ffn(lp, h + attn_out(lp["attn"], o, cfg))
+        for l, lp in enumerate(_layers(params["blocks"])):
+            h, k, v, _ = self._block(lp, h, positions)
             cache["k"][l, :, :S] = k
             cache["v"][l, :, :S] = v
         h = rmsnorm(h[:, -1:], params["final_norm"], cfg.norm_eps)
@@ -160,15 +223,14 @@ class DecoderLM:
         positions = torch.full(shape, pos, dtype=torch.int32, device=dev)
         kv_len = torch.full((B,), pos, dtype=torch.int32, device=dev)
         h = embed(params["embed"], token, cfg)
-        for l in range(cfg.n_layers):
-            lp = _layer(params["blocks"], l)
+        for l, lp in enumerate(_layers(params["blocks"])):
             ck, cv = cache["k"][l], cache["v"][l]
             a_in = rmsnorm(h, lp["ln1"], cfg.norm_eps)
             q, k, v = attn_qkv(lp["attn"], a_in, cfg, positions)
             k, v = k.to(ck.dtype), v.to(cv.dtype)
             # the live prefix only: the stale tail would be masked anyway
             o = decode_attention(q, ck[:, :pos], cv[:, :pos], k, v, kv_len)
-            h = self._ffn(lp, h + attn_out(lp["attn"], o, cfg))
+            h, _ = self._ffn(lp, h + attn_out(lp["attn"], o, cfg))
             ck[:, pos] = k[:, 0]
             cv[:, pos] = v[:, 0]
         h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
@@ -216,6 +278,29 @@ class SSMModel:
         return {"ln": spec((cfg.d_model,), ("embed",), init="ones"),
                 "mix": mamba2_specs(cfg)}
 
+    def _block(self, lp, h):
+        """One layer over the whole sequence: (h, SSM state, conv tail)."""
+        y, st, tail = mamba2_forward(
+            lp["mix"], rmsnorm(h, lp["ln"], self.cfg.norm_eps), self.cfg,
+            kernels=self.kernels)
+        return h + y, st, tail
+
+    def hidden(self, params, tokens):
+        """tokens [B, S] -> final-normed hidden states [B, S, d_model]."""
+        cfg = self.cfg
+        h = embed(params["embed"], tokens, cfg)
+        for lp in _layers(params["blocks"]):
+            h = _remat(lambda lp, x: self._block(lp, x)[0], lp, h)
+        return rmsnorm(h, params["final_norm"], cfg.norm_eps)
+
+    def loss(self, params, batch):
+        """(ce, {"ce"}) of batch["tokens"] / batch["labels"] [B, S]."""
+        cfg = self.cfg
+        h = self.hidden(params, batch["tokens"])
+        logits = unembed(params["embed"], h, cfg)
+        ce = cross_entropy(logits, batch["labels"], cfg.padded_vocab)
+        return ce, {"ce": ce}
+
     def prefill(self, params, batch, max_len: int | None = None):
         """batch["tokens"]: [B, S] -> (logits [B, 1, V] of the last position,
         cache with each layer's SSM state and conv tail).  ``max_len`` is
@@ -225,12 +310,8 @@ class SSMModel:
         B, S = tokens.shape
         cache = self.init_cache(B, device=tokens.device)
         h = embed(params["embed"], tokens, cfg)
-        for l in range(cfg.n_layers):
-            lp = _layer(params["blocks"], l)
-            y, st, tail = mamba2_forward(
-                lp["mix"], rmsnorm(h, lp["ln"], cfg.norm_eps), cfg,
-                kernels=self.kernels)
-            h = h + y
+        for l, lp in enumerate(_layers(params["blocks"])):
+            h, st, tail = self._block(lp, h)
             cache["ssm"][l] = st
             cache["conv"][l] = tail
         h = rmsnorm(h[:, -1:], params["final_norm"], cfg.norm_eps)
@@ -242,8 +323,7 @@ class SSMModel:
         states advanced in place; no KV cache, so no room to run out of."""
         cfg = self.cfg
         h = embed(params["embed"], batch["token"], cfg)
-        for l in range(cfg.n_layers):
-            lp = _layer(params["blocks"], l)
+        for l, lp in enumerate(_layers(params["blocks"])):
             y, st, conv = mamba2_decode_step(
                 lp["mix"], rmsnorm(h, lp["ln"], cfg.norm_eps), cfg,
                 cache["ssm"][l], cache["conv"][l])
@@ -299,14 +379,52 @@ class HybridModel:
     def init(self, generator: torch.Generator, device=None):
         return materialize(self.param_specs(), generator, device)
 
-    def _layer(self, params, l: int):
-        """Layer ``l``'s slice of the stacked mamba leaves (views)."""
-        return _layer(params["mamba"], l)
-
     def _shared_block(self, sp, h, o):
         cfg = self.cfg
         h = h + attn_out(sp["attn"], o, cfg)
         return h + mlp(sp["mlp"], rmsnorm(h, sp["ln2"], cfg.norm_eps), cfg)
+
+    def _group(self, sp, mamba_layers, h, positions):
+        """One group over the whole sequence: the shared attention block
+        (``sp``), then its ``attn_every`` mamba layers (trees of one
+        layer's leaves).  Returns (h, k, v, [(SSM state, conv tail) of
+        each mamba layer])."""
+        cfg = self.cfg
+        a_in = rmsnorm(h, sp["ln1"], cfg.norm_eps)
+        q, k, v = attn_qkv(sp["attn"], a_in, cfg, positions)
+        o = attention(q, k, v, causal=True, kernels=self.kernels)
+        h = self._shared_block(sp, h, o)
+        states = []
+        for lp in mamba_layers:
+            y, st, tail = mamba2_forward(
+                lp["mix"], rmsnorm(h, lp["ln"], cfg.norm_eps), cfg,
+                kernels=self.kernels)
+            h = h + y
+            states.append((st, tail))
+        return h, k, v, states
+
+    def hidden(self, params, tokens, positions):
+        """tokens [B, S] -> final-normed hidden states [B, S, d_model];
+        each group is rematerialized as one, as in the reference."""
+        cfg = self.cfg
+        h = embed(params["embed"], tokens, cfg)
+        layers, E = _layers(params["mamba"]), cfg.attn_every
+        for g in range(self.n_groups):
+            h = _remat(lambda x, ls: self._group(params["shared"], ls, x,
+                                                 positions)[0],
+                       h, layers[g * E:(g + 1) * E])
+        return rmsnorm(h, params["final_norm"], cfg.norm_eps)
+
+    def loss(self, params, batch):
+        """(ce, {"ce"}) of batch["tokens"] / batch["labels"] [B, S]."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        h = self.hidden(params, tokens,
+                        default_positions(B, S, tokens.device))
+        logits = unembed(params["embed"], h, cfg)
+        ce = cross_entropy(logits, batch["labels"], cfg.padded_vocab)
+        return ce, {"ce": ce}
 
     def prefill(self, params, batch, max_len: int | None = None):
         """batch["tokens"]: [B, S] -> (logits [B, 1, V] of the last position,
@@ -318,22 +436,15 @@ class HybridModel:
         dev = tokens.device
         positions = default_positions(B, S, device=dev)
         cache = self.init_cache(B, max_len or S, device=dev)
-        sp = params["shared"]
         h = embed(params["embed"], tokens, cfg)
-        E = cfg.attn_every
+        layers, E = _layers(params["mamba"]), cfg.attn_every
         for g in range(self.n_groups):
-            a_in = rmsnorm(h, sp["ln1"], cfg.norm_eps)
-            q, k, v = attn_qkv(sp["attn"], a_in, cfg, positions)
-            o = attention(q, k, v, causal=True, kernels=self.kernels)
-            h = self._shared_block(sp, h, o)
+            h, k, v, states = self._group(params["shared"],
+                                          layers[g * E:(g + 1) * E], h,
+                                          positions)
             cache["k"][g, :, :S] = k
             cache["v"][g, :, :S] = v
-            for l in range(g * E, (g + 1) * E):
-                lp = self._layer(params, l)
-                y, st, tail = mamba2_forward(
-                    lp["mix"], rmsnorm(h, lp["ln"], cfg.norm_eps), cfg,
-                    kernels=self.kernels)
-                h = h + y
+            for l, (st, tail) in enumerate(states, start=g * E):
                 cache["ssm"][l] = st
                 cache["conv"][l] = tail
         h = rmsnorm(h[:, -1:], params["final_norm"], cfg.norm_eps)
@@ -353,7 +464,7 @@ class HybridModel:
         kv_len = torch.full((B,), pos, dtype=torch.int32, device=dev)
         sp = params["shared"]
         h = embed(params["embed"], token, cfg)
-        E = cfg.attn_every
+        layers, E = _layers(params["mamba"]), cfg.attn_every
         for g in range(self.n_groups):
             ck, cv = cache["k"][g], cache["v"][g]
             a_in = rmsnorm(h, sp["ln1"], cfg.norm_eps)
@@ -365,7 +476,7 @@ class HybridModel:
             ck[:, pos] = k[:, 0]
             cv[:, pos] = v[:, 0]
             for l in range(g * E, (g + 1) * E):
-                lp = self._layer(params, l)
+                lp = layers[l]
                 y, st, conv = mamba2_decode_step(
                     lp["mix"], rmsnorm(h, lp["ln"], cfg.norm_eps), cfg,
                     cache["ssm"][l], cache["conv"][l])
@@ -457,14 +568,19 @@ class EncDecModel:
         B, S, _ = enc_embeds.shape
         positions = default_positions(B, S, enc_embeds.device)
         h = enc_embeds.to(cfg.compute_dtype)
-        for l in range(cfg.n_enc_layers):
-            lp = _layer(params["enc"], l)
-            a_in = rmsnorm(h, lp["ln1"], cfg.norm_eps)
-            q, k, v = attn_qkv(lp["attn"], a_in, cfg, positions)
-            o = attention(q, k, v, causal=False, kernels=self.kernels)
-            h = h + attn_out(lp["attn"], o, cfg)
-            h = h + mlp(lp["mlp"], rmsnorm(h, lp["ln2"], cfg.norm_eps), cfg)
+        for lp in _layers(params["enc"]):
+            h = _remat(lambda lp, x: self._enc_block(lp, x, positions),
+                       lp, h)
         return rmsnorm(h, params["enc_norm"], cfg.norm_eps)
+
+    def _enc_block(self, lp, h, positions):
+        """One encoder layer: non-causal self-attention, then the MLP."""
+        cfg = self.cfg
+        a_in = rmsnorm(h, lp["ln1"], cfg.norm_eps)
+        q, k, v = attn_qkv(lp["attn"], a_in, cfg, positions)
+        o = attention(q, k, v, causal=False, kernels=self.kernels)
+        h = h + attn_out(lp["attn"], o, cfg)
+        return h + mlp(lp["mlp"], rmsnorm(h, lp["ln2"], cfg.norm_eps), cfg)
 
     def _cross_kv(self, lp, enc_out):
         cfg = self.cfg
@@ -489,6 +605,41 @@ class EncDecModel:
         h = h + attn_out(lp["xattn"], xo, cfg)
         return h + mlp(lp["mlp"], rmsnorm(h, lp["ln3"], cfg.norm_eps), cfg)
 
+    def _dec_block(self, lp, h, enc_out, positions):
+        """One decoder layer over the whole prompt: (h, k, v, cross k,
+        cross v)."""
+        cfg = self.cfg
+        a_in = rmsnorm(h, lp["ln1"], cfg.norm_eps)
+        q, k, v = attn_qkv(lp["attn"], a_in, cfg, positions)
+        o = attention(q, k, v, causal=True, kernels=self.kernels)
+        h = h + attn_out(lp["attn"], o, cfg)
+        ck, cv = self._cross_kv(lp["xattn"], enc_out)
+        return self._cross_mlp(lp, h, ck, cv), k, v, ck, cv
+
+    def decode_hidden(self, params, tokens, enc_out, positions):
+        """tokens [B, S] over the encoder's output -> final-normed decoder
+        hidden states [B, S, d_model]."""
+        cfg = self.cfg
+        h = embed(params["embed"], tokens, cfg)
+        for lp in _layers(params["dec"]):
+            h = _remat(
+                lambda lp, x: self._dec_block(lp, x, enc_out, positions)[0],
+                lp, h)
+        return rmsnorm(h, params["final_norm"], cfg.norm_eps)
+
+    def loss(self, params, batch):
+        """(ce, {"ce"}) of batch["tokens"] / batch["labels"] [B, S] over
+        batch["enc_embeds"] [B, S_src, d_model]."""
+        cfg = self.cfg
+        tokens, labels = batch["tokens"], batch["labels"]
+        B, S = tokens.shape
+        enc_out = self.encode(params, batch["enc_embeds"])
+        h = self.decode_hidden(params, tokens, enc_out,
+                               default_positions(B, S, tokens.device))
+        logits = unembed(params["embed"], h, cfg)
+        ce = cross_entropy(logits, labels, cfg.padded_vocab)
+        return ce, {"ce": ce}
+
     def prefill(self, params, batch, max_len: int | None = None):
         """batch["tokens"]: [B, S] decoder prompt, batch["enc_embeds"]:
         [B, S_src, d_model] -> (logits [B, 1, V] of the last position, cache
@@ -503,14 +654,8 @@ class EncDecModel:
         enc_out = self.encode(params, batch["enc_embeds"])
         cache = self.init_cache(B, max_len or S, enc_out.shape[1], device=dev)
         h = embed(params["embed"], tokens, cfg)
-        for l in range(cfg.n_layers):
-            lp = _layer(params["dec"], l)
-            a_in = rmsnorm(h, lp["ln1"], cfg.norm_eps)
-            q, k, v = attn_qkv(lp["attn"], a_in, cfg, positions)
-            o = attention(q, k, v, causal=True, kernels=self.kernels)
-            h = h + attn_out(lp["attn"], o, cfg)
-            ck, cv = self._cross_kv(lp["xattn"], enc_out)
-            h = self._cross_mlp(lp, h, ck, cv)
+        for l, lp in enumerate(_layers(params["dec"])):
+            h, k, v, ck, cv = self._dec_block(lp, h, enc_out, positions)
             cache["k"][l, :, :S] = k
             cache["v"][l, :, :S] = v
             cache["ck"][l] = ck
@@ -532,8 +677,7 @@ class EncDecModel:
         positions = torch.full((B, 1), pos, dtype=torch.int32, device=dev)
         kv_len = torch.full((B,), pos, dtype=torch.int32, device=dev)
         h = embed(params["embed"], token, cfg)
-        for l in range(cfg.n_layers):
-            lp = _layer(params["dec"], l)
+        for l, lp in enumerate(_layers(params["dec"])):
             ck, cv = cache["k"][l], cache["v"][l]
             a_in = rmsnorm(h, lp["ln1"], cfg.norm_eps)
             q, k, v = attn_qkv(lp["attn"], a_in, cfg, positions)

@@ -8,11 +8,14 @@ functions over the materialized tree (nested dicts of tensors), with the
 reference's key names and stacked ``[L, ...]`` leaves, so that
 ``models.convert.params_from_jax`` can carry weights across unchanged.
 
-Not ported, because one card has no mesh: ``abstract`` (shape-only
-stand-ins for ``.lower()``), the logical-axis rules and ``partition_spec``
-/ ``param_shardings``, ``shard_activation`` and ``fsdp_gather`` (GSPMD
-constraints that are no-ops without a mesh in the reference too).  The
-``axes`` field of a spec is kept as documentation.
+:func:`abstract` is the reference's shape-only stand-in: the tree as
+tensors on the ``meta`` device, which hold a shape and a dtype and no
+memory.
+
+Not ported, because one card has no mesh: the logical-axis rules and
+``partition_spec`` / ``param_shardings``, ``shard_activation`` and
+``fsdp_gather`` (GSPMD constraints that are no-ops without a mesh in the
+reference too).  The ``axes`` field of a spec is kept as documentation.
 """
 from __future__ import annotations
 
@@ -77,3 +80,11 @@ def materialize(specs, generator: torch.Generator, device=None):
     walk(specs, out)
     return out
 
+
+
+def abstract(specs):
+    """The spec tree as tensors on the ``meta`` device (shape and dtype,
+    no storage): the reference's ``ShapeDtypeStruct`` tree."""
+    if isinstance(specs, ParamSpec):
+        return torch.empty(specs.shape, dtype=specs.dtype, device="meta")
+    return {k: abstract(specs[k]) for k in sorted(specs)}

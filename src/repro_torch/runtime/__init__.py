@@ -1,7 +1,10 @@
-"""Runtime fault plane of the PyTorch port: deterministic fault injection
-at the service seams.  The reference's training runner and straggler
-detector come with the model plane's training (ROADMAP.md queue 1, item
-"Model plane")."""
+"""Runtime plane of the PyTorch port: deterministic fault injection at the
+service seams (``faults``), and the training runtime: the fault-tolerant
+``TrainRunner`` with its ``FailureInjector`` and the ``StragglerPolicy``.
+"""
 from .faults import Fault, FaultSchedule, InjectedCrash
+from .runner import FailureInjector, TrainRunner
+from .straggler import StragglerPolicy
 
-__all__ = ["Fault", "FaultSchedule", "InjectedCrash"]
+__all__ = ["FailureInjector", "Fault", "FaultSchedule", "InjectedCrash",
+           "StragglerPolicy", "TrainRunner"]

@@ -53,7 +53,17 @@ times and ``potential_matrix`` once a wave on ``cuda``, ``wave_commit`` N
 and ``version_scan`` N T times a wave on ``cuda+fused`` and ``commit_loop``
 never; also where the node blocks start off a 16-byte boundary (odd rows a
 node, V=3); a mesh block dispatch must run under sync debug mode "error";
-and ``apply_move_mesh`` on the card must equal the CPU.
+and ``apply_move_mesh`` on the card must equal the CPU.  Training: the
+attention backward's two kernels must agree with
+``flash_attention_bwd_plain`` on the forward kernel's o and lse (bf16
+within one bf16 rounding plus 1e-3 of the largest |want|, float32 within
+1e-4), one launch each a call; ``ops.flash_attention`` under a gradient
+must run the forward and both backward kernels once each, its float32
+gradients those of autograd through the plain version; ``ops.ssd`` must
+refuse a gradient on its kernel route; and one float32 loss and gradient
+of the reduced qwen2-0.5b, deepseek-moe-16b and seamless models on
+``cuda`` must equal the ``torch`` route's (every leaf within 1e-3 of its
+scale) with the launches of ``chip_smoke.train_launches``.
 """
 import numpy as np
 import pytest
@@ -126,7 +136,8 @@ def test_kernels_equal_plain_versions(dev, T, O, V, pad):
     torch.cuda.synchronize()
     assert {k: LAUNCHES[k] - before[k] for k in LAUNCHES} == {
         "version_scan": 1, "potential_matrix": 1, "wave_commit": 1,
-        "commit_loop": 0, "flash_attention": 0, "ssd_scan": 0}
+        "commit_loop": 0, "flash_attention": 0, "ssd_scan": 0,
+        "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkdv": 0}
 
 
 @pytest.mark.parametrize("sched", tc.SCHEDULERS)
@@ -193,7 +204,8 @@ def test_read_phase_corners_equal_plain_versions(dev, T, O, V, pad):
     torch.cuda.synchronize()
     assert {k: LAUNCHES[k] - before[k] for k in LAUNCHES} == {
         "version_scan": 1, "potential_matrix": 1, "wave_commit": 1,
-        "commit_loop": 0, "flash_attention": 0, "ssd_scan": 0}
+        "commit_loop": 0, "flash_attention": 0, "ssd_scan": 0,
+        "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkdv": 0}
 
 
 @pytest.mark.parametrize("V", [1, 3, 8, 16, 40])
@@ -1115,3 +1127,116 @@ def test_apply_move_mesh_on_card_equals_cpu(dev):
         for f, a, b, c in zip(tc.MVStore._fields, cpu, cpu_mesh, card):
             assert torch.equal(a, b) and torch.equal(a, c.cpu()), (lo, f)
     assert (pm.slot == pm.n_slots - 1).any()
+
+
+# ----------------------------------------------------------------- training
+@pytest.mark.parametrize("B,Sq,Sk,H,KH,D,causal", [
+    (2, 1024, 1024, 14, 2, 64, True), (2, 1000, 1000, 4, 4, 64, True),
+    (1, 256, 256, 7, 1, 128, True), (2, 128, 1000, 16, 16, 64, False),
+    (2, 1, 300, 4, 2, 32, False), (1, 70, 70, 3, 1, 48, True),
+    (1, 100, 100, 4, 2, 80, False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_backward_kernels_vs_plain(dev, B, Sq, Sk, H, KH, D,
+                                                   causal, dtype):
+    """dq, dk and dv of the two backward kernels against
+    ``flash_attention_bwd_plain`` on the forward kernel's o and lse (lse
+    also against the plain version's): float32 within 1e-4 relative plus
+    1e-5 of the largest |want|; bf16 within one bf16 rounding (rtol 1e-2)
+    plus 1e-3 of it.  One launch of each kernel a call."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_bwd_plain)
+    g = torch.Generator(device=dev).manual_seed(Sq + Sk + D)
+    rn = lambda s, sc: (torch.randn(s, generator=g, device=dev) * sc).to(
+        dtype)
+    q, do = rn((B, Sq, H, D), 2.0), rn((B, Sq, H, D), 1.0)
+    k, v = rn((B, Sk, KH, D), 2.0), rn((B, Sk, KH, D), 1.0)
+    o, lse = flash_attention_cuda(q, k, v, causal, with_lse=True)
+    _, lse_p = flash_attention_plain(q, k, v, causal, with_lse=True)
+    torch.testing.assert_close(lse, lse_p, rtol=1e-5, atol=1e-4)
+    before = dict(LAUNCHES)
+    got = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    assert {k_: LAUNCHES[k_] - before[k_] for k_ in LAUNCHES} == {
+        **dict.fromkeys(LAUNCHES, 0), "flash_attention_bwd_dq": 1,
+        "flash_attention_bwd_dkdv": 1}
+    bf16 = dtype == torch.bfloat16
+    for a, w in zip(got, flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                   causal)):
+        assert a.dtype == dtype and a.shape == w.shape
+        torch.testing.assert_close(
+            a.float(), w.float(), rtol=1e-2 if bf16 else 1e-4,
+            atol=(1e-3 if bf16 else 1e-5) * float(w.float().abs().max()))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_gradient_goes_through_the_kernels(dev, causal):
+    """``ops.flash_attention`` on the kernel route under a gradient:
+    ``FlashAttentionFn``, one forward launch (with lse) and one of each
+    backward kernel; float32 gradients within 1e-4 of scale of autograd's
+    through the plain version."""
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=dev).manual_seed(3)
+    shapes = ((2, 200, 4, 32), (2, 200 if causal else 300, 2, 32),
+              (2, 200 if causal else 300, 2, 32))
+    base = [torch.randn(s, generator=g, device=dev) for s in shapes]
+    do = torch.randn((2, 200, 4, 32), generator=g, device=dev)
+    grads = []
+    for use_kernel in (True, False):
+        leaves = [t.clone().requires_grad_(True) for t in base]
+        before = dict(LAUNCHES)
+        o = ops.flash_attention(*leaves, causal=causal,
+                                use_kernel=use_kernel)
+        grads.append(torch.autograd.grad(o, leaves, do))
+        torch.cuda.synchronize()
+        n = int(use_kernel)
+        assert {k: LAUNCHES[k] - before[k] for k in (
+            "flash_attention", "flash_attention_bwd_dq",
+            "flash_attention_bwd_dkdv")} == dict.fromkeys(
+            ("flash_attention", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkdv"), n)
+    for a, b in zip(*grads):
+        _close(a, b, 1e-4)
+
+
+def test_ssd_kernel_route_refuses_a_gradient_on_the_card(dev):
+    from repro_torch.kernels import ops
+    x = torch.randn((2, 64, 16), device=dev, requires_grad=True)
+    bm = torch.randn((1, 64, 16), device=dev)
+    before = dict(LAUNCHES)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ops.ssd(x, -torch.rand((2, 64), device=dev), bm, bm,
+                n_heads_per_group=2, chunk=64, use_kernel=True)
+    assert LAUNCHES == before
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "deepseek-moe-16b",
+                                  "seamless-m4t-large-v2"])
+def test_train_step_cuda_route_equals_torch_route(dev, arch):
+    """One float32 loss and gradient of the reduced model on ``cuda``
+    against ``torch`` on the same weights and batch: the loss within 1e-4
+    of its size, every gradient leaf within 1e-3 of its scale; the
+    attention launches of ``chip_smoke.train_launches`` (remat runs each
+    forward twice)."""
+    import pathlib
+    import sys
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from repro_torch.data import TokenStream
+    from repro_torch.launch.train import loss_and_grads
+    from repro_torch.models.module import tree_leaves
+    cfg = get_reduced(arch).replace(compute_dtype=torch.float32)
+    params = build(cfg).init(torch.Generator(device=dev).manual_seed(0), dev)
+    batch = TokenStream(cfg, 2, 48, seed=1, device=dev).next()
+    out = []
+    for route in ("cuda", "torch"):
+        before = dict(LAUNCHES)
+        out.append(loss_and_grads(build(cfg, route), params, batch))
+        torch.cuda.synchronize()
+        want = chip_smoke.train_launches(cfg) if route == "cuda" else \
+            dict.fromkeys(chip_smoke.train_launches(cfg), 0)
+        assert {k: LAUNCHES[k] - before[k] for k in want} == want
+    (l1, _, g1), (l2, _, g2) = out
+    assert abs(float(l1) - float(l2)) <= 1e-4 * abs(float(l2))
+    assert len(tree_leaves(g1)) == len(tree_leaves(params))
+    for a, b in zip(tree_leaves(g1), tree_leaves(g2)):
+        assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())

@@ -310,11 +310,9 @@ def test_build_hash_covers_sources_and_flags(tmp_path):
         "commit_loop.cu", "flash_attention.cu", "ssd_scan.cu"}
     assert set(build.LAUNCHES) == {
         "version_scan", "potential_matrix", "wave_commit", "commit_loop",
-        "flash_attention", "ssd_scan"}
-    assert {f"{n}_launch" for n in ("version_scan", "potential_matrix",
-                                    "wave_commit", "commit_loop",
-                                    "flash_attention", "ssd_scan")} == set(
-        build.SIGNATURES)
+        "flash_attention", "ssd_scan", "flash_attention_bwd_dq",
+        "flash_attention_bwd_dkdv"}
+    assert {f"{n}_launch" for n in build.LAUNCHES} == set(build.SIGNATURES)
     assert [h.name for h in headers] == ["common.cuh", "mma.cuh"]
     for src in sources:
         text = src.read_text()
