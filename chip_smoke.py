@@ -11,7 +11,9 @@ Phases (any failure raises, so the process exits non-zero):
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc),
    then disassemble the library (``cuobjdump -sass``): every bf16
    instantiation of ``flash_attention``, its two backward kernels and
-   ``ssd_scan`` must run tensor-core (HMMA / HGMMA) instructions;
+   ``ssd_scan`` must run tensor-core (HMMA / HGMMA) instructions, and the
+   backward kernels' Hopper forms (bf16 at D = 64 and 128) wgmma (HGMMA)
+   products and TMA (UTMALDG) loads;
 3. each engine kernel against its plain PyTorch version on the card,
    bit-equal, at the main path's shapes and on adversarial inputs
    (the read-phase corners: tied visible CIDs, empty rings, V = 1 / 3 /
@@ -39,11 +41,16 @@ Phases (any failure raises, so the process exits non-zero):
    ``flash_attention_bwd_plain`` on the forward kernel's o and lse (and
    that lse against the plain version's) at phase 9's training shape
    (qwen2-0.5b: B=4, S=1,024, H=14, KH=2, D=64) in bf16 and float32,
-   ragged S=1,000, GQA at G=1 and 7, seamless' cross shape (Sq=128 over
-   Sk=1,024 and 1,000), Sq=1 and small odd shapes, the element closest to
-   its limit printed, with CUDA-event times of each kernel at the training
-   shape beside the plain backward's and SDPA's backward (a yardstick the
-   port never calls); ``commit_loop`` against the
+   ragged S=1,000, GQA at G=1, 3 and 7, D=128 at G=7, seamless' cross
+   shape (Sq=128 over Sk=1,024 and 1,000), Sq=1, causal with Sk > Sq (zero
+   dk and dv past the last query), an odd count of (query head, q tile)
+   pairs a kv tile and small odd shapes (``ATTENTION_BWD_CASES``), each
+   case's two calls bit-equal, the element closest to its limit printed,
+   with CUDA-event times of each kernel at the training shape beside the
+   plain backward's and SDPA's backward with each backend forced in turn
+   and unforced (a yardstick the port never calls; the fastest forced is
+   the library time), and the Hopper kernels' grids and longest walks;
+   ``commit_loop`` against the
    engine's plain
    loop, bit-equal in its outputs and the store, for the six schedulers x
    {no GC, ``gc_track``, ``gc_block``} on corner waves (V=2 rings read and
@@ -270,6 +277,7 @@ it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -629,18 +637,20 @@ def stop_profiler(prof, tag):
 def kernel_of(symbol: str):
     """The kernel (a key of KERNELS) whose CUDA function ``symbol`` (a
     demangled profiler key or a mangled SASS name) is, else None.  Each is
-    ``<name>_kernel``, ``<name>_mma_kernel`` (bf16, tensor cores) or
+    ``<name>_kernel``, ``<name>_mma_kernel`` (bf16, tensor cores),
+    ``<name>_wgmma_kernel`` (bf16, Hopper's wgmma and TMA) or
     ``<name>_fma_kernel`` (float32)."""
     for name in KERNELS:
         if any(f"{name}{kind}_kernel" in symbol
-               for kind in ("", "_mma", "_fma")):
+               for kind in ("", "_mma", "_wgmma", "_fma")):
             return name
     return None
 
 
-def tensor_core_counts(sass: str) -> dict:
-    """``cuobjdump -sass`` text -> {function: count of HMMA / HGMMA
-    instructions} for every function of the model kernels."""
+def tensor_core_counts(sass: str, ops=("HMMA", "HGMMA")) -> dict:
+    """``cuobjdump -sass`` text -> {function: count of instructions whose
+    text holds one of ``ops`` (default HMMA / HGMMA: tensor-core products;
+    UTMALDG: TMA tile loads)} for every function of the model kernels."""
     counts, fn = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
@@ -648,7 +658,7 @@ def tensor_core_counts(sass: str) -> dict:
             fn = fn if kernel_of(fn) in MODEL_KERNELS else None
             if fn:
                 counts[fn] = 0
-        elif fn and ("HMMA" in line or "HGMMA" in line):
+        elif fn and any(op in line for op in ops):
             counts[fn] += 1
     return counts
 
@@ -659,25 +669,49 @@ MODEL_KERNELS = ("flash_attention", "ssd_scan", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkdv")
 
 
+# the model kernels with a Hopper form (``*_wgmma_kernel``: bf16 at head
+# dims 64 and 128, wgmma products fed by TMA)
+WGMMA_KERNELS = ("flash_attention_bwd_dq", "flash_attention_bwd_dkdv")
+
+
 def tensor_core_check(lib_path, nvcc):
     """Disassemble the built library; raise unless every bf16 instantiation
     of the model kernels (``*_mma_kernel``: attention, its backward and the
-    SSD scan) runs tensor-core instructions.  Prints the counts per kernel
-    and dtype."""
+    SSD scan) runs tensor-core instructions, and every Hopper instantiation
+    (``*_wgmma_kernel``: the attention backward at D = 64 and 128, two of
+    each) issues its products by wgmma (HGMMA) and its tiles by TMA
+    (UTMALDG).  Prints the counts per kernel and form."""
     tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     sass = subprocess.run([tool, "-sass", lib_path], check=True,
                           capture_output=True, text=True).stdout
     counts = tensor_core_counts(sass)
+    hopper = {op: tensor_core_counts(sass, (op,))
+              for op in ("HGMMA", "UTMALDG")}
     for name in MODEL_KERNELS:
-        for kind in ("mma", "fma"):
+        for kind in ("mma", "wgmma", "fma"):
+            if kind == "wgmma" and name not in WGMMA_KERNELS:
+                continue
             got = {f: n for f, n in counts.items()
                    if kernel_of(f) == name and f"_{kind}_kernel" in f}
-            print(f"[build] {name} {'bf16' if kind == 'mma' else 'float32'}"
-                  f": {len(got)} instantiations, HMMA/HGMMA per "
-                  f"instantiation {sorted(got.values())}", flush=True)
+            label = {"mma": "bf16", "wgmma": "bf16 Hopper",
+                     "fma": "float32"}[kind]
+            print(f"[build] {name} {label}: {len(got)} instantiations, "
+                  f"HMMA/HGMMA per instantiation {sorted(got.values())}",
+                  flush=True)
             if kind == "mma" and (not got or min(got.values()) == 0):
                 raise AssertionError(f"{name}: a bf16 instantiation runs no "
                                      f"tensor-core instruction")
+            if kind == "wgmma":
+                per = {op: sorted(hopper[op][f] for f in got)
+                       for op in hopper}
+                print(f"[build] {name} bf16 Hopper: HGMMA {per['HGMMA']}, "
+                      f"UTMALDG {per['UTMALDG']} per instantiation",
+                      flush=True)
+                if len(got) != 2 or 0 in per["HGMMA"] + per["UTMALDG"]:
+                    raise AssertionError(
+                        f"{name}: expected two Hopper instantiations (D = 64"
+                        f", 128) with wgmma products and TMA loads, got "
+                        f"{per}")
 
 
 def scripts_module(name: str):
@@ -1315,17 +1349,141 @@ def ssd_times(torch, dev, rn, probes, Bg, H, S, P, N, Q, dtype):
         "bound_ms": b_ms, "bound_by": b_by}
 
 
+# (B, Sq, Sk, H, KH, D, dtype name, causal) of the attention backward's
+# checks: phase 9's training shape (qwen2-0.5b) in bf16 and float32,
+# ragged, GQA at G = 1, 3 and 7, D = 128 at G = 7, seamless'
+# cross-attention, one query row, causal with Sk > Sq (kv tiles no query
+# reaches), an odd count of (query head, q tile) pairs a kv tile (G = 3,
+# ragged: the Hopper dk/dv kernel's four consumer groups take them in
+# turn) and small odd shapes
+ATTENTION_BWD_CASES = (
+    (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 14, 2, 64, "bf16", True),
+    (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 14, 2, 64, "f32", True),
+    (TRAIN_BATCH, 1000, 1000, 14, 2, 64, "bf16", True),
+    (2, 1000, 1000, 14, 2, 64, "f32", True),
+    (2, TRAIN_SEQ, TRAIN_SEQ, 16, 16, 64, "bf16", True),
+    (2, TRAIN_SEQ, TRAIN_SEQ, 7, 1, 128, "bf16", True),
+    (1, 300, 300, 7, 1, 128, "bf16", False),
+    (2, 200, 200, 3, 1, 64, "bf16", True),
+    (1, 70, 70, 3, 1, 64, "bf16", True),
+    (1, 200, 512, 4, 2, 64, "bf16", True),
+    (1, 200, 512, 14, 2, 128, "bf16", True),
+    (4, 128, 1024, 16, 16, 64, "bf16", False),
+    (4, 128, 1000, 16, 16, 64, "f32", False),
+    (4, 1, 1000, 16, 16, 64, "bf16", False),
+    (4, 1, 1000, 16, 16, 64, "f32", False),
+    (1, 70, 70, 2, 1, 48, "f32", True),
+    (2, 200, 200, 4, 2, 80, "bf16", False))
+
+
+def attention_bwd_walks(B, Sq, Sk, H, KH, D):
+    """The launch geometry of the bf16 Hopper backward kernels (D = 64,
+    128) at a causal shape: {kernel: (grid, the longest walk of one
+    consumer group: (query head, q tile) pairs for dk/dv, kv tiles for dq,
+    and the same for a block)}.  dk/dv: clusters of two blocks a 64-row kv
+    tile, four consumer groups taking the tile's pairs in turn; dq: a block
+    a 128-row q tile, two groups of 64 rows."""
+    G, nq, nk = H // KH, -(-Sq // 64), -(-Sk // 64)
+    pairs = G * nq                            # kv tile 0 meets every q tile
+    dq_tiles = min(nk, (-(-Sq // 128) * 128 - 1) // 64 + 1)
+    return {"flash_attention_bwd_dkdv": ((2 * nk, B * KH), -(-pairs // 4),
+                                         -(-pairs // 2)),
+            "flash_attention_bwd_dq": ((-(-Sq // 128), B * H), dq_tiles,
+                                       dq_tiles)}
+
+
+def device_kernels_ms(torch, fn, iters=5):
+    """(device ms of every CUDA kernel one call of ``fn`` launches, summed,
+    and their names by device time), from the profiler over ``iters``
+    calls; (None, [why]) where the profiler shows no device time.  Unlike
+    CUDA events around back-to-back calls it does not read the host's pace
+    where a call's host time exceeds its device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        evts = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and getattr(e, "device_time_total", 0) > 0]
+    except Exception as exc:           # the profiler is optional here
+        return None, [f"profiler unavailable: {exc!r}"]
+    if not evts:
+        return None, ["no device time"]
+    evts.sort(key=lambda e: -e.device_time_total)
+    return (sum(e.device_time_total for e in evts) / 1e3 / iters,
+            [e.key for e in evts])
+
+
+def sdpa_backward_times(torch, q, k, v, do, H, KH):
+    """SDPA's backward (dq, dk, dv of one causal
+    ``scaled_dot_product_attention`` call: the yardstick, never called by
+    the port), unforced and with each backend forced in turn: {backend:
+    (device ms, CUDA-events ms, how, its kernels' names)}, the device ms
+    the summed kernels of one call (the events also read the host's pace:
+    an autograd call's host time can exceed its device time).  A backend
+    that refuses ``enable_gqa`` is timed on K and V expanded to H heads,
+    one that refuses the shape is (None, None, its reason, [])."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    qt, kt, vt, dot = (a.transpose(1, 2).contiguous() for a in (q, k, v, do))
+    G = H // KH
+
+    def backward_times(keys, values, gqa, backend=None):
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in (qt, keys, values)]
+        ctx = sdpa_kernel(backend) if backend is not None else \
+            contextlib.nullcontext()
+        with ctx:
+            o = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                               enable_gqa=gqa)
+            fn = lambda: torch.autograd.grad(o, leaves, dot,
+                                             retain_graph=True)
+            events = cuda_ms(torch, fn, iters=10, warmup=2)
+            dev_ms, names = device_kernels_ms(torch, fn)
+        return dev_ms, events, names
+
+    out = {}
+    for name, backend in (("unforced", None),
+                          ("flash", SDPBackend.FLASH_ATTENTION),
+                          ("efficient", SDPBackend.EFFICIENT_ATTENTION),
+                          ("cuDNN", SDPBackend.CUDNN_ATTENTION)):
+        how = "enable_gqa" if H != KH else "as given"
+        try:
+            dev_ms, events, names = backward_times(kt, vt, H != KH, backend)
+        except RuntimeError as exc:
+            if H == KH or backend is None:
+                out[name] = (None, None, f"refused: "
+                             f"{str(exc).splitlines()[0]}", [])
+                continue
+            how = "K and V expanded to H heads (refuses enable_gqa)"
+            try:
+                dev_ms, events, names = backward_times(
+                    kt.repeat_interleave(G, dim=1),
+                    vt.repeat_interleave(G, dim=1), False, backend)
+            except RuntimeError as exc2:
+                out[name] = (None, None, f"refused: "
+                             f"{str(exc2).splitlines()[0]}", [])
+                continue
+        out[name] = (dev_ms, events, how, names)
+    return out
+
+
 def attention_bwd_phase(torch, dev):
     """The two attention backward kernels against their plain version
     (``flash_attention_bwd_plain``, the same formulas in float32) on the
-    card, on the lse and o of the forward kernel: at phase 9's training
-    shape (qwen2-0.5b) in bf16 and float32, ragged, GQA at G = 1 and 7,
-    seamless' cross-attention, one query row and small odd shapes; the
-    forward's lse against the plain version's.  Then CUDA-event times at
-    the training shape beside the plain version's and SDPA's backward (one
-    ``scaled_dot_product_attention`` call's gradient: a yardstick the port
-    never calls).  Returns the two kernels' records."""
-    import torch.nn.functional as F
+    card, on the lse and o of the forward kernel, at ATTENTION_BWD_CASES;
+    every case twice, the two results bit-equal; where causal with Sk > Sq
+    the key rows no query reaches get zero dk and dv; the forward's lse
+    against the plain version's.  Then CUDA-event times at the training
+    shape beside the plain version's and SDPA's backward unforced and with
+    each backend forced (device ms of its kernels; the fastest forced is the
+    records' library time), and the Hopper kernels' grids and longest
+    walks.  Returns the two kernels' records."""
     from repro_torch.kernels.flash_attention import (
         flash_attention_bwd_cuda, flash_attention_bwd_dkdv_cuda,
         flash_attention_bwd_dq_cuda, flash_attention_bwd_plain,
@@ -1338,22 +1496,10 @@ def attention_bwd_phase(torch, dev):
                 * scale).to(dtype)
 
     B, S, H, KH, D = TRAIN_BATCH, TRAIN_SEQ, 14, 2, 64
-    # (B, Sq, Sk, H, KH, D, dtype, causal); q and k at scale 2 make the
-    # softmax peaked, as in the forward's checks
-    cases = [(B, S, S, H, KH, D, bf16, True),
-             (B, S, S, H, KH, D, f32, True),
-             (B, 1000, 1000, H, KH, D, bf16, True),
-             (2, 1000, 1000, H, KH, D, f32, True),
-             (2, S, S, 16, 16, D, bf16, True),
-             (2, S, S, 7, 1, 128, bf16, True),
-             (4, 128, 1024, 16, 16, 64, bf16, False),
-             (4, 128, 1000, 16, 16, 64, f32, False),
-             (4, 1, 1000, 16, 16, 64, bf16, False),
-             (4, 1, 1000, 16, 16, 64, f32, False),
-             (1, 70, 70, 2, 1, 48, f32, True),
-             (2, 200, 200, 4, 2, 80, bf16, False)]
+    # q and k at scale 2 make the softmax peaked, as in the forward's checks
     errs, use = [], {}
-    for b, Sq, Sk, h, kh, d, dt, causal in cases:
+    for b, Sq, Sk, h, kh, d, dt, causal in ATTENTION_BWD_CASES:
+        dt = bf16 if dt == "bf16" else f32
         q = rn((b, Sq, h, d), 2.0, dt)
         k, v = rn((b, Sk, kh, d), 2.0, dt), rn((b, Sk, kh, d), 1.0, dt)
         do = rn((b, Sq, h, d), 1.0, dt)
@@ -1364,6 +1510,14 @@ def attention_bwd_phase(torch, dev):
         close_err(torch, "flash_attention lse", label, (lse,), (lse_p,),
                   1e-4, 1e-5, use)
         got = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
+        again = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
+        if not all(torch.equal(a, c) for a, c in zip(got, again)):
+            raise AssertionError(f"flash_attention_bwd [{label}]: two calls "
+                                 f"on the same inputs differ")
+        if causal and Sk > Sq and any(bool(t[:, Sq:].any())
+                                      for t in got[1:]):
+            raise AssertionError(f"flash_attention_bwd [{label}]: nonzero "
+                                 f"dk or dv past the last query")
         want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
         # float32: sums in another order; bf16: both round one float32
         # value once (rtol 1e-2 > 2^-8), plus 1e-3 of the largest |want|
@@ -1374,10 +1528,11 @@ def attention_bwd_phase(torch, dev):
                 w.float().abs().max())
             errs.append(close_err(torch, f"flash_attention_bwd {name}",
                                   label, (a,), (w,), atol, rtol, use))
-        del q, k, v, do, o, lse, lse_p, got, want
-    print(f"[kernels] flash_attention_bwd: {len(cases)} checks of dq, dk, "
-          f"dv against flash_attention_bwd_plain, all within tolerance "
-          f"(max abs err {max(errs):.3g})", flush=True)
+        del q, k, v, do, o, lse, lse_p, got, again, want
+    print(f"[kernels] flash_attention_bwd: {len(ATTENTION_BWD_CASES)} checks"
+          f" of dq, dk, dv against flash_attention_bwd_plain, all within "
+          f"tolerance (max abs err {max(errs):.3g}), each case's two calls "
+          f"bit-equal", flush=True)
     print(f"[kernels] closest to the limit: {limit_use_line(use)}",
           flush=True)
 
@@ -1405,18 +1560,18 @@ def attention_bwd_phase(torch, dev):
          "flash_attention_bwd_dkdv": (fns["flash_attention_bwd_dkdv"],
                                       "flash_attention_bwd_dkdv_")},
         iters=5)
-    qt, kt, vt = (a.transpose(1, 2).contiguous().requires_grad_(True)
-                  for a in (q, k, v))
-    dot = do.transpose(1, 2).contiguous()
-
-    def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                              enable_gqa=H != KH)
-    ot = sdpa()
-    sdpa_bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(
-        ot, (qt, kt, vt), dot, retain_graph=True), iters=10, warmup=2)
-    sdpa_both_ms = cuda_ms(torch, lambda: torch.autograd.grad(
-        sdpa(), (qt, kt, vt), dot), iters=10, warmup=2)
+    backends = sdpa_backward_times(torch, q, k, v, do, H, KH)
+    for name, (dev_ms, events, how, names) in backends.items():
+        print(f"[kernels] SDPA backward, {name}"
+              + ("" if name == "unforced" else " forced") + ": "
+              + ("refused" if events is None else
+                 f"device {dev_ms} ms, events {events:.4f} ms")
+              + f" ({how}); its kernels by device time: "
+              f"{[n[:90] for n in names[:3]]}", flush=True)
+    timed = {n: r[0] for n, r in backends.items()
+             if n != "unforced" and r[0] is not None}
+    fastest = min(timed, key=timed.get) if timed else None
+    sdpa_bwd_ms = backends["unforced"][0]
     # bytes: inputs read once, outputs written once; operations: each
     # product over the (query, key) pairs the causal mask keeps: s, dp and
     # dq in the first kernel, s, dp, dv and dk in the second, five in the
@@ -1438,8 +1593,17 @@ def attention_bwd_phase(torch, dev):
           f"{both_ms:.4f} ms (device {device}); bound of the backward "
           f"{whole[0]:.5f} ms by {whole[1]}; forward with lse "
           f"{fwd_ms:.4f} ms; plain backward {plain_ms:.4f} ms; SDPA "
-          f"backward {sdpa_bwd_ms:.4f} ms, SDPA forward + backward "
-          f"{sdpa_both_ms:.4f} ms", flush=True)
+          f"backward device {sdpa_bwd_ms} ms unforced, fastest forced "
+          f"{fastest} " + ("none" if fastest is None
+                           else f"device {timed[fastest]:.4f} ms"),
+          flush=True)
+    walks = attention_bwd_walks(B, S, S, H, KH, D)
+    for name, (grid, group, block) in walks.items():
+        unit = "pairs" if name.endswith("dkdv") else "kv tiles"
+        print(f"[kernels] {name} (Hopper, D={D}): grid {grid}"
+              + (" in clusters of 2" if name.endswith("dkdv") else "")
+              + f", 384 threads a block; the longest walk {block} {unit} a "
+              f"block, {group} a consumer group", flush=True)
     records = {}
     for name in fns:
         records[name] = {
@@ -1447,8 +1611,11 @@ def attention_bwd_phase(torch, dev):
             "replaces": KERNELS[name][1], "launches": 0,
             "max_abs_err": max(errs), "ms": ms[name], "plain_ms": plain_ms,
             "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-            "library_ms": None, "device_ms": device[name],
-            "sdpa_backward_ms": sdpa_bwd_ms}
+            "library_ms": None if fastest is None else timed[fastest],
+            "library": None if fastest is None else
+            f"SDPA backward (dq, dk, dv), {fastest} forced, "
+            f"{backends[fastest][2]}, device ms of its kernels",
+            "device_ms": device[name], "sdpa_backward_ms": sdpa_bwd_ms}
         print(f"[kernels] {name}: {ms[name]:.4f} ms/call (plain backward "
               f"{plain_ms:.4f}), profiler device {device[name]} ms/launch, "
               f"bound {bounds[name][0]:.5f} ms by {bounds[name][1]}",

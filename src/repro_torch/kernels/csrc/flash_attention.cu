@@ -46,6 +46,7 @@
 #include <cuda_runtime.h>
 
 #include "mma.cuh"
+#include "sm90.cuh"
 
 #define FA_BQ 64
 #define FA_BK 64
@@ -514,8 +515,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
 // it must move q, k, v, o, do, dq, dk, dv and lse, 33.6 MB, 10 us at
 // 3.35 TB/s.
 //
-// What the design does about it: two kernels, each in two forms chosen
-// by dtype in the open, as in the forward (no fallback between them):
+// What the design does about it: two kernels, each in three forms chosen
+// in the open by dtype and head dim (no fallback between them); the
+// mma.sync and FMA forms:
 //
 // * flash_attention_bwd_dq_*: one block per (batch * head, 64-row q tile),
 //   heaviest tiles first; it writes delta for its rows (read by the next
@@ -528,7 +530,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
 //   every run.  s^T and dp^T, then p^T and ds^T, then dv += p^T do and
 //   dk += ds^T q.
 //
-// bf16 (*_mma_kernel): 4 warps, each owning 16 rows of the tile; every
+// bf16 at D = 64 and 128: the Hopper kernels (*_wgmma_kernel) of the
+// section "bf16 on Hopper" below.  bf16 at the other head dims
+// (*_mma_kernel): 4 warps, each owning 16 rows of the tile; every
 // product on mma.sync m16n8k16 (bf16 operands, fp32 sums), operands by
 // ldmatrix from rows padded to D+8 (the forward's layout): the two score
 // products read their tiles as they lie, the two or three accumulating
@@ -1151,6 +1155,705 @@ __global__ void __launch_bounds__(32 * FB_WARPS)
   }
 }
 
+// ------------------------------------------------ bf16 on Hopper, D = 64, 128
+// The backward's bf16 kernels at the head dims of the full configs (64:
+// qwen2-0.5b, seamless; 128: the others).  Like the mma.sync kernels above
+// they replace no Pallas kernel: the reference takes attention's gradient
+// by XLA's autodiff of models/layers.py:123-213.
+//
+// What bounds them on the H100: operations.  At qwen2-0.5b's training shape
+// (B=4, S=1024, H=14, KH=2, D=64, causal) dq's three products (s, dp, dq)
+// take 0.0114 ms at the 989 TFLOP/s bf16 rate and dk/dv's four (s, dp, dv,
+// dk) 0.0152 ms; their bytes 0.0065 and 0.0045 ms at 3.35 TB/s.  What
+// keeps a kernel from that: tiles read once per warp rather than once per
+// warp group, a block barrier at every copy, and, for dk/dv, one block
+// walking all of a kv tile's G x nq (query head, q tile) pairs: at the
+// training shape 128 tiles on 132 SMs, the first walking 112 pairs against
+// a mean of 59.5.
+//
+// What the design does about it: both kernels are warp-specialised, 384
+// threads: in warp group 0 one warp issues the copies and nothing else
+// (its group gives up registers by setmaxnreg), groups 1 and 2 consume.
+// Every tile comes by TMA (rank-4 tensor maps over [B, S, heads, D], boxes
+// of 64 columns x 1 head x rows x 1 batch, so rows past S read zeros,
+// never the next batch's; 128-byte swizzle, two boxes a tile at D = 128)
+// into an mbarrier ring with full and empty barriers.  Every product runs
+// on wgmma m64nNk16: the two score products (s and dp, or s^T and dp^T)
+// with both operands in shared memory, K-major; the accumulating products
+// with A in
+// registers (the score accumulators turned, as they stand, into bf16 hi +
+// lo fragments, as in the mma.sync kernels: one bf16 rounding of ds left
+// dq 1.3x beyond its limit) and B in shared memory, MN-major.
+//
+// * flash_attention_bwd_dkdv_wgmma_kernel: one cluster of two blocks per
+//   (64-row kv tile, kv head, batch), tile 0 (the longest walk when
+//   causal) first.  Each block's producer brings the tile's K and V once by
+//   TMA, then every other (query head, q tile) pair's q and do tiles
+//   through a ring (FhStages), and each pair's 64 lse and delta values by
+//   cp.async (a [B, H, Sq] float32 row starts at Sq * 4 bytes, not 16-byte
+//   aligned at ragged Sq, so not by TMA), their landing counted on the same
+//   full barrier.  The block's two consumer groups take its pairs in turn,
+//   so the four groups of a cluster take the tile's pairs in turn: at the
+//   training shape the longest walk is 28 pairs a group, 56 a block (the
+//   128 tiles' pairs spread over 256 blocks on 132 SMs); each
+//   group keeps its own 64 x D float32 dk and dv in registers.  At the end
+//   the four partial sums meet in a fixed order (the kernel's own comment
+//   says which), through shared memory and the other block's shared
+//   memory: the same bits every run, with no atomics.
+// * flash_attention_bwd_dq_wgmma_kernel: one block per (128-row q tile,
+//   batch * head), heaviest tiles first; TMA brings the tile's q and do
+//   once, then the kv tiles through a ring (FhStages), each K and V
+//   tile serving both groups' 64 rows.  Under the first copies each group
+//   computes delta = rowsum(do .* o) of its rows by 16-byte loads and
+//   writes it for the dk/dv kernel.
+//
+// Registers: 384 threads leave 168 a thread; setmaxnreg moves the
+// producer group's to the consumers (FH_CONSUMER_REGS).  ptxas gave the
+// dk/dv consumers more than 168 only at D = 128 (where dk, dv, s^T, dp^T and
+// the fragments come to ~200) and there only where the warp group's index
+// comes from a shuffle, which it reads as uniform; the dq kernel measured
+// faster without that shuffle.  Hence dk/dv waits for a pair's dv and dk
+// before it issues the next pair's scores (a second pair's scores do not
+// fit beside them), while dq, whose accumulator is one 64 x D tile, issues
+// tile t + 1's scores ahead of tile t's dq products.  The other head dims
+// (16, 32, 48, 80, 96, 112) keep the mma.sync kernels above, chosen by D in
+// the launchers below under the same launch names.
+#define FH_T 64                 // rows of a tile
+#define FH_BOX (FH_T * 128)     // bytes of a 64-row box of 64 columns
+#define FH_THREADS 384          // a producer warp group, two consumer groups
+#define FH_PRODUCER_REGS 40
+#define FH_CONSUMER_REGS 232
+
+// Ring stages: dk/dv's q + do pairs (16.5 KB a stage at D = 64, 32.5 at
+// 128), dq's k + v tiles (16 KB, 32 KB).  One block an SM either way (384
+// threads), so D = 64 takes deep rings.
+template <int DB>
+struct FhStages {
+  static constexpr int kv = DB == 1 ? 8 : 4;
+  static constexpr int dq = DB == 1 ? 4 : 3;
+};
+
+// The dynamic shared memory rounded up to 1024 bytes (the swizzle's
+// period; the launchers ask for 1024 bytes more).
+__device__ __forceinline__ unsigned char* fh_align(unsigned char* p) {
+  return p + ((1024 - (sm90_addr(p) & 1023)) & 1023);
+}
+
+// 2^x on the MUFU unit (ex2.approx, denormals flushed: p underflows to 0).
+__device__ __forceinline__ float fh_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Descriptors of one tile of DB boxes: K-major at k-step kk of 16
+// columns (boxes `box_bytes` apart), MN-major at k-step kk of 16 rows.
+__device__ __forceinline__ uint64_t fh_kmajor(const unsigned char* t, int kk,
+                                              int box_bytes) {
+  return wg_desc(t + (kk >> 2) * box_bytes + (kk & 3) * 32, 16, 1024);
+}
+__device__ __forceinline__ uint64_t fh_mnmajor(const unsigned char* t,
+                                               int kk) {
+  return wg_desc(t + kk * 2048, FH_BOX, 1024);
+}
+
+// a[64 x 64] = A B^T and b[64 x 64] = C E^T over D = 64 DB columns, all
+// four K-major tiles in shared memory (A and C boxes `ab` bytes apart, B
+// and E FH_BOX), issued as one wgmma group.
+template <int DB>
+__device__ __forceinline__ void fh_scores(float (&a)[32], float (&b)[32],
+                                          const unsigned char* A,
+                                          const unsigned char* B,
+                                          const unsigned char* C,
+                                          const unsigned char* E, int ab) {
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4 * DB; ++kk)
+    wgmma_ss_64x64(a, fh_kmajor(A, kk, ab), fh_kmajor(B, kk, FH_BOX),
+                   kk == 0);
+#pragma unroll
+  for (int kk = 0; kk < 4 * DB; ++kk)
+    wgmma_ss_64x64(b, fh_kmajor(C, kk, ab), fh_kmajor(E, kk, FH_BOX),
+                   kk == 0);
+  wg_commit();
+}
+
+// A 64 x 64 float32 accumulator as bf16 hi + lo A fragments (pair i of
+// the accumulator, elements 2i and 2i + 1, is fragment register i).
+__device__ __forceinline__ void fh_split(const float (&x)[32],
+                                         uint32_t (&hi)[16],
+                                         uint32_t (&lo)[16]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    split_bf16(x[2 * i], x[2 * i + 1], hi[i], lo[i]);
+}
+
+// acc[64 x D] += (hi + lo) T over 64 rows of the MN-major tile T: eight
+// wgmma, not committed.
+template <int D>
+__device__ __forceinline__ void fh_accumulate(float (&acc)[D / 2],
+                                              const uint32_t (&hi)[16],
+                                              const uint32_t (&lo)[16],
+                                              const unsigned char* T) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t bd = fh_mnmajor(T, kk);
+    wgmma_rs<D>(acc, hi + 4 * kk, bd);
+    wgmma_rs<D>(acc, lo + 4 * kk, bd);
+  }
+}
+
+// The warp's share of a consumer group's release of a ring stage.
+__device__ __forceinline__ void fh_release(uint64_t* bar) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(bar);
+}
+
+// 64 x D float32 accumulator rows (this thread's, times sc) as bf16 into a
+// [B, S, heads, D] tensor at rows r0 + 16 warp + g (+ 8), below S.
+template <int D>
+__device__ __forceinline__ void fh_store(bf16* out, const float (&acc)[D / 2],
+                                         float sc, long long base, int r0,
+                                         int S, long long stride) {
+  const int tid = threadIdx.x & 127;
+  const int warp = tid >> 5, g = (tid & 31) >> 2, t4 = tid & 3;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int r = r0 + 16 * warp + g + 8 * rr;
+    if (r >= S) continue;
+    bf16* row = out + base + r * stride + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(row + 8 * j) =
+          pack_bf16(acc[4 * j + 2 * rr] * sc, acc[4 * j + 2 * rr + 1] * sc);
+  }
+}
+
+// This thread's 64 x D float32 accumulator into block `rank` of the
+// cluster (its xr at the same offset, [D / 8][128] float4), then one
+// arrival on that block's rx_bar, released to the cluster.
+template <int D>
+__device__ __forceinline__ void fh_send(const float (&acc)[D / 2],
+                                        float4* xr, uint64_t* rx_bar,
+                                        int rank) {
+  const int tid = threadIdx.x & 127;
+  const uint32_t dst = cluster_map(xr, rank);
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i)
+    st_cluster_v4(dst + (i * 128 + tid) * 16, acc[4 * i], acc[4 * i + 1],
+                  acc[4 * i + 2], acc[4 * i + 3]);
+  mbar_arrive_cluster(cluster_map(rx_bar, rank));
+}
+
+// q, do: [B, Sq, H, D]; k, v, dk, dv: [B, Sk, KH, D], bf16, as tensor maps
+// (all boxes of 64 rows) and pointers; lse, delta: [B, H, Sq] float32.
+// grid (2 ceil(Sk / 64), B * KH) in clusters of two blocks, FH_THREADS.
+//
+// The two blocks of a cluster share one kv tile: block r takes the pairs
+// r, r + 2, ..., and its consumer group c every other one of those, so the
+// four groups take the pairs in turn.  A group's pair: s^T and dp^T, then
+// p^T and ds^T in their place, their hi + lo fragments, dv += p^T do
+// (issued under the split of ds^T) and dk += ds^T q; the next pair's s^T
+// and dp^T wait for both (the registers hold no second pair's scores beside
+// dk, dv and the fragments), and the other group's products fill the
+// tensor cores meanwhile.  The sums: in each block group 0 adds group 1's
+// dk to its own, group 1 adds group 0's dv (through the drained ring); then
+// block 1 sends its dk to block 0 and block 0 its dv to block 1 (stores
+// into the other block's shared memory, an mbarrier there counting them),
+// and block 0 writes dk = dk(block 0) + dk(block 1), block 1 dv likewise.
+// Each sum is taken in that fixed order: the same bits every run, no
+// atomics.
+template <int DB>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(FH_THREADS, 1)
+    flash_attention_bwd_dkdv_wgmma_kernel(
+        const __grid_constant__ CUtensorMap tm_q,
+        const __grid_constant__ CUtensorMap tm_do,
+        const __grid_constant__ CUtensorMap tm_k,
+        const __grid_constant__ CUtensorMap tm_v,
+        const float* __restrict__ lse, const float* __restrict__ delta,
+        bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Sk, int H,
+        int KH, float scale, float scale_log2, int causal) {
+  constexpr int D = 64 * DB, TB = DB * FH_BOX, NS = FhStages<DB>::kv;
+  extern __shared__ unsigned char fh_smem[];
+  unsigned char* ks = fh_align(fh_smem);   // [TB]
+  unsigned char* vs = ks + TB;             // [TB]
+  unsigned char* qs = vs + TB;             // [NS][TB]
+  unsigned char* dos = qs + NS * TB;       // [NS][TB]
+  float4* xr = reinterpret_cast<float4*>(dos + NS * TB);   // [D/8][128]
+  float* lse_s = reinterpret_cast<float*>(xr + (D / 8) * 128);   // [NS][64]
+  float* dl_s = lse_s + NS * FH_T;                               // [NS][64]
+  uint64_t* kv_bar = reinterpret_cast<uint64_t*>(dl_s + NS * FH_T);
+  uint64_t* rx_bar = kv_bar + 1;           // the other block's half landed
+  uint64_t* full = rx_bar + 1;             // [NS]
+  uint64_t* empty = full + NS;             // [NS]
+
+  const int rank = blockIdx.x & 1;         // in the cluster
+  const int k0 = (blockIdx.x >> 1) * FH_T;   // tile 0 walks the most
+  const int b = blockIdx.y / KH, kh = blockIdx.y - b * KH;
+  const int G = H / KH;
+  const int nq = (Sq + FH_T - 1) / FH_T;
+  const int t0 = causal ? k0 / FH_T : 0;   // q tiles wholly before k0: none
+  const int nt = nq > t0 ? nq - t0 : 0;
+  const int n_it = G * nt;                 // (query head, q tile) pairs
+  const int n_loc = (n_it + 1 - rank) / 2;   // this block's: rank + 2 j
+  // the warp group, uniform to the compiler: 0 produces, 1 and 2 consume
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x >> 7, 0);
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_bar, 1);
+    mbar_init(rx_bar, 128);          // the other block's sending group
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full + s, 1 + 32);   // the expect_tx, 32 cp.async lanes
+      mbar_init(empty + s, 4);       // the consuming group's 4 warps
+    }
+    mbar_init_fence();
+  }
+  cluster_sync();   // both blocks' barriers exist before any remote arrive
+
+  if (wg == 0) {
+    // ------------------------------------------------------- producer
+    regs_release<FH_PRODUCER_REGS>();
+    const int lane = threadIdx.x;
+    if (lane < 32 && n_loc > 0) {
+      if (lane == 0) {
+        mbar_expect_tx(kv_bar, 2 * TB);
+        for (int x = 0; x < DB; ++x) {
+          tma_load_4d(ks + x * FH_BOX, &tm_k, kv_bar, 64 * x, kh, k0, b);
+          tma_load_4d(vs + x * FH_BOX, &tm_v, kv_bar, 64 * x, kh, k0, b);
+        }
+      }
+      for (int j = 0; j < n_loc; ++j) {
+        const int st = j % NS, it = rank + 2 * j;
+        if (j >= NS) mbar_wait(empty + st, (j / NS - 1) & 1);
+        const int hq = kh * G + it / nt, q0 = (t0 + it % nt) * FH_T;
+        if (lane == 0) {
+          mbar_expect_tx(full + st, 2 * TB);
+          for (int x = 0; x < DB; ++x) {
+            tma_load_4d(qs + st * TB + x * FH_BOX, &tm_q, full + st, 64 * x,
+                        hq, q0, b);
+            tma_load_4d(dos + st * TB + x * FH_BOX, &tm_do, full + st,
+                        64 * x, hq, q0, b);
+          }
+        }
+        const long long roff = ((long long)b * H + hq) * Sq;
+        for (int i = lane; i < FH_T; i += 32) {
+          const bool in = q0 + i < Sq;
+          const int s = in ? q0 + i : 0;
+          cp_async4(lse_s + st * FH_T + i, lse + roff + s, in);
+          cp_async4(dl_s + st * FH_T + i, delta + roff + s, in);
+        }
+        mbar_arrive_cp_async(full + st);
+      }
+    }
+  } else {
+    // ------------------------------------------------------ consumers
+    regs_claim<FH_CONSUMER_REGS>();
+    const int c = wg - 1, tid = threadIdx.x & 127;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+    float dka[D / 2], dva[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+    float s[32], dp[32];                      // s^T, dp^T: kv rows x q
+    uint32_t ph[16], pl[16], dh[16], dlo[16];   // p^T, ds^T: hi + lo
+    if (n_loc > c) mbar_wait(kv_bar, 0);
+    for (int j = c; j < n_loc; j += 2) {
+      const int st = j % NS, it = rank + 2 * j;
+      mbar_wait(full + st, (j / NS) & 1);
+      const unsigned char* qt = qs + st * TB;
+      const unsigned char* dt = dos + st * TB;
+      fh_scores<DB>(s, dp, ks, qt, vs, dt, FH_BOX);
+      wg_wait<0>();
+      wg_hold(s);
+      wg_hold(dp);
+      const int q0 = (t0 + it % nt) * FH_T;
+      const float* ls = lse_s + st * FH_T;
+      const float* dl = dl_s + st * FH_T;
+      const bool need_mask = q0 + FH_T > Sq || k0 + FH_T > Sk ||
+                             (causal && k0 + FH_T - 1 > q0);
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {   // p^T, ds^T in place of s^T, dp^T
+        const int col = 8 * jj + 2 * t4;
+        const float2 lv = *reinterpret_cast<const float2*>(ls + col);
+        const float2 dv2 = *reinterpret_cast<const float2*>(dl + col);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float l = (e & 1) ? lv.y : lv.x, d = (e & 1) ? dv2.y : dv2.x;
+          float p = fh_exp2(s[4 * jj + e] * scale_log2 - l * FA_LOG2E);
+          if (need_mask) {
+            const int kpos = k0 + 16 * warp + g + 8 * (e >> 1);
+            const int qpos = q0 + col + (e & 1);
+            if (kpos >= Sk || qpos >= Sq || (causal && kpos > qpos)) p = 0.f;
+          }
+          s[4 * jj + e] = p;
+          dp[4 * jj + e] = p * (dp[4 * jj + e] - d);
+        }
+      }
+      fh_split(s, ph, pl);
+      wg_fence();
+      fh_accumulate<D>(dva, ph, pl, dt);   // dv += p^T do
+      fh_split(dp, dh, dlo);
+      wg_fence();
+      fh_accumulate<D>(dka, dh, dlo, qt);  // dk += ds^T q
+      wg_commit();
+      wg_wait<0>();
+      wg_hold(dka);
+      wg_hold(dva);
+      wg_hold(ph);
+      wg_hold(pl);
+      wg_hold(dh);
+      wg_hold(dlo);
+      fh_release(empty + st);
+    }
+    // the sums: first the block's two groups, through the drained ring
+    // (group 0 ends with the block's dk, group 1 with its dv), then the
+    // cluster's two blocks (block 0 writes dk, block 1 dv)
+    named_sync(1, 256);
+    float* xk = reinterpret_cast<float*>(qs);   // [D / 2][128]: group 1's dk
+    float* xv = xk + (D / 2) * 128;             // [D / 2][128]: group 0's dv
+    const long long base = ((long long)b * Sk * KH + kh) * D;
+    const long long stride = (long long)KH * D;
+    if (c == 0) {
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) xv[i * 128 + tid] = dva[i];
+      named_sync(1, 256);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) dka[i] += xk[i * 128 + tid];
+      if (rank == 0) {
+        mbar_wait<true>(rx_bar, 0);   // block 1's dk
+#pragma unroll
+        for (int i = 0; i < D / 8; ++i) {
+          const float4 x = xr[i * 128 + tid];
+          dka[4 * i] += x.x;
+          dka[4 * i + 1] += x.y;
+          dka[4 * i + 2] += x.z;
+          dka[4 * i + 3] += x.w;
+        }
+        fh_store<D>(dk, dka, scale, base, k0, Sk, stride);
+      } else {
+        fh_send<D>(dka, xr, rx_bar, 0);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) xk[i * 128 + tid] = dka[i];
+      named_sync(1, 256);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) dva[i] += xv[i * 128 + tid];
+      if (rank == 1) {
+        mbar_wait<true>(rx_bar, 0);   // block 0's dv
+#pragma unroll
+        for (int i = 0; i < D / 8; ++i) {   // dv(block 0) + dv(block 1)
+          const float4 x = xr[i * 128 + tid];
+          dva[4 * i] = x.x + dva[4 * i];
+          dva[4 * i + 1] = x.y + dva[4 * i + 1];
+          dva[4 * i + 2] = x.z + dva[4 * i + 2];
+          dva[4 * i + 3] = x.w + dva[4 * i + 3];
+        }
+        fh_store<D>(dv, dva, 1.f, base, k0, Sk, stride);
+      } else {
+        fh_send<D>(dva, xr, rx_bar, 1);
+      }
+    }
+  }
+}
+
+// rowsum of 8 bf16 products (two 16-byte words), in a fixed order.
+__device__ __forceinline__ float fh_dot8(uint4 x, uint4 y) {
+  const uint32_t xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    acc = fmaf(bf16_lo(xs[i]), bf16_lo(ys[i]), acc);
+    acc = fmaf(bf16_hi(xs[i]), bf16_hi(ys[i]), acc);
+  }
+  return acc;
+}
+
+// q, o, do, dq: [B, Sq, H, D]; k, v: [B, Sk, KH, D], bf16, as tensor maps
+// (tm_q, tm_do boxes of 128 rows; tm_k, tm_v of 64 rows) and pointers;
+// lse, delta: [B, H, Sq] float32.  grid (ceil(Sq / 128), B * H),
+// FH_THREADS; consumer group c owns rows 64 c .. 64 c + 63 of the tile.
+//
+// A group's kv tile t: s and dp (issued ahead), ds in place of dp while
+// tile t - 1's dq products run, its hi + lo fragments, tile t + 1's s and dp
+// issued, then dq += ds k.
+template <int DB>
+__global__ void __launch_bounds__(FH_THREADS, 1)
+    flash_attention_bwd_dq_wgmma_kernel(
+        const __grid_constant__ CUtensorMap tm_q,
+        const __grid_constant__ CUtensorMap tm_do,
+        const __grid_constant__ CUtensorMap tm_k,
+        const __grid_constant__ CUtensorMap tm_v, const bf16* __restrict__ o,
+        const bf16* __restrict__ dout, const float* __restrict__ lse,
+        float* __restrict__ delta, bf16* __restrict__ dq, int Sq, int Sk,
+        int H, int KH, float scale, float scale_log2, int causal) {
+  constexpr int D = 64 * DB, TB = DB * FH_BOX, QB = 2 * FH_BOX;
+  constexpr int NS = FhStages<DB>::dq;
+  extern __shared__ unsigned char fh_smem[];
+  unsigned char* qs = fh_align(fh_smem);   // [DB][QB]: 128 rows a box
+  unsigned char* dos = qs + DB * QB;       // [DB][QB]
+  unsigned char* ks = dos + DB * QB;       // [NS][TB]
+  unsigned char* vs = ks + NS * TB;        // [NS][TB]
+  float* dl_s = reinterpret_cast<float*>(vs + NS * TB);   // [2][64]
+  uint64_t* q_bar = reinterpret_cast<uint64_t*>(dl_s + 2 * FH_T);
+  uint64_t* full = q_bar + 1;              // [NS]
+  uint64_t* empty = full + NS;             // [NS]
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * 2 * FH_T;   // heaviest first
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh - b * H;
+  const int kh = h / (H / KH);
+  int n_kv = (Sk + FH_T - 1) / FH_T;
+  if (causal) {
+    const int last = (q0 + 2 * FH_T - 1) / FH_T;
+    n_kv = last + 1 < n_kv ? last + 1 : n_kv;
+  }
+  const int wg = threadIdx.x >> 7;   // 0 produces, 1 and 2 consume
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_bar, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 8);   // both groups' 4 warps
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ------------------------------------------------------- producer
+    regs_release<FH_PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_bar, 4 * TB);
+      for (int x = 0; x < DB; ++x) {
+        tma_load_4d(qs + x * QB, &tm_q, q_bar, 64 * x, h, q0, b);
+        tma_load_4d(dos + x * QB, &tm_do, q_bar, 64 * x, h, q0, b);
+      }
+      for (int t = 0; t < n_kv; ++t) {
+        const int st = t % NS;
+        if (t >= NS) mbar_wait(empty + st, (t / NS - 1) & 1);
+        mbar_expect_tx(full + st, 2 * TB);
+        for (int x = 0; x < DB; ++x) {
+          tma_load_4d(ks + st * TB + x * FH_BOX, &tm_k, full + st, 64 * x,
+                      kh, t * FH_T, b);
+          tma_load_4d(vs + st * TB + x * FH_BOX, &tm_v, full + st, 64 * x,
+                      kh, t * FH_T, b);
+        }
+      }
+    }
+  } else {
+    // ------------------------------------------------------ consumers
+    regs_claim<FH_CONSUMER_REGS>();
+    const int c = wg - 1, tid = threadIdx.x & 127;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+    const int r0 = q0 + c * FH_T;            // this group's first row
+    const long long q_stride = (long long)H * D;
+    const long long qbase = ((long long)b * Sq * H + h) * D;
+    {   // delta of the group's rows, two threads a row, under the copies
+      const int row = tid >> 1, half = tid & 1, s = r0 + row;
+      float acc = 0.f;
+      if (s < Sq) {
+        const long long off = qbase + s * q_stride + half * (D / 2);
+        const uint4* x = reinterpret_cast<const uint4*>(dout + off);
+        const uint4* y = reinterpret_cast<const uint4*>(o + off);
+#pragma unroll
+        for (int ch = 0; ch < D / 16; ++ch)
+          acc += fh_dot8(__ldg(x + ch), __ldg(y + ch));
+      }
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      if (half == 0) {
+        dl_s[c * FH_T + row] = acc;
+        if (s < Sq) delta[(long long)bh * Sq + s] = acc;
+      }
+    }
+    named_sync(2 + c, 128);
+    float lse2[2], dl2[2];   // rows 16 warp + g (+ 8) of the group
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = 16 * warp + g + 8 * hr;
+      lse2[hr] = r0 + r < Sq ? lse[(long long)bh * Sq + r0 + r] * FA_LOG2E
+                             : 0.f;
+      dl2[hr] = dl_s[c * FH_T + r];
+    }
+    float dqa[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dqa[i] = 0.f;
+    float s[32], dp[32];
+    uint32_t dh[16], dlo[16];   // ds: hi + lo
+    // the kv tiles this group computes: none for rows past Sq, none past
+    // its diagonal when causal
+    int end = r0 >= Sq ? 0 : n_kv;
+    if (causal && r0 < Sq) {
+      const int last = (r0 + FH_T - 1) / FH_T;
+      end = last + 1 < n_kv ? last + 1 : n_kv;
+    }
+    const unsigned char* qc = qs + c * FH_BOX;
+    const unsigned char* dc = dos + c * FH_BOX;
+    mbar_wait(q_bar, 0);
+    if (end > 0) {
+      mbar_wait(full, 0);
+      fh_scores<DB>(s, dp, qc, ks, dc, vs, QB);
+    }
+    for (int t = 0; t < end; ++t) {
+      const int st = t % NS;
+      // s, dp of tile t; dq's products of tile t - 1 may still run
+      if (t > 0)
+        wg_wait<1>();
+      else
+        wg_wait<0>();
+      wg_hold(s);
+      wg_hold(dp);
+      const int k0 = t * FH_T;
+      const bool need_mask = k0 + FH_T > Sk || r0 + FH_T > Sq ||
+                             (causal && k0 + FH_T - 1 > r0);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)   // ds in place of dp
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int hr = e >> 1;
+          float p = fh_exp2(s[4 * j + e] * scale_log2 - lse2[hr]);
+          if (need_mask) {
+            const int kpos = k0 + 8 * j + 2 * t4 + (e & 1);
+            const int qpos = r0 + 16 * warp + g + 8 * hr;
+            if (kpos >= Sk || qpos >= Sq || (causal && kpos > qpos)) p = 0.f;
+          }
+          dp[4 * j + e] = p * (dp[4 * j + e] - dl2[hr]);
+        }
+      wg_wait<0>();   // dq's products of tile t - 1: fragments, stage free
+      wg_hold(dqa);
+      wg_hold(dh);
+      wg_hold(dlo);
+      if (t > 0) fh_release(empty + (t - 1) % NS);
+      fh_split(dp, dh, dlo);
+      if (t + 1 < end) {   // the next tile's scores ahead of dq's products
+        const int sn = (t + 1) % NS;
+        mbar_wait(full + sn, ((t + 1) / NS) & 1);
+        fh_scores<DB>(s, dp, qc, ks + sn * TB, dc, vs + sn * TB, QB);
+      }
+      wg_fence();
+      fh_accumulate<D>(dqa, dh, dlo, ks + st * TB);   // dq += ds k
+      wg_commit();
+    }
+    if (end > 0) {
+      wg_wait<0>();
+      wg_hold(dqa);
+      wg_hold(dh);
+      wg_hold(dlo);
+      fh_release(empty + (end - 1) % NS);
+    }
+    for (int t = end; t < n_kv; ++t) {   // tiles the other group computes
+      mbar_wait(full + t % NS, (t / NS) & 1);
+      fh_release(empty + t % NS);
+    }
+    fh_store<D>(dq, dqa, scale, qbase, r0, Sq, q_stride);
+  }
+}
+
+// ------------------------------------------------------ tensor maps (host)
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime
+// (cudaGetDriverEntryPointByVersion): the library links no libcuda.
+typedef CUresult (*fh_encode_fn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+static fh_encode_fn fh_encoder() {
+  static const fh_encode_fn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? (fh_encode_fn)p
+               : (fh_encode_fn)nullptr;
+  }();
+  return fn;
+}
+
+// A [B, S, heads, D] bf16 tensor as a rank-4 map (D, heads, S, B), boxes of
+// 64 columns x 1 head x `rows` rows x 1 batch, 128-byte swizzle; reads past
+// S give zeros.  Returns 0 or a cudaError.
+static int fh_map(CUtensorMap* m, const void* p, int B, int S, int heads,
+                  int D, int rows) {
+  const fh_encode_fn enc = fh_encoder();
+  if (!enc) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
+                              (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
+                                 (cuuint64_t)S * heads * D * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                         const_cast<void*>(p), dims, strides, box, unit,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int DB>
+static int fh_dq_launch(const void* q, const void* k, const void* v,
+                        const void* o, const void* dout, const void* lse,
+                        void* delta, void* dq, int B, int Sq, int Sk, int H,
+                        int KH, float scale, int causal, cudaStream_t s) {
+  constexpr int D = 64 * DB, TB = DB * FH_BOX;
+  CUtensorMap mq, mdo, mk, mv;
+  int err;
+  if ((err = fh_map(&mq, q, B, Sq, H, D, 2 * FH_T)) ||
+      (err = fh_map(&mdo, dout, B, Sq, H, D, 2 * FH_T)) ||
+      (err = fh_map(&mk, k, B, Sk, KH, D, FH_T)) ||
+      (err = fh_map(&mv, v, B, Sk, KH, D, FH_T)))
+    return err;
+  constexpr int NS = FhStages<DB>::dq;
+  const int smem =
+      1024 + 4 * TB + 2 * NS * TB + 2 * FH_T * 4 + (1 + 2 * NS) * 8;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_attention_bwd_dq_wgmma_kernel<DB>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((Sq + 2 * FH_T - 1) / (2 * FH_T), B * H);
+  flash_attention_bwd_dq_wgmma_kernel<DB><<<grid, FH_THREADS, smem, s>>>(
+      mq, mdo, mk, mv, (const bf16*)o, (const bf16*)dout, (const float*)lse,
+      (float*)delta, (bf16*)dq, Sq, Sk, H, KH, scale, scale * FA_LOG2E,
+      causal);
+  return (int)cudaGetLastError();
+}
+
+template <int DB>
+static int fh_dkdv_launch(const void* q, const void* k, const void* v,
+                          const void* dout, const void* lse,
+                          const void* delta, void* dk, void* dv, int B,
+                          int Sq, int Sk, int H, int KH, float scale,
+                          int causal, cudaStream_t s) {
+  constexpr int D = 64 * DB, TB = DB * FH_BOX;
+  CUtensorMap mq, mdo, mk, mv;
+  int err;
+  if ((err = fh_map(&mq, q, B, Sq, H, D, FH_T)) ||
+      (err = fh_map(&mdo, dout, B, Sq, H, D, FH_T)) ||
+      (err = fh_map(&mk, k, B, Sk, KH, D, FH_T)) ||
+      (err = fh_map(&mv, v, B, Sk, KH, D, FH_T)))
+    return err;
+  constexpr int NS = FhStages<DB>::kv;
+  const int smem = 1024 + 2 * TB + 2 * NS * TB + D * 256 +
+                   2 * NS * FH_T * 4 + (2 + 2 * NS) * 8;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_attention_bwd_dkdv_wgmma_kernel<DB>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(2 * ((Sk + FH_T - 1) / FH_T), B * KH);   // clusters of 2
+  flash_attention_bwd_dkdv_wgmma_kernel<DB><<<grid, FH_THREADS, smem, s>>>(
+      mq, mdo, mk, mv, (const float*)lse, (const float*)delta, (bf16*)dk,
+      (bf16*)dv, Sq, Sk, H, KH, scale, scale * FA_LOG2E, causal);
+  return (int)cudaGetLastError();
+}
+
 // ---------------------------------------------------------------- launch
 template <int DC>
 static int fb_dq_launch(const void* q, const void* k, const void* v,
@@ -1160,18 +1863,24 @@ static int fb_dq_launch(const void* q, const void* k, const void* v,
                         cudaStream_t s) {
   const dim3 grid((Sq + FB_T - 1) / FB_T, B * H);
   if (bf16_in) {
-    constexpr int LD = 16 * DC + 8;
-    const int smem = (int)sizeof(bf16) * 6 * FB_T * LD +
-                     (int)sizeof(float) * 2 * FB_T;
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_bwd_dq_mma_kernel<DC>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    flash_attention_bwd_dq_mma_kernel<DC><<<grid, 32 * FB_WARPS, smem, s>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)o,
-        (const bf16*)dout, (const float*)lse, (float*)delta, (bf16*)dq, Sq,
-        Sk, H, KH, scale, scale * FA_LOG2E, causal);
-    return (int)cudaGetLastError();
+    // D = 64 and 128: the Hopper kernel; other head dims: mma.sync
+    if constexpr (DC == 4 || DC == 8) {
+      return fh_dq_launch<DC / 4>(q, k, v, o, dout, lse, delta, dq, B, Sq,
+                                  Sk, H, KH, scale, causal, s);
+    } else {
+      constexpr int LD = 16 * DC + 8;
+      const int smem = (int)sizeof(bf16) * 6 * FB_T * LD +
+                       (int)sizeof(float) * 2 * FB_T;
+      cudaError_t err = cudaFuncSetAttribute(
+          flash_attention_bwd_dq_mma_kernel<DC>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return (int)err;
+      flash_attention_bwd_dq_mma_kernel<DC><<<grid, 32 * FB_WARPS, smem, s>>>(
+          (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)o,
+          (const bf16*)dout, (const float*)lse, (float*)delta, (bf16*)dq, Sq,
+          Sk, H, KH, scale, scale * FA_LOG2E, causal);
+      return (int)cudaGetLastError();
+    }
   }
   constexpr int LD = 16 * DC + 1;
   const int smem =
@@ -1195,18 +1904,24 @@ static int fb_dkdv_launch(const void* q, const void* k, const void* v,
                           int causal, int bf16_in, cudaStream_t s) {
   const dim3 grid((Sk + FB_T - 1) / FB_T, B * KH);
   if (bf16_in) {
-    constexpr int LD = 16 * DC + 8;
-    const int smem = (int)sizeof(bf16) * 6 * FB_T * LD +
-                     (int)sizeof(float) * 4 * FB_T;
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_bwd_dkdv_mma_kernel<DC>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    flash_attention_bwd_dkdv_mma_kernel<DC><<<grid, 32 * FB_WARPS, smem, s>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-        (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, Sq, Sk,
-        H, KH, scale, scale * FA_LOG2E, causal);
-    return (int)cudaGetLastError();
+    if constexpr (DC == 4 || DC == 8) {
+      return fh_dkdv_launch<DC / 4>(q, k, v, dout, lse, delta, dk, dv, B, Sq,
+                                    Sk, H, KH, scale, causal, s);
+    } else {
+      constexpr int LD = 16 * DC + 8;
+      const int smem = (int)sizeof(bf16) * 6 * FB_T * LD +
+                       (int)sizeof(float) * 4 * FB_T;
+      cudaError_t err = cudaFuncSetAttribute(
+          flash_attention_bwd_dkdv_mma_kernel<DC>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return (int)err;
+      flash_attention_bwd_dkdv_mma_kernel<DC>
+          <<<grid, 32 * FB_WARPS, smem, s>>>(
+          (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
+          (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, Sq, Sk,
+          H, KH, scale, scale * FA_LOG2E, causal);
+      return (int)cudaGetLastError();
+    }
   }
   constexpr int LD = 16 * DC + 1;
   const int smem =

@@ -57,7 +57,10 @@ and ``apply_move_mesh`` on the card must equal the CPU.  Training: the
 attention backward's two kernels must agree with
 ``flash_attention_bwd_plain`` on the forward kernel's o and lse (bf16
 within one bf16 rounding plus 1e-3 of the largest |want|, float32 within
-1e-4), one launch each a call; ``ops.flash_attention`` under a gradient
+1e-4), one launch each a call, two calls bit-equal (the training shape,
+G = 1, 3 and 7), also where the bf16 Hopper kernels split their walks (an
+odd count of pairs a kv tile, D = 128 at G = 7, causal with Sk > Sq and
+zero dk and dv past the last query); ``ops.flash_attention`` under a gradient
 must run the forward and both backward kernels once each, its float32
 gradients those of autograd through the plain version; ``ops.ssd`` must
 refuse a gradient on its kernel route; and one float32 loss and gradient
@@ -1166,6 +1169,67 @@ def test_flash_attention_backward_kernels_vs_plain(dev, B, Sq, Sk, H, KH, D,
         torch.testing.assert_close(
             a.float(), w.float(), rtol=1e-2 if bf16 else 1e-4,
             atol=(1e-3 if bf16 else 1e-5) * float(w.float().abs().max()))
+
+
+def _bwd_inputs(dev, B, Sq, Sk, H, KH, D, dtype, causal, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rn = lambda s, sc: (torch.randn(s, generator=g, device=dev) * sc).to(
+        dtype)
+    q, do = rn((B, Sq, H, D), 2.0), rn((B, Sq, H, D), 1.0)
+    k, v = rn((B, Sk, KH, D), 2.0), rn((B, Sk, KH, D), 1.0)
+    o, lse = flash_attention_cuda(q, k, v, causal, with_lse=True)
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.parametrize("B,S,H,KH,D", [
+    (4, 1024, 14, 2, 64), (2, 512, 4, 4, 64), (2, 200, 3, 1, 64),
+    (1, 256, 7, 1, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_backward_is_deterministic(dev, B, S, H, KH, D,
+                                                   dtype):
+    """Two calls of the backward kernels on the same inputs give the same
+    bits: at qwen2-0.5b's training shape and at G = 1, 3 and 7 (bf16 at
+    D = 64 and 128: the Hopper kernels, whose dk/dv sums meet in a fixed
+    order across four consumer groups)."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+    args = _bwd_inputs(dev, B, S, S, H, KH, D, dtype, True, S + H)
+    first = flash_attention_bwd_cuda(*args, True)
+    for _ in range(2):
+        again = flash_attention_bwd_cuda(*args, True)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KH,D,causal", [
+    (2, 200, 200, 3, 1, 64, True), (1, 70, 70, 3, 1, 64, True),
+    (2, 512, 512, 7, 1, 128, True), (1, 300, 300, 7, 1, 128, False),
+    (1, 200, 512, 4, 2, 64, True), (1, 200, 512, 14, 2, 128, True)])
+def test_flash_attention_backward_hopper_split_cases(dev, B, Sq, Sk, H, KH,
+                                                     D, causal):
+    """The bf16 Hopper kernels where their split shows: an odd count of
+    (query head, q tile) pairs a kv tile (G = 3, ragged Sq), D = 128 at
+    G = 7, and causal with Sk > Sq, where the kv rows no query reaches
+    must get zero dk and dv.  Against ``flash_attention_bwd_plain`` at the
+    bf16 tolerance of ``test_flash_attention_backward_kernels_vs_plain``;
+    one launch of each kernel a call."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_bwd_plain)
+    args = _bwd_inputs(dev, B, Sq, Sk, H, KH, D, torch.bfloat16, causal,
+                       Sq + Sk + H)
+    before = dict(LAUNCHES)
+    got = flash_attention_bwd_cuda(*args, causal)
+    torch.cuda.synchronize()
+    assert {k_: LAUNCHES[k_] - before[k_] for k_ in LAUNCHES} == {
+        **dict.fromkeys(LAUNCHES, 0), "flash_attention_bwd_dq": 1,
+        "flash_attention_bwd_dkdv": 1}
+    if causal and Sk > Sq:
+        for t in got[1:]:
+            assert not bool(t[:, Sq:].any())
+    for a, w in zip(got, flash_attention_bwd_plain(*args, causal)):
+        assert a.dtype == torch.bfloat16 and a.shape == w.shape
+        torch.testing.assert_close(
+            a.float(), w.float(), rtol=1e-2,
+            atol=1e-3 * float(w.float().abs().max()))
 
 
 @pytest.mark.parametrize("causal", [True, False])

@@ -313,7 +313,7 @@ def test_build_hash_covers_sources_and_flags(tmp_path):
         "flash_attention", "ssd_scan", "flash_attention_bwd_dq",
         "flash_attention_bwd_dkdv"}
     assert {f"{n}_launch" for n in build.LAUNCHES} == set(build.SIGNATURES)
-    assert [h.name for h in headers] == ["common.cuh", "mma.cuh"]
+    assert [h.name for h in headers] == ["common.cuh", "mma.cuh", "sm90.cuh"]
     for src in sources:
         text = src.read_text()
         assert "Replaces the TPU kernel" in text
