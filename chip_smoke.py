@@ -12,8 +12,9 @@ Phases (any failure raises, so the process exits non-zero):
    then disassemble the library (``cuobjdump -sass``): every bf16
    instantiation of ``flash_attention``, its two backward kernels and
    ``ssd_scan`` must run tensor-core (HMMA / HGMMA) instructions, and the
-   backward kernels' Hopper forms (bf16 at D = 64 and 128) wgmma (HGMMA)
-   products and TMA (UTMALDG) loads;
+   Hopper forms (the forward in bf16 at D = 64, 80 and 128, the backward
+   kernels at D = 64 and 128) wgmma (HGMMA) products and TMA (UTMALDG)
+   loads;
 3. each engine kernel against its plain PyTorch version on the card,
    bit-equal, at the main path's shapes and on adversarial inputs
    (the read-phase corners: tied visible CIDs, empty rings, V = 1 / 3 /
@@ -30,12 +31,18 @@ Phases (any failure raises, so the process exits non-zero):
    shapes plus ragged, GQA, non-causal, initial-state, float32, 128-row
    q tile, N=128 (bf16 and float32), model-layout and slow-decay cases and
    phase 8's cross-attention (Sq = 128 and 1 over Sk = 1,024 and 1,000
-   encoder rows) and encoder shapes, each bf16 output also
+   encoder rows) and encoder shapes (``ATTENTION_FWD_CASES``: also the
+   Hopper forward's edges, one query row at D = 128, causal with Sk > Sq,
+   a 2,048-row walk, a q tile with one group's rows, and the ``mma.sync``
+   kernel in bf16 at D = 48, 96 and 112), attention's lse
+   against the plain version's and the Hopper forward's two calls
+   bit-equal, each bf16 output also
    against its plain version in float32 on the same inputs, the element
    closest to its limit printed per check, with
    ``scaled_dot_product_attention`` timed beside attention as a yardstick
-   (never called by the port), the times also at qwen3-14b's prefill and
-   seamless' cross-attention, and ``ssd_scan``'s at mamba2-130m's prefill
+   (never called by the port; by its kernels' device ms), the times also
+   at qwen3-14b's prefill, seamless' cross-attention and qwen2-0.5b's
+   training step, and ``ssd_scan``'s at mamba2-130m's prefill
    (bf16 and float32) and zamba2's in float32; the attention backward's
    two kernels (``flash_attention_bwd_dq``, ``_dkdv``) against
    ``flash_attention_bwd_plain`` on the forward kernel's o and lse (and
@@ -669,18 +676,21 @@ MODEL_KERNELS = ("flash_attention", "ssd_scan", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkdv")
 
 
-# the model kernels with a Hopper form (``*_wgmma_kernel``: bf16 at head
-# dims 64 and 128, wgmma products fed by TMA)
-WGMMA_KERNELS = ("flash_attention_bwd_dq", "flash_attention_bwd_dkdv")
+# the model kernels with a Hopper form (``*_wgmma_kernel``: bf16, wgmma
+# products fed by TMA) and the head dims of its instantiations: the
+# forward at 64, 80 and 128, the backward at 64 and 128
+WGMMA_KERNELS = {"flash_attention": (64, 80, 128),
+                 "flash_attention_bwd_dq": (64, 128),
+                 "flash_attention_bwd_dkdv": (64, 128)}
 
 
 def tensor_core_check(lib_path, nvcc):
     """Disassemble the built library; raise unless every bf16 instantiation
     of the model kernels (``*_mma_kernel``: attention, its backward and the
     SSD scan) runs tensor-core instructions, and every Hopper instantiation
-    (``*_wgmma_kernel``: the attention backward at D = 64 and 128, two of
-    each) issues its products by wgmma (HGMMA) and its tiles by TMA
-    (UTMALDG).  Prints the counts per kernel and form."""
+    (``*_wgmma_kernel``: the attention forward at D = 64, 80 and 128,
+    three; the backward's two kernels at D = 64 and 128, two each) issues its products by wgmma (HGMMA) and
+    its tiles by TMA (UTMALDG).  Prints the counts per kernel and form."""
     tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     sass = subprocess.run([tool, "-sass", lib_path], check=True,
                           capture_output=True, text=True).stdout
@@ -707,11 +717,14 @@ def tensor_core_check(lib_path, nvcc):
                 print(f"[build] {name} bf16 Hopper: HGMMA {per['HGMMA']}, "
                       f"UTMALDG {per['UTMALDG']} per instantiation",
                       flush=True)
-                if len(got) != 2 or 0 in per["HGMMA"] + per["UTMALDG"]:
+                dims = WGMMA_KERNELS[name]
+                if (len(got) != len(dims)
+                        or 0 in per["HGMMA"] + per["UTMALDG"]):
                     raise AssertionError(
-                        f"{name}: expected two Hopper instantiations (D = 64"
-                        f", 128) with wgmma products and TMA loads, got "
-                        f"{per}")
+                        f"{name}: expected {len(dims)} (D = "
+                        f"{', '.join(map(str, dims))}) Hopper "
+                        f"instantiations with wgmma products and TMA "
+                        f"loads, got {per}")
 
 
 def scripts_module(name: str):
@@ -1121,6 +1134,54 @@ def model_layout(x, dA, Bg, H):
             dA.reshape(Bg, H, S).transpose(1, 2).contiguous().transpose(1, 2))
 
 
+# the bf16 head dims of the Hopper forward (flash_attention_wgmma_kernel)
+HOPPER_FWD_DIMS = WGMMA_KERNELS["flash_attention"]
+# (B, Sq, Sk, H, KH, D, dtype name, causal) of the forward's checks, each
+# against the plain version (o and lse) and, in bf16, the float32 oracle;
+# the Hopper kernel's twice, bit-equal: the path in bf16 and float32,
+# ragged, GQA, non-causal and small odd shapes.  q and k at scale 2 make
+# the softmax peaked (scores of std 4), so outputs are of the order of v
+# and a wrong tile shows well above the tolerances.
+ATTENTION_FWD_CASES = (
+    (4, 1024, 1024, 32, 32, 80, "bf16", True),
+    (4, 1024, 1024, 32, 32, 80, "f32", True),
+    (4, 1000, 1000, 32, 32, 80, "bf16", True),
+    (2, 1024, 1024, 14, 2, 64, "bf16", True),
+    (4, 1024, 1024, 32, 32, 80, "bf16", False),
+    (2, 256, 256, 4, 2, 128, "f32", True),
+    (2, 200, 200, 4, 2, 80, "f32", False),
+    (1, 70, 70, 2, 1, 48, "f32", True),
+    (1, 1, 1, 4, 4, 16, "f32", True),
+    (1, 2048, 2048, 32, 8, 128, "bf16", True),
+    # phase 7's prefills: qwen3-14b, qwen2-vl-2b, deepseek-moe
+    (4, 1024, 1024, 40, 8, 128, "bf16", True),
+    (4, 1000, 1000, 12, 2, 128, "bf16", True),
+    (4, 1024, 1024, 16, 16, 128, "bf16", True),
+    # phase 8b, seamless: cross-attention of the 128-token prompt over
+    # 1,024 and 1,000 encoder frames (Sq != Sk, the key tail masked), a
+    # decode step's one query row, and the encoder's full self-attention
+    (4, 128, 1024, 16, 16, 64, "bf16", False),
+    (4, 128, 1000, 16, 16, 64, "bf16", False),
+    (4, 1, 1000, 16, 16, 64, "bf16", False),
+    (4, 1, 1000, 16, 16, 64, "f32", False),
+    (4, 1024, 1024, 16, 16, 64, "bf16", False),
+    # the Hopper kernel's edges: one query row at D = 128, causal with
+    # Sk > Sq (top-left: the last kv tiles only partly reached), ragged
+    # at G = 7, a 2,048-row causal walk, a q tile whose second consumer
+    # group has no rows (Sq = 50) and a kv tile past Sq at D = 80
+    (4, 1, 1000, 8, 8, 128, "bf16", False),
+    (1, 200, 512, 14, 2, 128, "bf16", True),
+    (2, 1000, 1000, 14, 2, 64, "bf16", True),
+    (1, 2048, 2048, 14, 2, 64, "bf16", True),
+    (2, 50, 300, 4, 4, 64, "bf16", True),
+    (1, 300, 77, 10, 2, 80, "bf16", True),
+    # the mma.sync kernel, bf16 at the other head dims: small and odd,
+    # ragged GQA at D = 96, Sq != Sk at D = 112
+    (1, 70, 70, 2, 1, 48, "bf16", True),
+    (2, 300, 300, 8, 2, 96, "bf16", True),
+    (1, 130, 200, 6, 3, 112, "bf16", False))
+
+
 def model_kernel_phase(torch, dev):
     """flash_attention and ssd_scan against their plain versions on the
     card, at the serve path's shapes and on edge cases; returns the two
@@ -1139,48 +1200,31 @@ def model_kernel_phase(torch, dev):
 
     errs = {"flash_attention": [], "ssd_scan": []}
     use = {}
-    # (B, Sq, Sk, H, KH, D, dtype, causal): the path in bf16 and float32,
-    # ragged, GQA, non-causal and small odd shapes.  q and k at scale 2
-    # make the softmax peaked (scores of std 4), so outputs are of the
-    # order of v and a wrong tile shows well above the tolerances.
-    fa_cases = [(4, 1024, 1024, 32, 32, 80, bf16, True),
-                (4, 1024, 1024, 32, 32, 80, f32, True),
-                (4, 1000, 1000, 32, 32, 80, bf16, True),
-                (2, 1024, 1024, 14, 2, 64, bf16, True),
-                (4, 1024, 1024, 32, 32, 80, bf16, False),
-                (2, 256, 256, 4, 2, 128, f32, True),
-                (2, 200, 200, 4, 2, 80, f32, False),
-                (1, 70, 70, 2, 1, 48, f32, True),
-                (1, 1, 1, 4, 4, 16, f32, True),
-                (1, 2048, 2048, 32, 8, 128, bf16, True),
-                # phase 7's prefills: qwen3-14b, qwen2-vl-2b, deepseek-moe
-                (4, 1024, 1024, 40, 8, 128, bf16, True),
-                (4, 1000, 1000, 12, 2, 128, bf16, True),
-                (4, 1024, 1024, 16, 16, 128, bf16, True),
-                # phase 8b, seamless: cross-attention of the 128-token
-                # prompt over 1,024 and 1,000 encoder frames (Sq != Sk, the
-                # key tail masked), a decode step's one query row, and the
-                # encoder's full self-attention
-                (4, 128, 1024, 16, 16, 64, bf16, False),
-                (4, 128, 1000, 16, 16, 64, bf16, False),
-                (4, 1, 1000, 16, 16, 64, bf16, False),
-                (4, 1, 1000, 16, 16, 64, f32, False),
-                (4, 1024, 1024, 16, 16, 64, bf16, False)]
-    for B, Sq, Sk, H, KH, D, dt, causal in fa_cases:
+    for B, Sq, Sk, H, KH, D, dt, causal in ATTENTION_FWD_CASES:
+        dt = bf16 if dt == "bf16" else f32
         q = rn((B, Sq, H, D), 2.0, dt)
         k, v = rn((B, Sk, KH, D), 2.0, dt), rn((B, Sk, KH, D), 1.0, dt)
         tol = 2e-2 if dt == bf16 else 2e-5
         label = (f"B={B} Sq={Sq} Sk={Sk} H={H} KH={KH} D={D} {dt} "
                  f"causal={causal}")
-        o = flash_attention_cuda(q, k, v, causal)
+        o, lse = flash_attention_cuda(q, k, v, causal, with_lse=True)
+        want, lse_p = flash_attention_plain(q, k, v, causal, with_lse=True)
         errs["flash_attention"].append(close_err(
-            torch, "flash_attention", label, (o,),
-            (flash_attention_plain(q, k, v, causal),), tol, tol, use))
+            torch, "flash_attention", label, (o,), (want,), tol, tol, use))
+        errs["flash_attention"].append(close_err(
+            torch, "flash_attention lse", label, (lse,), (lse_p,), 1e-3,
+            1e-5, use))
         if dt == bf16:
             errs["flash_attention"].append(attention_oracle_err(
                 torch, label, o, q, k, v, causal, flash_attention_plain,
                 use))
-        del q, k, v, o
+            if D in HOPPER_FWD_DIMS:   # the Hopper kernel: the same bits
+                again = flash_attention_cuda(q, k, v, causal, with_lse=True)
+                if not (torch.equal(o, again[0])
+                        and torch.equal(lse, again[1])):
+                    raise AssertionError(f"flash_attention [{label}]: two "
+                                         f"calls on the same inputs differ")
+        del q, k, v, o, lse, want, lse_p
     # (Bg, H, S, P, N, chunk, dtype, h0, decay, model layout): the path
     # (decay as the model's dt*A, about -0.7 a step), with an initial
     # state, ragged, float32, small chunks, mamba2-130m's N=128, and x / dA
@@ -1229,7 +1273,8 @@ def model_kernel_phase(torch, dev):
             errs["ssd_scan"].append(ssd_oracle_err(
                 torch, label, y, x, dA, Bm, Cm, H, Q, h0, ssd_plain, use))
         del x, dA, Bm, Cm, h0, y, h, yp, hp
-    print(f"[kernels] flash_attention: {len(fa_cases)} checks, ssd_scan: "
+    print(f"[kernels] flash_attention: {len(ATTENTION_FWD_CASES)} checks "
+          f"(o and lse; the Hopper kernel's two calls bit-equal), ssd_scan: "
           f"{len(ssd_cases)} checks, all within tolerance of the plain "
           f"versions (max abs err {max(errs['flash_attention']):.3g} / "
           f"{max(errs['ssd_scan']):.3g})", flush=True)
@@ -1251,19 +1296,22 @@ def model_kernel_phase(torch, dev):
               f"{rec['plain_ms']:.4f}, library {rec['library_ms']}), "
               f"profiler device {rec['device_ms']} ms/launch, bound "
               f"{rec['bound_ms']:.5f} ms by {rec['bound_by']}", flush=True)
-    # phase 7a's prefill and phase 8b's cross-attention: printed, not in
-    # the JSON line
+    # phase 7a's prefill, phase 8b's cross-attention and phase 9's
+    # training step: printed, not in the JSON line
     for what, (B, Sq, Sk, H, KH, D, causal) in (
             ("qwen3-14b's prefill", (SERVE_BATCH, 1024, 1024, 40, 8, 128,
                                      True)),
             ("seamless' cross-attention", (SERVE_BATCH, 128, 1024, 16, 16,
-                                           64, False))):
+                                           64, False)),
+            ("qwen2-0.5b's training step", (TRAIN_BATCH, TRAIN_SEQ,
+                                            TRAIN_SEQ, 14, 2, 64, True))):
         rec = attention_times(torch, rn, probes, B, Sq, H, KH, D, Sk=Sk,
                               causal=causal)
         print(f"[kernels] flash_attention at {what} shape (B={B} Sq={Sq} "
               f"Sk={Sk} H={H} KH={KH} D={D} bf16 causal={causal}): "
               f"{rec['ms']:.4f} ms/call, device {rec['device_ms']} ms (plain "
-              f"{rec['plain_ms']:.4f}, SDPA {rec['library_ms']:.4f}), bound "
+              f"{rec['plain_ms']:.4f}, SDPA device {rec['library_ms']} ms, "
+              f"SDPA events {rec['library_events_ms']:.4f}), bound "
               f"{rec['bound_ms']:.5f} ms by {rec['bound_by']}", flush=True)
     # phase 8a's scan (mamba2-130m: N=128) in bf16 and float32, and the
     # float32 kernel at zamba2's shape: printed, not in the JSON line
@@ -1283,10 +1331,11 @@ def model_kernel_phase(torch, dev):
 def attention_times(torch, rn, probes, B, S, H, KH, D, Sk=None,
                     causal=True):
     """flash_attention at one bf16 shape (S query rows over Sk key rows,
-    default S): CUDA events ms of the kernel, its plain version and SDPA
-    (the library call, reading the KH kv heads as the kernel does), the
-    profiler's device ms of the kernel and the bytes-or-operations
-    bound."""
+    default S): CUDA events ms of the kernel and its plain version, the
+    profiler's device ms of the kernel and of SDPA (the library call,
+    reading the KH kv heads as the kernel does: its device ms, the
+    library time, since its CUDA events read the host's pace; the events
+    beside them), and the bytes-or-operations bound."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                      flash_attention_plain)
@@ -1295,6 +1344,8 @@ def attention_times(torch, rn, probes, B, S, H, KH, D, Sk=None,
     k, v = (rn((B, Sk, KH, D), 0.5, torch.bfloat16) for _ in range(2))
     qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
     kern = lambda: flash_attention_cuda(q, k, v, causal)
+    sdpa = lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal, enable_gqa=H != KH)
     # bytes: inputs read once, the output written once; operations: the
     # two products over the (query, key) pairs the mask keeps, the causal
     # half of S^2 or all of S x Sk
@@ -1306,9 +1357,10 @@ def attention_times(torch, rn, probes, B, S, H, KH, D, Sk=None,
         "plain_ms": cuda_ms(torch, lambda: flash_attention_plain(q, k, v,
                                                                  causal),
                             iters=10, warmup=2),
-        "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=causal, enable_gqa=H != KH),
-            iters=20, warmup=3),
+        "library_ms": device_kernels_ms(torch, sdpa)[0],
+        "library": "SDPA (scaled_dot_product_attention), device ms of its "
+                   "kernels",
+        "library_events_ms": cuda_ms(torch, sdpa, iters=20, warmup=3),
         "device_ms": probes.profile_device_ms(
             {"flash_attention": (kern, "flash_attention_")},
             iters=10)["flash_attention"],

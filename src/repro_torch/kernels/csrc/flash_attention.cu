@@ -12,11 +12,15 @@
 // the 989 TFLOP/s bf16 tensor rate.  Off the tensor cores (67 TFLOP/s of
 // fp32 FMA) the products alone take 320 us, so they must run on them.
 //
-// What the design does about it: two kernels, chosen by dtype in the open
-// (no fallback between them):
+// What the design does about it: three kernels, chosen by dtype and head
+// dim in the open (no fallback between them):
 //
-// * bf16, flash_attention_mma_kernel (FA2-style).  One block per q tile of
-//   one batch*head, 4 warps, heaviest tiles launched first.  A tile is 128
+// * bf16 at D = 64, 80 and 128, flash_attention_wgmma_kernel: the Hopper
+//   design (TMA, wgmma, warp-specialised consumer groups, persistent
+//   blocks) of the section "forward, bf16 on Hopper" at the end.
+// * bf16 at the other head dims, flash_attention_mma_kernel (FA2-style).
+//   One block per q tile of one batch*head, 4 warps, heaviest tiles
+//   launched first.  A tile is 128
 //   rows, each warp two m-tiles of 16 that share every K and V fragment
 //   the warp loads: half the shared-memory reads per product of 16-row
 //   warps.  K and V tiles of
@@ -38,12 +42,14 @@
 //   score block and a 4 x D/16 output block, products by fmaf.  It keeps
 //   full fp32 products, which the float32 checks (2e-5) rely on.
 //
-// Both: GQA by index (kv head h / (H / KH)) from [B, S, KH, D], no repeat
-// and no D padding (D a multiple of 16 up to 128, so D = 80 is five k-steps
-// of 16 and ten n-tiles of 8); the causal skip of kv tiles above the
+// All three: GQA by index (kv head h / (H / KH)) from [B, S, KH, D], no
+// repeat; no D padding in memory (D a multiple of 16 up to 128; the Hopper
+// kernel's tensor maps end at D); the causal skip of kv tiles above the
 // diagonal; ragged S masked in-kernel with -1e30 (not -inf) and l clamped
 // at 1e-37, as in the Pallas kernel, so no row is NaN.
 #include <cuda_runtime.h>
+
+#include <atomic>
 
 #include "mma.cuh"
 #include "sm90.cuh"
@@ -461,6 +467,14 @@ static int fa_mma_launch(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
+// The Hopper kernel (section "forward, bf16 on Hopper" at the end).
+template <int D>
+static int fa_wgmma_launch(const void* q, const void* k, const void* v,
+                           void* o, float* lse, int B, int Sq, int Sk, int H,
+                           int KH, float scale, int causal, cudaStream_t s);
+
+// float32: the FMA kernel; bf16 at D = 64, 80 and 128: the Hopper kernel;
+// bf16 at the other head dims: mma.sync.  No fallback between them.
 template <int DC>
 static int fa_launch(const void* q, const void* k, const void* v, void* o,
                      float* lse, int B, int Sq, int Sk, int H, int KH,
@@ -468,8 +482,12 @@ static int fa_launch(const void* q, const void* k, const void* v, void* o,
   if (!bf16_in)
     return fa_fma_launch<DC>(q, k, v, o, lse, B, Sq, Sk, H, KH, scale,
                              causal, s);
-  return fa_mma_launch<DC>(q, k, v, o, lse, B, Sq, Sk, H, KH, scale, causal,
-                           s);
+  if constexpr (DC == 4 || DC == 5 || DC == 8)
+    return fa_wgmma_launch<16 * DC>(q, k, v, o, lse, B, Sq, Sk, H, KH, scale,
+                                    causal, s);
+  else
+    return fa_mma_launch<DC>(q, k, v, o, lse, B, Sq, Sk, H, KH, scale,
+                             causal, s);
 }
 
 // q: [B, Sq, H, D], k/v: [B, Sk, KH, D], o: [B, Sq, H, D], all contiguous,
@@ -1246,15 +1264,15 @@ __device__ __forceinline__ float fh_exp2(float x) {
   return y;
 }
 
-// Descriptors of one tile of DB boxes: K-major at k-step kk of 16
-// columns (boxes `box_bytes` apart), MN-major at k-step kk of 16 rows.
+// Descriptors of one tile of DB boxes, `box_bytes` apart: K-major at
+// k-step kk of 16 columns, MN-major at k-step kk of 16 rows.
 __device__ __forceinline__ uint64_t fh_kmajor(const unsigned char* t, int kk,
                                               int box_bytes) {
   return wg_desc(t + (kk >> 2) * box_bytes + (kk & 3) * 32, 16, 1024);
 }
-__device__ __forceinline__ uint64_t fh_mnmajor(const unsigned char* t,
-                                               int kk) {
-  return wg_desc(t + kk * 2048, FH_BOX, 1024);
+__device__ __forceinline__ uint64_t fh_mnmajor(const unsigned char* t, int kk,
+                                               int box_bytes = FH_BOX) {
+  return wg_desc(t + kk * 2048, box_bytes, 1024);
 }
 
 // a[64 x 64] = A B^T and b[64 x 64] = C E^T over D = 64 DB columns, all
@@ -1980,4 +1998,462 @@ extern "C" int flash_attention_bwd_dkdv_launch(
                      scale, causal, bf16_in, s)
   FB_SWITCH(D, FB_DKDV)
 #undef FB_DKDV
+}
+
+
+// ======================================== forward, bf16 on Hopper (D = 64,
+// 80, 128)
+// flash_attention_wgmma_kernel: the forward above (the function and contract
+// of flash_attention_mma_kernel: GQA by index, the scale 1/sqrt(D) in the exp2
+// domain, top-left causal masking, ragged Sq and Sk, -1e30 for masked scores
+// and l clamped at 1e-37, bf16 o and the float32 natural-log lse) at the
+// head dims of the full configs: 64 (qwen2-0.5b, seamless), 80 (zamba2) and
+// 128 (the others).  It replaces the same TPU kernel,
+// src/repro/kernels/flash_attention.py: flash_attention_pallas.
+//
+// What bounds it on the H100: operations at qwen3-14b's prefill (B=4,
+// S=1024, H=40, KH=8, D=128, causal: 0.0435 ms at 989 TFLOP/s, its bytes
+// 0.0301 ms), bytes at zamba2's (D=80, KH=H: 0.0250 ms against 0.0216).
+// What kept the mma.sync kernel at 21-23% of that: each of its four warps
+// reading every K and V tile from shared memory by ldmatrix, all threads
+// issuing the copies and meeting at two block barriers a tile, the softmax
+// between the two products with nothing under it, and 104 KB of shared
+// memory a block at D = 128.
+//
+// What the design does about it: 384 threads, warp-specialised as the
+// backward's Hopper kernels.  Warp group 0 gives up registers by setmaxnreg
+// and one of its threads issues every copy by TMA (rank-4 tensor maps over
+// [B, S, heads, D], so rows past S read zeros, never the next batch's): a
+// 128-row q tile a work item, then its K and V tiles of BK keys through an
+// mbarrier ring (full and empty barriers).  Groups 1 and 2 each own 64 q
+// rows; every product is one wgmma per 16-deep k-step, read once a warp
+// group: S = Q K^T with both operands in shared memory, K-major
+// (m64nBKk16), and O += P V with P, the score accumulator rounded to bf16,
+// as the A operand from registers as it stands, and V MN-major (m64nPDk16).
+// The online softmax stays in float32 registers (one FFMA and one exp2 a
+// score).  Its exp2 runs under products: a group issues tile t's S and tile
+// t - 1's P V together, waits for S alone, computes tile t's probabilities
+// while P V runs, then waits for P V and rescales O (not at all where no
+// row max of the warp moved).  At D = 64 the two groups also take turns
+// to issue (an mbarrier each), so one group's exp2 runs under the other's
+// products; at D = 80 and 128 the turns measured slower.
+//
+// Persistent: one block an SM walks (q tile, batch * head) items, the
+// heaviest q tiles first, dealt forwards and backwards in turn (fw_item).
+// Across items the ring runs on, q has two buffers (the next item's q and
+// first kv tiles load while this one computes), and o leaves by a TMA
+// store from the group's own rows of the q buffer.  Without these three
+// the kernel measured 1.41x slower at qwen3-14b's shape and 1.42x at
+// zamba2's: with a block a q tile, every
+// block's first loads and last stores stood in the open; with one q
+// buffer the ring ran dry at every item; 4-byte stores of o from
+// registers cost as much as all the loads.
+//
+// Tile widths and ring.  Registers a consumer thread: S BK / 2, P BK / 4
+// and O PD / 2 floats.  ptxas holds the consumers to 168 registers in some
+// builds whatever setmaxnreg gives, and 128-key tiles at D = 80 and 128
+// (S 64 + P 32 + O 64) then spill: 64 keys there, 128 at D = 64 (one
+// m64n128k16 per k-step of S; measured faster than 64).  The ring takes
+// as many K + V stages as shared memory holds beside two q tiles: six at
+// D = 64, five at D = 80 and 128 (32 KB each).  One block an SM.
+//
+// D = 80 takes two 64-column boxes whose map ends at column 80: TMA fills
+// columns 80-127 with zeros, S runs five k-steps (the zero tail adds
+// nothing), P V runs at 128 columns, and the store of o is clipped at 80.
+template <int D>
+struct FwTile {
+  static constexpr int NC = 2;               // consumer groups
+  static constexpr int BQ = 64 * NC;         // q rows a block: 64 a group
+  static constexpr int QBOX = BQ * 128;      // bytes of a q box
+  static constexpr int DB = (D + 63) / 64;   // 64-column boxes a row
+  static constexpr int PD = 64 * DB;         // columns of P V
+  static constexpr int KS = D / 16;          // k-steps of S
+  static constexpr bool TURNS = D == 64;   // the groups take turns
+  static constexpr int BK = DB == 1 ? 128 : 64;   // keys a kv tile
+  static constexpr int KBOX = BK * 128;       // bytes of a K or V box
+  static constexpr int STAGE = 2 * DB * KBOX;  // K + V bytes
+  // ring stages: as many as a block's shared memory holds beside q and
+  // the barriers
+  static constexpr int NS = (232448 - 1024 - 256 - 2 * DB * QBOX) / STAGE;
+  static constexpr int SMEM =
+      1024 + 2 * DB * QBOX + NS * STAGE + (4 + NC + 2 * NS) * 8;
+};
+
+// s[64 x BK] = Q K^T over D: Q's 64 rows (boxes QBOX apart) and the K
+// tile (boxes KBOX apart), K-major in shared memory; not committed.
+template <int D>
+__device__ __forceinline__ void fw_scores(float (&s)[FwTile<D>::BK / 2],
+                                          const unsigned char* qt,
+                                          const unsigned char* kt) {
+  using T = FwTile<D>;
+#pragma unroll
+  for (int kk = 0; kk < T::KS; ++kk)
+    wgmma_ss<T::BK>(s, fh_kmajor(qt, kk, T::QBOX), fh_kmajor(kt, kk, T::KBOX),
+                    kk == 0);
+}
+
+// o[64 x PD] += P V over the tile's BK keys, V MN-major; not committed.
+template <int D>
+__device__ __forceinline__ void fw_pv(float (&o)[FwTile<D>::PD / 2],
+                                      const uint32_t (&p)[FwTile<D>::BK / 4],
+                                      const unsigned char* vt) {
+  using T = FwTile<D>;
+#pragma unroll
+  for (int kk = 0; kk < T::BK / 16; ++kk)
+    wgmma_rs<T::PD>(o, p + 4 * kk, fh_mnmajor(vt, kk, T::KBOX));
+}
+
+// The online softmax of one kv tile on this thread's rows qrow, qrow + 8:
+// the scores (masked to -1e30 where need_mask) become exp2(s scale_log2 -
+// m) in place, one FFMA and one exp2 each, m the new running max in the
+// exp2 domain (the row max of the raw scores, scaled: scale_log2 > 0), l
+// updated; corr the factor by which O must be rescaled.
+template <int BK>
+__device__ __forceinline__ void fw_softmax(float (&s)[BK / 2],
+                                           float (&m)[2], float (&l)[2],
+                                           float (&corr)[2], bool need_mask,
+                                           int k0, int qrow, int Sk,
+                                           int causal, float scale_log2) {
+  const int t4 = threadIdx.x & 3;
+  float mx[2] = {FA_NEG_INF, FA_NEG_INF};
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (need_mask) {
+        const int kpos = k0 + 8 * j + 2 * t4 + (e & 1);
+        const int qpos = qrow + 8 * (e >> 1);
+        if (kpos >= Sk || (causal && kpos > qpos)) s[4 * j + e] = FA_NEG_INF;
+      }
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * j + e]);
+    }
+  float rs[2] = {0.f, 0.f}, nm[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {   // a row's 4 threads: lanes 4 g .. 4 g + 3
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r] * scale_log2);
+    corr[r] = fh_exp2(m[r] - m_new);
+    m[r] = m_new;
+    nm[r] = -m_new;
+  }
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) {
+    const float x = fmaf(s[i], scale_log2, nm[(i >> 1) & 1]);
+    s[i] = fh_exp2(x);
+    rs[(i >> 1) & 1] += s[i];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + rs[r];
+}
+
+// The (q tile, batch * head) work item w of the persistent walk: q tiles
+// heaviest first (the last tile walks the most kv tiles when causal), each
+// round of `blocks` items dealt to the blocks forwards, the next round
+// backwards, so no block takes the heaviest item of every round.
+__device__ __forceinline__ int fw_item(int round, int blocks) {
+  return round * blocks +
+         ((round & 1) ? blocks - 1 - (int)blockIdx.x : (int)blockIdx.x);
+}
+
+// q: [B, Sq, H, D]; k, v: [B, Sk, KH, D]; o: [B, Sq, H, D], bf16, as
+// tensor maps (tm_q boxes of 128 rows, tm_k and tm_v of BK, tm_o of 64);
+// lse [B, H, Sq] float32 or null.  Persistent: grid min(items, SMs),
+// FH_THREADS; each block walks the items fw_item gives it; group c owns rows
+// 64 c .. 64 c + 63 of an item's q tile.  The ring's stages and phases run
+// on across items (a running count of kv tiles); the q tile has two
+// buffers, item r the (r & 1)-th, so the producer loads the next item's q
+// and its first kv tiles while the groups still work on this one.  A
+// group's o goes out through its own 64 rows of the q buffer (free once its
+// last S is done), in the map's swizzled box layout, by a TMA store.
+template <int D>
+__global__ void __launch_bounds__(FH_THREADS, 1)
+    flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                                 const __grid_constant__ CUtensorMap tm_k,
+                                 const __grid_constant__ CUtensorMap tm_v,
+                                 const __grid_constant__ CUtensorMap tm_o,
+                                 float* __restrict__ lse, int B, int Sq,
+                                 int Sk, int H, int KH, float scale_log2,
+                                 int causal) {
+  using T = FwTile<D>;
+  constexpr int DB = T::DB, NS = T::NS, BK = T::BK, NC = T::NC, BQ = T::BQ;
+  extern __shared__ unsigned char fh_smem[];
+  constexpr int QT = DB * T::QBOX;           // bytes of a q tile
+  unsigned char* qs = fh_align(fh_smem);      // [2][DB][QBOX]
+  unsigned char* ring = qs + 2 * QT;          // [NS][K: DB boxes, V: DB]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(ring + NS * T::STAGE);
+  uint64_t* q_empty = q_full + 2;             // [2]: both groups done
+  uint64_t* full = q_empty + 2;               // [NS]
+  uint64_t* empty = full + NS;                // [NS]
+  uint64_t* turn = empty + NS;                // [NC]: group c may issue
+
+  const int BH = B * H, nq = (Sq + BQ - 1) / BQ;
+  const int n_items = nq * BH, blocks = (int)gridDim.x;
+  const int n_rounds = (n_items + blocks - 1) / blocks;
+  // item w: its batch * head, first q row, and the kv tiles it walks (the
+  // causal skip: none wholly above its rows)
+  auto item = [&](int w, int& bh, int& q0) {
+    bh = w % BH;
+    q0 = (nq - 1 - w / BH) * BQ;
+    int n = (Sk + BK - 1) / BK;
+    if (causal) {
+      const int last = (q0 + BQ - 1) / BK;
+      n = last + 1 < n ? last + 1 : n;
+    }
+    return n;
+  };
+  // the kv tiles group c computes of an item's n: none for rows past Sq,
+  // none wholly above its rows when causal (taking turns, all n: both
+  // groups then take as many turns)
+  auto group_end = [&](int c, int q0, int n) {
+    const int r0 = q0 + 64 * c;
+    if (r0 >= Sq) return 0;
+    if (!causal || T::TURNS) return n;
+    const int last = (r0 + 63) / BK;
+    return last + 1 < n ? last + 1 : n;
+  };
+  // the warp group, uniform to the compiler: 0 produces, 1 and 2 consume
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x >> 7, 0);
+
+  if (threadIdx.x == 0) {
+    for (int x = 0; x < 2; ++x) {
+      mbar_init(q_full + x, 1);
+      mbar_init(q_empty + x, NC);   // each group, once its o is out
+    }
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 4 * NC);   // every group's 4 warps
+    }
+    for (int x = 0; x < NC; ++x)
+      mbar_init(turn + x, 4);     // the group before's 4 warps
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ------------------------------------------------------- producer
+    regs_release<FH_PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      int it = 0;   // kv tiles loaded, over all items
+      for (int r = 0; r < n_rounds; ++r) {
+        const int w = fw_item(r, blocks);
+        if (w >= n_items) continue;
+        int bh, q0;
+        const int n = item(w, bh, q0);
+        const int b = bh / H, h = bh - b * H, kh = h / (H / KH);
+        const int qb = r & 1;   // item r's q buffer, its (r >> 1)-th use
+        if (r >= 2) mbar_wait(q_empty + qb, ((r >> 1) - 1) & 1);
+        mbar_expect_tx(q_full + qb, QT);
+        for (int x = 0; x < DB; ++x)
+          tma_load_4d(qs + qb * QT + x * T::QBOX, &tm_q, q_full + qb, 64 * x,
+                      h, q0, b);
+        for (int t = 0; t < n; ++t, ++it) {
+          const int st = it % NS;
+          unsigned char* kt = ring + st * T::STAGE;
+          if (it >= NS) mbar_wait(empty + st, (it / NS - 1) & 1);
+          mbar_expect_tx(full + st, T::STAGE);
+          for (int x = 0; x < DB; ++x) {
+            tma_load_4d(kt + x * T::KBOX, &tm_k, full + st, 64 * x, kh,
+                        t * BK, b);
+            tma_load_4d(kt + (DB + x) * T::KBOX, &tm_v, full + st, 64 * x,
+                        kh, t * BK, b);
+          }
+        }
+      }
+    }
+  } else {
+    // ------------------------------------------------------ consumers
+    regs_claim<FH_CONSUMER_REGS>();
+    const int c = wg - 1, tid = threadIdx.x & 127;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+    int it = 0, turns = 0;
+    float oa[T::PD / 2];
+    float s[BK / 2];
+    uint32_t p[BK / 4];
+    for (int r = 0; r < n_rounds; ++r) {
+      const int w = fw_item(r, blocks);
+      if (w >= n_items) continue;
+      int bh, q0;
+      const int n = item(w, bh, q0);
+      const int r0 = q0 + 64 * c;              // this group's first row
+      const int qrow = r0 + 16 * warp + g;     // this thread's rows (+ 8)
+      const int end = group_end(c, q0, n);
+      // turns: only where every group walks the item's tiles (the last
+      // group has rows: a test uniform in the block), group 0 first; each
+      // waits on its own barrier and, once its products are issued, lets
+      // the next go (the last group skips its last pass, so every phase is
+      // waited on)
+      const bool pp = T::TURNS && group_end(NC - 1, q0, n) > 0;
+      auto take_turn = [&]() {
+        if (pp) mbar_wait(turn + c, turns++ & 1);
+      };
+      auto pass_turn = [&](bool last) {
+        if (pp && !(c == NC - 1 && last)) fh_release(turn + (c + 1) % NC);
+      };
+      auto need_mask = [&](int k0) {
+        return k0 + BK > Sk || (causal && k0 + BK - 1 > r0);
+      };
+      if (pp && c == NC - 1) fh_release(turn);
+#pragma unroll
+      for (int i = 0; i < T::PD / 2; ++i) oa[i] = 0.f;
+      float m[2] = {FA_NEG_INF, FA_NEG_INF}, l[2] = {0.f, 0.f}, corr[2];
+      const int qb = r & 1;
+      unsigned char* qt = qs + qb * QT + c * FH_BOX;   // 64 rows of a box
+      mbar_wait(q_full + qb, (r >> 1) & 1);
+      if (end > 0) {   // tile 0: S, then its probabilities
+        mbar_wait(full + it % NS, (it / NS) & 1);
+        take_turn();
+        wg_fence();
+        fw_scores<D>(s, qt, ring + (it % NS) * T::STAGE);
+        wg_commit();
+        pass_turn(false);
+        wg_wait<0>();
+        wg_hold(s);
+        fw_softmax<BK>(s, m, l, corr, need_mask(0), 0, qrow, Sk, causal,
+                       scale_log2);
+#pragma unroll
+        for (int i = 0; i < BK / 4; ++i)
+          p[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+      }
+      for (int t = 1; t < end; ++t) {
+        // tile t's S and tile t - 1's P V issued together; the
+        // probabilities of tile t computed while P V runs
+        const int st = (it + t) % NS, sp = (it + t - 1) % NS;
+        mbar_wait(full + st, ((it + t) / NS) & 1);
+        take_turn();
+        wg_fence();
+        fw_scores<D>(s, qt, ring + st * T::STAGE);
+        wg_commit();
+        fw_pv<D>(oa, p, ring + sp * T::STAGE + DB * T::KBOX);
+        wg_commit();
+        pass_turn(false);
+        wg_wait<1>();
+        wg_hold(s);
+        const int k0 = t * BK;
+        fw_softmax<BK>(s, m, l, corr, need_mask(k0), k0, qrow, Sk, causal,
+                       scale_log2);
+        wg_wait<0>();
+        wg_hold(oa);
+        wg_hold(p);
+        fh_release(empty + sp);
+        // O's rescale, skipped where no row max of the warp moved
+        if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
+#pragma unroll
+          for (int i = 0; i < T::PD / 2; ++i) oa[i] *= corr[(i >> 1) & 1];
+        }
+#pragma unroll
+        for (int i = 0; i < BK / 4; ++i)
+          p[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+      }
+      if (end > 0) {   // the last tile's P V
+        const int sp = (it + end - 1) % NS;
+        take_turn();
+        wg_fence();
+        fw_pv<D>(oa, p, ring + sp * T::STAGE + DB * T::KBOX);
+        wg_commit();
+        pass_turn(true);
+        wg_wait<0>();
+        wg_hold(oa);
+        wg_hold(p);
+        fh_release(empty + sp);
+      }
+      for (int t = end; t < n; ++t) {   // tiles only the other group needs
+        mbar_wait(full + (it + t) % NS, ((it + t) / NS) & 1);
+        fh_release(empty + (it + t) % NS);
+      }
+      it += n;
+
+      // o = O / l as bf16 into the group's rows of the q buffer (box x of
+      // 64 columns, 16-byte chunk j ^ (row & 7) of a 128-byte row: the
+      // 128-byte swizzle, no bank conflicts), then one TMA store a box,
+      // clipped at Sq and D; lse directly
+      const int b = bh / H, h = bh - b * H;
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        float lr = l[rr];
+        lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+        lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+        const int row = 16 * warp + g + 8 * rr, qpos = r0 + row;
+        const float inv = 1.f / fmaxf(lr, 1e-37f);
+        if (lse && t4 == 0 && qpos < Sq && end > 0)
+          lse[(long long)bh * Sq + qpos] =
+              (m[rr] + log2f(fmaxf(lr, 1e-37f))) * FA_LN2;
+#pragma unroll
+        for (int j = 0; j < D / 8 && end > 0; ++j)
+          *reinterpret_cast<uint32_t*>(
+              qt + (j >> 3) * T::QBOX + row * 128 +
+              (((j & 7) ^ (row & 7)) << 4) + 4 * t4) =
+              pack_bf16(oa[4 * j + 2 * rr] * inv,
+                        oa[4 * j + 2 * rr + 1] * inv);
+      }
+      fence_async_smem();
+      named_sync(1 + c, 128);   // the group's rows written
+      if (tid == 0) {
+        if (end > 0) {
+          for (int x = 0; x < DB; ++x)
+            tma_store_4d(&tm_o, qt + x * T::QBOX, 64 * x, h, r0, b);
+          tma_store_commit();
+          tma_store_wait_read();
+        }
+        mbar_arrive(q_empty + qb);   // the buffer may take the next q
+      }
+      __syncwarp();
+    }
+    if (tid == 0)   // the last stores done before the block ends
+      asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  }
+}
+
+// The card's SM count: the persistent grid.
+static int fw_sms() {
+  static const int n = [] {
+    int dev = 0, sms = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      return 0;
+    return sms;
+  }();
+  return n;
+}
+
+// The kernel's dynamic shared-memory size, set once a device (at its first
+// launch there), not by a cudaFuncSetAttribute call at every launch.
+template <int D>
+static cudaError_t fw_smem_attribute() {
+  static std::atomic<unsigned long long> set{0};   // a bit a device
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (bit && (set.load(std::memory_order_relaxed) & bit)) return cudaSuccess;
+  e = cudaFuncSetAttribute(flash_attention_wgmma_kernel<D>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           FwTile<D>::SMEM);
+  if (e == cudaSuccess) set.fetch_or(bit, std::memory_order_relaxed);
+  return e;
+}
+
+template <int D>
+static int fa_wgmma_launch(const void* q, const void* k, const void* v,
+                           void* o, float* lse, int B, int Sq, int Sk, int H,
+                           int KH, float scale, int causal, cudaStream_t s) {
+  CUtensorMap mq, mk, mv, mo;
+  int err;
+  using T = FwTile<D>;
+  if ((err = fh_map(&mq, q, B, Sq, H, D, T::BQ)) ||
+      (err = fh_map(&mk, k, B, Sk, KH, D, FwTile<D>::BK)) ||
+      (err = fh_map(&mv, v, B, Sk, KH, D, FwTile<D>::BK)) ||
+      (err = fh_map(&mo, o, B, Sq, H, D, 64)))
+    return err;
+  const int sms = fw_sms();
+  if (sms <= 0) return (int)cudaErrorInvalidValue;
+  constexpr int smem = FwTile<D>::SMEM;
+  const cudaError_t e = fw_smem_attribute<D>();
+  if (e != cudaSuccess) return (int)e;
+  const long long items = (long long)B * H * ((Sq + T::BQ - 1) / T::BQ);
+  const int grid = items < sms ? (int)items : sms;
+  flash_attention_wgmma_kernel<D><<<grid, FH_THREADS, smem, s>>>(
+      mq, mk, mv, mo, lse, B, Sq, Sk, H, KH, scale * FA_LOG2E, causal);
+  return (int)cudaGetLastError();
 }

@@ -151,6 +151,31 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// One box from shared memory to a rank-4 tensor map at (c0, c1, c2, c3);
+// the parts past the tensor's extent are not written.  Committed and
+// waited on per thread (tma_store_commit, tma_store_wait_read).
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(sm90_addr(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Until this thread's committed stores have read their shared memory.
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// This thread's writes to shared memory, made visible to TMA (the async
+// proxy) before a store reads them.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // ---------------------------------------------------------------- wgmma
 // Descriptor of a 128-byte-swizzled operand at shared address p.
 __device__ __forceinline__ uint64_t wg_desc(const void* p, uint32_t lbo,
@@ -205,6 +230,35 @@ __device__ __forceinline__ void wgmma_ss_64x64(float (&d)[32], uint64_t da,
       "}\n"
       : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24)
       : "l"(da), "l"(db), "r"(zero));
+}
+
+// d[64 x 128] (= or +=) A B^T over 16 columns, as above.
+__device__ __forceinline__ void wgmma_ss_64x128(float (&d)[64], uint64_t da,
+                                                uint64_t db, int zero) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.eq.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24), WG_D8(32), WG_D8(40),
+        WG_D8(48), WG_D8(56)
+      : "l"(da), "l"(db), "r"(zero));
+}
+
+// d[64 x N] (= or +=) A B^T, N = 64 or 128.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int zero) {
+  if constexpr (N == 64)
+    wgmma_ss_64x64(d, da, db, zero);
+  else
+    wgmma_ss_64x128(d, da, db, zero);
 }
 
 // d[64 x 64] += A B over 16 rows: A from registers, B MN-major from

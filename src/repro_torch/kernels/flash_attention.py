@@ -1,8 +1,10 @@
 """flash_attention: causal or full attention with an online softmax.
 
 Port of ``repro.kernels.flash_attention.flash_attention_pallas``.  The CUDA
-kernels (``csrc/flash_attention.cu``: bf16 on the tensor cores, float32 on
-the FMA units, chosen by dtype) take the model's own layout, q
+kernels (``csrc/flash_attention.cu``: bf16 at D = 64, 80 and 128 on
+Hopper's wgmma fed by TMA, bf16 at the other head dims on ``mma.sync``,
+float32 on the FMA units, chosen by dtype and head dim) take the model's
+own layout, q
 ``[B, Sq, H, D]`` and k/v ``[B, Sk, KH, D]``, and reads the kv head of each
 query head by index, so neither the reference wrapper's GQA repeat nor its
 128-lane padding of D exists here; the scale is 1/sqrt(D).  Sequence lengths
@@ -113,10 +115,17 @@ def _check_qkv(name, q, k, v):
 def flash_attention_cuda(q, k, v, causal: bool = True,
                          with_lse: bool = False):
     """CUDA kernel.  q: [B, Sq, H, D]; k, v: [B, Sk, KH, D]; contiguous, one
-    dtype (bfloat16: the tensor-core kernel, 16-byte aligned; float32: the
+    dtype (bfloat16: the tensor-core kernels, 16-byte aligned; float32: the
     FMA kernel); D a multiple of 16 up to 128; H a multiple of KH.  Returns
     o [B, Sq, H, D] in q's dtype, and with ``with_lse`` also the float32
-    lse [B, H, Sq] the backward reads."""
+    lse [B, H, Sq] the backward reads.
+
+    In bf16 at D = 64, 80 and 128 the Hopper kernel reads q, k, v and
+    writes o through TMA tensor maps, which need a 16-byte aligned base and
+    every stride a multiple of 16 bytes: contiguity and the alignment check
+    below give both, since D is a multiple of 16 (a row of one head is
+    2 D bytes, 160 at D = 80, and the head, sequence and batch strides are
+    multiples of it)."""
     B, Sq, Sk, H, KH, D = _check_qkv("flash_attention", q, k, v)
     bf16 = q.dtype == torch.bfloat16
     if bf16 and any(t.data_ptr() % 16 for t in (q, k, v)):

@@ -16,7 +16,9 @@ corner waves, in both of its variants (``staged``, ``global``).
 The model plane's ``flash_attention`` and ``ssd_scan`` must agree with
 their plain versions within the tolerances of ``tests/test_kernels.py``
 (2e-5 fp32 / 2e-2 bf16 for attention, 1e-3 for the SSD scan, 2e-2 for its
-bf16 output: one bf16 rounding), also at 128-row attention q tiles, in the
+bf16 output: one bf16 rounding), attention's Hopper kernel (bf16 at D =
+64, 80, 128) also with its lse, at Sq = 1, Sq != Sk and ragged S, two
+calls bit-equal, also at 128-row attention q tiles, in the
 model's strided layout, at N=128 and with slow decay (where every block of
 the scan carries weight), the bf16 outputs also against the plain versions
 in float32 on the same inputs, and reduced zamba2 behind ``Server`` on the
@@ -319,6 +321,35 @@ def test_flash_attention_kernel_vs_plain(dev, B, S, H, KH, D, causal, dtype):
         want = flash_attention_plain(q.float(), k.float(), v.float(), causal)
         torch.testing.assert_close(got.float(), want, rtol=1e-2,
                                    atol=1e-3 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KH,causal", [
+    (2, 1024, 1024, 14, 2, True), (1, 1000, 1000, 7, 1, True),
+    (1, 200, 512, 10, 2, True), (2, 1, 1000, 5, 1, False),
+    (2, 300, 77, 4, 4, False), (1, 50, 300, 4, 2, True)])
+@pytest.mark.parametrize("D", [64, 80, 128])
+def test_flash_attention_hopper_forward(dev, B, Sq, Sk, H, KH, D, causal):
+    """bf16 at the Hopper kernel's head dims (D = 64, 80, 128): ragged S,
+    G = 5 and 7, Sq = 1, Sq != Sk both ways (causal top-left) and a q tile
+    whose second consumer group has no rows; o against the plain version
+    and the float32 oracle as above, lse against the plain version's
+    (1e-3), one launch a call, and two calls bit-equal."""
+    g = torch.Generator(device=dev).manual_seed(Sq + Sk + D)
+    q = (torch.randn((B, Sq, H, D), generator=g, device=dev) * 2.0).to(
+        torch.bfloat16)
+    k, v = ((torch.randn((B, Sk, KH, D), generator=g, device=dev) * sc)
+            .to(torch.bfloat16) for sc in (2.0, 1.0))
+    before = LAUNCHES["flash_attention"]
+    o, lse = flash_attention_cuda(q, k, v, causal, with_lse=True)
+    assert LAUNCHES["flash_attention"] == before + 1
+    want, lse_p = flash_attention_plain(q, k, v, causal, with_lse=True)
+    _close(o, want, 2e-2)
+    torch.testing.assert_close(lse, lse_p, rtol=1e-5, atol=1e-3)
+    oracle = flash_attention_plain(q.float(), k.float(), v.float(), causal)
+    torch.testing.assert_close(o.float(), oracle, rtol=1e-2,
+                               atol=1e-3 * float(oracle.abs().max()))
+    again = flash_attention_cuda(q, k, v, causal, with_lse=True)
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
 
 
 @pytest.mark.parametrize("Bg,H,S,P,N,chunk,with_h0", [
