@@ -13,8 +13,8 @@ Phases (any failure raises, so the process exits non-zero):
    instantiation of ``flash_attention``, its two backward kernels and
    ``ssd_scan`` must run tensor-core (HMMA / HGMMA) instructions, and the
    Hopper forms (the forward in bf16 at D = 64, 80 and 128, the backward
-   kernels at D = 64 and 128) wgmma (HGMMA) products and TMA (UTMALDG)
-   loads;
+   kernels at D = 64 and 128, the SSD scan at N = 64 and 128) wgmma
+   (HGMMA) products and TMA (UTMALDG) loads;
 3. each engine kernel against its plain PyTorch version on the card,
    bit-equal, at the main path's shapes and on adversarial inputs
    (the read-phase corners: tied visible CIDs, empty rings, V = 1 / 3 /
@@ -34,16 +34,20 @@ Phases (any failure raises, so the process exits non-zero):
    encoder rows) and encoder shapes (``ATTENTION_FWD_CASES``: also the
    Hopper forward's edges, one query row at D = 128, causal with Sk > Sq,
    a 2,048-row walk, a q tile with one group's rows, and the ``mma.sync``
-   kernel in bf16 at D = 48, 96 and 112), attention's lse
-   against the plain version's and the Hopper forward's two calls
-   bit-equal, each bf16 output also
+   kernel in bf16 at D = 48, 96 and 112; the SSD scan's Hopper kernel
+   also at 9 and 16 chunks with h0, at S = 100 and S = 1, each case
+   naming the kernel it reaches), attention's lse
+   against the plain version's and the Hopper forward's and the SSD
+   Hopper kernel's two calls bit-equal, each bf16 output also
    against its plain version in float32 on the same inputs, the element
    closest to its limit printed per check, with
    ``scaled_dot_product_attention`` timed beside attention as a yardstick
    (never called by the port; by its kernels' device ms), the times also
    at qwen3-14b's prefill, seamless' cross-attention and qwen2-0.5b's
    training step, and ``ssd_scan``'s at mamba2-130m's prefill
-   (bf16 and float32) and zamba2's in float32; the attention backward's
+   (bf16 and float32) and zamba2's in float32, the bf16 Hopper kernel's
+   beside ``ssd_scan_mma_kernel``'s at both prefill shapes in the same
+   call; the attention backward's
    two kernels (``flash_attention_bwd_dq``, ``_dkdv``) against
    ``flash_attention_bwd_plain`` on the forward kernel's o and lse (and
    that lse against the plain version's) at phase 9's training shape
@@ -200,7 +204,9 @@ Phases (any failure raises, so the process exits non-zero):
    the ``cuda`` route, batch 4: 3 batches (prompts of 1,024, 1,024 and
    1,000 tokens, 16 new tokens each) with a second weight version
    published after the first, one version per batch (0, 1, 1); then
-   prefill/decode times, a profile of one prefill, every kernel call of
+   prefill/decode times, a profile of one prefill (its model kernels by
+   name: the 54 scans on ``ssd_scan_wgmma_kernel``, as phase 8's 24 of
+   mamba2-130m), every kernel call of
    one prefill held to its plain version on the same activations (and,
    in bf16, to the float32 one), and
    every batch again on the ``cuda`` and the ``torch`` route
@@ -677,11 +683,15 @@ MODEL_KERNELS = ("flash_attention", "ssd_scan", "flash_attention_bwd_dq",
 
 
 # the model kernels with a Hopper form (``*_wgmma_kernel``: bf16, wgmma
-# products fed by TMA) and the head dims of its instantiations: the
-# forward at 64, 80 and 128, the backward at 64 and 128
+# products fed by TMA) and the sizes of its instantiations: the attention
+# forward at head dims 64, 80 and 128, the backward at 64 and 128, the SSD
+# scan at state sizes N = 64 and 128 (P = 64)
 WGMMA_KERNELS = {"flash_attention": (64, 80, 128),
                  "flash_attention_bwd_dq": (64, 128),
-                 "flash_attention_bwd_dkdv": (64, 128)}
+                 "flash_attention_bwd_dkdv": (64, 128),
+                 "ssd_scan": (64, 128)}
+# the dimension those sizes are of
+WGMMA_DIM = {"ssd_scan": "N"}
 
 
 def tensor_core_check(lib_path, nvcc):
@@ -689,7 +699,8 @@ def tensor_core_check(lib_path, nvcc):
     of the model kernels (``*_mma_kernel``: attention, its backward and the
     SSD scan) runs tensor-core instructions, and every Hopper instantiation
     (``*_wgmma_kernel``: the attention forward at D = 64, 80 and 128,
-    three; the backward's two kernels at D = 64 and 128, two each) issues its products by wgmma (HGMMA) and
+    three; the backward's two kernels at D = 64 and 128, two each; the SSD
+    scan at N = 64 and 128, two) issues its products by wgmma (HGMMA) and
     its tiles by TMA (UTMALDG).  Prints the counts per kernel and form."""
     tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     sass = subprocess.run([tool, "-sass", lib_path], check=True,
@@ -721,7 +732,8 @@ def tensor_core_check(lib_path, nvcc):
                 if (len(got) != len(dims)
                         or 0 in per["HGMMA"] + per["UTMALDG"]):
                     raise AssertionError(
-                        f"{name}: expected {len(dims)} (D = "
+                        f"{name}: expected {len(dims)} "
+                        f"({WGMMA_DIM.get(name, 'D')} = "
                         f"{', '.join(map(str, dims))}) Hopper "
                         f"instantiations with wgmma products and TMA "
                         f"loads, got {per}")
@@ -1182,13 +1194,52 @@ ATTENTION_FWD_CASES = (
     (1, 130, 200, 6, 3, 112, "bf16", False))
 
 
+# (Bg, H, S, P, N, chunk, dtype, h0, decay, model layout): the path
+# (decay as the model's dt*A, about -0.7 a step), with an initial
+# state, ragged, float32, small chunks, mamba2-130m's N=128, and x / dA
+# as the [B, H, S, .] views of the model's [B, S, H, .] that the path
+# passes.  Those at a decay of 0.01 decay slowly (dA ~ -U(0, 0.01), as
+# trained SSM heads do), so that every row tile of the state product and
+# every block below the diagonal of (C B^T .* L) x carries weight: at a
+# decay of 0.7 a step, rows 16 back add under e^-6 and a wrong or skipped
+# block would pass unseen.
+SSD_CASES = (
+    (4, 80, 1024, 64, 64, 128, "bf16", False, 1.4, False),
+    (4, 80, 1024, 64, 64, 128, "bf16", True, 1.4, False),
+    (4, 80, 1000, 64, 64, 128, "bf16", False, 1.4, False),
+    (2, 3, 256, 32, 64, 64, "f32", False, 0.3, False),
+    (2, 3, 300, 64, 64, 128, "f32", True, 0.3, False),
+    (2, 4, 77, 16, 16, 16, "f32", True, 0.3, False),
+    (1, 2, 50, 64, 64, 128, "f32", False, 0.3, False),
+    (4, 24, 1024, 64, 128, 128, "bf16", True, 1.4, False),
+    (4, 80, 1000, 64, 64, 128, "bf16", True, 1.4, True),
+    (2, 3, 300, 64, 64, 128, "f32", True, 0.3, True),
+    (4, 80, 1024, 64, 64, 128, "bf16", True, 0.01, True),
+    (4, 24, 1024, 64, 128, 128, "bf16", True, 0.01, False),
+    (2, 3, 300, 32, 64, 64, "bf16", True, 0.01, False),
+    # the float32 kernel at mamba2-130m's N=128, chunk 128
+    # (its [M | C] rows staged in strips), both layouts
+    (2, 24, 1000, 64, 128, 128, "f32", True, 0.3, False),
+    (2, 24, 1000, 64, 128, 128, "f32", True, 0.01, True),
+    # the Hopper kernel's edges (a cluster of min(nc, 8) blocks a
+    # batch*head): 16 chunks, two rounds a block, with h0 at both N; 9
+    # chunks (block 0's second round alone, the state carried over from
+    # block 7); one chunk of S < 128 rows; S = 1 at both N
+    (1, 4, 2048, 64, 64, 128, "bf16", True, 0.01, True),
+    (1, 3, 2048, 64, 128, 128, "bf16", True, 0.01, False),
+    (2, 3, 1100, 64, 64, 128, "bf16", True, 0.01, False),
+    (2, 3, 100, 64, 64, 128, "bf16", True, 0.01, True),
+    (2, 3, 1, 64, 64, 128, "bf16", True, 0.8, False),
+    (2, 3, 1, 64, 128, 128, "bf16", False, 0.8, True))
+
+
 def model_kernel_phase(torch, dev):
     """flash_attention and ssd_scan against their plain versions on the
     card, at the serve path's shapes and on edge cases; returns the two
     per-kernel records (times at the serve path's shapes)."""
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                      flash_attention_plain)
-    from repro_torch.kernels.ssd_scan import ssd_cuda, ssd_plain
+    from repro_torch.kernels.ssd_scan import ssd_cuda, ssd_kernel, ssd_plain
     torch.backends.cuda.matmul.allow_tf32 = False   # plain fp32 stays fp32
     torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator(device=dev).manual_seed(1)
@@ -1225,42 +1276,26 @@ def model_kernel_phase(torch, dev):
                     raise AssertionError(f"flash_attention [{label}]: two "
                                          f"calls on the same inputs differ")
         del q, k, v, o, lse, want, lse_p
-    # (Bg, H, S, P, N, chunk, dtype, h0, decay, model layout): the path
-    # (decay as the model's dt*A, about -0.7 a step), with an initial
-    # state, ragged, float32, small chunks, mamba2-130m's N=128, and x / dA
-    # as the [B, H, S, .] views of the model's [B, S, H, .] that the path
-    # passes.  The last three decay slowly (dA ~ -U(0, 0.01), as trained
-    # SSM heads do), so that every row tile of the state product and every
-    # block below the diagonal of (C B^T .* L) x carries weight: at a decay
-    # of 0.7 a step, rows 16 back add under e^-6 and a wrong or skipped
-    # block would pass unseen.
-    ssd_cases = [(4, 80, 1024, 64, 64, 128, bf16, False, 1.4, False),
-                 (4, 80, 1024, 64, 64, 128, bf16, True, 1.4, False),
-                 (4, 80, 1000, 64, 64, 128, bf16, False, 1.4, False),
-                 (2, 3, 256, 32, 64, 64, f32, False, 0.3, False),
-                 (2, 3, 300, 64, 64, 128, f32, True, 0.3, False),
-                 (2, 4, 77, 16, 16, 16, f32, True, 0.3, False),
-                 (1, 2, 50, 64, 64, 128, f32, False, 0.3, False),
-                 (4, 24, 1024, 64, 128, 128, bf16, True, 1.4, False),
-                 (4, 80, 1000, 64, 64, 128, bf16, True, 1.4, True),
-                 (2, 3, 300, 64, 64, 128, f32, True, 0.3, True),
-                 (4, 80, 1024, 64, 64, 128, bf16, True, 0.01, True),
-                 (4, 24, 1024, 64, 128, 128, bf16, True, 0.01, False),
-                 (2, 3, 300, 32, 64, 64, bf16, True, 0.01, False),
-                 # the float32 kernel at mamba2-130m's N=128, chunk 128
-                 # (its [M | C] rows staged in strips), both layouts
-                 (2, 24, 1000, 64, 128, 128, f32, True, 0.3, False),
-                 (2, 24, 1000, 64, 128, 128, f32, True, 0.01, True)]
-    for Bg, H, S, P, N, Q, dt, with_h0, decay, model in ssd_cases:
+    reached = {}
+    for Bg, H, S, P, N, Q, dt, with_h0, decay, model in SSD_CASES:
+        dt = bf16 if dt == "bf16" else f32
         x = rn((Bg * H, S, P), 0.5, dt)
         dA = -torch.rand((Bg * H, S), generator=g, device=dev) * decay
         if model:
             x, dA = model_layout(x, dA, Bg, H)
         Bm, Cm = rn((Bg, S, N), 0.3, dt), rn((Bg, S, N), 0.3, dt)
         h0 = rn((Bg * H, N, P), 0.2, f32) if with_h0 else None
+        kern = ssd_kernel(P, N, min(Q, S), S, dt)   # the one it reaches
+        reached[kern] = reached.get(kern, 0) + 1
         label = (f"BH={Bg * H} S={S} P={P} N={N} chunk={Q} {dt} "
-                 f"h0={with_h0}{' model layout' if model else ''}")
+                 f"h0={with_h0}{' model layout' if model else ''}, "
+                 f"ssd_scan_{kern}_kernel")
         y, h = ssd_cuda(x, dA, Bm, Cm, H, Q, h0)
+        if kern == "wgmma":   # the Hopper kernel: the same bits
+            again = ssd_cuda(x, dA, Bm, Cm, H, Q, h0)
+            if not (torch.equal(y, again[0]) and torch.equal(h, again[1])):
+                raise AssertionError(f"ssd_scan [{label}]: two calls on "
+                                     f"the same inputs differ")
         yp, hp = ssd_plain(x, dA, Bm, Cm, H, Q, h0)
         # y in bf16 may differ by one bf16 rounding (2^-8 relative)
         ytol = 2e-2 if dt == bf16 else 1e-3
@@ -1275,7 +1310,11 @@ def model_kernel_phase(torch, dev):
         del x, dA, Bm, Cm, h0, y, h, yp, hp
     print(f"[kernels] flash_attention: {len(ATTENTION_FWD_CASES)} checks "
           f"(o and lse; the Hopper kernel's two calls bit-equal), ssd_scan: "
-          f"{len(ssd_cases)} checks, all within tolerance of the plain "
+          f"{len(SSD_CASES)} checks ("
+          + ", ".join(f"{n} on ssd_scan_{k}_kernel"
+                      for k, n in sorted(reached.items()))
+          + "; the Hopper kernel's two calls bit-equal), all within "
+          f"tolerance of the plain "
           f"versions (max abs err {max(errs['flash_attention']):.3g} / "
           f"{max(errs['ssd_scan']):.3g})", flush=True)
     print(f"[kernels] closest to the limit: {limit_use_line(use)}",
@@ -1292,9 +1331,11 @@ def model_kernel_phase(torch, dev):
             "name": name, "route": "cuda", "source": KERNELS[name][0],
             "replaces": KERNELS[name][1], "launches": 0,
             "max_abs_err": max(errs[name]), **rec}
+        mma = (f", ssd_scan_mma_kernel device {rec['mma_device_ms']} "
+               f"ms/launch in the same call" if name == "ssd_scan" else "")
         print(f"[kernels] {name}: {rec['ms']:.4f} ms/call (plain "
               f"{rec['plain_ms']:.4f}, library {rec['library_ms']}), "
-              f"profiler device {rec['device_ms']} ms/launch, bound "
+              f"profiler device {rec['device_ms']} ms/launch{mma}, bound "
               f"{rec['bound_ms']:.5f} ms by {rec['bound_by']}", flush=True)
     # phase 7a's prefill, phase 8b's cross-attention and phase 9's
     # training step: printed, not in the JSON line
@@ -1320,11 +1361,15 @@ def model_kernel_phase(torch, dev):
                                  ("zamba2-2.7b", (SERVE_BATCH, 80, 64, f32))):
         rec = ssd_times(torch, dev, rn, probes, Bg, H, SERVE_PROMPTS[0], 64,
                         N, 128, dt)
+        mma = ("" if rec["mma_device_ms"] is None else
+               f"; ssd_scan_mma_kernel device {rec['mma_device_ms']} ms in "
+               f"the same call")
         print(f"[kernels] ssd_scan at {what}'s prefill shape (BH={Bg}x{H} "
               f"S={SERVE_PROMPTS[0]} P=64 N={N} chunk 128 {dt}, model "
-              f"layout): {rec['ms']:.4f} ms/call, device {rec['device_ms']} "
-              f"ms (plain {rec['plain_ms']:.4f}), bound "
-              f"{rec['bound_ms']:.5f} ms by {rec['bound_by']}", flush=True)
+              f"layout): {rec['kernel']} {rec['ms']:.4f} ms/call, device "
+              f"{rec['device_ms']} ms (plain {rec['plain_ms']:.4f}){mma}, "
+              f"bound {rec['bound_ms']:.5f} ms by {rec['bound_by']}",
+              flush=True)
     return records
 
 
@@ -1369,11 +1414,13 @@ def attention_times(torch, rn, probes, B, S, H, KH, D, Sk=None,
 
 def ssd_times(torch, dev, rn, probes, Bg, H, S, P, N, Q, dtype):
     """ssd_scan at one shape, x and dA as the views of the model's
-    [B, S, H, .] layout the path passes: CUDA events ms of the kernel and
-    its plain version, the profiler's device ms of the kernel and the
-    bytes-or-operations bound (bf16 products over the tensor rate, float32
-    ones over the FMA rate)."""
-    from repro_torch.kernels.ssd_scan import ssd_cuda, ssd_plain
+    [B, S, H, .] layout the path passes: CUDA events ms of the kernel the
+    route takes and of its plain version, the profiler's device ms of that
+    kernel (and, where it is the Hopper kernel, of the mma.sync kernel at
+    the same shape, ``mma_device_ms``) and the bytes-or-operations bound
+    (bf16 products over the tensor rate, float32 ones over the FMA
+    rate)."""
+    from repro_torch.kernels.ssd_scan import ssd_cuda, ssd_kernel, ssd_plain
     BH = Bg * H
     g = torch.Generator(device=dev).manual_seed(BH + N)
     x, dA = model_layout(rn((BH, S, P), 0.5, dtype),
@@ -1391,13 +1438,21 @@ def ssd_times(torch, dev, rn, probes, Bg, H, S, P, N, Q, dtype):
         + BH * N * P * 4,
         2 * BH * nc * (Q * (Q + 1) // 2 * (N + P) + 2 * Q * N * P),
         BF16_FLOPS_PER_S if dtype == torch.bfloat16 else ALU_OPS_PER_S)
+    routed = ssd_kernel(P, N, min(Q, S), S, dtype)
+    mma = None
+    if routed == "wgmma":
+        mma = probes.profile_device_ms(
+            {"mma": (lambda: ssd_cuda(x, dA, Bm, Cm, H, Q, kernel="mma"),
+                     "ssd_scan_mma_kernel")}, iters=10)["mma"]
     return {
         "ms": cuda_ms(torch, kern, iters=20, warmup=3),
         "plain_ms": cuda_ms(torch, lambda: ssd_plain(x, dA, Bm, Cm, H, Q),
                             iters=10, warmup=2),
         "library_ms": None,
         "device_ms": probes.profile_device_ms(
-            {"ssd_scan": (kern, "ssd_scan_")}, iters=10)["ssd_scan"],
+            {"ssd_scan": (kern, f"ssd_scan_{routed}_kernel")},
+            iters=10)["ssd_scan"],
+        "kernel": f"ssd_scan_{routed}_kernel", "mma_device_ms": mma,
         "bound_ms": b_ms, "bound_by": b_by}
 
 
@@ -1691,14 +1746,15 @@ def forced_logits(torch, model, params, batch, forced, max_len):
 
 def profile_call(torch, label, fn, card, tag="serve"):
     """Device kernels, busy share and top device ops of one call of
-    ``fn``."""
+    ``fn``; returns {model kernel function: launches} as the profiler
+    names them (empty where it cannot read the trace)."""
     prof = start_profiler(tag)
     t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     if not stop_profiler(prof, tag):
-        return
+        return {}
     try:
         kernels = [e for e in prof.events()
                    if getattr(e, "device_type", None) is not None
@@ -1713,8 +1769,40 @@ def profile_call(torch, label, fn, card, tag="serve"):
         print(f"[{tag}]   top device time: " + "; ".join(
             f"{e.key[:48]} {getattr(e, 'device_time_total', 0) / 1e3:.2f}"
             f" ms x{e.count}" for e in tops), flush=True)
+        model = {}
+        for e in prof.key_averages():
+            if kernel_of(e.key) in MODEL_KERNELS and getattr(
+                    e, "device_time_total", 0) > 0:
+                fn_name = e.key.split("(")[0].replace("void ", "")
+                model[fn_name] = model.get(fn_name, 0) + e.count
+        print(f"[{tag}]   model kernels: " + (", ".join(
+            f"{k} x{n}" for k, n in sorted(model.items())) or "none"),
+              flush=True)
+        return model
     except Exception as exc:           # reading the trace is optional here
         print(f"[{tag}] profile unavailable: {exc!r}", flush=True)
+    return {}
+
+
+def ssd_check(mcfg, seen, use, tag, S):
+    """A prefill profile ``seen`` ({kernel function: launches}) of a model
+    with SSD layers over S positions on the kernel route: its scans ran on
+    the kernel the route table names for the model's (P, N, chunk) (the
+    Hopper kernel at the full configs' shapes in bf16), once a layer."""
+    from repro_torch.kernels.ssd_scan import ssd_kernel
+    n = model_launches(mcfg)[0]["ssd_scan"]
+    if not (seen and use and n):
+        return
+    want = "ssd_scan_{}_kernel".format(ssd_kernel(
+        mcfg.headdim, mcfg.d_state, min(mcfg.ssd_chunk, S), S,
+        mcfg.compute_dtype))
+    got = {k: c for k, c in seen.items() if k.startswith("ssd_scan")}
+    if len(got) != 1 or not next(iter(got)).startswith(want) \
+            or sum(got.values()) != n:
+        raise AssertionError(f"{mcfg.name}: the prefill's scans ran on "
+                             f"{got}, expected {want} x{n}")
+    print(f"[{tag}] {mcfg.name}: the prefill's {n} scans ran on "
+          f"{next(iter(got))}", flush=True)
 
 
 def model_launches(mcfg):
@@ -1868,8 +1956,11 @@ def serve_phase(torch, dev, cfg, card, mcfg=None, route="cuda",
     profile_call(torch, f"one {mcfg.name} decode step", lambda: srv.decode(
         params, cache, {"token": tok}), card, tag)
     del cache
-    profile_call(torch, f"one {mcfg.name} prefill (S={toks.shape[1]})",
-                 lambda: srv.prefill(params, batch, max_len), card, tag)
+    seen = profile_call(torch, f"one {mcfg.name} prefill (S="
+                        f"{toks.shape[1]})",
+                        lambda: srv.prefill(params, batch, max_len), card,
+                        tag)
+    ssd_check(mcfg, seen, use, tag, toks.shape[1])
 
     # ---- the kernels on the path's own activations
     in_situ_check(torch, srv, params, batch, max_len, tag)

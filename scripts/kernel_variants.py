@@ -8,7 +8,8 @@ limit (``nvidia-smi``):
 * ``flash_attention``: the kernel at the serve path's shape
   ([4, 1024, 32, 80] causal) and at longer and narrower ones, beside
   ``scaled_dot_product_attention`` as a yardstick;
-* ``ssd_scan``: the kernel at the serve path's shape and layout (x / dA as
+* ``ssd_scan``: ``ssd_scan_mma_kernel`` (asked for: the route takes the
+  Hopper kernel there) at the serve path's shape and layout (x / dA as
   views of [4, 1024, 80, .], N = P = 64, chunk 128), then builds of
   ``csrc/ssd_scan.cu`` with ``-DSSD_CUT=<bits>``, each cutting phases out
   of the chunk loop: the state product, the intra-chunk products, the
@@ -227,7 +228,8 @@ def main() -> int:
 
 
 def model_kernels(card, rn, g, dev):
-    """flash_attention beside SDPA; ssd_scan and its SSD_CUT builds."""
+    """flash_attention beside SDPA; ssd_scan_mma_kernel and its SSD_CUT
+    builds."""
     for B, S, H, KH, D in FA_SHAPES:
         q, k, v = rn((B, S, H, D)), rn((B, S, KH, D)), rn((B, S, KH, D))
         qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
@@ -242,9 +244,11 @@ def model_kernels(card, rn, g, dev):
     dA = (-torch.rand((4, 1024, 80), generator=g, device=dev)
           * 1.4).transpose(1, 2)
     Bm, Cm = rn((4, 1024, 64), 0.3), rn((4, 1024, 64), 0.3)
-    call = lambda: ssd_cuda(x, dA, Bm, Cm, 80, 128)
-    print(f"ssd_scan x [4, 80, 1024, 64] (model layout), N=64, chunk 128: "
-          f"{cuda_ms(call):.4f} ms [{card}]", flush=True)
+    # SSD_CUT cuts phases of ssd_scan_mma_kernel, which this shape reaches
+    # only when asked for (the route takes ssd_scan_wgmma_kernel)
+    call = lambda: ssd_cuda(x, dA, Bm, Cm, 80, 128, kernel="mma")
+    print(f"ssd_scan_mma_kernel x [4, 80, 1024, 64] (model layout), N=64, "
+          f"chunk 128: {cuda_ms(call):.4f} ms [{card}]", flush=True)
     for name, bits in SSD_CUTS.items():
         cut = build_flagged("ssd_scan.cu", f"SSD_CUT={bits}")
         ms = time_with("ssd_scan_launch", cut.ssd_scan_launch, call)

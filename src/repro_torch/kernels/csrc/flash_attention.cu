@@ -49,8 +49,6 @@
 // at 1e-37, as in the Pallas kernel, so no row is NaN.
 #include <cuda_runtime.h>
 
-#include <atomic>
-
 #include "mma.cuh"
 #include "sm90.cuh"
 
@@ -1767,39 +1765,12 @@ __global__ void __launch_bounds__(FH_THREADS, 1)
 }
 
 // ------------------------------------------------------ tensor maps (host)
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime
-// (cudaGetDriverEntryPointByVersion): the library links no libcuda.
-typedef CUresult (*fh_encode_fn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-static fh_encode_fn fh_encoder() {
-  static const fh_encode_fn fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                              cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? (fh_encode_fn)p
-               : (fh_encode_fn)nullptr;
-  }();
-  return fn;
-}
-
 // A [B, S, heads, D] bf16 tensor as a rank-4 map (D, heads, S, B), boxes of
 // 64 columns x 1 head x `rows` rows x 1 batch, 128-byte swizzle; reads past
 // S give zeros.  Returns 0 or a cudaError.
 static int fh_map(CUtensorMap* m, const void* p, int B, int S, int heads,
                   int D, int rows) {
-  const fh_encode_fn enc = fh_encoder();
+  const tma_encode_fn enc = tma_encoder();
   if (!enc) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
                               (cuuint64_t)S, (cuuint64_t)B};
@@ -2417,22 +2388,6 @@ static int fw_sms() {
   return n;
 }
 
-// The kernel's dynamic shared-memory size, set once a device (at its first
-// launch there), not by a cudaFuncSetAttribute call at every launch.
-template <int D>
-static cudaError_t fw_smem_attribute() {
-  static std::atomic<unsigned long long> set{0};   // a bit a device
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
-  if (bit && (set.load(std::memory_order_relaxed) & bit)) return cudaSuccess;
-  e = cudaFuncSetAttribute(flash_attention_wgmma_kernel<D>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           FwTile<D>::SMEM);
-  if (e == cudaSuccess) set.fetch_or(bit, std::memory_order_relaxed);
-  return e;
-}
 
 template <int D>
 static int fa_wgmma_launch(const void* q, const void* k, const void* v,
@@ -2449,7 +2404,8 @@ static int fa_wgmma_launch(const void* q, const void* k, const void* v,
   const int sms = fw_sms();
   if (sms <= 0) return (int)cudaErrorInvalidValue;
   constexpr int smem = FwTile<D>::SMEM;
-  const cudaError_t e = fw_smem_attribute<D>();
+  const cudaError_t e =
+      smem_attribute_once<flash_attention_wgmma_kernel<D>>(smem);
   if (e != cudaSuccess) return (int)e;
   const long long items = (long long)B * H * ((Sq + T::BQ - 1) / T::BQ);
   const int grid = items < sms ? (int)items : sms;

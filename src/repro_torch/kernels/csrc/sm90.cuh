@@ -1,6 +1,7 @@
 // Hopper-only helpers (sm_90a) for the kernels that feed the tensor cores
-// by TMA and wgmma: mbarriers, TMA tile loads, wgmma descriptors and
-// products, register reallocation between warp groups, named barriers.
+// by TMA and wgmma: mbarriers, clusters, TMA tile loads and stores and the
+// host's tensor-map encoder, wgmma descriptors and products, register
+// reallocation between warp groups, named barriers.
 //
 // Shared-memory tiles are 64-column boxes of bf16 (128-byte rows) laid out
 // by TMA with the 128-byte swizzle, each box 1024-byte aligned; wgmma reads
@@ -24,6 +25,8 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 __device__ __forceinline__ uint32_t sm90_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -126,6 +129,18 @@ __device__ __forceinline__ void st_cluster_v4(uint32_t addr, float a,
                    addr),
                "f"(a), "f"(b), "f"(c), "f"(d)
                : "memory");
+}
+
+// An asynchronous store of 16 bytes into another block of the cluster (its
+// shared::cluster address), its bytes counted on that block's mbarrier at
+// `bar` (complete_tx) once they land: the storing thread does not wait.
+__device__ __forceinline__ void st_async_v4(uint32_t addr, float a, float b,
+                                            float c, float d, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n" ::"r"(addr),
+      "f"(a), "f"(b), "f"(c), "f"(d), "r"(bar)
+      : "memory");
 }
 
 // One arrival on a barrier of another block of the cluster (its
@@ -261,6 +276,24 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
     wgmma_ss_64x128(d, da, db, zero);
 }
 
+// d[64 x 64] (= or +=) A B over 16 rows: A K-major, B MN-major (the
+// contraction dimension down its rows), both from shared memory;
+// accumulate unless `zero`.
+__device__ __forceinline__ void wgmma_ss_mn_64x64(float (&d)[32], uint64_t da,
+                                                  uint64_t db, int zero) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.eq.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24)
+      : "l"(da), "l"(db), "r"(zero));
+}
+
 // d[64 x 64] += A B over 16 rows: A from registers, B MN-major from
 // shared memory.
 __device__ __forceinline__ void wgmma_rs_64x64(float (&d)[32],
@@ -326,4 +359,55 @@ __device__ __forceinline__ void regs_claim() {
 // Barrier `id` (1..15; 0 is __syncthreads) over `n` threads, whole warps.
 __device__ __forceinline__ void named_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+// Arrive at barrier `id` without waiting (the threads that bar.sync on it
+// wait for these arrivals; this thread's earlier writes are ordered before
+// their later reads).
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// ------------------------------------------------------------ launch (host)
+// Kernel's dynamic shared-memory size, set once a device (at its first
+// launch there), not by a cudaFuncSetAttribute call at every launch.
+template <auto Kernel>
+static cudaError_t smem_attribute_once(int bytes) {
+  static std::atomic<unsigned long long> set{0};   // a bit a device
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (bit && (set.load(std::memory_order_relaxed) & bit)) return cudaSuccess;
+  e = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bytes);
+  if (e == cudaSuccess) set.fetch_or(bit, std::memory_order_relaxed);
+  return e;
+}
+
+// ------------------------------------------------------ tensor maps (host)
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime
+// (cudaGetDriverEntryPointByVersion): the library links no libcuda.
+typedef CUresult (*tma_encode_fn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+static tma_encode_fn tma_encoder() {
+  static const tma_encode_fn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? (tma_encode_fn)p
+               : (tma_encode_fn)nullptr;
+  }();
+  return fn;
 }

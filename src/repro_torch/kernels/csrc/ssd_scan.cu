@@ -23,8 +23,12 @@
 // [B, S, H, P] layout needs no copy; B and C (rows of the group bh / H,
 // shared by its H heads) through (group, position) strides.  Ragged S is masked in-kernel (x = dA = B = C
 // = 0 past the end, which leaves the state as it is, as the reference's
-// zero padding does).  h0 may be NULL (zero initial state).  Two kernels,
-// chosen by dtype in the open (no fallback between them):
+// zero padding does).  h0 may be NULL (zero initial state).  Three
+// kernels, chosen in the open by the wrapper's table (kernels/ssd_scan.py
+// ssd_kernel; no fallback between them): bf16 at P = 64 with N = 64 or 128
+// in chunks of 128 rows takes ssd_scan_wgmma_kernel (the last section of
+// this file: the chunks in parallel, a cluster a batch*head), the other
+// bf16 shapes ssd_scan_mma_kernel, float32 ssd_scan_fma_kernel:
 //
 // * bf16, ssd_scan_mma_kernel: 8 warps; all four products on mma.sync
 //   m16n8k16 (bf16 operands, fp32 sums), operands by ldmatrix from bf16
@@ -62,7 +66,10 @@
 //   fp32, which the float32 checks (1e-3) rely on.
 #include <cuda_runtime.h>
 
+#include <climits>
+
 #include "mma.cuh"
+#include "sm90.cuh"
 
 // Element strides: x and y by (group, head, position), dA likewise, B and C
 // by (group, position); the innermost dimension of x, y, B, C is dense.
@@ -637,6 +644,644 @@ __global__ void __launch_bounds__(32 * SSD_WARPS, NT <= 4 ? 2 : 1)
   }
 }
 
+// ======================================= bf16 on Hopper (P = 64, N = 64, 128)
+// ssd_scan_wgmma_kernel: the function of ssd_scan_mma_kernel (the same
+// strides, ragged tail, h0 and outputs) at the shapes of the full configs:
+// P = 64 with N = 64 (zamba2-2.7b) and N = 128 (mamba2-130m), in chunks of
+// SW_Q = 128 rows (a single chunk of S < 128 rows is the same chunk with
+// zero rows after S).
+//
+// What held the mma.sync kernel to 14% of its byte bound: one block a
+// batch*head walking its chunks in order (320 blocks on 132 SMs at
+// zamba2's shape, two rounds where 1.21 would do; 96 at mamba2's, one an
+// SM, 36 SMs idle), and inside a block a chunk bound by latency: one warp
+// taking the cumsum while seven wait, three block barriers a chunk, the
+// causal triangle split 8 : 1 between warps.
+//
+// What the design does about it: the chunks run in parallel.  A block
+// takes one (batch*head, chunk); the nc chunks of a batch*head form a
+// thread block cluster of csz = min(nc, 8) blocks, block r taking chunk
+// t csz + r in round t (nc > 8: rounds, the cluster synced between them).
+// A chunk's block computes from its own data y_diag = (C B^T .* L) x and
+// its map h -> a h + s (s = B^T (exp(cs_Q - cs) .* x), a = exp(cs_Q)).
+// The states entering the chunks travel between the blocks through
+// distributed shared memory (st.async into the receiver's shared memory,
+// counted on its mbarrier); only y_off = exp(cs) .* (C h_j) waits for
+// them, and the last chunk's block writes h.  Nothing but x, dA, B, C, y
+// and h crosses device memory, and every sum is taken in a fixed order:
+// the same bits every run.  The SM-to-SM stores move ~40 GB/s an SM, so a
+// 16 or 32 KB state costs ~1 us a step, and how the states travel is set
+// by N:
+// * N = 64: an exclusive scan of the chunk maps over the cluster in
+//   log2(8) = 3 steps (measured faster here than a chain of 7 hops).
+// * N = 128: a chain, block to block, each warp group passing on its half
+//   of the state; one receive buffer leaves two blocks an SM (the scan's
+//   three 32 KB buffers allowed one), which measured faster.
+//
+// 256 threads, two warp groups; group c owns rows 64 c .. 64 c + 63 of
+// the chunk.  Thread 0 brings x [128 x 64], B and C [128 x N] by TMA
+// (rank-4 maps over the strided views, dimensions ordered by stride, so
+// rows past S read zeros; 128-byte swizzle), dA comes by plain loads and
+// group 0 takes its cumsum by warp scans.  Every product is a wgmma:
+// the state from registers (wq .* B, read transposed by ldmatrix, split
+// into bf16 hi + lo) times x (MN-major); C B^T from shared memory
+// (K-major), masked and decayed by L in float32 registers, split into hi +
+// lo and fed back as the A operand of the product with x (the P V pattern
+// of flash_attention_wgmma_kernel); C h from C (K-major) and h's hi + lo
+// tiles (MN-major), hi and lo in two accumulators (one chain of 8 or 16
+// products into one accumulator made ptxas serialize them).  Group 0
+// takes the cumsum.  At N = 64 group 0 takes the state and the scan, the
+// chunk's critical path, then C h of its rows; group 1 all three blocks
+// of (C B^T .* L) x, the first (group 0's rows) handed over in shared
+// memory, then C h of its rows.  At N = 128 group g takes the state's
+// rows 64 g .. and its half of each hop, then its rows' blocks of
+// (C B^T .* L) x (one, two) and C h.  y leaves by a TMA store from the
+// group's rows of C's tile (free once its C h is done), clipped at S.
+//
+// Shared memory (sw_smem_bytes): x, B, C, the states a block receives
+// (float32; h's bf16 hi + lo tiles take their place once read), at
+// N = 64 the hand-over tile: 115,296 bytes at N = 64, 115,248 at N = 128,
+// two blocks an SM at both.
+#define SW_Q 128                   // rows of a chunk
+#define SW_THREADS 256             // two warp groups
+#define SW_BOX (SW_Q * 128)        // bytes of a 128-row box of 64 bf16
+#define SW_CLUSTER 8               // blocks of a cluster, at most
+#define SW_SCAN 3                  // steps of the scan over a cluster
+
+// x, B, C; at N = 64 the SW_SCAN states R a block receives, the hand-over
+// tile and the states' a; at N = 128 the state arriving from the previous
+// block; cs, the warp sums and the mbarriers.  Two blocks an SM at both N
+// (2 (115,296 + the 1,024 reserved) of 233,472 bytes).
+static constexpr int sw_smem_bytes(int NT) {
+  return NT == 1 ? SW_BOX * (1 + 2 + SW_SCAN + 1) + 16 * SW_SCAN + SW_Q * 4 +
+                       4 * 4 + (1 + SW_SCAN) * 8
+                 : SW_BOX * (1 + 4 + 2) + SW_Q * 4 + 4 * 4 + (1 + SW_SCAN) * 8;
+}
+
+// Slot k of a tensor map holds semantic dimension (order >> 2 k) & 3 of
+// (inner, head, position, group).
+struct SwOrders {
+  int x, bc, y;
+};
+
+__device__ __forceinline__ int sw_coord(int order, int k, int c0, int c1,
+                                        int c2, int c3) {
+  const int d = (order >> (2 * k)) & 3;
+  return d == 0 ? c0 : d == 1 ? c1 : d == 2 ? c2 : c3;
+}
+
+// A box at semantic coordinates (inner, head, position, group).
+__device__ __forceinline__ void sw_load(void* dst, const CUtensorMap* m,
+                                        uint64_t* bar, int order, int c0,
+                                        int c1, int c2, int c3) {
+  tma_load_4d(dst, m, bar, sw_coord(order, 0, c0, c1, c2, c3),
+              sw_coord(order, 1, c0, c1, c2, c3),
+              sw_coord(order, 2, c0, c1, c2, c3),
+              sw_coord(order, 3, c0, c1, c2, c3));
+}
+__device__ __forceinline__ void sw_store(const CUtensorMap* m,
+                                         const void* src, int order, int c0,
+                                         int c1, int c2, int c3) {
+  tma_store_4d(m, src, sw_coord(order, 0, c0, c1, c2, c3),
+               sw_coord(order, 1, c0, c1, c2, c3),
+               sw_coord(order, 2, c0, c1, c2, c3),
+               sw_coord(order, 3, c0, c1, c2, c3));
+}
+
+// Descriptor of k-step kk (16 columns) of a K-major tile of 128-row
+// boxes (64 rows of it from t on), and of rows 16 kk of an MN-major tile.
+__device__ __forceinline__ uint64_t sw_kmajor(const unsigned char* t,
+                                              int kk) {
+  return wg_desc(t + (kk >> 2) * SW_BOX + (kk & 3) * 32, 16, 1024);
+}
+__device__ __forceinline__ uint64_t sw_mnmajor(const unsigned char* t,
+                                               int kk) {
+  return wg_desc(t + kk * 2048, SW_BOX, 1024);
+}
+
+// y[0..3] += a v
+__device__ __forceinline__ void sw_fma4(float* y, float a, float4 v) {
+  y[0] = fmaf(a, v.x, y[0]);
+  y[1] = fmaf(a, v.y, y[1]);
+  y[2] = fmaf(a, v.z, y[2]);
+  y[3] = fmaf(a, v.w, y[3]);
+}
+
+__device__ __forceinline__ void sw_zero(float (&a)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) a[i] = 0.f;
+}
+
+// cs = cumsum(dA) over the chunk at s0 (zero past S) by warp group 0,
+// thread tid holding row tid: cs2 = cs log2(e); returns cs_Q, the chunk's
+// log-decay.
+__device__ __forceinline__ float sw_cumsum(const float* ab, long long as2,
+                                           int s0, int S, float* cs2,
+                                           float* wsum, int tid) {
+  const int warp = tid >> 5, lane = tid & 31;
+  float v = s0 + tid < S ? ab[(long long)(s0 + tid) * as2] : 0.f;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float u = __shfl_up_sync(0xffffffffu, v, off);
+    if (lane >= off) v += u;
+  }
+  if (lane == 31) wsum[warp] = v;
+  named_sync(1, 128);
+  float pre = 0.f, total = 0.f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float w = wsum[k];
+    if (k < warp) pre += w;
+    total += w;
+  }
+  cs2[tid] = (v + pre) * SSD_LOG2E;
+  return total;
+}
+
+// st[64 x 64] = (wq .* B)^T x over the chunk's 128 rows, wq = exp(cs_Q -
+// cs), for the 64 state rows n of B's box bt: A from registers (B read
+// transposed by ldmatrix, scaled by wq, split into bf16 hi + lo), x
+// MN-major.
+__device__ __forceinline__ void sw_state(float (&st)[32],
+                                         const unsigned char* bt,
+                                         const unsigned char* xs,
+                                         const float* cs2, int tid) {
+  const int warp = tid >> 5, lane = tid & 31, t4 = lane & 3;
+  const float cq = cs2[SW_Q - 1];
+  auto wq = [&](int q) { return exp2f(cq - cs2[q]); };
+  uint32_t hi[32], lo[32];
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const int q = 16 * kk + (lane & 7) + 8 * (lane >> 4);
+    const int ch = 2 * warp + ((lane >> 3) & 1);
+    uint32_t a[4];
+    ldsm_x4_t(a, bt + q * 128 + ((ch ^ (q & 7)) << 4));
+    const int qq = 16 * kk + 2 * t4;
+    const float w0 = wq(qq), w1 = wq(qq + 1), w8 = wq(qq + 8),
+                w9 = wq(qq + 9);
+    scale_split(a[0], w0, w1, hi[4 * kk], lo[4 * kk]);
+    scale_split(a[1], w0, w1, hi[4 * kk + 1], lo[4 * kk + 1]);
+    scale_split(a[2], w8, w9, hi[4 * kk + 2], lo[4 * kk + 2]);
+    scale_split(a[3], w8, w9, hi[4 * kk + 3], lo[4 * kk + 3]);
+  }
+  sw_zero(st);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const uint64_t d = sw_mnmajor(xs, kk);
+    wgmma_rs_64x64(st, hi + 4 * kk, d);
+    wgmma_rs_64x64(st, lo + 4 * kk, d);
+  }
+  wg_commit();
+  wg_wait<0>();
+  wg_hold(st);
+  wg_hold(hi);
+  wg_hold(lo);
+}
+
+// yd[64 x 64] += ((C B^T) .* L) x over the 64 columns of block kb, for the
+// 64 rows of group c: the scores from shared memory (both K-major),
+// masked above the diagonal and decayed by exp(cs_row - cs_col) in float32
+// registers, then bf16 hi + lo as the A operand of the product with x's
+// rows 64 kb .. (MN-major).
+template <int NT>
+__device__ __forceinline__ void sw_diag(float (&yd)[32],
+                                        const unsigned char* ct,
+                                        const unsigned char* bs,
+                                        const unsigned char* xs,
+                                        const float* cs2, int c, int kb,
+                                        int tid) {
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  float sc[32];
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4 * NT; ++kk)
+    wgmma_ss_64x64(sc, sw_kmajor(ct + 8192 * c, kk),
+                   sw_kmajor(bs + 8192 * kb, kk), kk == 0);
+  wg_commit();
+  wg_wait<0>();
+  wg_hold(sc);
+  const int r0 = 64 * c + 16 * warp + g;
+  const float la = cs2[r0], lb = cs2[r0 + 8];
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = 64 * kb + 8 * jj + 2 * t4 + (e & 1);
+      const int row = r0 + 8 * (e >> 1);
+      sc[4 * jj + e] = kb < c || col <= row
+          ? sc[4 * jj + e] * exp2f((e >> 1 ? lb : la) - cs2[col]) : 0.f;
+    }
+  uint32_t hi[16], lo[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) split_bf16(sc[2 * i], sc[2 * i + 1], hi[i], lo[i]);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t d = sw_mnmajor(xs + 8192 * kb, kk);
+    wgmma_rs_64x64(yd, hi + 4 * kk, d);
+    wgmma_rs_64x64(yd, lo + 4 * kk, d);
+  }
+  wg_commit();
+  wg_wait<0>();
+  wg_hold(yd);
+  wg_hold(hi);
+  wg_hold(lo);
+}
+
+// y of group c's 64 rows: yd + exp(cs) .* (C h), C h from C's rows and h's
+// bf16 hi + lo tiles [N][64]; y as bf16 into the group's rows of C's first
+// box (the 128-byte swizzle of the map), then one TMA store, clipped at S.
+template <int NT>
+__device__ __forceinline__ void sw_output(const float (&yd)[32],
+                                          unsigned char* ct,
+                                          const unsigned char* hhi,
+                                          const unsigned char* hlo,
+                                          const float* cs2,
+                                          const CUtensorMap* tm_y, int order,
+                                          int c, int hh, int s0, int bg,
+                                          int S, int tid) {
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  unsigned char* yt = ct + 8192 * c;
+  float ch[32], cl[32];   // C h_hi, C h_lo: two independent chains
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4 * NT; ++kk) {
+    wgmma_ss_mn_64x64(ch, sw_kmajor(yt, kk), sw_mnmajor(hhi, kk), kk == 0);
+    wgmma_ss_mn_64x64(cl, sw_kmajor(yt, kk), sw_mnmajor(hlo, kk), kk == 0);
+  }
+  wg_commit();
+  wg_wait<0>();
+  wg_hold(ch);
+  wg_hold(cl);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) ch[i] += cl[i];
+  const int r0 = 64 * c + 16 * warp + g;
+  const float ea = exp2f(cs2[r0]), eb = exp2f(cs2[r0 + 8]);
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = 16 * warp + g + 8 * r;
+      const float e = r ? eb : ea;
+      *reinterpret_cast<uint32_t*>(yt + row * 128 + ((jj ^ (row & 7)) << 4) +
+                                   4 * t4) =
+          pack_bf16(fmaf(e, ch[4 * jj + 2 * r], yd[4 * jj + 2 * r]),
+                    fmaf(e, ch[4 * jj + 2 * r + 1], yd[4 * jj + 2 * r + 1]));
+    }
+  fence_async_smem();
+  named_sync(1 + c, 128);
+  if (tid == 0 && s0 + 64 * c < S) {
+    sw_store(tm_y, yt, order, 0, hh, s0 + 64 * c, bg);
+    tma_store_commit();
+    tma_store_wait_read();
+  }
+}
+
+// h [N x 64] in group 0's accumulator layout as h's operand for C h: bf16
+// hi + lo tiles [N][64] (MN-major, 128-byte swizzle).
+template <int NT>
+__device__ __forceinline__ void sw_h_operand(unsigned char* hhi,
+                                             unsigned char* hlo,
+                                             const float (&h)[NT][32],
+                                             int tid) {
+  const int warp = tid >> 5, g = (tid & 31) >> 2, t4 = tid & 3;
+#pragma unroll
+  for (int u = 0; u < NT; ++u)
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int n = 64 * u + 16 * warp + g + 8 * ((i >> 1) & 1);
+      const int off = n * 128 + (((i >> 2) ^ (n & 7)) << 4) + 4 * t4;
+      split_bf16(h[u][i], h[u][i + 1], *reinterpret_cast<uint32_t*>(hhi + off),
+                 *reinterpret_cast<uint32_t*>(hlo + off));
+    }
+}
+
+// x, y: [G, H, S, 64] bf16 and B, C: [G, S, N] bf16 as tensor maps (x, B,
+// C boxes of 128 rows, y of 64; semantic orders in ord); dA: (g, h, s) at
+// the element strides as*; h0: [BH, N, 64] float32 or NULL; writes h
+// [BH, N, 64] float32.  grid (csz, BH) in clusters of csz = min(nc, 8)
+// blocks, SW_THREADS threads; in cluster round t block r takes chunk
+// t csz + r.
+//
+// N = 128, the chain: the state entering chunk j > 0 arrives in hin,
+// stored by the block of chunk j - 1 (both its groups, a half each) with
+// st.async, counted on hin_full against this block's expect_tx, its m-th
+// reception (m = (j - 1) / csz) completing phase m; each group reads its
+// half, passes a h + s on to the block of chunk j + 1 (or writes h after
+// the last chunk) without waiting for the stores, then writes its rows of
+// h's operand in hin's place.  A block that receives again (nc > 8) first
+// tells its sender, by one arrival on the sender's peer_free, that hin is
+// free; the sender waits for that before it stores.
+//
+// N = 64, the scan: each chunk's map h -> a h + s is X, the round's first
+// chunk's with its entry state folded in (the constant map to a h_entry +
+// s, h_entry = h0, zero, or the state after the previous round's last
+// chunk, sent to block 0's R[1] by its block); an exclusive scan of the
+// maps over the cluster in SW_SCAN steps (block r sends X to block r + d,
+// d = 1, 2, 4, into its R[k] by st.async counted on rbar[k]; receives X'
+// of block r - d and composes Y = Y o X', X = X o X').  Y then maps to
+// h_r, the state entering the block's chunk, and X to the state after it.
+// Between two rounds (nc > 8) the cluster syncs, so R is free again.
+template <int NT>
+__global__ void __launch_bounds__(SW_THREADS, 2)
+    ssd_scan_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
+                          const __grid_constant__ CUtensorMap tm_b,
+                          const __grid_constant__ CUtensorMap tm_c,
+                          const __grid_constant__ CUtensorMap tm_y,
+                          SwOrders ord, const float* __restrict__ dA,
+                          long long as0, long long as1, long long as2,
+                          const float* __restrict__ h0,
+                          float* __restrict__ h_out, int S, int H) {
+  constexpr int N = 64 * NT, RB = NT * SW_BOX;   // bytes of a state
+  extern __shared__ __align__(1024) unsigned char sw_smem[];
+  unsigned char* xs = sw_smem;   // 1024-aligned: the swizzle's period
+  if (sm90_addr(xs) & 1023) __trap();
+  unsigned char* bs = xs + SW_BOX;                  // [NT][SW_BOX]
+  unsigned char* ct = bs + NT * SW_BOX;             // [NT][SW_BOX]
+  unsigned char* rs = ct + NT * SW_BOX;
+  // N = 64: the SW_SCAN states R (h's operand in R[0] once read), the
+  // hand-over tile, the states' a.  N = 128: the state arriving from the
+  // previous block (hin, float32, group g's rows in its half; h's operand
+  // in its place once read)
+  unsigned char* hhi = rs;                          // [N][64] bf16
+  unsigned char* hlo = hhi + NT * 8192;
+  float4* hin = reinterpret_cast<float4*>(rs);      // [2][8][128]
+  float4* sx = reinterpret_cast<float4*>(rs + SW_SCAN * RB);   // [8][128]
+  float4* ra = sx + 8 * 128;                        // [SW_SCAN]: X's a
+  float* cs2 = reinterpret_cast<float*>(NT == 1 ? (unsigned char*)(ra + SW_SCAN)
+                                                 : rs + RB);   // [Q]
+  float* wsum = cs2 + SW_Q;                         // [4]
+  uint64_t* tile_full = reinterpret_cast<uint64_t*>(wsum + 4);
+  uint64_t* rbar = tile_full + 1;                   // [SW_SCAN]
+  uint64_t* hin_full = tile_full + 1;               // N = 128
+  uint64_t* peer_free = tile_full + 2;              // N = 128
+  auto R = [&](int k) { return reinterpret_cast<const float4*>(rs + k * RB); };
+
+  const int rank = blockIdx.x, csz = gridDim.x, bh = blockIdx.y;
+  const int bg = bh / H, hh = bh - bg * H;
+  const int nc = (S + SW_Q - 1) / SW_Q, rounds = (nc + csz - 1) / csz;
+  // the warp group, uniform to the compiler
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x >> 7, 0);
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const float* ab = dA + bg * as0 + hh * as1;
+
+  if (threadIdx.x == 0) {
+    mbar_init(tile_full, 1);
+    for (int k = 0; k < SW_SCAN; ++k)
+      mbar_init(rbar + k, 1);    // this block's expect_tx, then the bytes
+    mbar_init_fence();
+  }
+  cluster_sync();   // every block's barriers exist before a remote store
+
+  for (int t = 0; t < rounds; ++t) {
+    const int j = t * csz + rank;                   // this block's chunk
+    if (j >= nc) break;
+    const int cnt = min(csz, nc - t * csz);         // chunks of the round
+    const int s0 = j * SW_Q;
+    if (threadIdx.x == 0) {
+      if constexpr (NT == 1) {
+        for (int k = 0; k < SW_SCAN; ++k)           // X of block rank - d
+          if (rank >= (1 << k)) mbar_expect_tx(rbar + k, RB + 16);
+        if (rank == 0 && t > 0)                      // the previous round's
+          mbar_expect_tx(rbar + 1, RB + 16);        // last state
+      } else if (j >= 1) {
+        mbar_expect_tx(hin_full, RB);               // the entering state
+      }
+      mbar_expect_tx(tile_full, (1 + 2 * NT) * SW_BOX);
+      sw_load(xs, &tm_x, tile_full, ord.x, 0, hh, s0, bg);
+      for (int b = 0; b < NT; ++b) {
+        sw_load(bs + b * SW_BOX, &tm_b, tile_full, ord.bc, 64 * b, 0, s0, bg);
+        sw_load(ct + b * SW_BOX, &tm_c, tile_full, ord.bc, 64 * b, 0, s0, bg);
+      }
+    }
+    const float* cs = cs2;
+    float total = 0.f;   // the chunk's log-decay (group 0)
+    if (wg == 0) total = sw_cumsum(ab, as2, s0, S, cs2, wsum, tid);
+    named_sync(7, 256);   // cs written
+    mbar_wait(tile_full, t & 1);
+    float yd[32];   // (C B^T .* L) x of the group's rows
+    if constexpr (NT == 2) {
+      // ---- the chain: group g's half of the state (rows 64 g ..), the
+      // entering state's half from hin (or h0), a h + s on to the next
+      // block, h's operand, then this group's blocks of (C B^T .* L) x
+      float st[32], hr[32];
+      sw_state(st, bs + wg * SW_BOX, xs, cs2, tid);
+      if (j == 0) {
+#pragma unroll
+        for (int i = 0; i < 32; i += 2) {
+          const int n = 64 * wg + 16 * warp + g + 8 * ((i >> 1) & 1);
+          const int p = 8 * (i >> 2) + 2 * t4;
+          float2 v = make_float2(0.f, 0.f);
+          if (h0)
+            v = *reinterpret_cast<const float2*>(
+                h0 + ((long long)bh * N + n) * 64 + p);
+          hr[i] = v.x;
+          hr[i + 1] = v.y;
+        }
+      } else {
+        mbar_wait<true>(hin_full, ((j - 1) / csz) & 1);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float4 v = hin[(wg * 8 + i) * 128 + tid];
+          hr[4 * i] = v.x;
+          hr[4 * i + 1] = v.y;
+          hr[4 * i + 2] = v.z;
+          hr[4 * i + 3] = v.w;
+        }
+      }
+      const float a = exp2f(cs2[SW_Q - 1]);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) st[i] = fmaf(a, hr[i], st[i]);
+      if (j == nc - 1) {
+#pragma unroll
+        for (int i = 0; i < 32; i += 2) {
+          const int n = 64 * wg + 16 * warp + g + 8 * ((i >> 1) & 1);
+          const int p = 8 * (i >> 2) + 2 * t4;
+          *reinterpret_cast<float2*>(h_out + ((long long)bh * N + n) * 64 +
+                                     p) = make_float2(st[i], st[i + 1]);
+        }
+      } else {
+        const int m = j / csz;   // the receiver's earlier receptions
+        if (m >= 1) mbar_wait<true>(peer_free, (m - 1) & 1);
+        const int to = rank + 1 == csz ? 0 : rank + 1;
+        const uint32_t dst = cluster_map(hin, to);
+        const uint32_t bar = cluster_map(hin_full, to);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          st_async_v4(dst + ((wg * 8 + i) * 128 + tid) * 16, st[4 * i],
+                      st[4 * i + 1], st[4 * i + 2], st[4 * i + 3], bar);
+      }
+      named_sync(8, 256);   // hin read by both groups
+      sw_h_operand<1>(hhi + wg * 8192, hlo + wg * 8192,
+                      reinterpret_cast<const float(&)[1][32]>(hr), tid);
+      fence_async_smem();
+      named_sync(8, 256);   // h's operand whole
+      sw_zero(yd);
+      if (wg == 0) {
+        sw_diag<NT>(yd, ct, bs, xs, cs, 0, 0, tid);
+      } else {
+        sw_diag<NT>(yd, ct, bs, xs, cs, 1, 0, tid);
+        sw_diag<NT>(yd, ct, bs, xs, cs, 1, 1, tid);
+      }
+      sw_output<NT>(yd, ct, hhi, hlo, cs, &tm_y, ord.y, wg, hh, s0, bg, S,
+                    tid);
+    } else if (wg == 0) {
+      // ---- the state, the scan of the maps, h's operand, y
+      float xs_[NT][32];   // X's s: first the chunk's local state
+      sw_state(xs_[0], bs, xs, cs2, tid);
+      float ax = expf(total), ay = 1.f;   // the maps' a
+      float ys_[NT][32];                  // Y's s
+#pragma unroll
+      for (int u = 0; u < NT; ++u)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) ys_[u][i] = 0.f;
+      if (rank == 0) {   // fold the entry state in: X = (0, a h + s)
+        if (t == 0) {
+#pragma unroll
+          for (int u = 0; u < NT; ++u)
+#pragma unroll
+            for (int i = 0; i < 32; i += 2) {
+              const int n = 64 * u + 16 * warp + g + 8 * ((i >> 1) & 1);
+              const int p = 8 * (i >> 2) + 2 * t4;
+              float2 v = make_float2(0.f, 0.f);
+              if (h0)
+                v = *reinterpret_cast<const float2*>(
+                    h0 + ((long long)bh * N + n) * 64 + p);
+              ys_[u][i] = v.x;
+              ys_[u][i + 1] = v.y;
+            }
+        } else {
+          mbar_wait<true>(rbar + 1, (t - 1) & 1);
+#pragma unroll
+          for (int u = 0; u < NT; ++u)
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+              const float4 v = R(1)[(u * 8 + i) * 128 + tid];
+              ys_[u][4 * i] = v.x;
+              ys_[u][4 * i + 1] = v.y;
+              ys_[u][4 * i + 2] = v.z;
+              ys_[u][4 * i + 3] = v.w;
+            }
+        }
+#pragma unroll
+        for (int u = 0; u < NT; ++u)
+#pragma unroll
+          for (int i = 0; i < 32; ++i)
+            xs_[u][i] = fmaf(ax, ys_[u][i], xs_[u][i]);
+        ax = 0.f;
+        sw_h_operand<NT>(hhi, hlo, ys_, tid);   // h_j: the entry state
+#pragma unroll
+        for (int u = 0; u < NT; ++u)
+#pragma unroll
+          for (int i = 0; i < 32; ++i) ys_[u][i] = 0.f;
+      }
+      // X to block `to`'s R[k], its a beside
+      auto send = [&](int to, int k) {
+        const uint32_t dst = cluster_map(rs + k * RB, to);
+        const uint32_t bar = cluster_map(rbar + k, to);
+#pragma unroll
+        for (int u = 0; u < NT; ++u)
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            st_async_v4(dst + ((u * 8 + i) * 128 + tid) * 16, xs_[u][4 * i],
+                        xs_[u][4 * i + 1], xs_[u][4 * i + 2],
+                        xs_[u][4 * i + 3], bar);
+        if (tid == 0)
+          st_async_v4(cluster_map(ra + k, to), ax, 0.f, 0.f, 0.f, bar);
+      };
+#pragma unroll
+      for (int k = 0; k < SW_SCAN; ++k) {
+        const int d = 1 << k;
+        if (d >= cnt) break;
+        if (rank + d < cnt) send(rank + d, k);
+        if (rank >= d) {   // Y = Y o X', X = X o X'
+          mbar_wait<true>(rbar + k, t & 1);
+          const float ar = ra[k].x;
+#pragma unroll
+          for (int u = 0; u < NT; ++u)
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+              const float4 v = R(k)[(u * 8 + i) * 128 + tid];
+              sw_fma4(ys_[u] + 4 * i, ay, v);
+              sw_fma4(xs_[u] + 4 * i, ax, v);
+            }
+          ay *= ar;
+          ax *= ar;
+        }
+      }
+      // Y maps to h_j (rank 0: written above)
+      named_sync(1, 128);   // R[0] read: h's operand tiles take its place
+      if (rank > 0) sw_h_operand<NT>(hhi, hlo, ys_, tid);
+      fence_async_smem();
+      named_sync(1, 128);
+      named_arrive(4, 256);   // h's operand ready for group 1
+      // X now maps to the state after chunk j: h after the last chunk, or
+      // the next round's entry state for block 0
+      if (rank == cnt - 1) {
+        if (j == nc - 1) {
+#pragma unroll
+          for (int u = 0; u < NT; ++u)
+#pragma unroll
+            for (int i = 0; i < 32; i += 2) {
+              const int n = 64 * u + 16 * warp + g + 8 * ((i >> 1) & 1);
+              const int p = 8 * (i >> 2) + 2 * t4;
+              *reinterpret_cast<float2*>(
+                  h_out + ((long long)bh * N + n) * 64 + p) =
+                  make_float2(xs_[u][i], xs_[u][i + 1]);
+            }
+        } else {
+          send(0, 1);
+        }
+      }
+      {   // the diagonal block of this group's rows, from group 1
+        named_sync(6, 256);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float4 v = sx[i * 128 + tid];
+          yd[4 * i] = v.x;
+          yd[4 * i + 1] = v.y;
+          yd[4 * i + 2] = v.z;
+          yd[4 * i + 3] = v.w;
+        }
+      }
+      sw_output<NT>(yd, ct, hhi, hlo, cs, &tm_y, ord.y, 0, hh, s0, bg, S,
+                    tid);
+    } else {
+      // ---- the diagonal block of group 0's rows (for group 0, which
+      // the scan keeps busy), the two blocks of this group's rows, then y
+      // once h's operand is ready
+      {
+        float y0[32];
+        sw_zero(y0);
+        sw_diag<NT>(y0, ct, bs, xs, cs, 0, 0, tid);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          sx[i * 128 + tid] = make_float4(y0[4 * i], y0[4 * i + 1],
+                                          y0[4 * i + 2], y0[4 * i + 3]);
+        named_arrive(6, 256);
+      }
+      sw_zero(yd);
+      sw_diag<NT>(yd, ct, bs, xs, cs, 1, 0, tid);
+      sw_diag<NT>(yd, ct, bs, xs, cs, 1, 1, tid);
+      named_sync(4, 256);
+      sw_output<NT>(yd, ct, hhi, hlo, cs, &tm_y, ord.y, 1, hh, s0, bg, S,
+                    tid);
+    }
+    __syncthreads();   // the tiles, R / hin and the arrays are free here
+    if constexpr (NT == 1) {
+      if (t + 1 < rounds) cluster_sync();   // ... and in every block
+    } else if (threadIdx.x == 0 && j >= 1 && j + csz < nc) {
+      // this block receives again: its sender may fill hin
+      mbar_arrive_cluster(cluster_map(peer_free, rank == 0 ? csz - 1
+                                                           : rank - 1));
+    }
+  }
+  if (tid == 0)   // the last y stores done before the block ends
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
 // ---------------------------------------------------------------- launch
 // Shared memory of one block of ssd_scan_fma_kernel, in bytes.
 static int ssd_fma_smem_bytes(int P, int N, int Q) {
@@ -689,16 +1334,102 @@ static int ssd_mma_dispatch_n(const void* x, const void* dA, const void* Bm,
   }
 }
 
+// A bf16 tensor of semantic dimensions (inner, head, position, group),
+// the inner one dense, as a rank-4 TMA map: its dimensions ordered by
+// stride (those of size 1 last, at a stride past the tensor), boxes of 64
+// inner x `rows` positions, 128-byte swizzle, zeros past the extents.
+// *order gets the slots' semantic dimensions (SwOrders).  Returns 0 or a
+// cudaError.
+static int sw_map(CUtensorMap* m, const void* p, const long long (&dim)[4],
+                  const long long (&stride)[4], int rows, int* order) {
+  const tma_encode_fn enc = tma_encoder();
+  if (!enc) return (int)cudaErrorNotSupported;
+  auto key = [&](int d) { return dim[d] == 1 ? LLONG_MAX : stride[d]; };
+  int slot[4] = {0, 1, 2, 3};
+  for (int a = 2; a < 4; ++a)   // insertion sort of slots 1..3 by key
+    for (int b = a; b > 1 && key(slot[b]) < key(slot[b - 1]); --b) {
+      const int tmp = slot[b];
+      slot[b] = slot[b - 1];
+      slot[b - 1] = tmp;
+    }
+  long long top = dim[0];
+  for (int d = 1; d < 4; ++d)
+    if (dim[d] > 1 && stride[d] * dim[d] > top) top = stride[d] * dim[d];
+  cuuint64_t dims[4], strides[3];
+  cuuint32_t box[4];
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  *order = 0;
+  for (int k = 0; k < 4; ++k) {
+    const int d = slot[k];
+    dims[k] = (cuuint64_t)dim[d];
+    box[k] = d == 0 ? 64 : d == 2 ? (cuuint32_t)rows : 1;
+    *order |= d << (2 * k);
+    if (k > 0) strides[k - 1] = (cuuint64_t)(dim[d] == 1 ? top : stride[d]) * 2;
+  }
+  const CUresult r = enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                         const_cast<void*>(p), dims, strides, box, unit,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+
+template <int NT>
+static int ssd_wgmma_launch(const void* x, const void* dA, const void* Bm,
+                            const void* Cm, const void* h0, void* y, void* h,
+                            const SsdStrides& sd, int BH, int S, int H,
+                            cudaStream_t stream) {
+  const int G = BH / H, nc = (S + SW_Q - 1) / SW_Q;
+  const int csz = nc < SW_CLUSTER ? nc : SW_CLUSTER;
+  if (BH > 65535) return (int)cudaErrorInvalidValue;
+  CUtensorMap mx, mb, mc, my;
+  SwOrders ord;
+  const long long xdim[4] = {64, H, S, G}, bdim[4] = {64 * NT, 1, S, G};
+  const long long xst[4] = {1, sd.x[1], sd.x[2], sd.x[0]};
+  const long long yst[4] = {1, sd.y[1], sd.y[2], sd.y[0]};
+  const long long bst[4] = {1, 0, sd.bc[1], sd.bc[0]};
+  int err;
+  if ((err = sw_map(&mx, x, xdim, xst, SW_Q, &ord.x)) ||
+      (err = sw_map(&mb, Bm, bdim, bst, SW_Q, &ord.bc)) ||
+      (err = sw_map(&mc, Cm, bdim, bst, SW_Q, &ord.bc)) ||
+      (err = sw_map(&my, y, xdim, yst, 64, &ord.y)))
+    return err;
+  cudaError_t e =
+      smem_attribute_once<ssd_scan_wgmma_kernel<NT>>(sw_smem_bytes(NT));
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(csz, BH, 1);
+  cfg.blockDim = dim3(SW_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = sw_smem_bytes(NT);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = csz;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, ssd_scan_wgmma_kernel<NT>, mx, mb, mc, my,
+                         ord, (const float*)dA, sd.a[0], sd.a[1], sd.a[2],
+                         (const float*)h0, (float*)h, S, H);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 // x, y: [G, H, S, P] by the element strides xs*, ys* (BH = G H rows;
 // innermost dense); dA: [G, H, S] fp32 by as*; Bm, Cm: [G, S, N] by bs*
-// (innermost dense).  bf16 != 0: x/B/C/y bfloat16 (the tensor-core kernel;
-// P in {16, 32, 64}, N in {16, 32, 64, 128}, 16-byte aligned rows), else
-// float32 (the FMA kernel).  h0: [BH, N, P] fp32 or NULL.  Writes y (x's
-// type) and h [BH, N, P] fp32.  Q rows per chunk (1 <= Q <= S).
+// (innermost dense).  kind: 0 float32 (the FMA kernel); bf16 x/B/C/y with
+// 16-byte aligned rows: 1 the mma.sync kernel (P in {16, 32, 64}, N in
+// {16, 32, 64, 128}), 2 the Hopper kernel (P = 64, N in {64, 128}, chunks
+// of 128 rows: Q = 128, or one chunk, Q = S < 128).  h0: [BH, N, P] fp32 or
+// NULL.  Writes y (x's type) and h [BH, N, P] fp32.  Q rows per chunk
+// (1 <= Q <= S).
 extern "C" int ssd_scan_launch(const void* x, const void* dA, const void* Bm,
                                const void* Cm, const void* h0, void* y,
                                void* h, int BH, int S, int P, int N, int H,
-                               int Q, int bf16_in, long long xs0,
+                               int Q, int kind, long long xs0,
                                long long xs1, long long xs2, long long as0,
                                long long as1, long long as2, long long ys0,
                                long long ys1, long long ys2, long long bs0,
@@ -706,8 +1437,17 @@ extern "C" int ssd_scan_launch(const void* x, const void* dA, const void* Bm,
   cudaStream_t s = (cudaStream_t)stream;
   const SsdStrides sd = {{xs0, xs1, xs2}, {as0, as1, as2}, {ys0, ys1, ys2},
                          {bs0, bs1}};
-  if (!bf16_in)
+  if (kind == 0)
     return ssd_fma_launch(x, dA, Bm, Cm, h0, y, h, sd, BH, S, P, N, H, Q, s);
+  if (kind == 2) {
+    if (P != 64 || !(Q == SW_Q || (Q == S && S < SW_Q)))
+      return (int)cudaErrorInvalidValue;
+    switch (N) {
+      case 64: return ssd_wgmma_launch<1>(x, dA, Bm, Cm, h0, y, h, sd, BH, S, H, s);
+      case 128: return ssd_wgmma_launch<2>(x, dA, Bm, Cm, h0, y, h, sd, BH, S, H, s);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
   switch (P) {
     case 16: return ssd_mma_dispatch_n<1>(x, dA, Bm, Cm, h0, y, h, sd, BH, S, N, H, Q, s);
     case 32: return ssd_mma_dispatch_n<2>(x, dA, Bm, Cm, h0, y, h, sd, BH, S, N, H, Q, s);

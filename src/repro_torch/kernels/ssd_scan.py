@@ -7,11 +7,15 @@ takes x and dA as the ``[G, H, S, P]`` / ``[G, H, S]`` transpose views of
 the model's ``[G, S, H, P]`` / ``[G, S, H]`` and then returns y as such a
 view, so the model's layout is read and written in place: the kernel
 indexes by the strides it is given.  The CUDA kernels
-(``csrc/ssd_scan.cu``: bf16 on the tensor cores, float32 on the FMA units,
-chosen by dtype) run one block per batch*head over the chunks in order
-with the state on chip.  Beyond the Pallas kernel it takes an initial
-state ``h0`` (or None) and any S: the tail chunk is masked in-kernel as
-the reference's zero padding would leave it.
+(``csrc/ssd_scan.cu``), chosen by a fixed table (:func:`ssd_kernel`):
+bf16 at P = 64 with N = 64 or 128 in chunks of 128 rows on the Hopper
+kernel (a block a chunk, the chunks of a batch*head a thread block
+cluster passing the state on through distributed shared memory, wgmma
+products on TMA tiles); the other bf16 shapes on the mma.sync kernel and
+float32 on the FMA kernel, both a block per batch*head walking the chunks
+in order with the state on chip.  Beyond the Pallas kernel it takes an
+initial state ``h0`` (or None) and any S: the tail chunk is masked
+in-kernel as the reference's zero padding would leave it.
 
 Its plain version, :func:`ssd_plain`, folds the layout onto
 :func:`ssd_chunked`, the port of the reference model's
@@ -26,12 +30,17 @@ import torch.nn.functional as F
 
 from .build import SMEM_LIMIT, check_input, launch, stream_of
 
-__all__ = ["ssd_chunked", "ssd_cuda", "ssd_plain", "ssd_scan",
-           "ssd_smem_bytes"]
+__all__ = ["ssd_chunked", "ssd_cuda", "ssd_kernel", "ssd_plain",
+           "ssd_scan", "ssd_smem_bytes"]
 
 NEG_INF = -1.0e30
 SSD_STRIP = 64          # the float32 kernel's strip of [M | C] rows
 _DTYPES = (torch.float32, torch.bfloat16)
+# the bf16 (P, N) of the Hopper kernel (ssd_scan_wgmma_kernel), zamba2-2.7b's
+# and mamba2-130m's, and its chunk; the C entry's kernel codes
+SSD_WGMMA_SHAPES = ((64, 64), (64, 128))
+SSD_WGMMA_CHUNK = 128
+_KIND = {"fma": 0, "mma": 1, "wgmma": 2}
 
 
 def _segsum(a):
@@ -127,12 +136,38 @@ def ssd_plain(x, dA, Bm, Cm, n_heads_per_group: int, chunk: int = 128,
             h.transpose(-1, -2).reshape(Bg * H, N, P))
 
 
+def ssd_kernel(P: int, N: int, Q: int, S: int,
+               dtype: torch.dtype) -> str:
+    """The kernel :func:`ssd_cuda` launches for chunks of Q rows over S
+    positions: "wgmma" (bf16 on Hopper) at the (P, N) of
+    ``SSD_WGMMA_SHAPES`` in chunks of 128 rows or in one chunk of S < 128
+    rows (the same as 128 rows with zeros after S), "mma" for the other
+    bf16 shapes, "fma" for float32."""
+    if dtype != torch.bfloat16:
+        return "fma"
+    if (P, N) in SSD_WGMMA_SHAPES and (
+            Q == SSD_WGMMA_CHUNK or Q == S < SSD_WGMMA_CHUNK):
+        return "wgmma"
+    return "mma"
+
+
 def ssd_smem_bytes(P: int, N: int, Q: int,
-                   dtype: torch.dtype = torch.float32) -> int:
-    """Shared memory of one block of the kernel for ``dtype``
-    (``ssd_fma_smem_bytes`` / ``ssd_mma_smem_bytes`` in
-    ``csrc/ssd_scan.cu``)."""
-    if dtype == torch.bfloat16:
+                   dtype: torch.dtype = torch.float32,
+                   kernel: str | None = None) -> int:
+    """Shared memory of one block of ``kernel`` (default: "mma" for bf16,
+    "fma" for float32), in bytes: ``ssd_fma_smem_bytes`` /
+    ``ssd_mma_smem_bytes`` / ``sw_smem_bytes`` in ``csrc/ssd_scan.cu``
+    (the last at P = 64 and chunks of 128 rows)."""
+    kernel = kernel or ("mma" if dtype == torch.bfloat16 else "fma")
+    if kernel == "wgmma":
+        # x, B, C (128 rows of bf16); at N = 64 the three float32 states a
+        # block receives in the scan over its cluster, the hand-over tile
+        # and the states' a; at N = 128 the float32 state arriving from
+        # the previous block; cs, the warp sums, four mbarriers
+        if N == 64:
+            return 16384 * 7 + 16 * 3 + 128 * 4 + 16 + 32
+        return 16384 * 7 + 128 * 4 + 16 + 32
+    if kernel == "mma":
         Qp = -(-Q // 16) * 16
         return 4 * Qp * (P + N) + 2 * Qp * N + 16 * Qp + 4 * N * P
     Qs = min(Q, SSD_STRIP)          # rows of [M | C] staged at a time
@@ -140,15 +175,17 @@ def ssd_smem_bytes(P: int, N: int, Q: int,
 
 
 def ssd_cuda(x, dA, Bm, Cm, n_heads_per_group: int, chunk: int = 128,
-             h0=None):
+             h0=None, kernel: str | None = None):
     """CUDA kernel.  x: [BH, S, P] or the [G, H, S, P] view of the model's
     [G, S, H, P] (any strides, last dimension dense); Bm/Cm: [G, S, N]
     (G = BH // H, last dimension dense), one dtype with x: bfloat16 (the
-    tensor-core kernel: P in {16, 32, 64}, N in {16, 32, 64, 128}) or
+    tensor-core kernels: P in {16, 32, 64}, N in {16, 32, 64, 128}) or
     float32 (the FMA kernel); dA: [BH, S] or [G, H, S] float32, any
     strides; h0: [BH, N, P] float32 contiguous or None (zero state).
-    Chunks of min(chunk, S) rows.  Returns (y in x's shape, dtype and
-    layout order, h [BH, N, P] float32)."""
+    Chunks of min(chunk, S) rows.  ``kernel``: the one :func:`ssd_kernel`
+    names (None), or "mma" / "wgmma" to time one against the other (raises
+    where that kernel does not take the shape).  Returns (y in x's shape,
+    dtype and layout order, h [BH, N, P] float32)."""
     H = n_heads_per_group
     S, P = x.shape[-2:]
     N = Bm.shape[-1]
@@ -166,8 +203,14 @@ def ssd_cuda(x, dA, Bm, Cm, n_heads_per_group: int, chunk: int = 128,
         check_input("ssd_scan.h0", h0, (BH, N, P), torch.float32)
     if Bm.stride() != Cm.stride():
         raise ValueError("ssd_scan: B and C must share strides")
-    bf16 = x.dtype == torch.bfloat16
-    if bf16:
+    Q = max(1, min(chunk, S))
+    routed = ssd_kernel(P, N, Q, S, x.dtype)
+    if kernel is not None and kernel != routed and not (
+            kernel == "mma" and routed == "wgmma"):
+        raise ValueError(f"ssd_scan: the {kernel} kernel does not take "
+                         f"P={P}, N={N}, chunk {Q}, {x.dtype}")
+    kernel = kernel or routed
+    if x.dtype == torch.bfloat16:
         if P not in (16, 32, 64) or N not in (16, 32, 64, 128):
             raise ValueError(f"ssd_scan: the bf16 kernel takes P in (16, 32,"
                              f" 64) and N in (16, 32, 64, 128), got P={P}, "
@@ -176,8 +219,7 @@ def ssd_cuda(x, dA, Bm, Cm, n_heads_per_group: int, chunk: int = 128,
                 r % 8 for r in x4.stride()[:3] + Bm.stride()[:2]):
             raise ValueError("ssd_scan: bf16 rows of x, B and C must start "
                              "16-byte aligned")
-    Q = max(1, min(chunk, S))
-    smem = ssd_smem_bytes(P, N, Q, x.dtype)
+    smem = ssd_smem_bytes(P, N, Q, x.dtype, kernel)
     if smem > SMEM_LIMIT:
         raise ValueError(
             f"ssd_scan: chunk {Q} with N={N}, P={P} needs {smem} bytes of "
@@ -195,9 +237,9 @@ def ssd_cuda(x, dA, Bm, Cm, n_heads_per_group: int, chunk: int = 128,
         launch("ssd_scan", "ssd_scan_launch", x.data_ptr(), dA.data_ptr(),
                Bm.data_ptr(), Cm.data_ptr(),
                None if h0 is None else h0.data_ptr(), y.data_ptr(),
-               h.data_ptr(), BH, S, P, N, H, Q, int(bf16), *x4.stride()[:3],
-               *a4.stride(), *y4.stride()[:3], *Bm.stride()[:2],
-               stream_of(x))
+               h.data_ptr(), BH, S, P, N, H, Q, _KIND[kernel],
+               *x4.stride()[:3], *a4.stride(), *y4.stride()[:3],
+               *Bm.stride()[:2], stream_of(x))
     elif h0 is not None:
         h.copy_(h0)
     else:

@@ -21,7 +21,9 @@ bf16 output: one bf16 rounding), attention's Hopper kernel (bf16 at D =
 calls bit-equal, also at 128-row attention q tiles, in the
 model's strided layout, at N=128 and with slow decay (where every block of
 the scan carries weight), the bf16 outputs also against the plain versions
-in float32 on the same inputs, and reduced zamba2 behind ``Server`` on the
+in float32 on the same inputs, the SSD scan's Hopper kernel (bf16, P = 64,
+N = 64 and 128) also at 9, 16 and 24 chunks with h0, at S < 128 and S = 1,
+two calls bit-equal, and reduced zamba2 behind ``Server`` on the
 ``cuda`` route must serve what the ``torch`` route serves; so must the
 reduced decoder models (dense, MoE, VLM with a head dim of 32; the
 reduced VLM's 24 is refused on ``cuda``), their logits within 1e-3 of
@@ -500,6 +502,59 @@ def test_ssd_kernel_fp32_state_128(dev, model_layout):
     yp, hp = ssd_plain(x, dA, Bm, Cm, H, 128, h0)
     _close(y, yp, 1e-3)
     _close(h, hp, 1e-3)
+
+
+# The Hopper SSD kernel's edges (ssd_scan_wgmma_kernel: P = 64, N = 64 or
+# 128, chunks of 128 rows, a thread block cluster of up to 8 blocks a
+# batch*head): (Bg, H, S, N, h0, dA scale, model layout): the path's two
+# shapes; 16 chunks (two rounds a block) with h0 at both N; 9 chunks (block
+# 0's second round alone, the state wrapping from block 7); 24 ragged
+# chunks (three rounds); one chunk of S < 128 rows; S = 1 at both N; a
+# ragged tail.  Slow decay (dA ~ -U(0, 0.01)) where far blocks must carry
+# weight.
+SSD_HOPPER_CASES = [
+    (4, 80, 1024, 64, False, 1.4, True),
+    (4, 24, 1024, 128, True, 0.01, True),
+    (1, 4, 2048, 64, True, 0.01, True),
+    (1, 3, 2048, 128, True, 0.01, False),
+    (2, 3, 1100, 64, True, 0.01, False),
+    (1, 2, 3000, 128, True, 0.01, True),
+    (2, 3, 100, 64, True, 0.01, True),
+    (2, 3, 1, 64, True, 0.8, False),
+    (2, 3, 1, 128, False, 0.8, True),
+    (2, 5, 1000, 64, True, 0.01, False)]
+
+
+@pytest.mark.parametrize("Bg,H,S,N,with_h0,decay,model", SSD_HOPPER_CASES)
+def test_ssd_hopper_kernel_cases(dev, Bg, H, S, N, with_h0, decay, model):
+    """The Hopper kernel against the plain version (y within one bf16
+    rounding, h 1e-3) and the float32 oracle, one launch a call, two calls
+    bit-equal; the mma.sync kernel at the same shape (as the timings call
+    it) within the same tolerance."""
+    from repro_torch.kernels.ssd_scan import ssd_kernel
+    P = 64
+    assert ssd_kernel(P, N, min(128, S), S, torch.bfloat16) == "wgmma"
+    g = torch.Generator(device=dev).manual_seed(S + N + 7)
+    rn = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    x = (rn(Bg * H, S, P) * 0.5).to(torch.bfloat16)
+    dA = -torch.rand((Bg * H, S), generator=g, device=dev) * decay
+    if model:
+        x = x.reshape(Bg, H, S, P).transpose(1, 2).contiguous().transpose(1, 2)
+        dA = dA.reshape(Bg, H, S).transpose(1, 2).contiguous().transpose(1, 2)
+    Bm, Cm = ((rn(Bg, S, N) * 0.3).to(torch.bfloat16) for _ in range(2))
+    h0 = rn(Bg * H, N, P) * 0.2 if with_h0 else None
+    before = LAUNCHES["ssd_scan"]
+    y, h = ssd_cuda(x, dA, Bm, Cm, H, 128, h0)
+    assert LAUNCHES["ssd_scan"] == before + 1
+    yp, hp = ssd_plain(x, dA, Bm, Cm, H, 128, h0)
+    _close(y, yp, 2e-2)
+    _close(h, hp, 1e-3)
+    _ssd_oracle(y, x, dA, Bm, Cm, H, 128, h0)
+    again = ssd_cuda(x, dA, Bm, Cm, H, 128, h0)
+    assert torch.equal(y, again[0]) and torch.equal(h, again[1])
+    ym, hm = ssd_cuda(x, dA, Bm, Cm, H, 128, h0, kernel="mma")
+    _close(ym, yp, 2e-2)
+    _close(hm, hp, 1e-3)
 
 
 def test_ssd_kernel_refuses_too_much_shared_memory(dev):

@@ -184,8 +184,11 @@ def _sass(hgmma=True, tma=True):
             if hgmma:
                 lines.append("  /*0200*/  HGMMA.64x64x16.F32.BF16 R24, "
                              "gdesc[UR4], RZ, !UPT ;")
-    for d in (64, 80, 128):   # the forward's Hopper kernel, whole
-        lines += [f"Function : _Z28flash_attention_wgmma_kernelILi{d}EEv14CU",
+    for fn in [f"_Z28flash_attention_wgmma_kernelILi{d}EEv14CU"
+               for d in (64, 80, 128)] + [
+            f"_Z21ssd_scan_wgmma_kernelILi{nt}EEv14CUtensorMap_st"
+            for nt in (1, 2)]:   # the forward's, the SSD scan's, whole
+        lines += [f"Function : {fn}",
                   "  /*0100*/  UTMALDG.4D [UR8], [UR4] ;",
                   "  /*0200*/  HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], "
                   "RZ, !UPT ;"]

@@ -175,7 +175,8 @@ def test_kernel_of_names_the_forward_hopper_kernel(chip_smoke):
 def _sass(fwd_dims=(64, 80, 128), fwd_hgmma=True, fwd_tma=True):
     """A disassembly as ``cuobjdump -sass`` prints it: every model kernel's
     forms, the forward's Hopper instantiations at ``fwd_dims`` with or
-    without wgmma and TMA instructions, the backward's with both."""
+    without wgmma and TMA instructions, the backward's and the SSD scan's
+    with both."""
     lines = []
     for fn in ("_Z33flash_attention_bwd_dq_mma_kernelILi5EEvPK13__nv_b",
                "_Z35flash_attention_bwd_dkdv_mma_kernelILi5EEvPK13__nv",
@@ -187,6 +188,8 @@ def _sass(fwd_dims=(64, 80, 128), fwd_hgmma=True, fwd_tma=True):
             fwd_hgmma, fwd_tma) for d in fwd_dims]
     fns += [(f"_Z35flash_attention_bwd_{kernel}_wgmma_kernelILi{db}EEv14CUt",
              True, True) for kernel in ("dq", "dkdv") for db in (1, 2)]
+    fns += [(f"_Z21ssd_scan_wgmma_kernelILi{nt}EEv14CUtensorMap_st", True,
+             True) for nt in (1, 2)]
     for fn, hgmma, tma in fns:
         lines.append(f"Function : {fn}")
         if tma:
