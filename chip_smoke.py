@@ -14,7 +14,9 @@ Phases (any failure raises, so the process exits non-zero):
    ``ssd_scan`` must run tensor-core (HMMA / HGMMA) instructions, and the
    Hopper forms (the forward in bf16 at D = 64, 80 and 128, the backward
    kernels at D = 64 and 128, the SSD scan at N = 64 and 128) wgmma
-   (HGMMA) products and TMA (UTMALDG) loads;
+   (HGMMA) products and TMA (UTMALDG) loads; the SSD scan's backward
+   (``ssd_scan_bwd_states`` and ``_grads``) HMMA in each of its 12 bf16
+   instantiations (P in 16, 32, 64 x N in 16, 32, 64, 128);
 3. each engine kernel against its plain PyTorch version on the card,
    bit-equal, at the main path's shapes and on adversarial inputs
    (the read-phase corners: tied visible CIDs, empty rings, V = 1 / 3 /
@@ -61,6 +63,19 @@ Phases (any failure raises, so the process exits non-zero):
    plain backward's and SDPA's backward with each backend forced in turn
    and unforced (a yardstick the port never calls; the fastest forced is
    the library time), and the Hopper kernels' grids and longest walks;
+   the SSD scan's three backward kernels (``ssd_scan_bwd_states``,
+   ``_scan``, ``_grads``) each against its plain version on the same
+   inputs (``SSD_BWD_CASES``: zamba2-2.7b's and mamba2-130m's training
+   shapes, B=4, S=1,024, in bf16 and float32; S = 1,000, S = 1, one chunk
+   of S < 128, 16 chunks, h0 and dh_final given, the model's layout,
+   decays of 0.01 and 1.4, the reduced configs' P = N = 16 in chunks of
+   16), float32 within 1e-3 x scale, bf16 within 2e-2 x scale and the
+   chained backward within one bf16 rounding of a float32 oracle on the
+   same bf16 inputs, each kernel's two calls bit-equal; CUDA-event and
+   profiler device ms of each at both training shapes beside the forward
+   kernel's and the plain backward's, each bounded by the gradient's own
+   bytes and operations (the design's float32 state arrays printed
+   apart, outside the bound);
    ``commit_loop`` against the
    engine's plain
    loop, bit-equal in its outputs and the store, for the six schedulers x
@@ -264,25 +279,43 @@ Phases (any failure raises, so the process exits non-zero):
    backward kernel 24 times; ms a step, tokens/s, peak memory, checkpoint
    save and restore seconds, a ``profile_call`` profile; then one float32
    loss and gradient on ``cuda`` against the ``torch`` route (the loss
-   and every gradient leaf within 1e-3 of scale), and ``ops.ssd``'s
-   refusal of a gradient on the kernel route;
+   and every gradient leaf within 1e-3 of scale);
    9b. deepseek-moe-16b at full width cut to 2 layers, and 9c.
    seamless-m4t-large-v2 at full width cut to 4 + 4 layers (1,000 encoder
    frames under 512 decoder tokens: cross-attention at Sq != Sk): one
    float32 step each on ``cuda`` against ``torch`` with the same gate and
    its launches; the MoE step's backward under sync debug mode "warn",
    its host waits printed;
+   9d. mamba2-130m at full width and depth (24 layers), as 9a: the
+   runner over batches of 4 x 1,024 through its injected failure
+   (``--ssm-train-steps`` steps, default 8), finite falling losses, every
+   step launching ``ssd_scan`` 48 times (24 layers, again under remat)
+   and each SSD backward kernel 24 times, ms a step, tokens/s, peak
+   memory, a profile;
+   9e. one float32 step of mamba2-130m and of zamba2-2.7b at full width
+   cut to 6 of 54 layers (one shared-attention application; batch 2 x
+   1,024) on ``cuda`` against ``torch`` with 9a's gate, and their
+   launches: the float32 forms of the scan (``ssd_scan_fma_kernel``), of
+   its backward and of the attention kernels;
+   9f. the same zamba2-2.7b step in its bf16 compute dtype on ``cuda``:
+   the Hopper forward at N = 64 (``ssd_scan_wgmma_kernel``), the bf16
+   backward under group remat and the shared attention's bf16 kernels in
+   one step; the loss within 2e-2 of the ``torch`` route's on the same
+   parameters and batch, every gradient leaf finite, its launches as
+   counted, ms a loss and gradient;
 10. one JSON line of per-kernel results, with the launches each kernel made
    on its own path (phases 4-5d for the engine's, the streamed, planned,
    durable, replayed and placed runs included, the served batches of
    phases 6, 7 and 8 and phase 9's training for the model plane's, phase
-   9 alone for the backward kernels; each must be > 0), the card line
+   9 alone for the backward kernels, the SSD's included; each must be
+   > 0), the card line
    again, and last ``{"ok": true, "device": {...}}``.
 
 The store, wave, stream and model sizes are fixed (the constants below);
 the flags cut only the depth: ``--waves``, ``--scheds``, ``--ticks``,
 ``--planned-waves``, ``--elastic-ticks``, ``--mesh-waves``,
-``--mesh-ticks``, ``--serve-batches`` and ``--new-tokens``.
+``--mesh-ticks``, ``--serve-batches``, ``--new-tokens`` and
+``--ssm-train-steps``.
 
 Without a CUDA device, or in a directory that does not hold the repository,
 it exits non-zero and prints no result.
@@ -334,11 +367,12 @@ SSM_ENCDEC_RUNS = (
 ENC_SCALE = 0.05
 # phase 9, training: qwen2-0.5b at full width and depth (the one decoder
 # whose float32 training state fits the card), TokenStream batches of
-# TRAIN_BATCH x TRAIN_SEQ, TrainRunner with a checkpoint every
-# TRAIN_CKPT_EVERY steps and a failure injected at TRAIN_FAIL_AT
+# TRAIN_BATCH x TRAIN_SEQ, TrainRunner over TRAIN_STEPS steps with a
+# checkpoint every half of them and a failure injected two before the end
+# (every 4 and at step 6)
 TRAIN_ARCH = "qwen2-0.5b"
 TRAIN_BATCH, TRAIN_SEQ = 4, 1024
-TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 8, 4, 6
+TRAIN_STEPS = 8
 TRAIN_LR = 3e-4
 # one float32 step each of two more families at full width, depth cut:
 # (step, arch, decoder layers, encoder layers or None, batch, seq)
@@ -347,6 +381,12 @@ TRAIN_FAMILY_RUNS = (("9b", "deepseek-moe-16b", 2, None, 2, 512),
 # encoder frames of the encoder-decoder step: not the decoder's length
 # (cross-attention at Sq != Sk) and not a multiple of the kernels' tile
 TRAIN_ENC_FRAMES = 1000
+# phase 9d, the SSM family trained at full width and depth as 9a trains
+# qwen2-0.5b; 9e, one float32 step of it and of the hybrid family at full
+# width, depth cut, and 9f the hybrid one again in bf16: (step, arch,
+# layers, batch, seq), the layers a whole number of shared-attention groups
+SSM_TRAIN_ARCH = "mamba2-130m"
+HYBRID_TRAIN_RUNS = (("9e", "zamba2-2.7b", 6, 2, 1024),)
 
 
 class Config(NamedTuple):
@@ -374,6 +414,7 @@ class Config(NamedTuple):
                                    # (cut from 2 to make room for phase 8;
                                    # 5m carries state across mesh waves)
     mesh_ticks: int = 8            # ticks of phase 5m's mesh sessions
+    ssm_train_steps: int = 8       # steps of phase 9d's runner
 
 
 KERNELS = {
@@ -397,6 +438,14 @@ KERNELS = {
     "flash_attention_bwd_dkdv": (
         "src/repro_torch/kernels/csrc/flash_attention.cu",
         "src/repro/models/layers.py:123"),
+    # no Pallas kernel: the reference trains its scan through XLA's
+    # autodiff of models/ssm.py ssd_chunked
+    "ssd_scan_bwd_states": ("src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+                            "src/repro/models/ssm.py:70"),
+    "ssd_scan_bwd_scan": ("src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+                          "src/repro/models/ssm.py:70"),
+    "ssd_scan_bwd_grads": ("src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+                           "src/repro/models/ssm.py:70"),
 }
 
 
@@ -660,15 +709,18 @@ def kernel_of(symbol: str):
     return None
 
 
-def tensor_core_counts(sass: str, ops=("HMMA", "HGMMA")) -> dict:
+def tensor_core_counts(sass: str, ops=("HMMA", "HGMMA"),
+                       kernels=None) -> dict:
     """``cuobjdump -sass`` text -> {function: count of instructions whose
     text holds one of ``ops`` (default HMMA / HGMMA: tensor-core products;
-    UTMALDG: TMA tile loads)} for every function of the model kernels."""
+    UTMALDG: TMA tile loads)} for every function of ``kernels`` (default
+    the model kernels)."""
+    kernels = MODEL_KERNELS if kernels is None else kernels
     counts, fn = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
-            fn = fn if kernel_of(fn) in MODEL_KERNELS else None
+            fn = fn if kernel_of(fn) in kernels else None
             if fn:
                 counts[fn] = 0
         elif fn and any(op in line for op in ops):
@@ -680,6 +732,15 @@ def tensor_core_counts(sass: str, ops=("HMMA", "HGMMA")) -> dict:
 # (FMA) form
 MODEL_KERNELS = ("flash_attention", "ssd_scan", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkdv")
+
+
+# the SSD scan's backward kernels, one template over (bf16 or float32, P,
+# N) each; the states and grads kernels' bf16 forms run mma.sync products,
+# the scan kernel has none (float32 states, either dtype)
+SSD_BWD_KERNELS = ("ssd_scan_bwd_states", "ssd_scan_bwd_scan",
+                   "ssd_scan_bwd_grads")
+SSD_BWD_SHAPES = 12       # instantiations a form: P in 16, 32, 64 x N in
+                          # 16, 32, 64, 128
 
 
 # the model kernels with a Hopper form (``*_wgmma_kernel``: bf16, wgmma
@@ -737,6 +798,29 @@ def tensor_core_check(lib_path, nvcc):
                         f"{', '.join(map(str, dims))}) Hopper "
                         f"instantiations with wgmma products and TMA "
                         f"loads, got {per}")
+
+
+def ssd_bwd_tensor_core_check(lib_path, nvcc):
+    """Disassemble the built library; raise unless each bf16 instantiation
+    of the SSD backward's states and grads kernels (template argument
+    ``true``: ``ILb1E`` in the mangled name; 12 each) runs tensor-core
+    (HMMA) instructions.  Prints the counts of both forms (the float32
+    ones, ``ILb0E``, keep full fp32 products: 0)."""
+    tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib_path], check=True,
+                          capture_output=True, text=True).stdout
+    counts = tensor_core_counts(sass, ("HMMA",), SSD_BWD_KERNELS)
+    for name in ("ssd_scan_bwd_states", "ssd_scan_bwd_grads"):
+        forms = {bf: sorted(n for f, n in counts.items()
+                            if kernel_of(f) == name and f"ILb{bf}E" in f)
+                 for bf in (1, 0)}
+        print(f"[build] {name}: bf16 {len(forms[1])} instantiations, HMMA "
+              f"{forms[1]}; float32 {len(forms[0])}, HMMA {forms[0]}",
+              flush=True)
+        if len(forms[1]) != SSD_BWD_SHAPES or 0 in forms[1]:
+            raise AssertionError(f"{name}: expected {SSD_BWD_SHAPES} bf16 "
+                                 f"instantiations with tensor-core "
+                                 f"products, got {forms[1]}")
 
 
 def scripts_module(name: str):
@@ -1456,6 +1540,233 @@ def ssd_times(torch, dev, rn, probes, Bg, H, S, P, N, Q, dtype):
         "bound_ms": b_ms, "bound_by": b_by}
 
 
+# (Bg, H, S, P, N, chunk, dtype, h0, dh_final, decay, model layout) of the
+# SSD backward's checks: zamba2-2.7b's and mamba2-130m's training shapes
+# (B = 4, S = 1,024, the model's layout) in bf16 and float32; a ragged tail
+# (S = 1,000); 16 chunks; one chunk of S < 128 rows; S = 1; h0 and
+# dh_final given; decays of 0.01 (every block below the diagonal carries
+# weight, as the forward's note above says) and 1.4 (a_cum reaches -179 in
+# a chunk, e^179 past float32: any factored exponential overflows); the
+# reduced configs' P = N = 16 in chunks of 16, and P = 32 in chunks of 64
+SSD_BWD_CASES = (
+    (4, 80, 1024, 64, 64, 128, "bf16", False, False, 1.4, True),
+    (4, 80, 1024, 64, 64, 128, "f32", False, False, 1.4, True),
+    (4, 24, 1024, 64, 128, 128, "bf16", False, False, 0.01, True),
+    (4, 24, 1024, 64, 128, 128, "f32", False, False, 0.01, True),
+    (4, 80, 1000, 64, 64, 128, "bf16", True, True, 1.4, True),
+    (2, 24, 1000, 64, 128, 128, "f32", True, True, 0.01, False),
+    (1, 4, 2048, 64, 64, 128, "bf16", True, True, 0.01, True),
+    (1, 3, 2048, 64, 128, 128, "bf16", True, True, 1.4, False),
+    (2, 3, 100, 64, 64, 128, "bf16", True, True, 0.01, True),
+    (2, 3, 100, 64, 128, 128, "f32", False, True, 1.4, False),
+    (2, 3, 1, 64, 64, 128, "bf16", True, True, 0.8, False),
+    (2, 3, 1, 64, 128, 128, "f32", True, False, 0.8, True),
+    (2, 4, 77, 16, 16, 16, "f32", True, True, 0.3, True),
+    (2, 4, 77, 16, 16, 16, "bf16", False, True, 0.3, False),
+    (2, 3, 300, 32, 64, 64, "bf16", True, False, 0.01, False),
+    (1, 1, 50, 16, 32, 32, "bf16", False, False, 1.4, False))
+
+
+def ssd_bwd_inputs(torch, dev, rn, g, case):
+    """Seeded inputs of one SSD_BWD_CASES case on the card: (x, dA, Bm,
+    Cm, dy, h0, dh), x, dA and dy as views of the model's layout where the
+    case asks for it."""
+    Bg, H, S, P, N, Q, dt, with_h0, with_dh, decay, model = case
+    dt = torch.bfloat16 if dt == "bf16" else torch.float32
+    BH = Bg * H
+    x = rn((BH, S, P), 0.5, dt)
+    dA = -torch.rand((BH, S), generator=g, device=dev) * decay
+    dy = rn((BH, S, P), 1.0, dt)
+    if model:
+        x, dA = model_layout(x, dA, Bg, H)
+        dy = dy.reshape(Bg, H, S, P).transpose(1, 2).contiguous().transpose(
+            1, 2)
+    Bm, Cm = rn((Bg, S, N), 0.3, dt), rn((Bg, S, N), 0.3, dt)
+    h0 = rn((BH, N, P), 0.2, torch.float32) if with_h0 else None
+    dh = rn((BH, N, P), 0.2, torch.float32) if with_dh else None
+    return x, dA, Bm, Cm, dy, h0, dh
+
+
+def ssd_bwd_check(torch, dev, rn, g, case, errs, use):
+    """One SSD_BWD_CASES case on the card: each backward kernel against its
+    plain version on the same inputs (the scan and grads kernels on the
+    plain stages' outputs): float32 outputs (the states, dA, dh0, the
+    scan's scalars) within 1e-3 x scale (scale = max |plain|) in both
+    dtypes; dx, dB, dC in float32 within 1e-3 x scale, in bf16 within
+    2e-2 x scale of the plain version (which rounds to bf16 too) and, the
+    three kernels chained, within one bf16 rounding (rtol 1e-2 > 2^-8)
+    plus 1e-3 x scale of the plain version in float32 on the same bf16
+    inputs; each kernel twice, the two results bit-equal.  Appends the
+    max abs errors to ``errs`` (by kernel); ``use`` as close_err's."""
+    from repro_torch.kernels import ssd_scan as ss
+    Bg, H, S, P, N, Q, dt, *_ = case
+    x, dA, Bm, Cm, dy, h0, dh = ssd_bwd_inputs(torch, dev, rn, g, case)
+    bf = x.dtype == torch.bfloat16
+    label = (f"Bg={Bg} H={H} S={S} P={P} N={N} chunk={Q} {dt} "
+             f"h0={h0 is not None} dh={dh is not None} decay={case[9]}"
+             f"{' model layout' if case[10] else ''}")
+
+    def same(name, a, b):
+        if not all(torch.equal(u, v) for u, v in zip(a, b)):
+            raise AssertionError(f"{name} [{label}]: two calls on the same "
+                                 f"inputs differ")
+
+    def check(name, got, want, tol):
+        for i, (a, w) in enumerate(zip(got, want)):
+            t = tol[i] if isinstance(tol, tuple) else tol
+            errs[name].append(close_err(
+                torch, name, f"{label} output {i}", (a,), (w,),
+                t * float(w.float().abs().max()), 0.0, use))
+
+    # states: st, U, aL (float32)
+    got = ss.ssd_bwd_states_cuda(x, dA, Bm, Cm, dy, H, Q)
+    same("ssd_scan_bwd_states", got,
+         ss.ssd_bwd_states_cuda(x, dA, Bm, Cm, dy, H, Q))
+    st, U, aL = ss.ssd_bwd_states_plain(x, dA, Bm, Cm, dy, H, Q)
+    check("ssd_scan_bwd_states", got, (st, U, aL), 1e-3)
+    # scan: hprev, G, dh0, sc (float32), on the plain states
+    got = ss.ssd_bwd_scan_cuda(st.clone(), U.clone(), aL, h0, dh)
+    same("ssd_scan_bwd_scan", got,
+         ss.ssd_bwd_scan_cuda(st.clone(), U.clone(), aL, h0, dh))
+    hp, G, dh0, sc = ss.ssd_bwd_scan_plain(st, U, aL, h0, dh)
+    check("ssd_scan_bwd_scan", got, (hp, G, dh0, sc), 1e-3)
+    # grads: dx, ddA, dB, dC, on the plain scan's outputs
+    got = ss.ssd_bwd_grads_cuda(x, dA, Bm, Cm, dy, hp, G, sc, H, Q)
+    same("ssd_scan_bwd_grads", got,
+         ss.ssd_bwd_grads_cuda(x, dA, Bm, Cm, dy, hp, G, sc, H, Q))
+    want = ss.ssd_bwd_grads_plain(x, dA, Bm, Cm, dy, hp, G, sc, H, Q)
+    check("ssd_scan_bwd_grads", got, want,
+          (2e-2, 1e-3, 2e-2, 2e-2) if bf else 1e-3)
+    if bf:   # the three chained, against the float32 oracle
+        chain = ss.ssd_bwd_cuda(x, dA, Bm, Cm, dy, H, Q, h0, dh)
+        oracle = ss.ssd_bwd_plain(x.float(), dA, Bm.float(), Cm.float(),
+                                  dy.float(), H, Q, h0, dh)
+        for i, (a, w) in enumerate(zip(chain, oracle)):
+            errs["ssd_scan_bwd_grads"].append(close_err(
+                torch, "ssd backward oracle",
+                f"{label} output {i} vs float32 oracle", (a.float(),), (w,),
+                1e-3 * float(w.abs().max()),
+                1e-2 if a.dtype == torch.bfloat16 else 0.0, use))
+
+
+def ssd_bwd_phase(torch, dev):
+    """The SSD scan's three backward kernels on the card against their
+    plain versions at SSD_BWD_CASES (``ssd_bwd_check``), then the times at
+    both training shapes (``ssd_bwd_times``).  Returns the three kernels'
+    records (zamba2-2.7b's shape)."""
+    g = torch.Generator(device=dev).manual_seed(4)
+
+    def rn(shape, scale, dtype):
+        return (torch.randn(shape, generator=g, device=dev)
+                * scale).to(dtype)
+
+    errs = {name: [] for name in SSD_BWD_KERNELS}
+    use = {}
+    for case in SSD_BWD_CASES:
+        ssd_bwd_check(torch, dev, rn, g, case, errs, use)
+    print(f"[kernels] ssd backward: {len(SSD_BWD_CASES)} cases, each of "
+          f"ssd_scan_bwd_states, _scan and _grads against its plain version "
+          f"(and, in bf16, the three chained against the float32 oracle), "
+          f"all within tolerance (max abs err "
+          + ", ".join(f"{max(v):.3g}" for v in errs.values())
+          + "), each kernel's two calls bit-equal", flush=True)
+    print(f"[kernels] closest to the limit: {limit_use_line(use)}",
+          flush=True)
+    probes = scripts_module("probes")
+    records = {}
+    for what, Bg, H, N in (("zamba2-2.7b", TRAIN_BATCH, 80, 64),
+                           ("mamba2-130m", TRAIN_BATCH, 24, 128)):
+        rec = ssd_bwd_times(torch, dev, rn, g, probes, Bg, H, TRAIN_SEQ, 64,
+                            N, 128, torch.bfloat16)
+        print(f"[kernels] ssd backward at {what}'s training shape "
+              f"(BH={Bg}x{H} S={TRAIN_SEQ} P=64 N={N} chunk 128 bf16, model "
+              f"layout): " + ", ".join(
+                  f"{n} {rec[n]['ms']:.4f} ms (device {rec[n]['device_ms']}, "
+                  f"bound {rec[n]['bound_ms']:.5f} by {rec[n]['bound_by']})"
+                  for n in SSD_BWD_KERNELS)
+              + f"; all three {rec['all_ms']:.4f} ms, bound of the backward "
+              f"{rec['bound_ms']:.5f} ms by {rec['bound_by']} (the design's "
+              f"float32 st, U, hprev and G traffic, outside the bounds: "
+              f"{rec['design_ms']:.5f} ms at the HBM rate); forward "
+              f"{rec['fwd_kernel']} device {rec['fwd_device_ms']} ms; plain "
+              f"backward {rec['plain_ms']:.4f} ms", flush=True)
+        if not records:
+            for name in SSD_BWD_KERNELS:
+                records[name] = {
+                    "name": name, "route": "cuda",
+                    "source": KERNELS[name][0], "replaces": KERNELS[name][1],
+                    "launches": 0, "max_abs_err": max(errs[name]),
+                    "ms": rec[name]["ms"], "plain_ms": rec["plain_ms"],
+                    "bound_ms": rec[name]["bound_ms"],
+                    "bound_by": rec[name]["bound_by"], "library_ms": None,
+                    "device_ms": rec[name]["device_ms"]}
+    return records
+
+
+def ssd_bwd_times(torch, dev, rn, g, probes, Bg, H, S, P, N, Q, dtype):
+    """The SSD backward at one shape, x, dA and dy as views of the model's
+    layout: CUDA-event ms of each kernel, of the three chained and of the
+    plain backward; the profiler's device ms of each kernel beside the
+    forward kernel's in one session; each kernel's bound and the whole
+    backward's.  A bound counts only what the gradient needs: bytes, the
+    gradient's inputs (x, dy, dA, B, C) that the kernel reads, each once,
+    and its outputs (dx, dA, dB, dC, dh0) that the kernel writes, each
+    once; operations, the products over the (row, column) pairs at or
+    below each chunk's diagonal, C B^T once a group, the five state
+    products, the two scans and the chunk's dot product.  The design's
+    own float32 arrays are its cost, not the gradient's: st and U are
+    written, read and rewritten in place as hprev and G, and read again,
+    eight passes of a [BH, nc, N, P] array; ``design_ms`` is that traffic
+    over the HBM rate, outside every bound."""
+    from repro_torch.kernels import ssd_scan as ss
+    BH, nc = Bg * H, -(-S // Q)
+    case = (Bg, H, S, P, N, Q, "bf16" if dtype == torch.bfloat16 else "f32",
+            False, False, 1.4, True)
+    x, dA, Bm, Cm, dy, _, _ = ssd_bwd_inputs(torch, dev, rn, g, case)
+    st, U, aL = ss.ssd_bwd_states_cuda(x, dA, Bm, Cm, dy, H, Q)
+    hp, G, _, sc = ss.ssd_bwd_scan_cuda(st.clone(), U.clone(), aL)
+    fns = {"ssd_scan_bwd_states": lambda: ss.ssd_bwd_states_cuda(
+               x, dA, Bm, Cm, dy, H, Q),
+           # rewrites st and U in place at every call: the same work
+           "ssd_scan_bwd_scan": lambda: ss.ssd_bwd_scan_cuda(st, U, aL),
+           "ssd_scan_bwd_grads": lambda: ss.ssd_bwd_grads_cuda(
+               x, dA, Bm, Cm, dy, hp, G, sc, H, Q)}
+    fwd_kernel = f"ssd_scan_{ss.ssd_kernel(P, N, Q, S, dtype)}_kernel"
+    out = {n: {"ms": cuda_ms(torch, f, iters=20, warmup=3)}
+           for n, f in fns.items()}
+    device = probes.profile_device_ms(
+        {**{n: (f, n + "_kernel") for n, f in fns.items()},
+         "forward": (lambda: ss.ssd_cuda(x, dA, Bm, Cm, H, Q), fwd_kernel)},
+        iters=10)
+    isz = x.element_size()
+    rate = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else ALU_OPS_PER_S
+    pairs = (S // Q) * Q * (Q + 1) // 2 + (S % Q) * (S % Q + 1) // 2
+    # x, dy, dA, B, C in; dx, dA, dB, dC out; dh0 out of the scan
+    ins = 2 * BH * S * P * isz + BH * S * 4 + 2 * Bg * S * N * isz
+    outs = BH * S * P * isz + BH * S * 4 + 2 * Bg * S * N * isz
+    dh0 = BH * N * P * 4
+    grads_ops = 2 * (pairs * (Bg * N + BH * (2 * P + 2 * N))
+                     + 3 * BH * S * N * P)
+    states_ops = 2 * 2 * BH * S * N * P
+    scan_ops = 3 * 2 * BH * nc * N * P     # two scans, e^{a_L}<h, G>
+    bounds = {"ssd_scan_bwd_states": bound(ins, states_ops, rate),
+              "ssd_scan_bwd_scan": bound(dh0, scan_ops),
+              "ssd_scan_bwd_grads": bound(ins + outs, grads_ops, rate)}
+    for n in fns:
+        out[n].update(device_ms=device[n], bound_ms=bounds[n][0],
+                      bound_by=bounds[n][1])
+    whole = bound(ins + outs + dh0, states_ops + grads_ops + scan_ops,
+                  rate)
+    out.update(all_ms=cuda_ms(torch, lambda: ss.ssd_bwd_cuda(
+                   x, dA, Bm, Cm, dy, H, Q), iters=20, warmup=3),
+               plain_ms=cuda_ms(torch, lambda: ss.ssd_bwd_plain(
+                   x, dA, Bm, Cm, dy, H, Q), iters=3, warmup=1),
+               fwd_kernel=fwd_kernel, fwd_device_ms=device["forward"],
+               bound_ms=whole[0], bound_by=whole[1],
+               design_ms=8 * BH * nc * N * P * 4 / HBM_BYTES_PER_S * 1e3)
+    return out
+
+
 # (B, Sq, Sk, H, KH, D, dtype name, causal) of the attention backward's
 # checks: phase 9's training shape (qwen2-0.5b) in bf16 and float32,
 # ragged, GQA at G = 1, 3 and 7, D = 128 at G = 7, seamless'
@@ -1769,40 +2080,49 @@ def profile_call(torch, label, fn, card, tag="serve"):
         print(f"[{tag}]   top device time: " + "; ".join(
             f"{e.key[:48]} {getattr(e, 'device_time_total', 0) / 1e3:.2f}"
             f" ms x{e.count}" for e in tops), flush=True)
-        model = {}
+        model, model_ms = {}, {}
         for e in prof.key_averages():
-            if kernel_of(e.key) in MODEL_KERNELS and getattr(
-                    e, "device_time_total", 0) > 0:
+            t = getattr(e, "device_time_total", 0)
+            if kernel_of(e.key) in MODEL_KERNELS + SSD_BWD_KERNELS and t > 0:
                 fn_name = e.key.split("(")[0].replace("void ", "")
                 model[fn_name] = model.get(fn_name, 0) + e.count
+                model_ms[fn_name] = model_ms.get(fn_name, 0) + t / 1e3
         print(f"[{tag}]   model kernels: " + (", ".join(
-            f"{k} x{n}" for k, n in sorted(model.items())) or "none"),
-              flush=True)
+            f"{k} x{n} {model_ms[k]:.2f} ms" for k, n in sorted(model.items()))
+            or "none") + (f"; {sum(model_ms.values()):.2f} ms of the busy "
+                          f"time" if model else ""), flush=True)
         return model
     except Exception as exc:           # reading the trace is optional here
         print(f"[{tag}] profile unavailable: {exc!r}", flush=True)
     return {}
 
 
-def ssd_check(mcfg, seen, use, tag, S):
-    """A prefill profile ``seen`` ({kernel function: launches}) of a model
-    with SSD layers over S positions on the kernel route: its scans ran on
-    the kernel the route table names for the model's (P, N, chunk) (the
-    Hopper kernel at the full configs' shapes in bf16), once a layer."""
+def ssd_check(mcfg, profile, use, tag, S):
+    """``profile()`` profiles one prefill of ``mcfg`` over S positions and
+    returns ``profile_call``'s {kernel function: launches}; on the kernel
+    route a model with SSD layers must show its scans on the kernel the
+    route table names for its (P, N, chunk) (the Hopper kernel at the full
+    configs' shapes in bf16).  The launch counters, checked before, hold
+    the count of scans; the trace shows which kernel ran them: it fails
+    where a traced scan ran on another kernel, or where it holds no scan
+    or more than one a layer (the profiler can drop an event, so fewer
+    is taken)."""
     from repro_torch.kernels.ssd_scan import ssd_kernel
     n = model_launches(mcfg)[0]["ssd_scan"]
-    if not (seen and use and n):
-        return
     want = "ssd_scan_{}_kernel".format(ssd_kernel(
         mcfg.headdim, mcfg.d_state, min(mcfg.ssd_chunk, S), S,
         mcfg.compute_dtype))
-    got = {k: c for k, c in seen.items() if k.startswith("ssd_scan")}
-    if len(got) != 1 or not next(iter(got)).startswith(want) \
-            or sum(got.values()) != n:
+    seen = profile()
+    if not (seen and use and n):
+        return
+    got = {k: c for k, c in seen.items() if kernel_of(k) == "ssd_scan"}
+    traced = sum(got.values())
+    if not (len(got) == 1 and next(iter(got)).startswith(want)
+            and 0 < traced <= n):
         raise AssertionError(f"{mcfg.name}: the prefill's scans ran on "
                              f"{got}, expected {want} x{n}")
-    print(f"[{tag}] {mcfg.name}: the prefill's {n} scans ran on "
-          f"{next(iter(got))}", flush=True)
+    print(f"[{tag}] {mcfg.name}: the prefill's scans ran on "
+          f"{next(iter(got))} ({traced} of {n} in the trace)", flush=True)
 
 
 def model_launches(mcfg):
@@ -1956,11 +2276,10 @@ def serve_phase(torch, dev, cfg, card, mcfg=None, route="cuda",
     profile_call(torch, f"one {mcfg.name} decode step", lambda: srv.decode(
         params, cache, {"token": tok}), card, tag)
     del cache
-    seen = profile_call(torch, f"one {mcfg.name} prefill (S="
-                        f"{toks.shape[1]})",
-                        lambda: srv.prefill(params, batch, max_len), card,
-                        tag)
-    ssd_check(mcfg, seen, use, tag, toks.shape[1])
+    ssd_check(mcfg, lambda: profile_call(
+        torch, f"one {mcfg.name} prefill (S={toks.shape[1]})",
+        lambda: srv.prefill(params, batch, max_len), card, tag), use, tag,
+        toks.shape[1])
 
     # ---- the kernels on the path's own activations
     in_situ_check(torch, srv, params, batch, max_len, tag)
@@ -2116,13 +2435,21 @@ def ssm_encdec_phase(torch, dev, cfg, card, runs=None, route="cuda"):
 def train_launches(mcfg):
     """Kernel launches of one loss and its gradient on the ``cuda`` route:
     every attention call runs the forward kernel twice (the forward, then
-    its layer's recomputation under remat) and each backward kernel once.
-    The decoder family attends once a layer, the encoder-decoder family
-    once an encoder layer and twice a decoder layer."""
-    calls = (mcfg.n_enc_layers + 2 * mcfg.n_layers
-             if mcfg.family == "encdec" else mcfg.n_layers)
+    its layer's recomputation under remat) and each backward kernel once,
+    and so does every SSD scan.  The decoder family attends once a layer,
+    the encoder-decoder family once an encoder layer and twice a decoder
+    layer; the SSM family scans once a layer, the hybrid family too,
+    attending once a group of ``attn_every`` layers."""
+    if mcfg.family == "encdec":
+        calls = mcfg.n_enc_layers + 2 * mcfg.n_layers
+    elif mcfg.family == "hybrid":
+        calls = mcfg.n_layers // mcfg.attn_every
+    else:
+        calls = 0 if mcfg.family == "ssm" else mcfg.n_layers
+    scans = mcfg.n_layers if mcfg.family in ("ssm", "hybrid") else 0
     return {"flash_attention": 2 * calls, "flash_attention_bwd_dq": calls,
-            "flash_attention_bwd_dkdv": calls}
+            "flash_attention_bwd_dkdv": calls, "ssd_scan": 2 * scans,
+            **dict.fromkeys(SSD_BWD_KERNELS, scans)}
 
 
 def launch_delta(before, after, keys):
@@ -2190,49 +2517,84 @@ def f32_gate(torch, mcfg, params, batch, route, tag, label, card,
     return counts
 
 
-def train_phase(torch, dev, cfg, card, mcfg=None, family_runs=None,
-                route="cuda"):
-    """Phase 9: training on ``route``.  qwen2-0.5b (or ``mcfg``) at full
-    width and depth, bf16 compute over float32 parameters: ``TrainRunner``
-    over ``TokenStream`` batches of TRAIN_BATCH x TRAIN_SEQ, a checkpoint
-    every TRAIN_CKPT_EVERY steps, TRAIN_STEPS steps and a failure injected
-    at step TRAIN_FAIL_AT; its launches checked step by step; ms a step,
-    tokens/s, peak memory, checkpoint save and restore seconds and a
-    profile; one float32 step on ``route`` against the ``torch`` route;
-    ``ops.ssd``'s refusal of a gradient on the kernel route.  Then one
-    float32 step of each of ``family_runs`` (default TRAIN_FAMILY_RUNS:
-    tuples of step, config and batch, seq) against the ``torch`` route.
-    Returns the launch counts of the phase."""
+def bf16_step(torch, mcfg, params, batch, route, tag, label, card):
+    """One loss and gradient of ``mcfg`` in its own compute dtype (bf16) on
+    ``route``, beside the ``torch`` route's on the same parameters and
+    batch: the loss within 2e-2 of the torch route's and every gradient
+    leaf finite; the call timed twice.  Returns the launches of the first
+    ``route`` call."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.launch.train import loss_and_grads
+    from repro_torch.models.model import build
+    from repro_torch.models.module import tree_leaves
+    ref_loss = float(loss_and_grads(build(mcfg, "torch"), params, batch)[0])
+    model = build(mcfg, route)
+    secs, counts = [], None
+    for _ in range(2):
+        torch.cuda.synchronize()
+        before = dict(LAUNCHES)
+        t0 = time.perf_counter()
+        loss, _, got = loss_and_grads(model, params, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        counts = counts or launch_delta(before, LAUNCHES, LAUNCHES)
+    bad = [n for n, g in enumerate(tree_leaves(got))
+           if not bool(torch.isfinite(g).all())]
+    del got
+    if not (math.isfinite(float(loss)) and not bad
+            and abs(float(loss) - ref_loss) <= 2e-2 * abs(ref_loss)):
+        raise AssertionError(f"[{tag}] {label}: {mcfg.compute_dtype} loss "
+                             f"{float(loss)} on {route}, {ref_loss} on "
+                             f"torch; gradient leaves not finite: {bad}")
+    print(f"[{tag}] {label}: {str(mcfg.compute_dtype).split('.')[-1]} "
+          f"{route} vs torch: loss {float(loss):.6f} vs {ref_loss:.6f}, "
+          f"every gradient leaf finite; {secs[1] * 1e3:.1f} ms a loss and "
+          f"gradient (first call {secs[0] * 1e3:.1f} ms) [{card}]",
+          flush=True)
+    return counts
+
+
+def runner_phase(torch, dev, cfg, card, mcfg, route, step, steps,
+                 gate_step):
+    """``TrainRunner`` on ``route`` over ``TokenStream`` batches of
+    TRAIN_BATCH x TRAIN_SEQ of ``mcfg`` (bf16 compute over float32
+    parameters): ``steps`` steps, a checkpoint every ``steps // 2`` and a
+    failure injected at step ``steps - 2`` (every 4 and at 6 of 8); one
+    restart, finite losses, the last below the first, every step's
+    launches ``train_launches``; ms a step, tokens/s, peak memory,
+    checkpoint save and restore seconds, a profile of one more step; then
+    one float32 step on ``route`` against the ``torch`` route
+    (``f32_gate``, its lines labelled ``gate_step``).  ``step`` labels the
+    lines ("9a")."""
     import gc
     import tempfile
     from repro_torch.checkpoint import PostSICheckpointer
-    from repro_torch.configs import get_config
     from repro_torch.data import TokenStream
-    from repro_torch.kernels import LAUNCHES, ops, reset_launch_counts
+    from repro_torch.kernels import LAUNCHES
     from repro_torch.launch.train import make_train_step
-    from repro_torch.models.model import build
     from repro_torch.models.module import tree_leaves
     from repro_torch.optim import adamw_init
     from repro_torch.runtime import FailureInjector, TrainRunner
     gc.collect()
     torch.cuda.empty_cache()
-    mcfg = mcfg or get_config(TRAIN_ARCH)
     B, S = TRAIN_BATCH, TRAIN_SEQ
-    t_phase = time.perf_counter()
+    ckpt_every, fail_at = max(1, steps // 2), max(1, steps - 2)
     model, step_fn = make_train_step(mcfg, lr=TRAIN_LR, kernels=route)
     params = model.init(torch.Generator(device=dev).manual_seed(cfg.seed),
                         dev)
     n_params = sum(p.numel() for p in tree_leaves(params))
     opt = adamw_init(params)
-    print(f"[train] 9a {mcfg.name}: {mcfg.n_layers} layers, d_model "
-          f"{mcfg.d_model}, {mcfg.n_heads} heads over {mcfg.n_kv_heads} kv "
-          f"heads of {mcfg.head_dim}, vocab {mcfg.vocab_size:,} (padded "
+    shape = (f"{mcfg.ssm_heads} SSD heads of {mcfg.headdim}, N="
+             f"{mcfg.d_state}, chunk {mcfg.ssd_chunk}" if mcfg.ssm else
+             f"{mcfg.n_heads} heads over {mcfg.n_kv_heads} kv heads of "
+             f"{mcfg.head_dim}")
+    print(f"[train] {step} {mcfg.name}: {mcfg.n_layers} layers, d_model "
+          f"{mcfg.d_model}, {shape}, vocab {mcfg.vocab_size:,} (padded "
           f"{mcfg.padded_vocab:,}), {n_params:,} parameters in "
           f"{str(mcfg.param_dtype).split('.')[-1]}, compute "
           f"{str(mcfg.compute_dtype).split('.')[-1]}; batch {B} x {S}, "
-          f"{TRAIN_STEPS} steps, a checkpoint every {TRAIN_CKPT_EVERY}, a "
-          f"failure at step {TRAIN_FAIL_AT}, on {route} [{card}]",
-          flush=True)
+          f"{steps} steps, a checkpoint every {ckpt_every}, a failure at "
+          f"step {fail_at}, on {route} [{card}]", flush=True)
     want = train_launches(mcfg) if route == "cuda" else \
         dict.fromkeys(train_launches(mcfg), 0)
     step_s, step_counts = [], []
@@ -2255,7 +2617,6 @@ def train_phase(torch, dev, cfg, card, mcfg=None, family_runs=None,
             return out
         return call
 
-    reset_launch_counts()     # the phase's path starts here
     save_s, restore_s = [], []
     with tempfile.TemporaryDirectory(prefix="train_ckpt_") as ckdir:
         tree_ex = {"params": params, "opt": opt,
@@ -2265,39 +2626,41 @@ def train_phase(torch, dev, cfg, card, mcfg=None, family_runs=None,
         ck.restore = timed(ck.restore, restore_s)
         runner = TrainRunner(timed_step, TokenStream(
             mcfg, B, S, seed=cfg.seed, device=dev), ck,
-            ckpt_every=TRAIN_CKPT_EVERY)
+            ckpt_every=ckpt_every)
         torch.cuda.reset_peak_memory_stats()
-        out = runner.run(params, opt, TRAIN_STEPS,
-                         injector=FailureInjector(fail_at=(TRAIN_FAIL_AT,)))
+        out = runner.run(params, opt, steps,
+                         injector=FailureInjector(fail_at=(fail_at,)))
         peak = torch.cuda.max_memory_allocated()
     del params, opt, tree_ex
     losses = out["losses"]
-    n_runs = TRAIN_STEPS + TRAIN_FAIL_AT - (TRAIN_FAIL_AT // TRAIN_CKPT_EVERY
-                                            * TRAIN_CKPT_EVERY)
-    if out["restarts"] != 1 or out["final_step"] != TRAIN_STEPS:
-        raise AssertionError(f"[train] restarts {out['restarts']}, final "
-                             f"step {out['final_step']}")
+    n_runs = steps + fail_at - (fail_at // ckpt_every * ckpt_every)
+    if out["restarts"] != 1 or out["final_step"] != steps:
+        raise AssertionError(f"[train] {step}: restarts {out['restarts']}, "
+                             f"final step {out['final_step']}")
     if len(losses) != n_runs or not all(map(math.isfinite, losses)):
-        raise AssertionError(f"[train] losses {losses}: expected {n_runs} "
-                             f"finite ones")
+        raise AssertionError(f"[train] {step}: losses {losses}: expected "
+                             f"{n_runs} finite ones")
     if not losses[-1] < losses[0]:
-        raise AssertionError(f"[train] the loss did not fall: {losses}")
+        raise AssertionError(f"[train] {step}: the loss did not fall: "
+                             f"{losses}")
     for i, got in enumerate(step_counts):
         if got != want:
-            raise AssertionError(f"[train] step run {i} launched {got}, "
-                                 f"expected {want}")
+            raise AssertionError(f"[train] {step}: step run {i} launched "
+                                 f"{got}, expected {want}")
     steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
-    print(f"[train] 9a {mcfg.name}: restarts {out['restarts']}, final step "
-          f"{out['final_step']}, {len(losses)} losses "
+    print(f"[train] {step} {mcfg.name}: restarts {out['restarts']}, final "
+          f"step {out['final_step']}, {len(losses)} losses "
           f"[{', '.join(f'{x:.4f}' for x in losses)}]", flush=True)
-    print(f"[train] 9a {mcfg.name}: {steady * 1e3:.1f} ms a step (median of "
-          f"{len(step_s) - 1} after the first, {step_s[0] * 1e3:.1f} ms), "
-          f"{B * S / steady:.0f} tokens/s, peak memory "
-          f"{peak / 2**30:.2f} GiB, launches a step {want}, checkpoint "
-          f"save {', '.join(f'{s:.2f}' for s in save_s)} s, restore "
+    print(f"[train] {step} {mcfg.name}: {steady * 1e3:.1f} ms a step "
+          f"(median of {len(step_s) - 1} after the first, "
+          f"{step_s[0] * 1e3:.1f} ms), {B * S / steady:.0f} tokens/s, peak "
+          f"memory {peak / 2**30:.2f} GiB, launches a step "
+          f"{ {k: v for k, v in want.items() if v} }, checkpoint save "
+          f"{', '.join(f'{s:.2f}' for s in save_s)} s, restore "
           f"{', '.join(f'{s:.2f}' for s in restore_s)} s [{card}]",
           flush=True)
     params, opt = out["state"]["params"], out["state"]["opt"]
+    del out
     stream = TokenStream(mcfg, B, S, seed=cfg.seed + 1, device=dev)
     batch = stream.next()
     profile_call(torch, f"one {mcfg.name} train step",
@@ -2305,59 +2668,100 @@ def train_phase(torch, dev, cfg, card, mcfg=None, family_runs=None,
     del opt
     gc.collect()
     torch.cuda.empty_cache()
-    f32_gate(torch, mcfg, params, batch, route, "train", f"9a {mcfg.name}",
-             card)
+    f32_gate(torch, mcfg, params, batch, route, "train",
+             f"{gate_step} {mcfg.name}", card)
     del params, batch
-    # the SSD scan kernel has no backward: a gradient on its route raises
-    x = torch.randn((2, 64, 16), device=dev, requires_grad=True)
-    bm = torch.randn((1, 64, 16), device=dev)
-    try:
-        ops.ssd(x, -torch.rand((2, 64), device=dev), bm, bm,
-                n_heads_per_group=2, chunk=64, use_kernel=True)
-    except NotImplementedError as exc:
-        print(f"[train] ops.ssd on the kernel route under a gradient "
-              f"raises: {exc}", flush=True)
-    else:
-        raise AssertionError("ops.ssd ran a gradient on the kernel route")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_phase(torch, dev, cfg, card, mcfg=None, family_runs=None,
+                route="cuda", ssm_mcfg=None, hybrid_runs=None):
+    """Phase 9: training on ``route``.  9a: qwen2-0.5b (or ``mcfg``) at
+    full width and depth through ``runner_phase`` (TRAIN_STEPS steps).
+    9b, 9c: one float32 step of each of ``family_runs`` (default
+    TRAIN_FAMILY_RUNS: tuples of step, config, full config, batch, seq)
+    against the ``torch`` route, with its launches.  9d: mamba2-130m (or
+    ``ssm_mcfg``) at full width and depth through ``runner_phase``
+    (``cfg.ssm_train_steps`` steps), its float32 step labelled 9e; 9e:
+    one float32 step of each of ``hybrid_runs`` (default
+    HYBRID_TRAIN_RUNS, as ``family_runs``); 9f: one step of each in its
+    bf16 compute dtype (``bf16_step``), with its launches.  Returns the
+    launch counts of the phase."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.models.model import build
+    t_phase = time.perf_counter()
+    reset_launch_counts()     # the phase's path starts here
+    runner_phase(torch, dev, cfg, card, mcfg or get_config(TRAIN_ARCH),
+                 route, "9a", TRAIN_STEPS, "9a")
+
+    def cut_runs(runs):
+        out = []
+        for step, arch, layers, enc_layers, b, s in runs:
+            full = get_config(arch)
+            out.append((step, full.replace(n_layers=layers, **(
+                {"n_enc_layers": enc_layers} if enc_layers else {})),
+                full, b, s))
+        return out
 
     if family_runs is None:
-        family_runs = []
-        for step, arch, layers, enc_layers, b, s in TRAIN_FAMILY_RUNS:
-            full = get_config(arch)
-            cut = full.replace(n_layers=layers, **(
-                {"n_enc_layers": enc_layers} if enc_layers else {}))
-            family_runs.append((step, cut, full, b, s))
-    for step, fcfg, full, b, s in family_runs:
-        gc.collect()
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        depth = (f"{fcfg.n_enc_layers} + {fcfg.n_layers} of "
-                 f"{full.n_enc_layers} + {full.n_layers} layers"
-                 if fcfg.family == "encdec" else
-                 f"{fcfg.n_layers} of {full.n_layers} layers")
-        print(f"[train] {step} {fcfg.name}: {fcfg.family} at full width, "
-              f"depth cut to {depth}, {fcfg.param_count():,} parameters, "
-              f"batch {b} x {s}, one float32 step on {route} [{card}]",
-              flush=True)
-        fparams = build(fcfg).init(
-            torch.Generator(device=dev).manual_seed(cfg.seed), dev)
-        fbatch = TokenStream(fcfg, b, s, seed=cfg.seed, device=dev).next()
-        if fcfg.family == "encdec":
-            fbatch["enc_embeds"] = torch.randn(
-                (b, TRAIN_ENC_FRAMES, fcfg.d_model), device=dev,
-                generator=torch.Generator(device=dev).manual_seed(
-                    cfg.seed)) * ENC_SCALE
-        counts = f32_gate(torch, fcfg, fparams, fbatch, route, "train",
-                          f"{step} {fcfg.name}", card,
-                          sync_warn=fcfg.moe)
-        fwant = train_launches(fcfg) if route == "cuda" else \
-            dict.fromkeys(want, 0)
-        if {k: counts[k] for k in fwant} != fwant:
-            raise AssertionError(f"[train] {step}: launches {counts}, "
-                                 f"expected {fwant}")
-        print(f"[train] {step} {fcfg.name}: launches {fwant}, "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
-        del fparams, fbatch
+        family_runs = cut_runs(TRAIN_FAMILY_RUNS)
+    if hybrid_runs is None:
+        hybrid_runs = cut_runs((step, arch, layers, None, b, s)
+                               for step, arch, layers, b, s
+                               in HYBRID_TRAIN_RUNS)
+
+    def gate_runs(runs, bf16_label=None):
+        for step, fcfg, full, b, s in runs:
+            gc.collect()
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            depth = (f"{fcfg.n_enc_layers} + {fcfg.n_layers} of "
+                     f"{full.n_enc_layers} + {full.n_layers} layers"
+                     if fcfg.family == "encdec" else
+                     f"{fcfg.n_layers} of {full.n_layers} layers")
+            print(f"[train] {step} {fcfg.name}: {fcfg.family} at full width,"
+                  f" depth cut to {depth}, {fcfg.param_count():,} "
+                  f"parameters, batch {b} x {s}, one float32 step on "
+                  f"{route} [{card}]", flush=True)
+            fparams = build(fcfg).init(
+                torch.Generator(device=dev).manual_seed(cfg.seed), dev)
+            fbatch = TokenStream(fcfg, b, s, seed=cfg.seed, device=dev).next()
+            if fcfg.family == "encdec":
+                fbatch["enc_embeds"] = torch.randn(
+                    (b, TRAIN_ENC_FRAMES, fcfg.d_model), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(
+                        cfg.seed)) * ENC_SCALE
+            counts = f32_gate(torch, fcfg, fparams, fbatch, route, "train",
+                              f"{step} {fcfg.name}", card,
+                              sync_warn=fcfg.moe)
+            fwant = train_launches(fcfg) if route == "cuda" else \
+                dict.fromkeys(train_launches(fcfg), 0)
+            if {k: counts[k] for k in fwant} != fwant:
+                raise AssertionError(f"[train] {step}: launches {counts}, "
+                                     f"expected {fwant}")
+            print(f"[train] {step} {fcfg.name}: launches "
+                  f"{ {k: v for k, v in fwant.items() if v} }, "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+            if bf16_label:
+                counts = bf16_step(torch, fcfg, fparams, fbatch, route,
+                                   "train", f"{bf16_label} {fcfg.name}",
+                                   card)
+                if {k: counts[k] for k in fwant} != fwant:
+                    raise AssertionError(f"[train] {bf16_label}: launches "
+                                         f"{counts}, expected {fwant}")
+                print(f"[train] {bf16_label} {fcfg.name}: launches "
+                      f"{ {k: v for k, v in fwant.items() if v} }",
+                      flush=True)
+            del fparams, fbatch
+
+    gate_runs(family_runs)
+    runner_phase(torch, dev, cfg, card, ssm_mcfg or get_config(
+        SSM_TRAIN_ARCH), route, "9d", cfg.ssm_train_steps, "9e")
+    gate_runs(hybrid_runs, bf16_label="9f")
     total = dict(LAUNCHES)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3861,6 +4265,11 @@ def parse_config(argv=None) -> Config:
                     help="served batches, the first ones of SERVE_PROMPTS")
     ap.add_argument("--new-tokens", type=int, default=full.new_tokens,
                     help="tokens generated per served batch")
+    ap.add_argument("--ssm-train-steps", type=int,
+                    default=full.ssm_train_steps,
+                    help="steps of phase 9d's runner (mamba2-130m), at "
+                         "least 3: a checkpoint every half, a failure two "
+                         "before the end")
     args = ap.parse_args(argv)
     return full._replace(waves=args.waves, scheds=args.scheds,
                          ticks=args.ticks, serve_batches=args.serve_batches,
@@ -3868,7 +4277,8 @@ def parse_config(argv=None) -> Config:
                          planned_waves=args.planned_waves,
                          elastic_ticks=args.elastic_ticks,
                          mesh_waves=args.mesh_waves,
-                         mesh_ticks=args.mesh_ticks)
+                         mesh_ticks=args.mesh_ticks,
+                         ssm_train_steps=max(3, args.ssm_train_steps))
 
 
 def main(argv=None) -> int:
@@ -3899,6 +4309,7 @@ def main(argv=None) -> int:
                 or "entry function" in line):
             print(f"[build] {line.strip()}", flush=True)
     tensor_core_check(build_info["path"], nvcc_path())
+    ssd_bwd_tensor_core_check(build_info["path"], nvcc_path())
 
     import numpy as np
     records, tables = kernel_phase(torch, dev, cfg.nodes * cfg.kpn, cfg.V,
@@ -3910,6 +4321,7 @@ def main(argv=None) -> int:
     del tables
     records.update(model_kernel_phase(torch, dev))
     records.update(attention_bwd_phase(torch, dev))
+    records.update(ssd_bwd_phase(torch, dev))
 
     profile_wave(torch, dev, cfg)
     # each path with the counts set to 0 just before it and read just after
@@ -3987,7 +4399,8 @@ def main(argv=None) -> int:
              "wave_commit": engine_counts, "commit_loop": engine_counts,
              "flash_attention": model_counts, "ssd_scan": model_counts,
              "flash_attention_bwd_dq": train_counts,
-             "flash_attention_bwd_dkdv": train_counts}
+             "flash_attention_bwd_dkdv": train_counts,
+             **dict.fromkeys(SSD_BWD_KERNELS, train_counts)}
     for name, counts in paths.items():
         if counts[name] <= 0:
             raise AssertionError(f"{name} never launched on its path")

@@ -3,10 +3,10 @@ synthetic token language, with PostSI-committed checkpoints, an injected
 node failure mid-run, and automatic restore/resume (the port of
 ``examples/train_lm.py``, with the same arguments and asserts).
 
-On the card (the default device) the attention gradient runs the
-hand-written backward kernels; ``--device cpu`` runs the plain ``torch``
-route.  The SSM and hybrid families train on the ``torch`` route only:
-their scan kernel has no backward yet.
+On the card (the default device) the gradients of attention and of the
+SSD scan run the hand-written backward kernels (every ``--arch``, the SSM
+and hybrid families included); ``--device cpu`` runs the plain ``torch``
+route.
 
 Run:  PYTHONPATH=src python examples/train_lm_torch.py [--steps 200]
       [--arch qwen2-0.5b] [--device cpu]

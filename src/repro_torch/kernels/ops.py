@@ -36,7 +36,7 @@ from .flash_attention import FlashAttentionFn
 from .flash_attention import flash_attention as _flash_attention
 from .flash_attention import flash_attention_plain
 from .interval_negotiate import potential_matrix as _potential_matrix
-from .ssd_scan import ssd_plain
+from .ssd_scan import SsdScanFn, ssd_plain
 from .ssd_scan import ssd_scan as _ssd_scan
 from .version_scan import version_scan as _version_scan
 from .version_scan import version_scan_plain
@@ -103,22 +103,15 @@ def flash_attention(q, k, v, *, causal=True, use_kernel=True):
     return flash_attention_plain(q, k, v, causal)
 
 
-# where the SSD scan's backward kernel is queued
-SSD_BWD_NOT_YET = ("ROADMAP.md queue 1, 'Model plane': the ssd_scan "
-                   "backward kernel (SSM and hybrid training on the card)")
-
-
 def ssd(x, dA, Bm, Cm, *, n_heads_per_group, chunk=128, h0=None,
         use_kernel=True):
     """x: [BH, S, P] (or the [Bg, H, S, P] view of [Bg, S, H, P]); dA:
     [BH, S] (or [Bg, H, S]); Bm/Cm: [Bg, S, N]; h0: [BH, N, P] or None ->
-    (y in x's shape, final state [BH, N, P]).  The kernel route has no
-    backward yet: under a gradient it raises rather than run the plain
-    scan in its place; the plain route is differentiated by autograd."""
+    (y in x's shape, final state [BH, N, P]).  Under a gradient the kernel
+    route goes through ``SsdScanFn`` (the forward kernel, then the three
+    backward kernels); the plain route is differentiated by autograd."""
     if use_kernel and _wants_grad(x, dA, Bm, Cm, h0):
-        raise NotImplementedError(
-            f"ops.ssd: the SSD scan kernel has no backward ({SSD_BWD_NOT_YET})"
-            f"; train the SSM and hybrid families on the 'torch' route")
+        return SsdScanFn.apply(x, dA, Bm, Cm, n_heads_per_group, chunk, h0)
     if use_kernel:
         return _ssd_scan(x, dA, Bm, Cm, n_heads_per_group, chunk, h0)
     return ssd_plain(x, dA, Bm, Cm, n_heads_per_group, chunk, h0)

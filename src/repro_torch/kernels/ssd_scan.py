@@ -22,6 +22,19 @@ Its plain version, :func:`ssd_plain`, folds the layout onto
 ``models/ssm.py:ssd_chunked`` (model layout ``[B, S, H, P]``, intra-chunk
 products plus a linear scan over chunks); it serves CPU tensors and the
 ``torch`` route.
+
+The gradient: the reference has no Pallas backward; it trains through
+XLA's autodiff of ``ssd_chunked``.  Here three CUDA kernels
+(``csrc/ssd_scan_bwd.cu``) compute it from the forward's inputs and dy:
+``ssd_scan_bwd_states`` (each chunk's end state from a zero start and
+the chunk's C-weighted dy), ``ssd_scan_bwd_scan`` (the states entering
+the chunks and the state gradients leaving them, two scans over the
+chunks) and ``ssd_scan_bwd_grads`` (dx, dA, and dB, dC summed over a
+group's heads).  :class:`SsdScanFn` binds them to autograd; the plain
+versions (:func:`ssd_bwd_states_plain`, :func:`ssd_bwd_scan_plain`,
+:func:`ssd_bwd_grads_plain`, chained by :func:`ssd_bwd_plain`) write the
+same formulas out in plain PyTorch (not by autograd) and serve CPU
+tensors and the card's checks.
 """
 from __future__ import annotations
 
@@ -30,8 +43,11 @@ import torch.nn.functional as F
 
 from .build import SMEM_LIMIT, check_input, launch, stream_of
 
-__all__ = ["ssd_chunked", "ssd_cuda", "ssd_kernel", "ssd_plain",
-           "ssd_scan", "ssd_smem_bytes"]
+__all__ = ["SsdScanFn", "ssd_bwd", "ssd_bwd_cuda", "ssd_bwd_grads_cuda",
+           "ssd_bwd_grads_plain", "ssd_bwd_plain", "ssd_bwd_scan_cuda",
+           "ssd_bwd_scan_plain", "ssd_bwd_states_cuda",
+           "ssd_bwd_states_plain", "ssd_chunked", "ssd_cuda", "ssd_kernel",
+           "ssd_plain", "ssd_scan", "ssd_smem_bytes"]
 
 NEG_INF = -1.0e30
 SSD_STRIP = 64          # the float32 kernel's strip of [M | C] rows
@@ -134,6 +150,134 @@ def ssd_plain(x, dA, Bm, Cm, n_heads_per_group: int, chunk: int = 128,
                        Bm[:, :, None], Cm[:, :, None], chunk, init)
     return (y.transpose(1, 2).reshape(x.shape),
             h.transpose(-1, -2).reshape(Bg * H, N, P))
+
+
+# ---------------------------------------------------------------------------
+# the gradient, in plain PyTorch: the backward kernels' formulas
+# ---------------------------------------------------------------------------
+
+def _chunk_rows(t, Q: int, nc: int):
+    """[R, S, ...] -> float32 [R, nc, Q, ...], zero rows past S."""
+    pad = nc * Q - t.shape[1]
+    t = t.float()
+    if pad:
+        t = F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+    return t.reshape(t.shape[0], nc, Q, *t.shape[2:])
+
+
+def _bwd_operands(x, dA, Bm, Cm, dy, H: int, chunk: int):
+    """The plain backward's operands, float32 rows of each batch*head in
+    chunks, zero past S: x, dy [BH, nc, Q, P], the chunk cumsum a
+    [BH, nc, Q], B and C [BH, nc, Q, N] (a group's rows for each of its
+    H heads); and (G, S, Q, nc)."""
+    x4, a4 = _unfold(x, dA, H)
+    G, _, S, P = x4.shape
+    Q = max(1, min(chunk, S))
+    nc = -(-S // Q)
+    rows = lambda t: _chunk_rows(t, Q, nc)
+    xc = rows(x4.reshape(G * H, S, P))
+    dyc = rows(_unfold(dy, a4, H)[0].reshape(G * H, S, P))
+    a = torch.cumsum(rows(a4.reshape(G * H, S)), dim=-1)
+    Bc = rows(Bm).repeat_interleave(H, dim=0)
+    Cc = rows(Cm).repeat_interleave(H, dim=0)
+    return xc, dyc, a, Bc, Cc, (G, S, Q, nc)
+
+
+def ssd_bwd_states_plain(x, dA, Bm, Cm, dy, n_heads_per_group: int,
+                         chunk: int = 128):
+    """The states kernel in plain PyTorch (arguments as
+    :func:`ssd_plain`'s, dy in y's shape): (st, U [BH, nc, N, P],
+    aL [BH, nc]), float32.  Per chunk, a = cumsum(dA), a_L its last value
+    (the last real row's: padded rows add dA = 0), w_j = exp(a_L - a_j):
+    st = sum_j w_j B_j^T x_j, the chunk's end state from a zero start;
+    U = sum_i exp(a_i) C_i^T dy_i."""
+    xc, dyc, a, Bc, Cc, _ = _bwd_operands(x, dA, Bm, Cm, dy,
+                                          n_heads_per_group, chunk)
+    w = torch.exp(a[..., -1:] - a)
+    st = torch.einsum("rcqn,rcq,rcqp->rcnp", Bc, w, xc)
+    U = torch.einsum("rcqn,rcq,rcqp->rcnp", Cc, torch.exp(a), dyc)
+    return st, U, a[..., -1].contiguous()
+
+
+def ssd_bwd_scan_plain(st, U, aL, h0=None, dh=None):
+    """The scan kernel in plain PyTorch: (hprev, G [BH, nc, N, P],
+    dh0 [BH, N, P], sc [BH, nc]), float32.  h_c = exp(aL_c) h_{c-1} + st_c
+    from h0 (zeros when None) gives hprev_c = h_{c-1}, the state entering
+    chunk c; G_{c-1} = U_c + exp(aL_c) G_c from dh (the final state's
+    gradient; zeros when None) gives G_c, the gradient of the state leaving
+    it, and dh0 = G_{-1}; sc_c = exp(aL_c) <h_{c-1}, G_c>, the chunk
+    decay's share of the gradient of its last row's a."""
+    nc = aL.shape[1]
+    d = torch.exp(aL)[..., None, None]
+    zero = torch.zeros(st.shape[:1] + st.shape[2:], dtype=torch.float32,
+                       device=st.device)
+    h = zero if h0 is None else h0.float()
+    hprev = []
+    for c in range(nc):
+        hprev.append(h)
+        h = d[:, c] * h + st[:, c]
+    g = zero if dh is None else dh.float()
+    grads = [None] * nc
+    for c in reversed(range(nc)):
+        grads[c] = g
+        g = U[:, c] + d[:, c] * g
+    hprev, grads = torch.stack(hprev, dim=1), torch.stack(grads, dim=1)
+    sc = torch.exp(aL) * (hprev * grads).sum((-1, -2))
+    return hprev, grads, g, sc
+
+
+def ssd_bwd_grads_plain(x, dA, Bm, Cm, dy, hprev, G, sc,
+                        n_heads_per_group: int, chunk: int = 128):
+    """The grads kernel in plain PyTorch, all in float32: (dx in x's
+    shape and dtype, ddA in dA's shape (float32), dB, dC [Bg, S, N] in B's
+    dtype).  Per chunk, with L_ij = exp(a_i - a_j) (j <= i, masked before
+    the exponential), S_ij = C_i . B_j, W_ij = (dy_i . x_j) L_ij, R_ij =
+    W_ij S_ij and w_j = exp(a_L - a_j):
+    dx_j = sum_i S_ij L_ij dy_i + w_j B_j G;
+    dC_i = sum_j W_ij B_j + exp(a_i) dy_i hprev^T;
+    dB_j = sum_i W_ij C_i + w_j x_j G^T, both summed over a group's heads;
+    da_i = sum_j R_ij - sum_k R_ki + C_i . (exp(a_i) dy_i hprev^T)
+    - B_i . (w_i x_i G^T), plus at the chunk's last row
+    sum_j B_j . (w_j x_j G^T) + sc; dA = the reverse cumsum of da within
+    the chunk."""
+    H = n_heads_per_group
+    xc, dyc, a, Bc, Cc, (Gg, S, Q, nc) = _bwd_operands(x, dA, Bm, Cm, dy,
+                                                       H, chunk)
+    N = Bc.shape[-1]
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=a.device))
+    L = torch.exp(torch.where(mask, a[..., :, None] - a[..., None, :],
+                              NEG_INF))
+    ea, w = torch.exp(a), torch.exp(a[..., -1:] - a)
+    Sm = torch.einsum("rcin,rcjn->rcij", Cc, Bc)
+    W = torch.einsum("rcip,rcjp->rcij", dyc, xc) * L
+    R = W * Sm
+    dCst = ea[..., None] * torch.einsum("rcip,rcnp->rcin", dyc, hprev)
+    dBst = w[..., None] * torch.einsum("rcjp,rcnp->rcjn", xc, G)
+    dx = (torch.einsum("rcij,rcip->rcjp", Sm * L, dyc)
+          + w[..., None] * torch.einsum("rcjn,rcnp->rcjp", Bc, G))
+    dC = torch.einsum("rcij,rcjn->rcin", W, Bc) + dCst
+    dB = torch.einsum("rcij,rcin->rcjn", W, Cc) + dBst
+    sterm = (Bc * dBst).sum(-1)
+    da = R.sum(-1) - R.sum(-2) + (Cc * dCst).sum(-1) - sterm
+    da[..., -1] += sterm.sum(-1) + sc
+    ddA = torch.flip(torch.cumsum(torch.flip(da, (-1,)), dim=-1), (-1,))
+    unrows = lambda t: t.reshape(t.shape[0], nc * Q, *t.shape[3:])[:, :S]
+    heads = lambda t: unrows(t).reshape(Gg, H, S, N).sum(1).to(Bm.dtype)
+    return (unrows(dx).reshape(x.shape).to(x.dtype),
+            unrows(ddA).reshape(dA.shape), heads(dB), heads(dC))
+
+
+def ssd_bwd_plain(x, dA, Bm, Cm, dy, n_heads_per_group: int,
+                  chunk: int = 128, h0=None, dh=None):
+    """The gradient of :func:`ssd_plain` at dy (y's shape and dtype) and dh
+    (the final state's gradient [BH, N, P], or None), the three plain
+    stages chained: (dx, ddA, dB, dC, dh0) in the shapes of x, dA, Bm, Cm
+    and [BH, N, P] (dh0 float32)."""
+    st, U, aL = ssd_bwd_states_plain(x, dA, Bm, Cm, dy, n_heads_per_group,
+                                     chunk)
+    hprev, G, dh0, sc = ssd_bwd_scan_plain(st, U, aL, h0, dh)
+    return (*ssd_bwd_grads_plain(x, dA, Bm, Cm, dy, hprev, G, sc,
+                                 n_heads_per_group, chunk), dh0)
 
 
 def ssd_kernel(P: int, N: int, Q: int, S: int,
@@ -254,3 +398,213 @@ def ssd_scan(x, dA, Bm, Cm, n_heads_per_group: int, chunk: int = 128,
     if x.is_cuda:
         return ssd_cuda(x, dA, Bm, Cm, n_heads_per_group, chunk, h0)
     return ssd_plain(x, dA, Bm, Cm, n_heads_per_group, chunk, h0)
+
+
+# ---------------------------------------------------------------------------
+# the gradient on the card: csrc/ssd_scan_bwd.cu
+# ---------------------------------------------------------------------------
+
+# the backward kernels' shapes: P, N (both forms) and the rows of a chunk,
+# at most (a 16-row tile a warp of eight)
+SSD_BWD_P = (16, 32, 64)
+SSD_BWD_N = (16, 32, 64, 128)
+SSD_BWD_MAX_CHUNK = 128
+
+
+def _bwd_check(name, x, dA, Bm, Cm, dy, H, chunk):
+    """The backward kernels' input checks (the forward's, and dy in x's
+    shape and dtype); returns (G, BH, S, P, N, Q, x4, a4, dy4)."""
+    S, P = x.shape[-2:]
+    N = Bm.shape[-1]
+    BH = x.shape[0] * (x.shape[1] if x.dim() == 4 else 1)
+    if H < 1 or BH % H or (x.dim() == 4 and x.shape[1] != H):
+        raise ValueError(f"{name}: {BH} rows do not fold into groups of "
+                         f"{H} heads")
+    G = BH // H
+    x4, a4 = _unfold(x, dA, H)
+    dy4 = _unfold(dy, a4, H)[0]
+    check_input(f"{name}.x", x4, (G, H, S, P), _DTYPES, "rows")
+    check_input(f"{name}.dy", dy4, (G, H, S, P), x.dtype, "rows")
+    check_input(f"{name}.dA", a4, (G, H, S), torch.float32, "any")
+    check_input(f"{name}.Bm", Bm, (G, S, N), x.dtype, "rows")
+    check_input(f"{name}.Cm", Cm, (G, S, N), x.dtype, "rows")
+    if Bm.stride() != Cm.stride():
+        raise ValueError(f"{name}: B and C must share strides")
+    if P not in SSD_BWD_P or N not in SSD_BWD_N:
+        raise ValueError(f"{name}: the kernels take P in {SSD_BWD_P} and N "
+                         f"in {SSD_BWD_N}, got P={P}, N={N}")
+    Q = max(1, min(chunk, S))
+    if Q > SSD_BWD_MAX_CHUNK:
+        raise ValueError(f"{name}: chunks of {Q} rows; the kernels take "
+                         f"at most {SSD_BWD_MAX_CHUNK}")
+    if x.dtype == torch.bfloat16 and (
+            any(t.data_ptr() % 16 for t in (x4, dy4, Bm, Cm))
+            or any(r % 8 for r in x4.stride()[:3] + dy4.stride()[:3]
+                   + Bm.stride()[:2])):
+        raise ValueError(f"{name}: bf16 rows of x, dy, B and C must start "
+                         f"16-byte aligned")
+    return G, BH, S, P, N, Q, x4, a4, dy4
+
+
+def ssd_bwd_states_cuda(x, dA, Bm, Cm, dy, n_heads_per_group: int,
+                        chunk: int = 128):
+    """The first backward kernel (``ssd_scan_bwd_states``), arguments as
+    :func:`ssd_cuda`'s plus dy in x's shape and dtype (any strides, last
+    dimension dense): (st, U [BH, nc, N, P], aL [BH, nc]), float32, as
+    :func:`ssd_bwd_states_plain`."""
+    H = n_heads_per_group
+    G, BH, S, P, N, Q, x4, a4, dy4 = _bwd_check(
+        "ssd_scan_bwd_states", x, dA, Bm, Cm, dy, H, chunk)
+    nc = -(-S // Q) if S else 0
+    st = torch.empty((BH, nc, N, P), dtype=torch.float32, device=x.device)
+    U = torch.empty_like(st)
+    aL = torch.empty((BH, nc), dtype=torch.float32, device=x.device)
+    if BH and S:
+        launch("ssd_scan_bwd_states", "ssd_scan_bwd_states_launch",
+               x.data_ptr(), dA.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+               dy.data_ptr(), st.data_ptr(), U.data_ptr(), aL.data_ptr(), BH,
+               S, P, N, H, Q, int(x.dtype == torch.bfloat16),
+               *x4.stride()[:3], *a4.stride(), *dy4.stride()[:3],
+               *Bm.stride()[:2], stream_of(x))
+    return st, U, aL
+
+
+def ssd_bwd_scan_cuda(st, U, aL, h0=None, dh=None):
+    """The second backward kernel (``ssd_scan_bwd_scan``): st, U
+    [BH, nc, N, P] and aL [BH, nc] from the first, h0 and dh [BH, N, P]
+    float32 contiguous or None.  Rewrites st with hprev and U with G in
+    place and returns (hprev, G, dh0, sc), as :func:`ssd_bwd_scan_plain`."""
+    BH, nc = aL.shape
+    N, P = st.shape[-2:]
+    for name, t in (("st", st), ("U", U)):
+        check_input(f"ssd_scan_bwd_scan.{name}", t, (BH, nc, N, P),
+                    torch.float32)
+    check_input("ssd_scan_bwd_scan.aL", aL, (BH, nc), torch.float32)
+    for name, t in (("h0", h0), ("dh", dh)):
+        if t is not None:
+            check_input(f"ssd_scan_bwd_scan.{name}", t, (BH, N, P),
+                        torch.float32)
+    if N * P not in {n * p for n in SSD_BWD_N for p in SSD_BWD_P}:
+        raise ValueError(f"ssd_scan_bwd_scan: a state of {N} x {P} floats; "
+                         f"the kernel takes N P of N in {SSD_BWD_N}, P in "
+                         f"{SSD_BWD_P}")
+    dh0 = torch.empty((BH, N, P), dtype=torch.float32, device=st.device)
+    sc = torch.empty((BH, nc), dtype=torch.float32, device=st.device)
+    if BH and nc:
+        launch("ssd_scan_bwd_scan", "ssd_scan_bwd_scan_launch",
+               st.data_ptr(), U.data_ptr(), aL.data_ptr(),
+               None if h0 is None else h0.data_ptr(),
+               None if dh is None else dh.data_ptr(), dh0.data_ptr(),
+               sc.data_ptr(), BH, nc, N * P, stream_of(st))
+    elif dh is not None:
+        dh0.copy_(dh)
+    else:
+        dh0.zero_()
+    return st, U, dh0, sc
+
+
+def _like_layout(t4, G, H, S, last, dtype):
+    """A new tensor in the order of ``t4``'s layout: for a [G, H, S, .]
+    transpose view of [G, S, H, .] the same view of a new [G, S, H, .],
+    else a contiguous [G, H, S, .] (``last`` the trailing sizes)."""
+    if t4.dim() >= 3 and t4.stride(1) < t4.stride(2):
+        return torch.empty((G, S, H, *last), dtype=dtype,
+                           device=t4.device).transpose(1, 2)
+    return torch.empty((G, H, S, *last), dtype=dtype, device=t4.device)
+
+
+def ssd_bwd_grads_cuda(x, dA, Bm, Cm, dy, hprev, G, sc,
+                       n_heads_per_group: int, chunk: int = 128):
+    """The third backward kernel (``ssd_scan_bwd_grads``): the forward's
+    inputs, dy, and hprev, G [BH, nc, N, P], sc [BH, nc] from the scan.
+    Returns (dx, ddA, dB, dC) as :func:`ssd_bwd_grads_plain` (dx and ddA in
+    the layout order of x and dA); dB and dC are summed over a group's
+    heads in head order by the last block of each (group, chunk), so two
+    calls give the same bits."""
+    H = n_heads_per_group
+    Gg, BH, S, P, N, Q, x4, a4, dy4 = _bwd_check(
+        "ssd_scan_bwd_grads", x, dA, Bm, Cm, dy, H, chunk)
+    nc = -(-S // Q) if S else 0
+    for name, t in (("hprev", hprev), ("G", G)):
+        check_input(f"ssd_scan_bwd_grads.{name}", t, (BH, nc, N, P),
+                    torch.float32)
+    check_input("ssd_scan_bwd_grads.sc", sc, (BH, nc), torch.float32)
+    dx4 = _like_layout(x4, Gg, H, S, (P,), x.dtype)
+    da4 = _like_layout(a4, Gg, H, S, (), torch.float32)
+    dB = torch.empty((Gg, S, N), dtype=x.dtype, device=x.device)
+    dC = torch.empty_like(dB)
+    if BH and S:
+        part = torch.empty((2, BH, S, N), dtype=torch.float32,
+                           device=x.device)
+        count = torch.zeros((Gg * nc,), dtype=torch.int32, device=x.device)
+        launch("ssd_scan_bwd_grads", "ssd_scan_bwd_grads_launch",
+               x.data_ptr(), dA.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+               dy.data_ptr(), hprev.data_ptr(), G.data_ptr(), sc.data_ptr(),
+               dx4.data_ptr(), da4.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+               part.data_ptr(), count.data_ptr(), BH, S, P, N, H, Q,
+               int(x.dtype == torch.bfloat16), *x4.stride()[:3],
+               *a4.stride(), *dy4.stride()[:3], *dx4.stride()[:3],
+               *da4.stride(), *Bm.stride()[:2], stream_of(x))
+    else:
+        for t in (dx4, da4, dB, dC):
+            t.zero_()
+    return (dx4.reshape(x.shape), da4.reshape(dA.shape), dB, dC)
+
+
+def ssd_bwd_cuda(x, dA, Bm, Cm, dy, n_heads_per_group: int,
+                 chunk: int = 128, h0=None, dh=None):
+    """The three backward kernels: the gradient of :func:`ssd_cuda` at dy
+    (x's shape and dtype) and dh ([BH, N, P] float32 or None).  Returns
+    (dx, ddA, dB, dC, dh0) as :func:`ssd_bwd_plain`."""
+    st, U, aL = ssd_bwd_states_cuda(x, dA, Bm, Cm, dy, n_heads_per_group,
+                                    chunk)
+    hprev, G, dh0, sc = ssd_bwd_scan_cuda(st, U, aL, h0, dh)
+    return (*ssd_bwd_grads_cuda(x, dA, Bm, Cm, dy, hprev, G, sc,
+                                n_heads_per_group, chunk), dh0)
+
+
+def ssd_bwd(x, dA, Bm, Cm, dy, n_heads_per_group: int, chunk: int = 128,
+            h0=None, dh=None):
+    """(dx, ddA, dB, dC, dh0): the backward kernels for CUDA tensors, the
+    plain version for CPU tensors."""
+    fn = ssd_bwd_cuda if x.is_cuda else ssd_bwd_plain
+    return fn(x, dA, Bm, Cm, dy, n_heads_per_group, chunk, h0, dh)
+
+
+def _kernel_rows(dy, x):
+    """dy as the kernels read it: its last dimension dense and, in bf16,
+    every row 16-byte aligned (autograd may hand any strides over); else a
+    contiguous copy."""
+    bad = dy.shape[-1] > 1 and dy.stride(-1) != 1
+    if x.dtype == torch.bfloat16:
+        bad = bad or dy.data_ptr() % 16 or any(
+            s % 8 for s in dy.stride()[:-1])
+    return dy.contiguous() if bad else dy
+
+
+class SsdScanFn(torch.autograd.Function):
+    """The SSD scan with its gradient through the wrappers above: the
+    forward kernel, and the three backward kernels on CUDA tensors (the
+    plain versions on CPU tensors).  It saves its inputs x, dA, B, C and
+    h0 as given (strided views, no copies): nothing of size Q x Q and no
+    per-chunk state, which the backward recomputes."""
+
+    @staticmethod
+    def forward(ctx, x, dA, Bm, Cm, n_heads_per_group, chunk, h0):
+        y, h = ssd_scan(x, dA, Bm, Cm, n_heads_per_group, chunk, h0)
+        ctx.save_for_backward(x, dA, Bm, Cm, h0)
+        ctx.heads, ctx.chunk = n_heads_per_group, chunk
+        ctx.set_materialize_grads(False)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        x, dA, Bm, Cm, h0 = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(x.shape, dtype=x.dtype, device=x.device)
+        grads = ssd_bwd(x, dA, Bm, Cm, _kernel_rows(dy, x), ctx.heads,
+                        ctx.chunk, h0, None if dh is None else dh.contiguous())
+        need = ctx.needs_input_grad
+        dx, ddA, dB, dC, dh0 = (g if n else None
+                                for g, n in zip(grads, need[:4] + need[6:]))
+        return dx, ddA, dB, dC, None, None, dh0

@@ -12,9 +12,10 @@ The train step takes the gradient of ``model.loss`` with
 ``torch.autograd.grad`` over the parameter leaves and applies
 ``adamw_update``, which writes the parameters and the moments in place
 (as the reference's loop donates them).  On the ``cuda`` route the
-gradient of attention runs the hand-written backward kernels; the SSD
-scan kernel has no backward yet, so the SSM and hybrid families train on
-the ``torch`` route (``ROADMAP.md``).
+gradients of attention and of the SSD scan run hand-written backward
+kernels (``FlashAttentionFn``, ``SsdScanFn``), so every family trains
+there; what the port does not run yet is ``ROADMAP.md`` queue 1, item 1.2
+(full-depth deepseek-coder-33b and phi3.5-moe).
 """
 from __future__ import annotations
 

@@ -19,9 +19,8 @@ import torch
 
 # where what the port does not run yet is queued (named by every
 # NotImplementedError it raises): the reference-only knobs below.  Training
-# is ported (the loss, the train step, AdamW, the runner); what still waits
-# is the SSD scan's backward kernel, so the SSM and hybrid families train
-# on the 'torch' route only (kernels.ops.SSD_BWD_NOT_YET)
+# is ported, every family on both routes; what the model plane still waits
+# for is item 1.2 there (full-depth deepseek-coder-33b and phi3.5-moe)
 NOT_YET = "ROADMAP.md queue 1, 'Model plane'"
 
 

@@ -5,9 +5,13 @@ Port of ``repro.models.ssm``.  Shapes as there: x ``[B, S, D]``; heads
 ``H = d_inner / headdim``; one group (G = 1) shares B/C.  The prefill scan
 goes through ``kernels.ops.ssd`` on the route of ``kernels``: the
 hand-written CUDA kernel on ``cuda`` (every call, with or without an initial
-state), the plain ``ssd_chunked`` on ``torch``.  Decode is plain PyTorch on
-every route, as the reference leaves it to XLA.  The reference's
-``shard_activation`` constraint (GSPMD) has no counterpart on one card.
+state), the plain ``ssd_chunked`` on ``torch``.  Under a gradient (training)
+the ``cuda`` route runs ``SsdScanFn``: that kernel forward and the three
+backward kernels of ``kernels/csrc/ssd_scan_bwd.cu``, where the reference
+takes XLA's autodiff of ``ssd_chunked``; the ``torch`` route is
+differentiated by autograd.  Decode is plain PyTorch on every route, as the
+reference leaves it to XLA.  The reference's ``shard_activation``
+constraint (GSPMD) has no counterpart on one card.
 """
 from __future__ import annotations
 

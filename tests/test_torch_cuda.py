@@ -66,11 +66,17 @@ G = 1, 3 and 7), also where the bf16 Hopper kernels split their walks (an
 odd count of pairs a kv tile, D = 128 at G = 7, causal with Sk > Sq and
 zero dk and dv past the last query); ``ops.flash_attention`` under a gradient
 must run the forward and both backward kernels once each, its float32
-gradients those of autograd through the plain version; ``ops.ssd`` must
-refuse a gradient on its kernel route; and one float32 loss and gradient
-of the reduced qwen2-0.5b, deepseek-moe-16b and seamless models on
-``cuda`` must equal the ``torch`` route's (every leaf within 1e-3 of its
-scale) with the launches of ``chip_smoke.train_launches``.
+gradients those of autograd through the plain version; the SSD scan's
+three backward kernels must agree with their plain versions at
+``chip_smoke.py``'s ``SSD_BWD_CASES`` (float32 within 1e-3 of scale, bf16
+within 2e-2 and one bf16 rounding of the float32 oracle, two calls
+bit-equal), ``ops.ssd`` under a gradient must run ``SsdScanFn``: the
+forward kernel and each backward kernel once, its gradients those of
+autograd through the plain scan; and one float32 loss and gradient of the
+reduced qwen2-0.5b, deepseek-moe-16b, seamless, mamba2-130m and
+zamba2-2.7b models on ``cuda`` must equal the ``torch`` route's (every
+leaf within 1e-3 of its scale) with the launches of
+``chip_smoke.train_launches``.
 """
 import numpy as np
 import pytest
@@ -144,7 +150,9 @@ def test_kernels_equal_plain_versions(dev, T, O, V, pad):
     assert {k: LAUNCHES[k] - before[k] for k in LAUNCHES} == {
         "version_scan": 1, "potential_matrix": 1, "wave_commit": 1,
         "commit_loop": 0, "flash_attention": 0, "ssd_scan": 0,
-        "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkdv": 0}
+        "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkdv": 0,
+        "ssd_scan_bwd_states": 0, "ssd_scan_bwd_scan": 0,
+        "ssd_scan_bwd_grads": 0}
 
 
 @pytest.mark.parametrize("sched", tc.SCHEDULERS)
@@ -212,7 +220,9 @@ def test_read_phase_corners_equal_plain_versions(dev, T, O, V, pad):
     assert {k: LAUNCHES[k] - before[k] for k in LAUNCHES} == {
         "version_scan": 1, "potential_matrix": 1, "wave_commit": 1,
         "commit_loop": 0, "flash_attention": 0, "ssd_scan": 0,
-        "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkdv": 0}
+        "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkdv": 0,
+        "ssd_scan_bwd_states": 0, "ssd_scan_bwd_scan": 0,
+        "ssd_scan_bwd_grads": 0}
 
 
 @pytest.mark.parametrize("V", [1, 3, 8, 16, 40])
@@ -1348,25 +1358,84 @@ def test_attention_gradient_goes_through_the_kernels(dev, causal):
         _close(a, b, 1e-4)
 
 
-def test_ssd_kernel_route_refuses_a_gradient_on_the_card(dev):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("model", [False, True])
+def test_ssd_kernel_route_refuses_a_gradient_on_the_card(dev, dtype, model):
+    """(Named for the refusal it replaced.)  ``ops.ssd`` on the kernel
+    route under a gradient trains on the card: ``SsdScanFn`` launches
+    ``ssd_scan`` once and each backward kernel once a call; its gradients
+    (x, dA, B, C, h0, with the final state's gradient) are those of
+    autograd through the plain scan on the same inputs: float32 within
+    1e-3 of scale, bf16 within one bf16 rounding plus 1e-3 of scale of the
+    float32 plain gradient on the same bf16 inputs."""
     from repro_torch.kernels import ops
-    x = torch.randn((2, 64, 16), device=dev, requires_grad=True)
-    bm = torch.randn((1, 64, 16), device=dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    Bg, H, S, P, N, Q = 2, 3, 300, 64, 64, 128
+    x = torch.randn((Bg, S, H, P), generator=g, device=dev).to(dtype) * 0.5
+    dA = -torch.rand((Bg, S, H), generator=g, device=dev)
+    bc = (torch.randn((Bg, S, 3 * N), generator=g, device=dev) * 0.3).to(
+        dtype)
+    h0 = torch.randn((Bg * H, N, P), generator=g, device=dev) * 0.2
+    dy = torch.randn((Bg, S, H, P), generator=g, device=dev).to(dtype)
+    dh = torch.randn((Bg * H, N, P), generator=g, device=dev) * 0.2
+    if model:
+        x, dA, dy = x.transpose(1, 2), dA.transpose(1, 2), dy.transpose(1, 2)
+    else:
+        x, dA, dy = (t.transpose(1, 2).reshape(Bg * H, S, *t.shape[3:])
+                     .contiguous() for t in (x, dA, dy))
+    Bm, Cm = bc[..., N:2 * N], bc[..., 2 * N:]   # row-strided, as xBC's
+
+    def grads(use_kernel, cast):
+        leaves = [cast(t).detach().requires_grad_(True)
+                  for t in (x, dA, Bm, Cm, h0)]
+        y, h = ops.ssd(*leaves[:4], n_heads_per_group=H, chunk=Q,
+                       h0=leaves[4], use_kernel=use_kernel)
+        if use_kernel:
+            assert type(y.grad_fn).__name__ == "SsdScanFnBackward"
+        return torch.autograd.grad((y.float() * cast(dy).float()).sum()
+                                   + (h * dh).sum(), leaves)
+
+    keys = ("ssd_scan", "ssd_scan_bwd_states", "ssd_scan_bwd_scan",
+            "ssd_scan_bwd_grads")
     before = dict(LAUNCHES)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.ssd(x, -torch.rand((2, 64), device=dev), bm, bm,
-                n_heads_per_group=2, chunk=64, use_kernel=True)
-    assert LAUNCHES == before
+    got = grads(True, lambda t: t)
+    torch.cuda.synchronize()
+    assert {k: LAUNCHES[k] - before[k] for k in keys} == dict.fromkeys(
+        keys, 1)
+    want = grads(False, lambda t: t.float())
+    for a, w, like in zip(got, want, (x, dA, Bm, Cm, h0)):
+        assert a.shape == like.shape and a.dtype == like.dtype
+        scale = float(w.abs().max())
+        rtol = 1e-2 if a.dtype == torch.bfloat16 else 0.0
+        err = (a.float() - w).abs() - rtol * w.abs()
+        assert float(err.max()) <= 1e-3 * scale
+
+
+@pytest.mark.parametrize("case", CS.SSD_BWD_CASES)
+def test_ssd_backward_kernels_vs_plain(dev, case):
+    """``chip_smoke.py``'s phase-3 check of one SSD backward case: each
+    kernel against its plain version, bf16 also the chain against the
+    float32 oracle, each kernel's two calls bit-equal (raises otherwise);
+    one launch of each kernel a call."""
+    g = torch.Generator(device=dev).manual_seed(6)
+
+    def rn(shape, scale, dtype):
+        return (torch.randn(shape, generator=g, device=dev)
+                * scale).to(dtype)
+    errs = {name: [] for name in CS.SSD_BWD_KERNELS}
+    CS.ssd_bwd_check(torch, dev, rn, g, case, errs, {})
+    assert all(len(v) for v in errs.values())
 
 
 @pytest.mark.parametrize("arch", ["qwen2-0.5b", "deepseek-moe-16b",
-                                  "seamless-m4t-large-v2"])
+                                  "seamless-m4t-large-v2", "mamba2-130m",
+                                  "zamba2-2.7b"])
 def test_train_step_cuda_route_equals_torch_route(dev, arch):
     """One float32 loss and gradient of the reduced model on ``cuda``
     against ``torch`` on the same weights and batch: the loss within 1e-4
     of its size, every gradient leaf within 1e-3 of its scale; the
-    attention launches of ``chip_smoke.train_launches`` (remat runs each
-    forward twice)."""
+    attention and SSD launches of ``chip_smoke.train_launches`` (remat
+    runs each forward twice, each backward kernel once)."""
     import pathlib
     import sys
     sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))

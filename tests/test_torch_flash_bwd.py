@@ -4,7 +4,9 @@
 of the reference's ``layers.attention``; ``FlashAttentionFn`` (the
 ``cuda`` route's autograd binding, here on CPU tensors, where its wrappers
 take the plain versions) against autograd; the refusals of the kernel
-wrappers and of the SSD scan's kernel route under a gradient.
+wrappers on CPU tensors; and the SSD scan's kernel route under a gradient,
+which runs ``SsdScanFn`` (``tests/test_torch_ssd_bwd.py`` holds it in
+full).
 
 Inputs are seeded numpy in float32.  Cases: causal with GQA (G = 1, 2, 7),
 non-causal at Sq != Sk (cross-attention), Sq = 1, ragged lengths, and
@@ -158,20 +160,25 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 
 def test_ssd_kernel_route_refuses_a_gradient():
-    """The SSD scan's kernel has no backward: ``ops.ssd`` on the kernel
-    route raises under a gradient (naming the ROADMAP item) instead of
-    running the plain scan; without one, and on the plain route, it
-    runs."""
+    """(Named for the refusal it replaced.)  ``ops.ssd`` on the kernel
+    route under a gradient trains: it runs ``SsdScanFn`` (on CPU tensors
+    its wrappers take the plain versions), whose gradient equals
+    autograd's through the plain route within 1e-4 of scale; without a
+    gradient it runs the forward alone, the plain route's bits."""
     rng = np.random.RandomState(0)
     x = torch.tensor(rng.randn(4, 32, 16).astype(np.float32),
                      requires_grad=True)
     dA = -torch.rand(4, 32)
     bm = torch.tensor(rng.randn(2, 32, 16).astype(np.float32))
     kw = dict(n_heads_per_group=2, chunk=16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.ssd(x, dA, bm, bm, use_kernel=True, **kw)
-    y, _ = ops.ssd(x, dA, bm, bm, use_kernel=False, **kw)
-    assert torch.autograd.grad(y.sum(), x)[0].shape == x.shape
+    before = dict(LAUNCHES)
+    y, _ = ops.ssd(x, dA, bm, bm, use_kernel=True, **kw)
+    assert type(y.grad_fn).__name__ == "SsdScanFnBackward"
+    yp, _ = ops.ssd(x, dA, bm, bm, use_kernel=False, **kw)
+    assert torch.equal(y.detach(), yp.detach())
+    _close(torch.autograd.grad(y.sum(), x)[0],
+           torch.autograd.grad(yp.sum(), x)[0].numpy())
     with torch.no_grad():
         y2, _ = ops.ssd(x, dA, bm, bm, use_kernel=True, **kw)
-    assert torch.equal(y2, y.detach())
+    assert y2.grad_fn is None and torch.equal(y2, yp.detach())
+    assert LAUNCHES == before

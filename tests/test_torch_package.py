@@ -307,11 +307,13 @@ def test_build_hash_covers_sources_and_flags(tmp_path):
     sources, headers = build._sources()
     assert {s.name for s in sources} == {
         "version_scan.cu", "interval_negotiate.cu", "wave_commit.cu",
-        "commit_loop.cu", "flash_attention.cu", "ssd_scan.cu"}
+        "commit_loop.cu", "flash_attention.cu", "ssd_scan.cu",
+        "ssd_scan_bwd.cu"}
     assert set(build.LAUNCHES) == {
         "version_scan", "potential_matrix", "wave_commit", "commit_loop",
         "flash_attention", "ssd_scan", "flash_attention_bwd_dq",
-        "flash_attention_bwd_dkdv"}
+        "flash_attention_bwd_dkdv", "ssd_scan_bwd_states",
+        "ssd_scan_bwd_scan", "ssd_scan_bwd_grads"}
     assert {f"{n}_launch" for n in build.LAUNCHES} == set(build.SIGNATURES)
     assert [h.name for h in headers] == ["common.cuh", "mma.cuh", "sm90.cuh"]
     for src in sources:

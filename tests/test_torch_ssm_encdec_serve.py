@@ -101,3 +101,32 @@ def test_hotswap_example_serves_on_the_cpu(capsys):
     spec.loader.exec_module(mod)
     assert mod.main(["--device", "cpu"]) == [0, 0, 0, 1, 1, 2, 2, 2]
     assert "no torn weights" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("traced,ok", [
+    (24, True), (23, True), (1, True), (0, False), (25, False),
+    ("mma", False)])
+def test_chip_smoke_ssd_check_holds_the_traced_scans_to_the_route_kernel(
+        chip_smoke, capsys, traced, ok):
+    """Phases 6 and 8 hold a profiled prefill's scans to the route table's
+    kernel.  The launch counters count the scans; the trace need only show
+    their kernel, so a trace short of scans (the profiler dropped events)
+    passes, and a scan on another kernel, no scan, or more scans than
+    layers fail.  The prefill is profiled once."""
+    mcfg = get_config("mamba2-130m")
+    calls = []
+
+    def profile():
+        calls.append(1)
+        scans = ({"ssd_scan_mma_kernel<4, 8>": 24} if traced == "mma" else
+                 {"ssd_scan_wgmma_kernel<2>": traced} if traced else {})
+        return {"flash_attention_wgmma_kernel<64>": 1, **scans}
+    if ok:
+        chip_smoke.ssd_check(mcfg, profile, True, "t", 1024)
+        assert (f"the prefill's scans ran on ssd_scan_wgmma_kernel<2> "
+                f"({traced} of 24 in the trace)") in capsys.readouterr().out
+    else:
+        with pytest.raises(AssertionError, match="expected "
+                                                 "ssd_scan_wgmma_kernel x24"):
+            chip_smoke.ssd_check(mcfg, profile, True, "t", 1024)
+    assert len(calls) == 1

@@ -224,20 +224,31 @@ def chip_smoke(monkeypatch):
 
 def test_chip_smoke_train_phase_rehearses_on_cpu(chip_smoke, capsys):
     """Phase 9 at reduced size on the torch route: the runner through its
-    injected failure with every gate, the float32 gates, the SSD refusal,
-    and the two more families; no kernel launches off the card."""
+    injected failure with every gate (9a and, for the SSM family, 9d), the
+    float32 gates, the two more families and the hybrid family's cut step
+    (9e) and its step in the compute dtype (9f); no kernel launches off
+    the card."""
     cfg = chip_smoke.parse_config([])
     moe = get_reduced("deepseek-moe-16b")
     enc = get_reduced("seamless-m4t-large-v2")
+    hyb = get_reduced("zamba2-2.7b")
     runs = [("9b", moe.replace(n_layers=1), moe, 2, 24),
             ("9c", enc.replace(n_layers=1, n_enc_layers=1), enc, 2, 24)]
     counts = chip_smoke.train_phase(
         torch, torch.device("cpu"), cfg, "cpu",
-        mcfg=get_reduced("qwen2-0.5b"), family_runs=runs, route="torch")
+        mcfg=get_reduced("qwen2-0.5b"), family_runs=runs, route="torch",
+        ssm_mcfg=get_reduced("mamba2-130m"),
+        hybrid_runs=[("9e", hyb.replace(n_layers=hyb.attn_every), hyb, 2,
+                      24)])
     out = capsys.readouterr().out
-    assert "restarts 1, final step 8, 10 losses" in out
-    assert out.count("float32 torch vs torch") == 3
-    assert "ops.ssd on the kernel route under a gradient raises" in out
+    assert "9a qwen2-0.5b-reduced: restarts 1, final step 8, 10 losses" in out
+    assert "9d mamba2-130m-reduced: restarts 1, final step 8, 10 losses" \
+        in out
+    assert out.count("float32 torch vs torch") == 5
+    assert "9e mamba2-130m-reduced: float32 torch vs torch" in out
+    assert "9e zamba2-2.7b-reduced: hybrid at full width, depth cut to 2 of " \
+        "4 layers" in out
+    assert "9f zamba2-2.7b-reduced: bfloat16 torch vs torch: loss" in out
     assert "depth cut to 1 + 1 of 2 + 2 layers" in out
     assert set(counts.values()) == {0}
 
