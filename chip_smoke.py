@@ -16,7 +16,8 @@ Phases (any failure raises, so the process exits non-zero):
    kernels at D = 64 and 128, the SSD scan at N = 64 and 128) wgmma
    (HGMMA) products and TMA (UTMALDG) loads; the SSD scan's backward
    (``ssd_scan_bwd_states`` and ``_grads``) HMMA in each of its 12 bf16
-   instantiations (P in 16, 32, 64 x N in 16, 32, 64, 128);
+   instantiations (P in 16, 32, 64 x N in 16, 32, 64, 128) and HGMMA and
+   UTMALDG in each of their Hopper forms (P = 64, N = 64 and 128);
 3. each engine kernel against its plain PyTorch version on the card,
    bit-equal, at the main path's shapes and on adversarial inputs
    (the read-phase corners: tied visible CIDs, empty rings, V = 1 / 3 /
@@ -71,9 +72,12 @@ Phases (any failure raises, so the process exits non-zero):
    decays of 0.01 and 1.4, the reduced configs' P = N = 16 in chunks of
    16), float32 within 1e-3 x scale, bf16 within 2e-2 x scale and the
    chained backward within one bf16 rounding of a float32 oracle on the
-   same bf16 inputs, each kernel's two calls bit-equal; CUDA-event and
-   profiler device ms of each at both training shapes beside the forward
-   kernel's and the plain backward's, each bounded by the gradient's own
+   same bf16 inputs, each kernel's two calls bit-equal (the bf16 cases at
+   P = 64, N = 64 and 128 on the Hopper forms of the states and grads
+   kernels); CUDA-event and profiler device ms of each at both training
+   shapes (the Hopper forms beside the ``mma.sync`` forms they replace)
+   beside the forward kernel's and the plain backward's, each bounded by
+   the gradient's own
    bytes and operations (the design's float32 state arrays printed
    apart, outside the bound);
    ``commit_loop`` against the
@@ -821,6 +825,37 @@ def ssd_bwd_tensor_core_check(lib_path, nvcc):
             raise AssertionError(f"{name}: expected {SSD_BWD_SHAPES} bf16 "
                                  f"instantiations with tensor-core "
                                  f"products, got {forms[1]}")
+
+
+# the SSD backward's kernels with a Hopper form (``*_wgmma_kernel``: bf16,
+# wgmma products fed by TMA, P = 64) and the state sizes N of its
+# instantiations
+SSD_BWD_WGMMA = {"ssd_scan_bwd_states": (64, 128),
+                 "ssd_scan_bwd_grads": (64, 128)}
+
+
+def ssd_bwd_wgmma_check(lib_path, nvcc):
+    """Disassemble the built library; raise unless the SSD backward's
+    states and grads kernels each have their two Hopper instantiations
+    (``*_wgmma_kernel``, N = 64 and 128) and each issues its products by
+    wgmma (HGMMA) and its tiles by TMA (UTMALDG).  Prints the counts."""
+    tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib_path], check=True,
+                          capture_output=True, text=True).stdout
+    counts = {op: tensor_core_counts(sass, (op,), tuple(SSD_BWD_WGMMA))
+              for op in ("HGMMA", "UTMALDG")}
+    for name, dims in SSD_BWD_WGMMA.items():
+        per = {op: sorted(n for f, n in c.items()
+                          if kernel_of(f) == name and "_wgmma_kernel" in f)
+               for op, c in counts.items()}
+        print(f"[build] {name} bf16 Hopper: HGMMA {per['HGMMA']}, UTMALDG "
+              f"{per['UTMALDG']} per instantiation", flush=True)
+        if (len(per["HGMMA"]) != len(dims)
+                or 0 in per["HGMMA"] + per["UTMALDG"]):
+            raise AssertionError(
+                f"{name}: expected {len(dims)} (N = "
+                f"{', '.join(map(str, dims))}) Hopper instantiations with "
+                f"wgmma products and TMA loads, got {per}")
 
 
 def scripts_module(name: str):
@@ -1681,9 +1716,12 @@ def ssd_bwd_phase(torch, dev):
         print(f"[kernels] ssd backward at {what}'s training shape "
               f"(BH={Bg}x{H} S={TRAIN_SEQ} P=64 N={N} chunk 128 bf16, model "
               f"layout): " + ", ".join(
-                  f"{n} {rec[n]['ms']:.4f} ms (device {rec[n]['device_ms']}, "
-                  f"bound {rec[n]['bound_ms']:.5f} by {rec[n]['bound_by']})"
-                  for n in SSD_BWD_KERNELS)
+                  f"{n} {rec[n]['ms']:.4f} ms (device {rec[n]['device_ms']}"
+                  f" in {rec[n]['kernel']}"
+                  + ("" if rec[n]["mma_device_ms"] is None else
+                     f", the mma.sync form {rec[n]['mma_device_ms']}")
+                  + f", bound {rec[n]['bound_ms']:.5f} by "
+                  f"{rec[n]['bound_by']})" for n in SSD_BWD_KERNELS)
               + f"; all three {rec['all_ms']:.4f} ms, bound of the backward "
               f"{rec['bound_ms']:.5f} ms by {rec['bound_by']} (the design's "
               f"float32 st, U, hprev and G traffic, outside the bounds: "
@@ -1706,8 +1744,10 @@ def ssd_bwd_phase(torch, dev):
 def ssd_bwd_times(torch, dev, rn, g, probes, Bg, H, S, P, N, Q, dtype):
     """The SSD backward at one shape, x, dA and dy as views of the model's
     layout: CUDA-event ms of each kernel, of the three chained and of the
-    plain backward; the profiler's device ms of each kernel beside the
-    forward kernel's in one session; each kernel's bound and the whole
+    plain backward; the profiler's device ms of each kernel in the form
+    the route table names beside, where that is the Hopper form, the
+    states and grads kernels' mma.sync forms (``kernel="mma"``) and the
+    forward kernel's, in one session; each kernel's bound and the whole
     backward's.  A bound counts only what the gradient needs: bytes, the
     gradient's inputs (x, dy, dA, B, C) that the kernel reads, each once,
     and its outputs (dx, dA, dB, dC, dh0) that the kernel writes, each
@@ -1731,11 +1771,23 @@ def ssd_bwd_times(torch, dev, rn, g, probes, Bg, H, S, P, N, Q, dtype):
            "ssd_scan_bwd_scan": lambda: ss.ssd_bwd_scan_cuda(st, U, aL),
            "ssd_scan_bwd_grads": lambda: ss.ssd_bwd_grads_cuda(
                x, dA, Bm, Cm, dy, hp, G, sc, H, Q)}
+    hopper = ss.ssd_bwd_kernel(P, N, Q, S, dtype) == "wgmma"
+    # the CUDA functions the profiler reads: the states and grads kernels'
+    # Hopper forms where they run, else the template's form
+    names = {n: n + ("_wgmma_kernel" if hopper and n != "ssd_scan_bwd_scan"
+                     else "_kernel") for n in fns}
+    # beside the Hopper forms, the mma.sync forms they replace
+    mma = {} if not hopper else {
+        "ssd_scan_bwd_states": lambda: ss.ssd_bwd_states_cuda(
+            x, dA, Bm, Cm, dy, H, Q, kernel="mma"),
+        "ssd_scan_bwd_grads": lambda: ss.ssd_bwd_grads_cuda(
+            x, dA, Bm, Cm, dy, hp, G, sc, H, Q, kernel="mma")}
     fwd_kernel = f"ssd_scan_{ss.ssd_kernel(P, N, Q, S, dtype)}_kernel"
     out = {n: {"ms": cuda_ms(torch, f, iters=20, warmup=3)}
            for n, f in fns.items()}
     device = probes.profile_device_ms(
-        {**{n: (f, n + "_kernel") for n, f in fns.items()},
+        {**{n: (f, names[n]) for n, f in fns.items()},
+         **{n + " (mma)": (f, n + "_kernel") for n, f in mma.items()},
          "forward": (lambda: ss.ssd_cuda(x, dA, Bm, Cm, H, Q), fwd_kernel)},
         iters=10)
     isz = x.element_size()
@@ -1753,8 +1805,9 @@ def ssd_bwd_times(torch, dev, rn, g, probes, Bg, H, S, P, N, Q, dtype):
               "ssd_scan_bwd_scan": bound(dh0, scan_ops),
               "ssd_scan_bwd_grads": bound(ins + outs, grads_ops, rate)}
     for n in fns:
-        out[n].update(device_ms=device[n], bound_ms=bounds[n][0],
-                      bound_by=bounds[n][1])
+        out[n].update(device_ms=device[n], kernel=names[n],
+                      mma_device_ms=device.get(n + " (mma)"),
+                      bound_ms=bounds[n][0], bound_by=bounds[n][1])
     whole = bound(ins + outs + dh0, states_ops + grads_ops + scan_ops,
                   rate)
     out.update(all_ms=cuda_ms(torch, lambda: ss.ssd_bwd_cuda(
@@ -4310,6 +4363,7 @@ def main(argv=None) -> int:
             print(f"[build] {line.strip()}", flush=True)
     tensor_core_check(build_info["path"], nvcc_path())
     ssd_bwd_tensor_core_check(build_info["path"], nvcc_path())
+    ssd_bwd_wgmma_check(build_info["path"], nvcc_path())
 
     import numpy as np
     records, tables = kernel_phase(torch, dev, cfg.nodes * cfg.kpn, cfg.V,

@@ -1,7 +1,8 @@
 // Hopper-only helpers (sm_90a) for the kernels that feed the tensor cores
-// by TMA and wgmma: mbarriers, clusters, TMA tile loads and stores and the
-// host's tensor-map encoder, wgmma descriptors and products, register
-// reallocation between warp groups, named barriers.
+// by TMA and wgmma: mbarriers, clusters, TMA tile loads and stores, bulk
+// copies, the host's tensor-map encoder and its rank-4 maps over strided
+// (inner, head, position, group) views, wgmma descriptors and products,
+// register reallocation between warp groups, named barriers.
 //
 // Shared-memory tiles are 64-column boxes of bf16 (128-byte rows) laid out
 // by TMA with the 128-byte swizzle, each box 1024-byte aligned; wgmma reads
@@ -27,6 +28,7 @@
 #include <stdint.h>
 
 #include <atomic>
+#include <climits>
 
 __device__ __forceinline__ uint32_t sm90_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -152,7 +154,29 @@ __device__ __forceinline__ void mbar_arrive_cluster(uint32_t addr) {
       : "memory");
 }
 
+// 16 bytes of another block's shared memory (its shared::cluster
+// address).
+__device__ __forceinline__ float4 ld_cluster_v4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
 // ------------------------------------------------------------------ TMA
+// `bytes` contiguous bytes (a multiple of 16, both addresses 16-byte
+// aligned) from device to shared memory; they complete on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(sm90_addr(dst)),
+      "l"(src), "r"(bytes), "r"(sm90_addr(bar))
+      : "memory");
+}
+
 // One box of a rank-4 tensor map at (c0, c1, c2, c3), innermost first,
 // into shared memory; its bytes complete on `bar`.
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
@@ -189,6 +213,32 @@ __device__ __forceinline__ void tma_store_wait_read() {
 // proxy) before a store reads them.
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Slot k of a tensor map made by sw_map holds semantic dimension
+// (order >> 2 k) & 3 of (inner, head, position, group).
+__device__ __forceinline__ int sw_coord(int order, int k, int c0, int c1,
+                                        int c2, int c3) {
+  const int d = (order >> (2 * k)) & 3;
+  return d == 0 ? c0 : d == 1 ? c1 : d == 2 ? c2 : c3;
+}
+
+// A box at semantic coordinates (inner, head, position, group).
+__device__ __forceinline__ void sw_load(void* dst, const CUtensorMap* m,
+                                        uint64_t* bar, int order, int c0,
+                                        int c1, int c2, int c3) {
+  tma_load_4d(dst, m, bar, sw_coord(order, 0, c0, c1, c2, c3),
+              sw_coord(order, 1, c0, c1, c2, c3),
+              sw_coord(order, 2, c0, c1, c2, c3),
+              sw_coord(order, 3, c0, c1, c2, c3));
+}
+__device__ __forceinline__ void sw_store(const CUtensorMap* m,
+                                         const void* src, int order, int c0,
+                                         int c1, int c2, int c3) {
+  tma_store_4d(m, src, sw_coord(order, 0, c0, c1, c2, c3),
+               sw_coord(order, 1, c0, c1, c2, c3),
+               sw_coord(order, 2, c0, c1, c2, c3),
+               sw_coord(order, 3, c0, c1, c2, c3));
 }
 
 // ---------------------------------------------------------------- wgmma
@@ -230,6 +280,22 @@ __device__ __forceinline__ void wg_hold(uint32_t (&a)[N]) {
   "+f"(d[(b) + 0]), "+f"(d[(b) + 1]), "+f"(d[(b) + 2]), "+f"(d[(b) + 3]), \
       "+f"(d[(b) + 4]), "+f"(d[(b) + 5]), "+f"(d[(b) + 6]), "+f"(d[(b) + 7])
 
+// d[64 x 32] (= or +=) A B^T over 16 columns: A and B both K-major from
+// shared memory; accumulate unless `zero`.
+__device__ __forceinline__ void wgmma_ss_64x32(float (&d)[16], uint64_t da,
+                                               uint64_t db, int zero) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.eq.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : WG_D8(0), WG_D8(8)
+      : "l"(da), "l"(db), "r"(zero));
+}
+
 // d[64 x 64] (= or +=) A B^T over 16 columns: A and B both K-major from
 // shared memory; accumulate unless `zero`.
 __device__ __forceinline__ void wgmma_ss_64x64(float (&d)[32], uint64_t da,
@@ -266,11 +332,13 @@ __device__ __forceinline__ void wgmma_ss_64x128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(zero));
 }
 
-// d[64 x N] (= or +=) A B^T, N = 64 or 128.
+// d[64 x N] (= or +=) A B^T, N = 32, 64 or 128.
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
                                          uint64_t db, int zero) {
-  if constexpr (N == 64)
+  if constexpr (N == 32)
+    wgmma_ss_64x32(d, da, db, zero);
+  else if constexpr (N == 64)
     wgmma_ss_64x64(d, da, db, zero);
   else
     wgmma_ss_64x128(d, da, db, zero);
@@ -410,4 +478,46 @@ static tma_encode_fn tma_encoder() {
                : (tma_encode_fn)nullptr;
   }();
   return fn;
+}
+
+// ------------------------------------- tensors as rank-4 maps (host)
+// A bf16 tensor of semantic dimensions (inner, head, position, group),
+// the inner one dense, as a rank-4 TMA map: its dimensions ordered by
+// stride (those of size 1 last, at a stride past the tensor), boxes of 64
+// inner x `rows` positions, 128-byte swizzle, zeros past the extents.
+// *order gets the slots' semantic dimensions (slot k holds dimension
+// (order >> 2 k) & 3, as sw_coord reads it).  Returns 0 or a cudaError.
+static int sw_map(CUtensorMap* m, const void* p, const long long (&dim)[4],
+                  const long long (&stride)[4], int rows, int* order) {
+  const tma_encode_fn enc = tma_encoder();
+  if (!enc) return (int)cudaErrorNotSupported;
+  auto key = [&](int d) { return dim[d] == 1 ? LLONG_MAX : stride[d]; };
+  int slot[4] = {0, 1, 2, 3};
+  for (int a = 2; a < 4; ++a)   // insertion sort of slots 1..3 by key
+    for (int b = a; b > 1 && key(slot[b]) < key(slot[b - 1]); --b) {
+      const int tmp = slot[b];
+      slot[b] = slot[b - 1];
+      slot[b - 1] = tmp;
+    }
+  long long top = dim[0];
+  for (int d = 1; d < 4; ++d)
+    if (dim[d] > 1 && stride[d] * dim[d] > top) top = stride[d] * dim[d];
+  cuuint64_t dims[4], strides[3];
+  cuuint32_t box[4];
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  *order = 0;
+  for (int k = 0; k < 4; ++k) {
+    const int d = slot[k];
+    dims[k] = (cuuint64_t)dim[d];
+    box[k] = d == 0 ? 64 : d == 2 ? (cuuint32_t)rows : 1;
+    *order |= d << (2 * k);
+    if (k > 0) strides[k - 1] = (cuuint64_t)(dim[d] == 1 ? top : stride[d]) * 2;
+  }
+  const CUresult r = enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                         const_cast<void*>(p), dims, strides, box, unit,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }

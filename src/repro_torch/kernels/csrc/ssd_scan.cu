@@ -718,35 +718,11 @@ static constexpr int sw_smem_bytes(int NT) {
                  : SW_BOX * (1 + 4 + 2) + SW_Q * 4 + 4 * 4 + (1 + SW_SCAN) * 8;
 }
 
-// Slot k of a tensor map holds semantic dimension (order >> 2 k) & 3 of
-// (inner, head, position, group).
+// The slots' semantic dimensions of the maps of x, B and C, and y
+// (sw_map, sm90.cuh).
 struct SwOrders {
   int x, bc, y;
 };
-
-__device__ __forceinline__ int sw_coord(int order, int k, int c0, int c1,
-                                        int c2, int c3) {
-  const int d = (order >> (2 * k)) & 3;
-  return d == 0 ? c0 : d == 1 ? c1 : d == 2 ? c2 : c3;
-}
-
-// A box at semantic coordinates (inner, head, position, group).
-__device__ __forceinline__ void sw_load(void* dst, const CUtensorMap* m,
-                                        uint64_t* bar, int order, int c0,
-                                        int c1, int c2, int c3) {
-  tma_load_4d(dst, m, bar, sw_coord(order, 0, c0, c1, c2, c3),
-              sw_coord(order, 1, c0, c1, c2, c3),
-              sw_coord(order, 2, c0, c1, c2, c3),
-              sw_coord(order, 3, c0, c1, c2, c3));
-}
-__device__ __forceinline__ void sw_store(const CUtensorMap* m,
-                                         const void* src, int order, int c0,
-                                         int c1, int c2, int c3) {
-  tma_store_4d(m, src, sw_coord(order, 0, c0, c1, c2, c3),
-               sw_coord(order, 1, c0, c1, c2, c3),
-               sw_coord(order, 2, c0, c1, c2, c3),
-               sw_coord(order, 3, c0, c1, c2, c3));
-}
 
 // Descriptor of k-step kk (16 columns) of a K-major tile of 128-row
 // boxes (64 rows of it from t on), and of rows 16 kk of an MN-major tile.
@@ -1333,48 +1309,6 @@ static int ssd_mma_dispatch_n(const void* x, const void* dA, const void* Bm,
     default: return (int)cudaErrorInvalidValue;
   }
 }
-
-// A bf16 tensor of semantic dimensions (inner, head, position, group),
-// the inner one dense, as a rank-4 TMA map: its dimensions ordered by
-// stride (those of size 1 last, at a stride past the tensor), boxes of 64
-// inner x `rows` positions, 128-byte swizzle, zeros past the extents.
-// *order gets the slots' semantic dimensions (SwOrders).  Returns 0 or a
-// cudaError.
-static int sw_map(CUtensorMap* m, const void* p, const long long (&dim)[4],
-                  const long long (&stride)[4], int rows, int* order) {
-  const tma_encode_fn enc = tma_encoder();
-  if (!enc) return (int)cudaErrorNotSupported;
-  auto key = [&](int d) { return dim[d] == 1 ? LLONG_MAX : stride[d]; };
-  int slot[4] = {0, 1, 2, 3};
-  for (int a = 2; a < 4; ++a)   // insertion sort of slots 1..3 by key
-    for (int b = a; b > 1 && key(slot[b]) < key(slot[b - 1]); --b) {
-      const int tmp = slot[b];
-      slot[b] = slot[b - 1];
-      slot[b - 1] = tmp;
-    }
-  long long top = dim[0];
-  for (int d = 1; d < 4; ++d)
-    if (dim[d] > 1 && stride[d] * dim[d] > top) top = stride[d] * dim[d];
-  cuuint64_t dims[4], strides[3];
-  cuuint32_t box[4];
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  *order = 0;
-  for (int k = 0; k < 4; ++k) {
-    const int d = slot[k];
-    dims[k] = (cuuint64_t)dim[d];
-    box[k] = d == 0 ? 64 : d == 2 ? (cuuint32_t)rows : 1;
-    *order |= d << (2 * k);
-    if (k > 0) strides[k - 1] = (cuuint64_t)(dim[d] == 1 ? top : stride[d]) * 2;
-  }
-  const CUresult r = enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                         const_cast<void*>(p), dims, strides, box, unit,
-                         CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B,
-                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
-
 
 template <int NT>
 static int ssd_wgmma_launch(const void* x, const void* dA, const void* Bm,

@@ -36,7 +36,16 @@
 //   head's float32 rows, and the block of a (group, chunk) that finishes
 //   last (an integer counter) adds the H heads' rows in a fixed order (four
 //   running sums over the heads k mod 4, then their sum), so two calls give
-//   the same bits: no float atomics anywhere.
+//   the same bits: no float atomics anywhere.  (The Hopper form sums them
+//   on chip; see its section at the end.)
+//
+// Three forms of the states and grads kernels, chosen in the open by the
+// wrapper's table (kernels/ssd_scan.py ssd_bwd_kernel; no fallback): bf16
+// at P = 64 with N = 64 or 128 in chunks of 128 rows the Hopper kernels
+// (ssd_scan_bwd_states_wgmma_kernel, ssd_scan_bwd_grads_wgmma_kernel: the
+// last section of this file), the other bf16 shapes the mma.sync form,
+// float32 the FMA form, both one template (below).  The scan kernel has
+// one form.
 //
 // What bounds it on the H100: bytes.  At zamba2-2.7b's training shape
 // (B = 4, S = 1,024, H = 80, P = N = 64, chunks of 128, bf16) the gradient
@@ -45,8 +54,8 @@
 // diagonal and five state products) are about 27 GFLOP, 27 us at the
 // 989 TFLOP/s bf16 tensor rate, 400 us on the fp32 FMA units.
 //
-// What the design does about it: this is the first, simple form, right
-// before fast.  The products run on the tensor cores (mma.sync m16n8k16,
+// What the design of the template does about it: it is the first,
+// simple form, right before fast.  The products run on the tensor cores (mma.sync m16n8k16,
 // bf16 operands by ldmatrix from swizzled shared tiles, fp32 sums); every
 // operand that is not a bf16 input (W and S L, fed back from the
 // accumulators, and the float32 states h and G, staged once a block as
@@ -59,8 +68,9 @@
 // dB, the column sums of R).  The design's own float32 traffic (st and U
 // written, read and rewritten by the scan, read again; each head's dB and
 // dC rows written and read back for the head sum) is about 0.7 GB at that
-// shape, some 0.2 ms: the price of the simple form, for a Hopper redesign
-// to remove.  The float32 form (float tiles, each product by fmaf in the
+// shape, some 0.2 ms: the price of the simple form.  The Hopper grads
+// kernel keeps the head sum on chip; st, U, hprev and G stay float32
+// arrays between the kernels.  The float32 form (float tiles, each product by fmaf in the
 // same fragment layout, a register operand passed through a 16 x 17 tile
 // of the warp's, h and G read from device memory: no room for them in
 // shared memory at N = 128) keeps full fp32 products, which the float32
@@ -68,10 +78,19 @@
 #include <cuda_runtime.h>
 
 #include "mma.cuh"
-#include "sm90.cuh"   // smem_attribute_once
+#include "sm90.cuh"
 
 #define SB_THREADS 256
 #define SB_WARPS 8
+
+// SB_CUT is 0 in the port.  Only timing builds set it (by -D, in
+// scripts/ssd_bwd_ab.py --cut): bit 1 drops the mma.sync grads kernel's
+// head sum of dB and dC (the counter and the last block's reads), bit 2
+// its writes of each head's rows to `part`; what they save is the time
+// the head sum through device memory costs.
+#ifndef SB_CUT
+#define SB_CUT 0
+#endif
 #define SB_MAXQ 128      // rows of a chunk, at most: a 16-row tile a warp
 #define SB_SCRATCH 272   // floats of a warp's 16 x 17 operand tile
 
@@ -735,6 +754,7 @@ __global__ void __launch_bounds__(SB_THREADS, NT <= 4 ? 2 : 1)
     for (int r = 0; r < 2; ++r) {
       const int row = r0 + g + 8 * r;
       if (row >= qv) continue;
+      if (SB_CUT & 2) continue;
 #pragma unroll
       for (int nb = 0; nb < NT; ++nb)
 #pragma unroll
@@ -843,6 +863,7 @@ __global__ void __launch_bounds__(SB_THREADS, NT <= 4 ? 2 : 1)
         for (int j = 0; j < 2; ++j)
           sb_put2(dxb + (c0 + row) * sd.dx[2] + 16 * pb + 8 * j + 2 * t,
                   ax[pb][j][2 * r], ax[pb][j][2 * r + 1]);
+      if (SB_CUT & 2) continue;
 #pragma unroll
       for (int nb = 0; nb < NT; ++nb)
 #pragma unroll
@@ -899,6 +920,7 @@ __global__ void __launch_bounds__(SB_THREADS, NT <= 4 ? 2 : 1)
 
   // ---- dB, dC: the last of the group's H blocks of this chunk to finish
   // adds their rows, in head order ----
+  if (SB_CUT & 1) return;
   __threadfence();
   __syncthreads();
   if (tid == 0) sb_last = atomicAdd(count + bg * nc + c, 1) == H - 1;
@@ -928,6 +950,841 @@ __global__ void __launch_bounds__(SB_THREADS, NT <= 4 ? 2 : 1)
     sb_put(dbo + i, (sb[0] + sb[1]) + (sb[2] + sb[3]));
     sb_put(dco + i, (sc4[0] + sc4[1]) + (sc4[2] + sc4[3]));
   }
+}
+
+// ======================================= bf16 on Hopper (P = 64, N = 64, 128)
+// ssd_scan_bwd_states_wgmma_kernel and ssd_scan_bwd_grads_wgmma_kernel:
+// the functions of the mma.sync forms above (the same strides, ragged
+// tail, outputs; st, U, hprev, G and sc float32 between the kernels) at
+// the shapes of the full configs, P = 64 with N = 64 (zamba2-2.7b) and
+// N = 128 (mamba2-130m), in chunks of SBW_Q = 128 rows (a single chunk of
+// S < 128 rows is the same chunk with zero rows after S: padded rows add
+// dA = 0, so a_L is the last real row's).  kernels/ssd_scan.py
+// ssd_bwd_kernel is the route table.
+//
+// What held the mma.sync grads kernel to 8% of its bound: the head sum of
+// dB and dC through device memory (each head's float32 rows written to
+// `part` and read back by the last block of a (group, chunk): 335 MB at
+// zamba2's shape, 2.6x the kernel's bound), every product on mma.sync
+// with the register operands twice (hi + lo), the two score tiles
+// recomputed transposed for the column walk, and 225 registers at
+// N = 128 (one block of 8 warps an SM, each warp walking the triangle
+// alone).
+//
+// What the design does about it:
+// * The grads kernel takes a (group, chunk) as a thread block cluster of
+//   csz blocks (sbw_cluster_size: of 1 .. min(H, 8), the size with the
+//   fewest heads a block times waves of clusters that fit on the card at
+//   once; 30 clusters of 4 fit on the H100 measured, not the 32 of
+//   zamba2's and mamba2-130m's shapes); block r walks the heads
+//   [r H / csz, (r + 1) H / csz) in order (slices differ by at most one
+//   head, none is empty).  dB and dC are summed on chip: each block adds
+//   its heads' rows into float32 accumulators held in registers across
+//   its heads (the wgmma accumulators of the products W B and W^T C, and
+//   the state terms added to them), in head order; then every block
+//   writes its sums to its shared memory, the cluster syncs, and block r
+//   adds the csz blocks' rows [128 r / csz, 128 (r + 1) / csz) through
+//   distributed shared memory in rank order (0, 1, ..., csz - 1) and
+//   writes them in bf16.  No float atomics, no `part`: two calls give the
+//   same bits.  One block an SM (the accumulators and shared memory
+//   below allow one).
+// * Every product is a wgmma on tiles that TMA brings: x, dy (the next
+//   head's into a second buffer while this head computes; the model's
+//   strided views as rank-4 maps, sw_map), B and C once a block; hprev and
+//   G ([N, 64] float32, contiguous) by a bulk copy, split in place into
+//   bf16 hi + lo tiles.  Operands fed back from accumulators (W, W^T,
+//   (S .* L)^T) enter the RS form as bf16 hi + lo, and hprev and G as hi
+//   + lo tiles: each such product runs twice, keeping about 16 bits of
+//   mantissa (one bf16 rounding left dq 1.32x beyond its limit in the
+//   attention backward).
+// * No accumulator is transposed: the column walk computes its own
+//   products, W^T = (x dy^T) .* L^T and S^T = B C^T, so dx += (S .* L)^T dy
+//   and dB += W^T C take their A operand straight from the accumulator.
+//   C B^T is recomputed per head and per walk (a wgmma from shared tiles):
+//   keeping it across a block's heads would take 96 KB of shared memory
+//   or 96 registers a thread, neither of which is left.
+// * 256 threads, two warp groups; group g owns rows 64 g .. 64 g + 63 of
+//   the chunk as the rows i of the row walk (dC, the row sums of R) and as
+//   the columns j of the column walk (dx, dB, the column sums of R): the
+//   triangle's blocks split 1 + 2 and 2 + 1, three each.  The blocks of
+//   the walks are sbw_bw(NT) columns wide (64 at N = 64, 32 at N = 128,
+//   where the persistent dB and dC take 128 registers a thread).
+// * The walks' element loop (mask, decay, R's sums) was the kernel's
+//   largest cost (timing builds, -DSBW_CUT): L_ij = 2^(a2_i - a2_j) with
+//   a2 = a log2(e) from the cumsum, one ex2.approx an element, a's values
+//   by float2 loads, and the select of the mask (j <= i) only in blocks
+//   that reach the diagonal.  No factored exponential: the exponent is
+//   non-positive wherever the mask keeps it.  dA is each head's reverse
+//   cumsum of da by one warp in a fixed order, as above.
+//
+// The states kernel is sw_state of ssd_scan.cu twice: st = (w .* B)^T x
+// and U = (e^a .* C)^T dy, the weighted operand read transposed by
+// ldmatrix and split into hi + lo, x and dy MN-major from TMA tiles; st
+// and U leave by 16-byte stores (neighbouring lanes swap halves), a_L
+// beside them.  A block a (batch*head, chunk), two blocks an SM.
+#define SBW_Q 128                  // rows of a chunk
+#define SBW_THREADS 256            // two warp groups
+#define SBW_BOX (SBW_Q * 128)      // bytes of a 128-row box of 64 bf16
+#define SBW_CLUSTER 8              // blocks of a grads cluster, at most
+#define SBW_LOG2E 1.4426950408889634f
+
+// SBW_CLOCKS is 0 in the port.  Timing builds set it (by -D, in
+// scripts/ssd_bwd_ab.py --clocks): then the first block of the grads
+// kernel's grid records clock64() at SBW_MARKS points of each head, for
+// each warp group (sbw_clock[group][head][mark], the first SBW_HEADS
+// heads), read back by sbw_clocks_read.
+#ifndef SBW_CLOCKS
+#define SBW_CLOCKS 0
+#endif
+// SBW_CUT is 0 in the port.  Timing builds set it (scripts/ssd_bwd_ab.py
+// --cut): bit 1 drops the walks' mask and decay (and R's sums), bit 2
+// their fed-back products (dx += (S .* L)^T dy, dB += W^T C, dC += W B;
+// the hi + lo splits stay), bit 4 their score products (S, W and the
+// transposes).  Their outputs are wrong by design.
+#ifndef SBW_CUT
+#define SBW_CUT 0
+#endif
+#define SBW_MARKS 8
+#define SBW_HEADS 24
+#if SBW_CLOCKS
+__device__ long long sbw_clock[2][SBW_HEADS][SBW_MARKS];
+#define SBW_MARK(k, m)                                                 \
+  if (blockIdx.x == 0 && blockIdx.y == 0 && tid == 0 && (k) < SBW_HEADS) \
+  sbw_clock[wg][k][m] = clock64()
+#else
+#define SBW_MARK(k, m)
+#endif
+
+// The slots' semantic dimensions of the maps (sw_map, sm90.cuh).
+struct SbwOrders {
+  int x, dy, dx, bc;
+};
+
+// Descriptor of k-step kk (16 columns) of a K-major tile of 128-row boxes
+// of 64 columns (or one [N][64] tile), rows r0 .. of it; and of rows
+// 16 kk of an MN-major box.
+__device__ __forceinline__ uint64_t sbw_k(const unsigned char* t, int r0,
+                                          int kk) {
+  return wg_desc(t + (kk >> 2) * SBW_BOX + r0 * 128 + (kk & 3) * 32, 16,
+                 1024);
+}
+__device__ __forceinline__ uint64_t sbw_mn(const unsigned char* t, int kk) {
+  return wg_desc(t + kk * 2048, SBW_BOX, 1024);
+}
+
+// Elements (row, n), (row, n + 1) of a swizzled tile of 64-column boxes
+// (n even), as floats.
+__device__ __forceinline__ float2 sbw_pair(const unsigned char* t, int row,
+                                           int n) {
+  const uint32_t v = *reinterpret_cast<const uint32_t*>(
+      t + (n >> 6) * SBW_BOX + row * 128 +
+      ((((n & 63) >> 3) ^ (row & 7)) << 4) + (n & 7) * 2);
+  return make_float2(bf16_lo(v), bf16_hi(v));
+}
+
+// a = cumsum(dA) over the chunk's 128 rows by warp group 0, thread tid
+// holding row tid (v: its dA, zero past S), in a fixed order (warp scans,
+// then the four warps' sums in order); writes a2 = a log2(e), ea = exp(a)
+// and wq = exp(a_L - a), and returns a_L = a[127] (to the bit: the same
+// three additions).  The caller syncs before others read.
+__device__ __forceinline__ float sbw_cumsum(float v, float* a2, float* ea,
+                                            float* wq, float* wsum,
+                                            int tid) {
+  const int warp = tid >> 5, lane = tid & 31;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float u = __shfl_up_sync(0xffffffffu, v, off);
+    if (lane >= off) v += u;
+  }
+  if (lane == 31) wsum[warp] = v;
+  named_sync(1, 128);
+  float pre = 0.f, total = 0.f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float w = wsum[k];
+    if (k < warp) pre += w;
+    total += w;
+  }
+  v += pre;
+  a2[tid] = v * SBW_LOG2E;
+  ea[tid] = expf(v);
+  wq[tid] = expf(total - v);
+  return total;
+}
+
+// 2^x (ex2.approx: relative error 2^-22; +inf for large x, which the
+// callers' masks then drop)
+__device__ __forceinline__ float sbw_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// acc[64 x 64] = (w .* Bk)^T X over the chunk's 128 rows, for the 64
+// columns of the box bt (state rows): A from registers (the box read
+// transposed by ldmatrix, scaled by w, split into bf16 hi + lo), X
+// MN-major.  sw_state of ssd_scan.cu, its weights from an array.
+__device__ __forceinline__ void sbw_state(float (&acc)[32],
+                                          const unsigned char* bt,
+                                          const unsigned char* xs,
+                                          const float* w, int tid) {
+  const int warp = tid >> 5, lane = tid & 31, t4 = lane & 3;
+  uint32_t hi[32], lo[32];
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const int q = 16 * kk + (lane & 7) + 8 * (lane >> 4);
+    const int ch = 2 * warp + ((lane >> 3) & 1);
+    uint32_t r[4];
+    ldsm_x4_t(r, bt + q * 128 + ((ch ^ (q & 7)) << 4));
+    const int qq = 16 * kk + 2 * t4;
+    const float w0 = w[qq], w1 = w[qq + 1], w8 = w[qq + 8], w9 = w[qq + 9];
+    split_bf16(bf16_lo(r[0]) * w0, bf16_hi(r[0]) * w1, hi[4 * kk], lo[4 * kk]);
+    split_bf16(bf16_lo(r[1]) * w0, bf16_hi(r[1]) * w1, hi[4 * kk + 1],
+               lo[4 * kk + 1]);
+    split_bf16(bf16_lo(r[2]) * w8, bf16_hi(r[2]) * w9, hi[4 * kk + 2],
+               lo[4 * kk + 2]);
+    split_bf16(bf16_lo(r[3]) * w8, bf16_hi(r[3]) * w9, hi[4 * kk + 3],
+               lo[4 * kk + 3]);
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const uint64_t d = sbw_mn(xs, kk);
+    wgmma_rs_64x64(acc, hi + 4 * kk, d);
+    wgmma_rs_64x64(acc, lo + 4 * kk, d);
+  }
+  wg_commit();
+  wg_wait<0>();
+  wg_hold(acc);
+  wg_hold(hi);
+  wg_hold(lo);
+}
+
+// A [64 x 64] float32 accumulator of a warp group into rows 0..63 of
+// `out` (64 floats a row) by 16-byte stores: lanes t and t ^ 1 swap
+// halves, so each lane holds four neighbouring columns.
+__device__ __forceinline__ void sbw_store_rows(const float (&acc)[32],
+                                               float* out, int tid) {
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const bool odd = t4 & 1;
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float* e0 = acc + 8 * m + 2 * r;       // columns 16 m + 2 t
+      const float* e1 = acc + 8 * m + 4 + 2 * r;   // 16 m + 8 + 2 t
+      const float q0 = __shfl_xor_sync(0xffffffffu, odd ? e0[0] : e1[0], 1);
+      const float q1 = __shfl_xor_sync(0xffffffffu, odd ? e0[1] : e1[1], 1);
+      const float4 v = odd ? make_float4(q0, q1, e1[0], e1[1])
+                           : make_float4(e0[0], e0[1], q0, q1);
+      const int row = 16 * warp + g + 8 * r;
+      const int col = 16 * m + 2 * t4 + (odd ? 6 : 0);
+      *reinterpret_cast<float4*>(out + row * 64 + col) = v;
+    }
+}
+
+// Shared memory of the states kernel: x, dy, B, C; a, ea, wq; the warp
+// sums; one mbarrier.  67,096 bytes at N = 64, 99,864 at N = 128.
+static constexpr int sbw_states_smem(int NT) {
+  return SBW_BOX * (2 + 2 * NT) + 4 * (3 * SBW_Q + 4) + 8;
+}
+
+// x, dy: [G, H, S, 64] bf16 and B, C: [G, S, N] bf16 as tensor maps
+// (boxes of 128 rows); dA: (g, h, s) at the element strides as*.  Writes
+// st, U [BH, nc, N, 64] and aL [BH, nc], float32.  grid (nc, BH),
+// SBW_THREADS threads.  N = 64: group 0 takes st, group 1 U; N = 128:
+// group g takes rows 64 g .. of both.
+template <int NT>
+__global__ void __launch_bounds__(SBW_THREADS, 2)
+    ssd_scan_bwd_states_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
+                                     const __grid_constant__ CUtensorMap tm_dy,
+                                     const __grid_constant__ CUtensorMap tm_b,
+                                     const __grid_constant__ CUtensorMap tm_c,
+                                     SbwOrders ord, const float* __restrict__ dA,
+                                     long long as0, long long as1,
+                                     long long as2, float* __restrict__ st,
+                                     float* __restrict__ U,
+                                     float* __restrict__ aL, int S, int H) {
+  constexpr int N = 64 * NT;
+  extern __shared__ __align__(1024) unsigned char sbw_smem[];
+  unsigned char* xs = sbw_smem;   // 1024-aligned: the swizzle's period
+  if (sm90_addr(xs) & 1023) __trap();
+  unsigned char* ds = xs + SBW_BOX;
+  unsigned char* bs = ds + SBW_BOX;            // [NT][SBW_BOX]
+  unsigned char* cs = bs + NT * SBW_BOX;       // [NT][SBW_BOX]
+  float* a2 = reinterpret_cast<float*>(cs + NT * SBW_BOX);   // unread here
+  float* ea = a2 + SBW_Q;
+  float* wq = ea + SBW_Q;
+  float* wsum = wq + SBW_Q;
+  uint64_t* full = reinterpret_cast<uint64_t*>(wsum + 4);
+  const int c = blockIdx.x, nc = gridDim.x, bh = blockIdx.y;
+  const int bg = bh / H, hh = bh - bg * H, s0 = c * SBW_Q;
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x >> 7, 0);
+  const int tid = threadIdx.x & 127;
+  if (threadIdx.x == 0) {
+    mbar_init(full, 1);
+    mbar_init_fence();
+    mbar_expect_tx(full, (2 + 2 * NT) * SBW_BOX);
+    sw_load(xs, &tm_x, full, ord.x, 0, hh, s0, bg);
+    sw_load(ds, &tm_dy, full, ord.dy, 0, hh, s0, bg);
+    for (int b = 0; b < NT; ++b) {
+      sw_load(bs + b * SBW_BOX, &tm_b, full, ord.bc, 64 * b, 0, s0, bg);
+      sw_load(cs + b * SBW_BOX, &tm_c, full, ord.bc, 64 * b, 0, s0, bg);
+    }
+  }
+  float aLv = 0.f;   // group 0: the chunk's a_L
+  if (wg == 0)
+    aLv = sbw_cumsum(
+        s0 + tid < S ? dA[bg * as0 + hh * as1 + (s0 + tid) * as2] : 0.f, a2,
+        ea, wq, wsum, tid);
+  __syncthreads();   // a, ea, wq; the barrier initialized
+  mbar_wait(full, 0);
+  const long long mo = ((long long)bh * nc + c) * N * 64;
+#pragma unroll
+  for (int k = 0; k < NT; ++k) {
+    const int which = NT == 1 ? wg : k;   // 0: st, 1: U
+    const int u = NT == 1 ? 0 : wg;       // the state's rows 64 u ..
+    float acc[32];
+    sbw_state(acc, (which ? cs : bs) + u * SBW_BOX, which ? ds : xs,
+              which ? ea : wq, tid);
+    sbw_store_rows(acc, (which ? U : st) + mo + u * 64 * 64, tid);
+  }
+  if (threadIdx.x == 0) aL[(long long)bh * nc + c] = aLv;
+}
+
+// Columns of a walk's blocks: 64 at N = 64; 32 at N = 128, where dB and dC
+// stay in registers across the heads (128 a thread).
+__host__ __device__ constexpr int sbw_bw(int NT) { return NT == 1 ? 64 : 32; }
+
+// A float32 [N][64] state (a bulk copy) rewritten in place as its bf16 hi
+// tile [N][64] then its lo tile (128-byte swizzle, rows n): hi + lo keeps
+// about 16 bits of each value.  Every thread of the block; syncs it
+// between the reads and the writes.
+template <int NT>
+__device__ __forceinline__ void sbw_split_state(unsigned char* s) {
+  constexpr int PER = 64 * NT * 64 / 4 / SBW_THREADS;   // float4 a thread
+  float4 v[PER];
+  const float4* f = reinterpret_cast<const float4*>(s);
+#pragma unroll
+  for (int i = 0; i < PER; ++i) v[i] = f[threadIdx.x + i * SBW_THREADS];
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int e = 4 * (threadIdx.x + i * SBW_THREADS);
+    const int n = e >> 6, p = e & 63;
+    const int off = n * 128 + (((p >> 3) ^ (n & 7)) << 4) + (p & 7) * 2;
+    uint32_t h0, l0, h1, l1;
+    split_bf16(v[i].x, v[i].y, h0, l0);
+    split_bf16(v[i].z, v[i].w, h1, l1);
+    *reinterpret_cast<uint2*>(s + off) = make_uint2(h0, h1);
+    *reinterpret_cast<uint2*>(s + 64 * NT * 128 + off) = make_uint2(l0, l1);
+  }
+}
+
+// da of one head from its row terms (rs: sum_j R_ij + C_i . dCst_i), its
+// column terms (cs: -sum_k R_kj) and sterm (B_j . dBst_j), then dA = the
+// reverse cumsum over the chunk, by one warp in a fixed order (as the
+// mma.sync kernel's): db at element stride ds, rows < qv written.
+__device__ __forceinline__ void sbw_da(const float* rs, const float* cs,
+                                       const float* sterm, float scv,
+                                       float* db, long long ds, int qv,
+                                       int lane) {
+  const int beg = 4 * lane;
+  float v[4], sl = 0.f;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    v[u] = rs[beg + u] + cs[beg + u] - sterm[beg + u];
+    sl += sterm[beg + u];
+  }
+#pragma unroll
+  for (int off = 16; off; off >>= 1)
+    sl += __shfl_xor_sync(0xffffffffu, sl, off);
+  if (lane == 31) v[3] += sl + scv;   // the chunk's last row
+  const float tot = (v[0] + v[1]) + (v[2] + v[3]);
+  float suf = tot;   // the sum of tot over lanes >= this one
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float dn = __shfl_down_sync(0xffffffffu, suf, off);
+    if (lane + off < 32) suf += dn;
+  }
+  float run = __shfl_down_sync(0xffffffffu, suf, 1);
+  if (lane == 31) run = 0.f;
+#pragma unroll
+  for (int u = 3; u >= 0; --u) {
+    run += v[u];
+    if (beg + u < qv) db[(beg + u) * ds] = run;
+  }
+}
+
+// Shared memory of the grads kernel: B, C; x and dy in two buffers; hprev
+// and G (float32, then their hi + lo tiles); dx's two 64-row tiles; a, ea,
+// wq; the three row terms in two buffers (by head parity); the warp sums;
+// four mbarriers.  152,112 bytes at N = 64, 217,648 at N = 128.  At the
+// end its start holds the block's dC and dB sums, [128][N + 8] float32.
+static constexpr int sbw_grads_smem(int NT) {
+  return SBW_BOX * (4 * NT + 5) + 4 * (9 * SBW_Q + 4) + 8 * 4;
+}
+
+// x, dy, dx: [G, H, S, 64] bf16 and B, C: [G, S, N] bf16 as tensor maps
+// (x, dy, B, C boxes of 128 rows, dx of 64); dA and dda: (g, h, s) at the
+// element strides as*, ds*; hprev, Gc [BH, nc, N, 64] and sc [BH, nc]
+// float32 (from the scan kernel).  Writes dx, dda, and dB, dC [G, S, N]
+// bf16 contiguous.  grid (csz, G nc) in clusters of csz <= min(H, 8)
+// blocks (sbw_cluster_size), SBW_THREADS threads; block r of cluster
+// (g, c) takes heads [r H / csz, (r + 1) H / csz) of group g in chunk c.
+//
+// A head, in order: (1) group 0 takes a's cumsum, every thread splits
+// hprev and G into hi + lo (the bulk copies issued during the head before)
+// and the block syncs; (2) the state products: group g's rows of
+// dCst = e^a .* (dy h^T) and dBst = w .* (x G^T), added to dC and dB with
+// C_i . dCst_i and B_j . dBst_j into the row terms, and dx = w .* (B G);
+// the block syncs and thread 0 starts the next head's states; (3) the
+// column walk (dx, dB, the column sums of R), dx out by a TMA store;
+// (4) the row walk (dC, the row sums of R); the block syncs, thread 0
+// starts the x and dy tiles of the head after next, and warp 7 turns the
+// head's row terms into its dA.
+template <int NT>
+__global__ void __launch_bounds__(SBW_THREADS, 1)
+    ssd_scan_bwd_grads_wgmma_kernel(
+        const __grid_constant__ CUtensorMap tm_x,
+        const __grid_constant__ CUtensorMap tm_dy,
+        const __grid_constant__ CUtensorMap tm_b,
+        const __grid_constant__ CUtensorMap tm_c,
+        const __grid_constant__ CUtensorMap tm_dx, SbwOrders ord,
+        const float* __restrict__ dA, long long as0, long long as1,
+        long long as2, const float* __restrict__ hprev,
+        const float* __restrict__ Gc, const float* __restrict__ sc,
+        float* __restrict__ dda, long long ds0, long long ds1, long long ds2,
+        bf16* __restrict__ dB, bf16* __restrict__ dC, int S, int H, int nc) {
+  constexpr int N = 64 * NT, BW = sbw_bw(NT), KB = BW / 16;
+  constexpr int SB = 64 * NT * 256;   // bytes of a float32 state
+  extern __shared__ __align__(1024) unsigned char sbw_smem[];
+  unsigned char* bt = sbw_smem;   // 1024-aligned: the swizzle's period
+  if (sm90_addr(bt) & 1023) __trap();
+  unsigned char* ct = bt + NT * SBW_BOX;       // [NT][SBW_BOX]
+  unsigned char* xt2 = ct + NT * SBW_BOX;      // [2][SBW_BOX]
+  unsigned char* dt2 = xt2 + 2 * SBW_BOX;      // [2][SBW_BOX]
+  unsigned char* sth = dt2 + 2 * SBW_BOX;      // hprev: float32, hi + lo
+  unsigned char* stg = sth + SB;               // G
+  unsigned char* dxs = stg + SB;               // [2][64 rows x 128 B]
+  float* a2 = reinterpret_cast<float*>(dxs + SBW_BOX);   // a log2(e)
+  float* ea = a2 + SBW_Q;
+  float* wq = ea + SBW_Q;
+  float* rsum = wq + SBW_Q;                    // [2][128]
+  float* csum = rsum + 2 * SBW_Q;              // [2][128]
+  float* sterm = csum + 2 * SBW_Q;             // [2][128]
+  float* wsum = sterm + 2 * SBW_Q;             // [4]
+  uint64_t* bc_full = reinterpret_cast<uint64_t*>(wsum + 4);
+  uint64_t* xd_full = bc_full + 1;             // [2]
+  uint64_t* st_full = bc_full + 3;
+
+  const int rank = blockIdx.x, csz = gridDim.x;
+  const int bg = blockIdx.y / nc, c = blockIdx.y - (blockIdx.y / nc) * nc;
+  const int s0 = c * SBW_Q, qv = min(SBW_Q, S - s0);
+  const int hb = rank * H / csz, nh = (rank + 1) * H / csz - hb;
+  // the warp group, uniform to the compiler
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x >> 7, 0);
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int r0 = 64 * wg;   // the group's rows of the chunk
+  auto state_at = [&](int h) {   // the (batch*head, chunk)'s state offset
+    return ((long long)(bg * H + h) * nc + c) * N * 64;
+  };
+  auto dA_at = [&](int h) {   // row tid's dA of head h (group 0)
+    return s0 + tid < S ? dA[bg * as0 + h * as1 + (s0 + tid) * as2] : 0.f;
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(bc_full, 1);
+    mbar_init(xd_full, 1);
+    mbar_init(xd_full + 1, 1);
+    mbar_init(st_full, 1);
+    mbar_init_fence();
+    if (nh > 0) {
+      mbar_expect_tx(bc_full, 2 * NT * SBW_BOX);
+      for (int b = 0; b < NT; ++b) {
+        sw_load(bt + b * SBW_BOX, &tm_b, bc_full, ord.bc, 64 * b, 0, s0, bg);
+        sw_load(ct + b * SBW_BOX, &tm_c, bc_full, ord.bc, 64 * b, 0, s0, bg);
+      }
+      for (int k = 0; k < 2 && k < nh; ++k) {
+        mbar_expect_tx(xd_full + k, 2 * SBW_BOX);
+        sw_load(xt2 + k * SBW_BOX, &tm_x, xd_full + k, ord.x, 0, hb + k, s0,
+                bg);
+        sw_load(dt2 + k * SBW_BOX, &tm_dy, xd_full + k, ord.dy, 0, hb + k, s0,
+                bg);
+      }
+      mbar_expect_tx(st_full, 2 * SB);
+      bulk_load(sth, hprev + state_at(hb), SB, st_full);
+      bulk_load(stg, Gc + state_at(hb), SB, st_full);
+    }
+  }
+  float dCa[NT][32], dBa[NT][32];   // the block's sums over its heads
+#pragma unroll
+  for (int u = 0; u < NT; ++u)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dCa[u][i] = dBa[u][i] = 0.f;
+  float dav = wg == 0 && nh > 0 ? dA_at(hb) : 0.f;
+  __syncthreads();   // the barriers initialized
+
+  for (int k = 0; k < nh; ++k) {
+    const int hh = hb + k, bh = bg * H + hh, buf = k & 1;
+    const unsigned char* xt = xt2 + buf * SBW_BOX;
+    const unsigned char* dt = dt2 + buf * SBW_BOX;
+    float* rs = rsum + buf * SBW_Q;
+    float* cs = csum + buf * SBW_Q;
+    float* stm = sterm + buf * SBW_Q;
+    // ---- (1) a's cumsum; hprev and G as hi + lo tiles
+    SBW_MARK(k, 0);
+    if (wg == 0) sbw_cumsum(dav, a2, ea, wq, wsum, tid);
+    mbar_wait(st_full, k & 1);
+    sbw_split_state<NT>(sth);
+    sbw_split_state<NT>(stg);
+    fence_async_smem();   // the tiles, before wgmma reads them
+    if (wg == 0 && k + 1 < nh) dav = dA_at(hh + 1);
+    // the head's sc, for warp 7's dA at its end
+    const float scv = wg == 1 && warp == 3 ? sc[(long long)bh * nc + c] : 0.f;
+    __syncthreads();
+    if (k == 0) mbar_wait(bc_full, 0);
+    mbar_wait(xd_full + buf, (k >> 1) & 1);
+    SBW_MARK(k, 1);
+
+    // ---- (2) the state products of the group's rows: dy h^T (rows i)
+    // and x G^T (rows j) of state rows 64 u .. in one batch, at N = 64
+    // with B G (rows j) beside them; each product's hi and lo halves
+    // chained into one accumulator
+    const int ra = r0 + 16 * warp + g, rb = ra + 8;   // this thread's rows
+    float rt0 = 0.f, rt1 = 0.f;   // row terms of rows ra, rb
+    float st0 = 0.f, st1 = 0.f;   // B_j . dBst_j
+    float dx[32];   // w_j (B G)_j, then the column walk's sums
+    auto bg_issue = [&]() {   // B G into dx
+#pragma unroll
+      for (int kk = 0; kk < 4 * NT; ++kk)
+        wgmma_ss_mn_64x64(dx, sbw_k(bt, r0, kk), sbw_mn(stg, kk), kk == 0);
+#pragma unroll
+      for (int kk = 0; kk < 4 * NT; ++kk)
+        wgmma_ss_mn_64x64(dx, sbw_k(bt, r0, kk), sbw_mn(stg + N * 128, kk),
+                          0);
+    };
+#pragma unroll
+    for (int u = 0; u < NT; ++u) {
+      float pc[32], pb[32];
+      wg_fence();
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2)   // hi, then lo
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          wgmma_ss_64x64(pc, sbw_k(dt, r0, kk),
+                         sbw_k(sth + h2 * N * 128 + u * 8192, 0, kk),
+                         h2 == 0 && kk == 0);
+          wgmma_ss_64x64(pb, sbw_k(xt, r0, kk),
+                         sbw_k(stg + h2 * N * 128 + u * 8192, 0, kk),
+                         h2 == 0 && kk == 0);
+        }
+      if (NT == 1) bg_issue();
+      wg_commit();
+      wg_wait<0>();
+      wg_hold(pc);
+      wg_hold(pb);
+      if (NT == 1) wg_hold(dx);
+      const float e0 = ea[ra], e1 = ea[rb], w0 = wq[ra], w1 = wq[rb];
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int i = 4 * jj + 2 * r, n = 64 * u + 8 * jj + 2 * t4;
+          const float e = r ? e1 : e0, w = r ? w1 : w0;
+          const float c0 = pc[i] * e, c1 = pc[i + 1] * e;   // dCst
+          const float b0 = pb[i] * w, b1 = pb[i + 1] * w;   // dBst
+          const float2 cv = sbw_pair(ct, r ? rb : ra, n);
+          const float2 bv = sbw_pair(bt, r ? rb : ra, n);
+          (r ? rt1 : rt0) += cv.x * c0 + cv.y * c1;
+          (r ? st1 : st0) += bv.x * b0 + bv.y * b1;
+          dCa[u][i] += c0;
+          dCa[u][i + 1] += c1;
+          dBa[u][i] += b0;
+          dBa[u][i + 1] += b1;
+        }
+    }
+    if (NT != 1) {
+      wg_fence();
+      bg_issue();
+      wg_commit();
+      wg_wait<0>();
+      wg_hold(dx);
+    }
+    {
+      const float w0 = wq[ra], w1 = wq[rb];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dx[i] *= (i & 2) ? w1 : w0;
+    }
+    SBW_MARK(k, 2);
+    __syncthreads();   // every read of hprev's and G's tiles done
+    SBW_MARK(k, 3);
+    if (threadIdx.x == 0 && k + 1 < nh) {
+      mbar_expect_tx(st_full, 2 * SB);
+      bulk_load(sth, hprev + state_at(hh + 1), SB, st_full);
+      bulk_load(stg, Gc + state_at(hh + 1), SB, st_full);
+    }
+
+    // ---- (3) the column walk: columns j of the group's rows, the row
+    // blocks i at or below them
+    float cs0 = 0.f, cs1 = 0.f;   // sum_i R_ij of columns ra, rb
+    // the A operands of a block's products: they stay unwritten until the
+    // next block's wait, which also drains those products
+    uint32_t hs[BW / 4], ls[BW / 4], hw[BW / 4], lw[BW / 4];
+    for (int ib = r0 / BW; ib < SBW_Q / BW; ++ib) {
+      const int i0 = BW * ib;
+      float sT[BW / 2], wT[BW / 2];
+      wg_fence();
+      if (!(SBW_CUT & 4)) {
+#pragma unroll
+        for (int kk = 0; kk < 4 * NT; ++kk)
+          wgmma_ss<BW>(sT, sbw_k(bt, r0, kk), sbw_k(ct, i0, kk), kk == 0);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss<BW>(wT, sbw_k(xt, r0, kk), sbw_k(dt, i0, kk), kk == 0);
+      }
+      wg_commit();
+      wg_wait<0>();
+      wg_hold(sT);
+      wg_hold(wT);
+      wg_hold(dx);
+#pragma unroll
+      for (int u = 0; u < NT; ++u) wg_hold(dBa[u]);
+      wg_hold(hs);
+      wg_hold(ls);
+      wg_hold(hw);
+      wg_hold(lw);
+      // L_ij = 2^(a2_i - a2_j) for i >= j: rows j (ra, rb), columns i;
+      // masked only where the block reaches the diagonal
+      const bool diag = i0 < r0 + 64;
+      const float aj0 = a2[ra], aj1 = a2[rb];
+#pragma unroll
+      for (int jj = 0; jj < (SBW_CUT & 1 ? 0 : BW / 8); ++jj) {
+        const int i = i0 + 8 * jj + 2 * t4;
+        const float2 ai = *reinterpret_cast<const float2*>(a2 + i);
+        float l[4] = {sbw_exp2(ai.x - aj0), sbw_exp2(ai.y - aj0),
+                      sbw_exp2(ai.x - aj1), sbw_exp2(ai.y - aj1)};
+        if (diag) {
+          l[0] = i >= ra ? l[0] : 0.f;
+          l[1] = i + 1 >= ra ? l[1] : 0.f;
+          l[2] = i >= rb ? l[2] : 0.f;
+          l[3] = i + 1 >= rb ? l[3] : 0.f;
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int q = 4 * jj + e;
+          wT[q] *= l[e];                                 // W^T
+          ((e & 2) ? cs1 : cs0) += wT[q] * sT[q];        // R^T
+          sT[q] *= l[e];                                 // (S .* L)^T
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < BW / 4; ++q)
+        split_bf16(sT[2 * q], sT[2 * q + 1], hs[q], ls[q]);
+      wg_fence();
+#pragma unroll
+      for (int s = 0; s < (SBW_CUT & 2 ? 0 : KB); ++s) {   // dx += (S L)^T dy
+        wgmma_rs_64x64(dx, hs + 4 * s, sbw_mn(dt, i0 / 16 + s));
+        wgmma_rs_64x64(dx, ls + 4 * s, sbw_mn(dt, i0 / 16 + s));
+      }
+      wg_commit();
+#pragma unroll
+      for (int q = 0; q < BW / 4; ++q)
+        split_bf16(wT[2 * q], wT[2 * q + 1], hw[q], lw[q]);
+      wg_fence();
+#pragma unroll
+      for (int u = 0; u < NT; ++u)
+#pragma unroll
+        for (int s = 0; s < (SBW_CUT & 2 ? 0 : KB); ++s) {   // dB += W^T C
+          wgmma_rs_64x64(dBa[u], hw + 4 * s,
+                         sbw_mn(ct + u * SBW_BOX, i0 / 16 + s));
+          wgmma_rs_64x64(dBa[u], lw + 4 * s,
+                         sbw_mn(ct + u * SBW_BOX, i0 / 16 + s));
+        }
+      wg_commit();
+    }
+    wg_wait<0>();
+    wg_hold(dx);
+#pragma unroll
+    for (int u = 0; u < NT; ++u) wg_hold(dBa[u]);
+    wg_hold(hs);
+    wg_hold(ls);
+    wg_hold(hw);
+    wg_hold(lw);
+    SBW_MARK(k, 4);
+    {   // dx out: bf16 into the group's tile (the map's 128-byte swizzle),
+        // then one TMA store, clipped at S
+      unsigned char* xo = dxs + wg * 8192;
+      if (tid == 0) tma_store_wait_read();   // the last head's store read
+      named_sync(2 + wg, 128);
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = 16 * warp + g + 8 * r;
+          *reinterpret_cast<uint32_t*>(xo + row * 128 +
+                                       ((jj ^ (row & 7)) << 4) + 4 * t4) =
+              pack_bf16(dx[4 * jj + 2 * r], dx[4 * jj + 2 * r + 1]);
+        }
+      fence_async_smem();
+      named_sync(2 + wg, 128);
+      if (tid == 0 && s0 + r0 < S) {
+        sw_store(&tm_dx, xo, ord.dx, 0, hh, s0 + r0, bg);
+        tma_store_commit();
+      }
+    }
+    cs0 += __shfl_xor_sync(0xffffffffu, cs0, 1);
+    cs0 += __shfl_xor_sync(0xffffffffu, cs0, 2);
+    cs1 += __shfl_xor_sync(0xffffffffu, cs1, 1);
+    cs1 += __shfl_xor_sync(0xffffffffu, cs1, 2);
+    st0 += __shfl_xor_sync(0xffffffffu, st0, 1);
+    st0 += __shfl_xor_sync(0xffffffffu, st0, 2);
+    st1 += __shfl_xor_sync(0xffffffffu, st1, 1);
+    st1 += __shfl_xor_sync(0xffffffffu, st1, 2);
+    if (t4 == 0) {
+      cs[ra] = -cs0;
+      cs[rb] = -cs1;
+      stm[ra] = st0;
+      stm[rb] = st1;
+    }
+
+    SBW_MARK(k, 5);
+    // ---- (4) the row walk: rows i of the group, the column blocks j at
+    // or below them
+    for (int kb = 0; kb < (r0 + 64) / BW; ++kb) {
+      const int j0 = BW * kb;
+      float sS[BW / 2], w[BW / 2];
+      wg_fence();
+      if (!(SBW_CUT & 4)) {
+#pragma unroll
+        for (int kk = 0; kk < 4 * NT; ++kk)
+          wgmma_ss<BW>(sS, sbw_k(ct, r0, kk), sbw_k(bt, j0, kk), kk == 0);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss<BW>(w, sbw_k(dt, r0, kk), sbw_k(xt, j0, kk), kk == 0);
+      }
+      wg_commit();
+      wg_wait<0>();
+      wg_hold(sS);
+      wg_hold(w);
+#pragma unroll
+      for (int u = 0; u < NT; ++u) wg_hold(dCa[u]);
+      wg_hold(hw);
+      wg_hold(lw);
+      // L_ij = 2^(a2_i - a2_j) for j <= i: rows i (ra, rb), columns j;
+      // masked only where the block reaches the diagonal
+      const bool diag = j0 + BW > r0;
+      const float ai0 = a2[ra], ai1 = a2[rb];
+#pragma unroll
+      for (int jj = 0; jj < (SBW_CUT & 1 ? 0 : BW / 8); ++jj) {
+        const int j = j0 + 8 * jj + 2 * t4;
+        const float2 aj = *reinterpret_cast<const float2*>(a2 + j);
+        float l[4] = {sbw_exp2(ai0 - aj.x), sbw_exp2(ai0 - aj.y),
+                      sbw_exp2(ai1 - aj.x), sbw_exp2(ai1 - aj.y)};
+        if (diag) {
+          l[0] = j <= ra ? l[0] : 0.f;
+          l[1] = j + 1 <= ra ? l[1] : 0.f;
+          l[2] = j <= rb ? l[2] : 0.f;
+          l[3] = j + 1 <= rb ? l[3] : 0.f;
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int q = 4 * jj + e;
+          w[q] *= l[e];                                  // W
+          ((e & 2) ? rt1 : rt0) += w[q] * sS[q];         // R
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < BW / 4; ++q)
+        split_bf16(w[2 * q], w[2 * q + 1], hw[q], lw[q]);
+      wg_fence();
+#pragma unroll
+      for (int u = 0; u < NT; ++u)
+#pragma unroll
+        for (int s2 = 0; s2 < (SBW_CUT & 2 ? 0 : KB); ++s2) {   // dC += W B
+          wgmma_rs_64x64(dCa[u], hw + 4 * s2,
+                         sbw_mn(bt + u * SBW_BOX, j0 / 16 + s2));
+          wgmma_rs_64x64(dCa[u], lw + 4 * s2,
+                         sbw_mn(bt + u * SBW_BOX, j0 / 16 + s2));
+        }
+      wg_commit();
+    }
+    wg_wait<0>();
+#pragma unroll
+    for (int u = 0; u < NT; ++u) wg_hold(dCa[u]);
+    wg_hold(hw);
+    wg_hold(lw);
+    rt0 += __shfl_xor_sync(0xffffffffu, rt0, 1);
+    rt0 += __shfl_xor_sync(0xffffffffu, rt0, 2);
+    rt1 += __shfl_xor_sync(0xffffffffu, rt1, 1);
+    rt1 += __shfl_xor_sync(0xffffffffu, rt1, 2);
+    if (t4 == 0) {
+      rs[ra] = rt0;
+      rs[rb] = rt1;
+    }
+    SBW_MARK(k, 6);
+    __syncthreads();   // x and dy's buffer read; the row terms whole
+    SBW_MARK(k, 7);
+    if (threadIdx.x == 0 && k + 2 < nh) {
+      mbar_expect_tx(xd_full + buf, 2 * SBW_BOX);
+      sw_load(xt2 + buf * SBW_BOX, &tm_x, xd_full + buf, ord.x, 0, hh + 2, s0,
+              bg);
+      sw_load(dt2 + buf * SBW_BOX, &tm_dy, xd_full + buf, ord.dy, 0, hh + 2,
+              s0, bg);
+    }
+    if (wg == 1 && warp == 3)
+      sbw_da(rs, cs, stm, scv,
+             dda + bg * ds0 + hh * ds1 + (long long)s0 * ds2, ds2, qv, lane);
+  }
+
+  // ---- dB, dC: the block's sums into its shared memory, then block r
+  // adds rows [128 r / csz, 128 (r + 1) / csz) of the csz blocks in rank
+  // order through distributed shared memory
+  if (tid == 0) tma_store_wait_read();
+  __syncthreads();   // every tile free
+  constexpr int RP = N + 8;   // a row of the sums, padded
+  float* rc = reinterpret_cast<float*>(sbw_smem);
+  float* rb_ = rc + SBW_Q * RP;
+#pragma unroll
+  for (int u = 0; u < NT; ++u)
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = r0 + 16 * warp + g + 8 * r;
+        const int col = 64 * u + 8 * jj + 2 * t4;
+        const int i = 4 * jj + 2 * r;
+        *reinterpret_cast<float2*>(rc + row * RP + col) =
+            make_float2(dCa[u][i], dCa[u][i + 1]);
+        *reinterpret_cast<float2*>(rb_ + row * RP + col) =
+            make_float2(dBa[u][i], dBa[u][i + 1]);
+      }
+  cluster_sync();
+  const int q0 = rank * SBW_Q / csz, q1 = (rank + 1) * SBW_Q / csz;
+  const int per = (q1 - q0) * (N / 4);   // float4s of one of dC, dB
+  for (int idx = threadIdx.x; idx < 2 * per; idx += SBW_THREADS) {
+    const int which = idx >= per, rem = idx - which * per;
+    const int row = q0 + rem / (N / 4), col = 4 * (rem % (N / 4));
+    if (row >= qv) continue;
+    const float* src = (which ? rb_ : rc) + row * RP + col;
+    float4 sum = ld_cluster_v4(cluster_map(src, 0));
+    for (int q = 1; q < csz; ++q) {
+      const float4 v = ld_cluster_v4(cluster_map(src, q));
+      sum.x += v.x;
+      sum.y += v.y;
+      sum.z += v.z;
+      sum.w += v.w;
+    }
+    bf16* out = (which ? dB : dC) + ((long long)bg * S + s0 + row) * N + col;
+    *reinterpret_cast<uint2*>(out) =
+        make_uint2(pack_bf16(sum.x, sum.y), pack_bf16(sum.z, sum.w));
+  }
+  cluster_sync();   // no block leaves while another reads its sums
+  if (tid == 0)      // the last dx stores done before the block ends
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------------- launch
@@ -1004,6 +1861,142 @@ struct SbGradsOp {
   }
 };
 
+// The Hopper kernels' tensor maps: x, dy [G, H, S, 64] (boxes of 128
+// rows), dx (64 rows, when given), B, C [G, S, N] (128 rows), over the
+// strides of sd.  Returns 0 or a cudaError.
+static int sbw_maps(CUtensorMap* mx, CUtensorMap* my, CUtensorMap* mb,
+                    CUtensorMap* mc, CUtensorMap* mdx, const void* x,
+                    const void* dy, const void* Bm, const void* Cm, void* dx,
+                    const SbStrides& sd, int G, int H, int S, int N,
+                    SbwOrders* ord) {
+  const long long xdim[4] = {64, H, S, G}, bdim[4] = {N, 1, S, G};
+  const long long xst[4] = {1, sd.x[1], sd.x[2], sd.x[0]};
+  const long long yst[4] = {1, sd.dy[1], sd.dy[2], sd.dy[0]};
+  const long long dxst[4] = {1, sd.dx[1], sd.dx[2], sd.dx[0]};
+  const long long bst[4] = {1, 0, sd.bc[1], sd.bc[0]};
+  int err;
+  if ((err = sw_map(mx, x, xdim, xst, SBW_Q, &ord->x)) ||
+      (err = sw_map(my, dy, xdim, yst, SBW_Q, &ord->dy)) ||
+      (err = sw_map(mb, Bm, bdim, bst, SBW_Q, &ord->bc)) ||
+      (err = sw_map(mc, Cm, bdim, bst, SBW_Q, &ord->bc)))
+    return err;
+  return mdx ? sw_map(mdx, dx, xdim, dxst, 64, &ord->dx) : 0;
+}
+
+template <int NT>
+static int sbw_states_launch(const void* x, const void* dA, const void* Bm,
+                             const void* Cm, const void* dy, void* st,
+                             void* U, void* aL, const SbStrides& sd, int BH,
+                             int S, int H, cudaStream_t stream) {
+  const int nc = (S + SBW_Q - 1) / SBW_Q;
+  CUtensorMap mx, my, mb, mc;
+  SbwOrders ord = {0, 0, 0, 0};
+  const int err = sbw_maps(&mx, &my, &mb, &mc, nullptr, x, dy, Bm, Cm,
+                           nullptr, sd, BH / H, H, S, 64 * NT, &ord);
+  if (err) return err;
+  cudaError_t e = smem_attribute_once<ssd_scan_bwd_states_wgmma_kernel<NT>>(
+      sbw_states_smem(NT));
+  if (e != cudaSuccess) return (int)e;
+  ssd_scan_bwd_states_wgmma_kernel<NT>
+      <<<dim3(nc, BH), SBW_THREADS, sbw_states_smem(NT), stream>>>(
+          mx, my, mb, mc, ord, (const float*)dA, sd.a[0], sd.a[1], sd.a[2],
+          (float*)st, (float*)U, (float*)aL, S, H);
+  return (int)cudaGetLastError();
+}
+
+// The grads kernel's cluster size for H heads a group and `pairs`
+// (group, chunk) clusters: the csz in 1 .. min(H, SBW_CLUSTER) that gives
+// the fewest heads a block times waves of clusters (pairs over the
+// clusters of csz blocks that fit on the card at once, as
+// cudaOccupancyMaxActiveClusters counts them: the GPCs' sizes decide,
+// e.g. 30 of 4 blocks where 32 would be one wave), the smaller on a tie.
+// The counts are asked once a device.  Returns 0 or a cudaError.
+template <int NT>
+static int sbw_cluster_size(int H, int pairs, int* csz) {
+  static std::atomic<int> fit[64][SBW_CLUSTER + 1];   // 0: not asked yet
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  long long best = LLONG_MAX;
+  *csz = 1;
+  for (int c = 1; c <= SBW_CLUSTER && c <= H; ++c) {
+    int n = fit[dev & 63][c].load(std::memory_order_relaxed);
+    if (n == 0) {
+      cudaLaunchConfig_t cfg = {};
+      cfg.gridDim = dim3(c, 1, 1);
+      cfg.blockDim = dim3(SBW_THREADS, 1, 1);
+      cfg.dynamicSmemBytes = sbw_grads_smem(NT);
+      cudaLaunchAttribute attr[1];
+      attr[0].id = cudaLaunchAttributeClusterDimension;
+      attr[0].val.clusterDim.x = c;
+      attr[0].val.clusterDim.y = 1;
+      attr[0].val.clusterDim.z = 1;
+      cfg.attrs = attr;
+      cfg.numAttrs = 1;
+      e = cudaOccupancyMaxActiveClusters(
+          &n, ssd_scan_bwd_grads_wgmma_kernel<NT>, &cfg);
+      if (e != cudaSuccess) return (int)e;
+      n = n > 0 ? n : -1;   // -1: no cluster of c blocks fits
+      fit[dev & 63][c].store(n, std::memory_order_relaxed);
+    }
+    if (n < 0) continue;
+    const long long cost =
+        (long long)((pairs + n - 1) / n) * ((H + c - 1) / c);
+    if (cost < best) {
+      best = cost;
+      *csz = c;
+    }
+  }
+  return 0;
+}
+
+template <int NT>
+static int sbw_grads_launch(const void* x, const void* dA, const void* Bm,
+                            const void* Cm, const void* dy, const void* hprev,
+                            const void* G, const void* sc, void* dx,
+                            void* dda, void* dB, void* dC,
+                            const SbStrides& sd, int BH, int S, int H,
+                            cudaStream_t stream) {
+  const int Gg = BH / H, nc = (S + SBW_Q - 1) / SBW_Q;
+  if ((long long)Gg * nc > 65535) return (int)cudaErrorInvalidValue;
+  CUtensorMap mx, my, mb, mc, mdx;
+  SbwOrders ord = {0, 0, 0, 0};
+  int err = sbw_maps(&mx, &my, &mb, &mc, &mdx, x, dy, Bm, Cm, dx, sd, Gg, H,
+                     S, 64 * NT, &ord);
+  if (err) return err;
+  cudaError_t e = smem_attribute_once<ssd_scan_bwd_grads_wgmma_kernel<NT>>(
+      sbw_grads_smem(NT));
+  if (e != cudaSuccess) return (int)e;
+  int csz = 1;
+  if ((err = sbw_cluster_size<NT>(H, Gg * nc, &csz))) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(csz, Gg * nc, 1);
+  cfg.blockDim = dim3(SBW_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = sbw_grads_smem(NT);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = csz;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, ssd_scan_bwd_grads_wgmma_kernel<NT>, mx, my,
+                         mb, mc, mdx, ord, (const float*)dA, sd.a[0], sd.a[1],
+                         sd.a[2], (const float*)hprev, (const float*)G,
+                         (const float*)sc, (float*)dda, sd.da[0], sd.da[1],
+                         sd.da[2], (bf16*)dB, (bf16*)dC, S, H, nc);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// The Hopper kernels take P = 64, N = 64 or 128 and chunks of 128 rows
+// (or one chunk, Q = S < 128).
+static bool sbw_shape_ok(int P, int N, int S, int Q) {
+  return P == 64 && (N == 64 || N == 128) &&
+         (Q == SBW_Q || (Q == S && S < SBW_Q));
+}
+
 static bool sb_sizes_ok(int BH, int S, int H, int Q) {
   return BH > 0 && BH <= 65535 && S > 0 && H > 0 && BH % H == 0 && Q >= 1 &&
          Q <= SB_MAXQ && Q <= S;
@@ -1011,20 +2004,29 @@ static bool sb_sizes_ok(int BH, int S, int H, int Q) {
 
 // x, dy: [G, H, S, P] by the element strides xs*, ys* (BH = G H rows;
 // innermost dense); dA: [G, H, S] fp32 by as*; Bm, Cm: [G, S, N] by bs*
-// (innermost dense); one dtype for x, B, C, dy: bf16 (bf16 = 1, rows
-// 16-byte aligned) or float32.  Writes st, U [BH, nc, N, P] and aL
+// (innermost dense); one dtype for x, B, C, dy.  kind: 0 float32 (the FMA
+// form); bf16 with 16-byte aligned rows: 1 the mma.sync form, 2 the
+// Hopper kernel (sbw_shape_ok).  Writes st, U [BH, nc, N, P] and aL
 // [BH, nc], float32 (nc = ceil(S / Q), 1 <= Q <= 128).
 extern "C" int ssd_scan_bwd_states_launch(
     const void* x, const void* dA, const void* Bm, const void* Cm,
     const void* dy, void* st, void* U, void* aL, int BH, int S, int P, int N,
-    int H, int Q, int bf16, long long xs0, long long xs1, long long xs2,
+    int H, int Q, int kind, long long xs0, long long xs1, long long xs2,
     long long as0, long long as1, long long as2, long long ys0, long long ys1,
     long long ys2, long long bs0, long long bs1, void* stream) {
   if (!sb_sizes_ok(BH, S, H, Q)) return (int)cudaErrorInvalidValue;
   const SbStrides sd = {{xs0, xs1, xs2}, {ys0, ys1, ys2}, {0, 0, 0},
                         {as0, as1, as2}, {0, 0, 0}, {bs0, bs1}};
-  return sb_dispatch<SbStatesOp>(bf16, P, N, x, dA, Bm, Cm, dy, st, U, aL,
-                                 sd, BH, S, H, Q, (cudaStream_t)stream);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (kind == 2) {
+    if (!sbw_shape_ok(P, N, S, Q)) return (int)cudaErrorInvalidValue;
+    return N == 64 ? sbw_states_launch<1>(x, dA, Bm, Cm, dy, st, U, aL, sd,
+                                          BH, S, H, s)
+                   : sbw_states_launch<2>(x, dA, Bm, Cm, dy, st, U, aL, sd,
+                                          BH, S, H, s);
+  }
+  return sb_dispatch<SbStatesOp>(kind, P, N, x, dA, Bm, Cm, dy, st, U, aL,
+                                 sd, BH, S, H, Q, s);
 }
 
 template <int EPT>
@@ -1058,17 +2060,18 @@ extern "C" int ssd_scan_bwd_scan_launch(void* st, void* U, const void* aL,
   }
 }
 
-// Inputs as ssd_scan_bwd_states_launch's, with hprev, G [BH, nc, N, P] and
-// sc [BH, nc] from ssd_scan_bwd_scan_launch.  Writes dx in x's type by the
-// element strides dxs* (innermost dense, rows of an even count of
-// elements), dda float32 by das*, dB and dC in x's type, [G, S, N]
-// contiguous; part: float32 scratch [2, BH, S, N]; count: int [G nc],
-// zeros.
+// Inputs as ssd_scan_bwd_states_launch's (kind likewise), with hprev, G
+// [BH, nc, N, P] and sc [BH, nc] from ssd_scan_bwd_scan_launch.  Writes dx
+// in x's type by the element strides dxs* (innermost dense, rows of an
+// even count of elements; kind 2: 16-byte aligned), dda float32 by das*,
+// dB and dC in x's type, [G, S, N] contiguous; part: float32 scratch
+// [2, BH, S, N] and count: int [G nc], zeros, for kinds 0 and 1 (kind 2
+// sums the heads on chip and takes NULL).
 extern "C" int ssd_scan_bwd_grads_launch(
     const void* x, const void* dA, const void* Bm, const void* Cm,
     const void* dy, const void* hprev, const void* G, const void* sc,
     void* dx, void* dda, void* dB, void* dC, void* part, void* count, int BH,
-    int S, int P, int N, int H, int Q, int bf16, long long xs0, long long xs1,
+    int S, int P, int N, int H, int Q, int kind, long long xs0, long long xs1,
     long long xs2, long long as0, long long as1, long long as2, long long ys0,
     long long ys1, long long ys2, long long dxs0, long long dxs1,
     long long dxs2, long long das0, long long das1, long long das2,
@@ -1077,7 +2080,28 @@ extern "C" int ssd_scan_bwd_grads_launch(
   const SbStrides sd = {{xs0, xs1, xs2},    {ys0, ys1, ys2},
                         {dxs0, dxs1, dxs2}, {as0, as1, as2},
                         {das0, das1, das2}, {bs0, bs1}};
-  return sb_dispatch<SbGradsOp>(bf16, P, N, x, dA, Bm, Cm, dy, hprev, G, sc,
+  cudaStream_t s = (cudaStream_t)stream;
+  if (kind == 2) {
+    if (!sbw_shape_ok(P, N, S, Q)) return (int)cudaErrorInvalidValue;
+    return N == 64 ? sbw_grads_launch<1>(x, dA, Bm, Cm, dy, hprev, G, sc, dx,
+                                         dda, dB, dC, sd, BH, S, H, s)
+                   : sbw_grads_launch<2>(x, dA, Bm, Cm, dy, hprev, G, sc, dx,
+                                         dda, dB, dC, sd, BH, S, H, s);
+  }
+  return sb_dispatch<SbGradsOp>(kind, P, N, x, dA, Bm, Cm, dy, hprev, G, sc,
                                 dx, dda, dB, dC, part, count, sd, BH, S, H, Q,
-                                (cudaStream_t)stream);
+                                s);
 }
+
+#if SBW_CLOCKS
+// The marks of the last grads launch (2 x SBW_HEADS x SBW_MARKS long
+// longs) into dst (host memory); the cluster size the N = 64 NT kernel
+// takes for H heads and `pairs` clusters into *csz.
+extern "C" int sbw_clocks_read(void* dst, int NT, int H, int pairs,
+                               int* csz) {
+  cudaError_t e = cudaMemcpyFromSymbol(dst, sbw_clock, sizeof(sbw_clock));
+  if (e != cudaSuccess) return (int)e;
+  return NT == 1 ? sbw_cluster_size<1>(H, pairs, csz)
+                 : sbw_cluster_size<2>(H, pairs, csz);
+}
+#endif

@@ -30,7 +30,12 @@ XLA's autodiff of ``ssd_chunked``.  Here three CUDA kernels
 the chunk's C-weighted dy), ``ssd_scan_bwd_scan`` (the states entering
 the chunks and the state gradients leaving them, two scans over the
 chunks) and ``ssd_scan_bwd_grads`` (dx, dA, and dB, dC summed over a
-group's heads).  :class:`SsdScanFn` binds them to autograd; the plain
+group's heads).  The states and grads kernels take the forward's table
+(:func:`ssd_bwd_kernel`): Hopper forms (wgmma on TMA tiles; the grads
+kernel a cluster of a group's heads a (group, chunk), dB and dC summed on
+chip) at P = 64 with N = 64 or 128 in chunks of 128 rows, mma.sync forms
+for the other bf16 shapes, FMA forms in float32.  :class:`SsdScanFn`
+binds them to autograd; the plain
 versions (:func:`ssd_bwd_states_plain`, :func:`ssd_bwd_scan_plain`,
 :func:`ssd_bwd_grads_plain`, chained by :func:`ssd_bwd_plain`) write the
 same formulas out in plain PyTorch (not by autograd) and serve CPU
@@ -44,10 +49,11 @@ import torch.nn.functional as F
 from .build import SMEM_LIMIT, check_input, launch, stream_of
 
 __all__ = ["SsdScanFn", "ssd_bwd", "ssd_bwd_cuda", "ssd_bwd_grads_cuda",
-           "ssd_bwd_grads_plain", "ssd_bwd_plain", "ssd_bwd_scan_cuda",
-           "ssd_bwd_scan_plain", "ssd_bwd_states_cuda",
-           "ssd_bwd_states_plain", "ssd_chunked", "ssd_cuda", "ssd_kernel",
-           "ssd_plain", "ssd_scan", "ssd_smem_bytes"]
+           "ssd_bwd_grads_plain", "ssd_bwd_kernel", "ssd_bwd_plain",
+           "ssd_bwd_scan_cuda", "ssd_bwd_scan_plain", "ssd_bwd_smem_bytes",
+           "ssd_bwd_states_cuda", "ssd_bwd_states_plain", "ssd_chunked",
+           "ssd_cuda", "ssd_kernel", "ssd_plain", "ssd_scan",
+           "ssd_smem_bytes"]
 
 NEG_INF = -1.0e30
 SSD_STRIP = 64          # the float32 kernel's strip of [M | C] rows
@@ -409,6 +415,57 @@ def ssd_scan(x, dA, Bm, Cm, n_heads_per_group: int, chunk: int = 128,
 SSD_BWD_P = (16, 32, 64)
 SSD_BWD_N = (16, 32, 64, 128)
 SSD_BWD_MAX_CHUNK = 128
+# blocks of the Hopper grads kernel's cluster of a (group, chunk), at most
+# (SBW_CLUSTER), each a slice of the group's heads; the launch picks the
+# size by the clusters that fit on the card at once (sbw_cluster_size)
+SSD_BWD_CLUSTER = 8
+
+
+def ssd_bwd_kernel(P: int, N: int, Q: int, S: int,
+                   dtype: torch.dtype) -> str:
+    """The form :func:`ssd_bwd_states_cuda` and :func:`ssd_bwd_grads_cuda`
+    launch for chunks of Q rows over S positions: the forward's table
+    (:func:`ssd_kernel`), "wgmma" (bf16 on Hopper) at the (P, N) of
+    ``SSD_WGMMA_SHAPES`` in chunks of 128 rows or one chunk of S < 128
+    rows, "mma" for the other bf16 shapes, "fma" for float32.  The scan
+    kernel has one form."""
+    return ssd_kernel(P, N, Q, S, dtype)
+
+
+def ssd_bwd_smem_bytes(P: int, N: int, Q: int, dtype: torch.dtype,
+                       kernel: str, which: str) -> int:
+    """Shared memory of one block of the ``which`` ("states" or "grads")
+    kernel in form ``kernel``, in bytes: ``sb_states_smem`` /
+    ``sb_grads_smem`` (Qp = Q rounded up to 16) and, for "wgmma" (P = 64,
+    chunks of 128 rows), ``sbw_states_smem`` / ``sbw_grads_smem`` in
+    ``csrc/ssd_scan_bwd.cu``."""
+    if kernel == "wgmma":
+        box, nt = 16384, N // 64        # a 128-row box of 64 bf16
+        if which == "states":           # x, dy, B, C; a, ea, wq; 1 barrier
+            return box * (2 + 2 * nt) + 4 * (3 * 128 + 4) + 8
+        # B, C; x, dy twice; hprev, G; dx's tiles; a, ea, wq and the row
+        # terms twice; four barriers
+        return box * (4 * nt + 5) + 4 * (9 * 128 + 4) + 8 * 4
+    bf = dtype == torch.bfloat16
+    Qp = -(-Q // 16) * 16
+    tiles = (2 * (2 * Qp * N + 2 * Qp * P) if bf
+             else 4 * (2 * Qp * (N + 1) + 2 * Qp * (P + 1)))
+    states = tiles + 4 * 3 * Qp
+    if which == "states":
+        return states
+    return states + 4 * 3 * Qp + (4 * 2 * N * P if bf else 4 * 8 * 272)
+
+
+def _bwd_route(name, P, N, Q, S, dtype, kernel):
+    """The form to launch: the table's (``kernel`` None), or "mma" asked
+    for where the table names "wgmma" (to time one against the other);
+    raises for a form off the table."""
+    routed = ssd_bwd_kernel(P, N, Q, S, dtype)
+    if kernel is not None and kernel != routed and not (
+            kernel == "mma" and routed == "wgmma"):
+        raise ValueError(f"{name}: the {kernel} form does not take P={P}, "
+                         f"N={N}, chunk {Q}, {dtype}")
+    return kernel or routed
 
 
 def _bwd_check(name, x, dA, Bm, Cm, dy, H, chunk):
@@ -447,14 +504,16 @@ def _bwd_check(name, x, dA, Bm, Cm, dy, H, chunk):
 
 
 def ssd_bwd_states_cuda(x, dA, Bm, Cm, dy, n_heads_per_group: int,
-                        chunk: int = 128):
+                        chunk: int = 128, kernel: str | None = None):
     """The first backward kernel (``ssd_scan_bwd_states``), arguments as
     :func:`ssd_cuda`'s plus dy in x's shape and dtype (any strides, last
     dimension dense): (st, U [BH, nc, N, P], aL [BH, nc]), float32, as
-    :func:`ssd_bwd_states_plain`."""
+    :func:`ssd_bwd_states_plain`.  ``kernel``: the form
+    :func:`ssd_bwd_kernel` names (None), or "mma" where it names "wgmma"."""
     H = n_heads_per_group
     G, BH, S, P, N, Q, x4, a4, dy4 = _bwd_check(
         "ssd_scan_bwd_states", x, dA, Bm, Cm, dy, H, chunk)
+    kernel = _bwd_route("ssd_scan_bwd_states", P, N, Q, S, x.dtype, kernel)
     nc = -(-S // Q) if S else 0
     st = torch.empty((BH, nc, N, P), dtype=torch.float32, device=x.device)
     U = torch.empty_like(st)
@@ -463,7 +522,7 @@ def ssd_bwd_states_cuda(x, dA, Bm, Cm, dy, n_heads_per_group: int,
         launch("ssd_scan_bwd_states", "ssd_scan_bwd_states_launch",
                x.data_ptr(), dA.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
                dy.data_ptr(), st.data_ptr(), U.data_ptr(), aL.data_ptr(), BH,
-               S, P, N, H, Q, int(x.dtype == torch.bfloat16),
+               S, P, N, H, Q, _KIND[kernel],
                *x4.stride()[:3], *a4.stride(), *dy4.stride()[:3],
                *Bm.stride()[:2], stream_of(x))
     return st, U, aL
@@ -514,16 +573,22 @@ def _like_layout(t4, G, H, S, last, dtype):
 
 
 def ssd_bwd_grads_cuda(x, dA, Bm, Cm, dy, hprev, G, sc,
-                       n_heads_per_group: int, chunk: int = 128):
+                       n_heads_per_group: int, chunk: int = 128,
+                       kernel: str | None = None):
     """The third backward kernel (``ssd_scan_bwd_grads``): the forward's
     inputs, dy, and hprev, G [BH, nc, N, P], sc [BH, nc] from the scan.
     Returns (dx, ddA, dB, dC) as :func:`ssd_bwd_grads_plain` (dx and ddA in
-    the layout order of x and dA); dB and dC are summed over a group's
-    heads in head order by the last block of each (group, chunk), so two
-    calls give the same bits."""
+    the layout order of x and dA).  dB and dC are summed over a group's
+    heads in a fixed order, so two calls give the same bits: on the Hopper
+    form on chip (each block of a (group, chunk)'s cluster over its slice
+    of the heads in head order, then the blocks in rank order), on the
+    others by the last block of each (group, chunk) to finish, through a
+    float32 scratch of every head's rows.  ``kernel`` as
+    :func:`ssd_bwd_states_cuda`'s."""
     H = n_heads_per_group
     Gg, BH, S, P, N, Q, x4, a4, dy4 = _bwd_check(
         "ssd_scan_bwd_grads", x, dA, Bm, Cm, dy, H, chunk)
+    kernel = _bwd_route("ssd_scan_bwd_grads", P, N, Q, S, x.dtype, kernel)
     nc = -(-S // Q) if S else 0
     for name, t in (("hprev", hprev), ("G", G)):
         check_input(f"ssd_scan_bwd_grads.{name}", t, (BH, nc, N, P),
@@ -534,15 +599,18 @@ def ssd_bwd_grads_cuda(x, dA, Bm, Cm, dy, hprev, G, sc,
     dB = torch.empty((Gg, S, N), dtype=x.dtype, device=x.device)
     dC = torch.empty_like(dB)
     if BH and S:
-        part = torch.empty((2, BH, S, N), dtype=torch.float32,
-                           device=x.device)
-        count = torch.zeros((Gg * nc,), dtype=torch.int32, device=x.device)
+        part = count = None     # the Hopper form sums the heads on chip
+        if kernel != "wgmma":
+            part = torch.empty((2, BH, S, N), dtype=torch.float32,
+                               device=x.device)
+            count = torch.zeros((Gg * nc,), dtype=torch.int32,
+                                device=x.device)
         launch("ssd_scan_bwd_grads", "ssd_scan_bwd_grads_launch",
                x.data_ptr(), dA.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
                dy.data_ptr(), hprev.data_ptr(), G.data_ptr(), sc.data_ptr(),
                dx4.data_ptr(), da4.data_ptr(), dB.data_ptr(), dC.data_ptr(),
-               part.data_ptr(), count.data_ptr(), BH, S, P, N, H, Q,
-               int(x.dtype == torch.bfloat16), *x4.stride()[:3],
+               *(None if t is None else t.data_ptr() for t in (part, count)),
+               BH, S, P, N, H, Q, _KIND[kernel], *x4.stride()[:3],
                *a4.stride(), *dy4.stride()[:3], *dx4.stride()[:3],
                *da4.stride(), *Bm.stride()[:2], stream_of(x))
     else:

@@ -1427,6 +1427,60 @@ def test_ssd_backward_kernels_vs_plain(dev, case):
     assert all(len(v) for v in errs.values())
 
 
+# (Bg, H, S, P, N, chunk, dtype, h0, dh_final, decay, model layout) where
+# the bf16 Hopper forms split their work: both training shapes; a ragged
+# tail at H = 5 (a cluster of four blocks taking 2, 1, 1, 1 heads); one
+# chunk of S < 128 at N = 128 and H = 3 (three one-head blocks); H = 10
+# (slices of 2 and 3 heads) over three chunks
+SSD_BWD_HOPPER_CASES = (
+    (4, 80, 1024, 64, 64, 128, "bf16", False, False, 1.4, True),
+    (4, 24, 1024, 64, 128, 128, "bf16", False, False, 0.01, True),
+    (1, 5, 1000, 64, 128, 128, "bf16", True, True, 1.4, False),
+    (2, 3, 100, 64, 128, 128, "bf16", True, False, 0.01, True),
+    (3, 10, 300, 64, 64, 128, "bf16", False, True, 0.3, True))
+
+
+@pytest.mark.parametrize("case", SSD_BWD_HOPPER_CASES)
+def test_ssd_backward_hopper_split_cases(dev, case):
+    """The states and grads kernels on their Hopper forms: against the
+    plain stages (``chip_smoke.ssd_bwd_check``: two calls bit-equal), and
+    against the mma.sync forms on the same inputs (float32 outputs within
+    1e-3 of scale, bf16 within 2e-2); the grads kernel's Hopper form
+    allocates no float32 scratch of the heads' rows (its peak memory stays
+    under that scratch's size, which the mma.sync form takes)."""
+    from repro_torch.kernels import ssd_scan as ss
+    Bg, H, S, P, N, Q = case[:6]
+    assert ss.ssd_bwd_kernel(P, N, min(Q, S), S, torch.bfloat16) == "wgmma"
+    g = torch.Generator(device=dev).manual_seed(8)
+
+    def rn(shape, scale, dtype):
+        return (torch.randn(shape, generator=g, device=dev)
+                * scale).to(dtype)
+    errs = {name: [] for name in CS.SSD_BWD_KERNELS}
+    CS.ssd_bwd_check(torch, dev, rn, g, case, errs, {})
+    x, dA, Bm, Cm, dy, h0, dh = CS.ssd_bwd_inputs(torch, dev, rn, g, case)
+
+    def near(got, want, tols):
+        for a, w, t in zip(got, want, tols):
+            scale = float(w.float().abs().max())
+            assert float((a.float() - w.float()).abs().max()) <= t * scale
+    st = ss.ssd_bwd_states_cuda(x, dA, Bm, Cm, dy, H, Q)
+    near(st, ss.ssd_bwd_states_cuda(x, dA, Bm, Cm, dy, H, Q, kernel="mma"),
+         (1e-3,) * 3)
+    hp, G, _, sc = ss.ssd_bwd_scan_cuda(st[0].clone(), st[1].clone(), st[2],
+                                        h0, dh)
+    args = (x, dA, Bm, Cm, dy, hp, G, sc, H, Q)
+    scratch = 2 * Bg * H * S * N * 4
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = ss.ssd_bwd_grads_cuda(*args)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base < scratch
+    near(got, ss.ssd_bwd_grads_cuda(*args, kernel="mma"),
+         (2e-2, 1e-3, 2e-2, 2e-2))
+
+
 @pytest.mark.parametrize("arch", ["qwen2-0.5b", "deepseek-moe-16b",
                                   "seamless-m4t-large-v2", "mamba2-130m",
                                   "zamba2-2.7b"])
