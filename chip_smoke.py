@@ -17,7 +17,8 @@ Phases (any failure raises, so the process exits non-zero):
    (HGMMA) products and TMA (UTMALDG) loads; the SSD scan's backward
    (``ssd_scan_bwd_states`` and ``_grads``) HMMA in each of its 12 bf16
    instantiations (P in 16, 32, 64 x N in 16, 32, 64, 128) and HGMMA and
-   UTMALDG in each of their Hopper forms (P = 64, N = 64 and 128);
+   UTMALDG in each of their Hopper forms and of the fused states and scan
+   (P = 64, N = 64 and 128);
 3. each engine kernel against its plain PyTorch version on the card,
    bit-equal, at the main path's shapes and on adversarial inputs
    (the read-phase corners: tied visible CIDs, empty rings, V = 1 / 3 /
@@ -64,8 +65,12 @@ Phases (any failure raises, so the process exits non-zero):
    plain backward's and SDPA's backward with each backend forced in turn
    and unforced (a yardstick the port never calls; the fastest forced is
    the library time), and the Hopper kernels' grids and longest walks;
-   the SSD scan's three backward kernels (``ssd_scan_bwd_states``,
-   ``_scan``, ``_grads``) each against its plain version on the same
+   the SSD scan's backward kernels (``ssd_scan_bwd_states``, ``_scan``,
+   ``_grads``, and ``ssd_scan_bwd_states_scan``, the first two as one
+   launch where ``ssd_bwd_fused`` takes the case: also against the two
+   launches, hprev, G and dh0 bit-equal, sc within ``SSD_SC_ORDER_TOL``;
+   the clusters of it that fit at once printed) each against its plain
+   version on the same
    inputs (``SSD_BWD_CASES``: zamba2-2.7b's and mamba2-130m's training
    shapes, B=4, S=1,024, in bf16 and float32; S = 1,000, S = 1, one chunk
    of S < 128, 16 chunks, h0 and dh_final given, the model's layout,
@@ -294,7 +299,9 @@ Phases (any failure raises, so the process exits non-zero):
    runner over batches of 4 x 1,024 through its injected failure
    (``--ssm-train-steps`` steps, default 8), finite falling losses, every
    step launching ``ssd_scan`` 48 times (24 layers, again under remat)
-   and each SSD backward kernel 24 times, ms a step, tokens/s, peak
+   and ``ssd_scan_bwd_states_scan`` and ``_grads`` 24 times each (bf16
+   at S = 1,024: the states and the scan fused; its float32 step, 9e,
+   the two launches), ms a step, tokens/s, peak
    memory, a profile;
    9e. one float32 step of mamba2-130m and of zamba2-2.7b at full width
    cut to 6 of 54 layers (one shared-attention application; batch 2 x
@@ -448,6 +455,9 @@ KERNELS = {
                             "src/repro/models/ssm.py:70"),
     "ssd_scan_bwd_scan": ("src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
                           "src/repro/models/ssm.py:70"),
+    "ssd_scan_bwd_states_scan": (
+        "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+        "src/repro/models/ssm.py:70"),
     "ssd_scan_bwd_grads": ("src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
                            "src/repro/models/ssm.py:70"),
 }
@@ -740,9 +750,12 @@ MODEL_KERNELS = ("flash_attention", "ssd_scan", "flash_attention_bwd_dq",
 
 # the SSD scan's backward kernels, one template over (bf16 or float32, P,
 # N) each; the states and grads kernels' bf16 forms run mma.sync products,
-# the scan kernel has none (float32 states, either dtype)
+# the scan kernel has none (float32 states, either dtype); the states and
+# the scan fused, a Hopper kernel only (bf16 at P = 64, N = 64 and 128, at
+# most 8 chunks: ``ssd_bwd_fused``)
 SSD_BWD_KERNELS = ("ssd_scan_bwd_states", "ssd_scan_bwd_scan",
-                   "ssd_scan_bwd_grads")
+                   "ssd_scan_bwd_states_scan", "ssd_scan_bwd_grads")
+SSD_BWD_FUSED = "ssd_scan_bwd_states_scan"
 SSD_BWD_SHAPES = 12       # instantiations a form: P in 16, 32, 64 x N in
                           # 16, 32, 64, 128
 
@@ -831,14 +844,16 @@ def ssd_bwd_tensor_core_check(lib_path, nvcc):
 # wgmma products fed by TMA, P = 64) and the state sizes N of its
 # instantiations
 SSD_BWD_WGMMA = {"ssd_scan_bwd_states": (64, 128),
+                 "ssd_scan_bwd_states_scan": (64, 128),
                  "ssd_scan_bwd_grads": (64, 128)}
 
 
 def ssd_bwd_wgmma_check(lib_path, nvcc):
     """Disassemble the built library; raise unless the SSD backward's
-    states and grads kernels each have their two Hopper instantiations
-    (``*_wgmma_kernel``, N = 64 and 128) and each issues its products by
-    wgmma (HGMMA) and its tiles by TMA (UTMALDG).  Prints the counts."""
+    states, fused states and scan, and grads kernels each have their two
+    Hopper instantiations (``*_wgmma_kernel``, N = 64 and 128) and each
+    issues its products by wgmma (HGMMA) and its tiles by TMA (UTMALDG).
+    Prints the counts."""
     tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     sass = subprocess.run([tool, "-sass", lib_path], check=True,
                           capture_output=True, text=True).stdout
@@ -1622,6 +1637,14 @@ def ssd_bwd_inputs(torch, dev, rn, g, case):
     return x, dA, Bm, Cm, dy, h0, dh
 
 
+# sc of the fused states and scan kernel against the scan kernel's: the
+# same N P products (hprev and G equal to the bit) summed in another order,
+# each sum within about 50 roundings of 2^-24 (a thread's products in
+# order, five shuffle levels, eight warps, the nc blocks), 3e-6 of
+# exp(a_L) sum |h| |G|: the limit is 1e-5 of that
+SSD_SC_ORDER_TOL = 1e-5
+
+
 def ssd_bwd_check(torch, dev, rn, g, case, errs, use):
     """One SSD_BWD_CASES case on the card: each backward kernel against its
     plain version on the same inputs (the scan and grads kernels on the
@@ -1629,10 +1652,15 @@ def ssd_bwd_check(torch, dev, rn, g, case, errs, use):
     scan's scalars) within 1e-3 x scale (scale = max |plain|) in both
     dtypes; dx, dB, dC in float32 within 1e-3 x scale, in bf16 within
     2e-2 x scale of the plain version (which rounds to bf16 too) and, the
-    three kernels chained, within one bf16 rounding (rtol 1e-2 > 2^-8)
-    plus 1e-3 x scale of the plain version in float32 on the same bf16
-    inputs; each kernel twice, the two results bit-equal.  Appends the
-    max abs errors to ``errs`` (by kernel); ``use`` as close_err's."""
+    backward chained (``ssd_bwd_cuda``: the fused states and scan where
+    ``ssd_bwd_fused`` says so), within one bf16 rounding (rtol 1e-2 >
+    2^-8) plus 1e-3 x scale of the plain version in float32 on the same
+    bf16 inputs; each kernel twice, the two results bit-equal.  Where the
+    fused kernel takes the case, it too: against the plain states and
+    scan (1e-3 x scale), against the states and scan kernels on the card
+    (hprev, G and dh0 bit-equal, sc within SSD_SC_ORDER_TOL), two calls
+    bit-equal.  Appends the max abs errors to ``errs`` (by kernel);
+    ``use`` as close_err's.  Returns whether the fused kernel ran."""
     from repro_torch.kernels import ssd_scan as ss
     Bg, H, S, P, N, Q, dt, *_ = case
     x, dA, Bm, Cm, dy, h0, dh = ssd_bwd_inputs(torch, dev, rn, g, case)
@@ -1672,7 +1700,25 @@ def ssd_bwd_check(torch, dev, rn, g, case, errs, use):
     want = ss.ssd_bwd_grads_plain(x, dA, Bm, Cm, dy, hp, G, sc, H, Q)
     check("ssd_scan_bwd_grads", got, want,
           (2e-2, 1e-3, 2e-2, 2e-2) if bf else 1e-3)
-    if bf:   # the three chained, against the float32 oracle
+    fused = ss.ssd_bwd_fused(P, N, min(Q, S), S, x.dtype)
+    if fused:   # the states and the scan in one launch
+        got = ss.ssd_bwd_states_scan_cuda(x, dA, Bm, Cm, dy, H, Q, h0, dh)
+        same(SSD_BWD_FUSED, got, ss.ssd_bwd_states_scan_cuda(
+            x, dA, Bm, Cm, dy, H, Q, h0, dh))
+        check(SSD_BWD_FUSED, got, (hp, G, dh0, sc), 1e-3)
+        st2, U2, aL2 = ss.ssd_bwd_states_cuda(x, dA, Bm, Cm, dy, H, Q)
+        pair = ss.ssd_bwd_scan_cuda(st2, U2, aL2, h0, dh)
+        if not all(torch.equal(a, b) for a, b in zip(got[:3], pair[:3])):
+            raise AssertionError(f"{SSD_BWD_FUSED} [{label}]: hprev, G or "
+                                 f"dh0 differ from the two launches'")
+        mag = torch.exp(aL2) * (pair[0].abs() * pair[1].abs()).sum((-1, -2))
+        over = float(((got[3] - pair[3]).abs()
+                      - SSD_SC_ORDER_TOL * mag).max())
+        if over > 0:
+            raise AssertionError(f"{SSD_BWD_FUSED} [{label}]: sc beyond "
+                                 f"{SSD_SC_ORDER_TOL} x exp(a_L) sum |h||G| "
+                                 f"of the two launches' by {over:.3g}")
+    if bf:   # the backward chained, against the float32 oracle
         chain = ss.ssd_bwd_cuda(x, dA, Bm, Cm, dy, H, Q, h0, dh)
         oracle = ss.ssd_bwd_plain(x.float(), dA, Bm.float(), Cm.float(),
                                   dy.float(), H, Q, h0, dh)
@@ -1682,13 +1728,15 @@ def ssd_bwd_check(torch, dev, rn, g, case, errs, use):
                 f"{label} output {i} vs float32 oracle", (a.float(),), (w,),
                 1e-3 * float(w.abs().max()),
                 1e-2 if a.dtype == torch.bfloat16 else 0.0, use))
+    return fused
 
 
 def ssd_bwd_phase(torch, dev):
-    """The SSD scan's three backward kernels on the card against their
-    plain versions at SSD_BWD_CASES (``ssd_bwd_check``), then the times at
-    both training shapes (``ssd_bwd_times``).  Returns the three kernels'
-    records (zamba2-2.7b's shape)."""
+    """The SSD scan's backward kernels on the card against their plain
+    versions at SSD_BWD_CASES (``ssd_bwd_check``), then the clusters of the
+    fused states and scan kernel that fit at once and the times at both
+    training shapes (``ssd_bwd_times``).  Returns the kernels' records
+    (zamba2-2.7b's shape)."""
     g = torch.Generator(device=dev).manual_seed(4)
 
     def rn(shape, scale, dtype):
@@ -1697,22 +1745,33 @@ def ssd_bwd_phase(torch, dev):
 
     errs = {name: [] for name in SSD_BWD_KERNELS}
     use = {}
-    for case in SSD_BWD_CASES:
-        ssd_bwd_check(torch, dev, rn, g, case, errs, use)
+    fused = sum(ssd_bwd_check(torch, dev, rn, g, case, errs, use)
+                for case in SSD_BWD_CASES)
     print(f"[kernels] ssd backward: {len(SSD_BWD_CASES)} cases, each of "
           f"ssd_scan_bwd_states, _scan and _grads against its plain version "
-          f"(and, in bf16, the three chained against the float32 oracle), "
-          f"all within tolerance (max abs err "
-          + ", ".join(f"{max(v):.3g}" for v in errs.values())
+          f"(and, in bf16, the backward chained against the float32 oracle)"
+          f", {fused} of them also {SSD_BWD_FUSED} against the plain states "
+          f"and scan and against the two launches (hprev, G, dh0 bit-equal, "
+          f"sc within {SSD_SC_ORDER_TOL} x exp(a_L) sum |h||G|), all within "
+          f"tolerance (max abs err " + ", ".join(
+              f"{n} {max(v):.3g}" for n, v in errs.items())
           + "), each kernel's two calls bit-equal", flush=True)
     print(f"[kernels] closest to the limit: {limit_use_line(use)}",
           flush=True)
+    from repro_torch.kernels import ssd_scan as ss
     probes = scripts_module("probes")
     records = {}
     for what, Bg, H, N in (("zamba2-2.7b", TRAIN_BATCH, 80, 64),
                            ("mamba2-130m", TRAIN_BATCH, 24, 128)):
+        nc = -(-TRAIN_SEQ // 128)
+        fit = ss.ssd_bwd_states_scan_clusters(N, nc)
+        print(f"[kernels] {SSD_BWD_FUSED} at {what}'s training shape: "
+              f"{fit} clusters of {nc} blocks fit on the card at once "
+              f"(cudaOccupancyMaxActiveClusters), {Bg * H} clusters: "
+              f"{-(-Bg * H // fit)} waves", flush=True)
         rec = ssd_bwd_times(torch, dev, rn, g, probes, Bg, H, TRAIN_SEQ, 64,
                             N, 128, torch.bfloat16)
+        names = [n for n in SSD_BWD_KERNELS if n in rec]
         print(f"[kernels] ssd backward at {what}'s training shape "
               f"(BH={Bg}x{H} S={TRAIN_SEQ} P=64 N={N} chunk 128 bf16, model "
               f"layout): " + ", ".join(
@@ -1721,20 +1780,30 @@ def ssd_bwd_phase(torch, dev):
                   + ("" if rec[n]["mma_device_ms"] is None else
                      f", the mma.sync form {rec[n]['mma_device_ms']}")
                   + f", bound {rec[n]['bound_ms']:.5f} by "
-                  f"{rec[n]['bound_by']})" for n in SSD_BWD_KERNELS)
-              + f"; all three {rec['all_ms']:.4f} ms, bound of the backward "
-              f"{rec['bound_ms']:.5f} ms by {rec['bound_by']} (the design's "
-              f"float32 st, U, hprev and G traffic, outside the bounds: "
-              f"{rec['design_ms']:.5f} ms at the HBM rate); forward "
-              f"{rec['fwd_kernel']} device {rec['fwd_device_ms']} ms; plain "
-              f"backward {rec['plain_ms']:.4f} ms", flush=True)
+                  f"{rec[n]['bound_by']})" for n in names)
+              + f"; the backward as routed {rec['all_ms']:.4f} ms, bound of "
+              f"the backward {rec['bound_ms']:.5f} ms by {rec['bound_by']} "
+              f"(the design's float32 state traffic, outside the bounds, at "
+              f"the HBM rate: {rec['design_ms']:.5f} ms fused, hprev and G "
+              f"written and read, 4 passes; {rec['design_chain_ms']:.5f} ms "
+              f"as two launches, 8 passes); forward {rec['fwd_kernel']} "
+              f"device {rec['fwd_device_ms']} ms; plain backward "
+              f"{rec['plain_ms']:.4f} ms", flush=True)
+        pair = [rec[n]["device_ms"] for n in SSD_BWD_KERNELS[:2]]
+        got = rec[SSD_BWD_FUSED]["device_ms"]
+        if None not in pair + [got]:
+            print(f"[kernels] {SSD_BWD_FUSED} at {what}'s training shape: "
+                  f"device {got:.5f} ms against states {pair[0]:.5f} + scan "
+                  f"{pair[1]:.5f} = {sum(pair):.5f} ms, one profiler "
+                  f"session ({got / sum(pair):.3f} of the pair)", flush=True)
         if not records:
             for name in SSD_BWD_KERNELS:
+                plain = rec[name].get("plain_ms", rec["plain_ms"])
                 records[name] = {
                     "name": name, "route": "cuda",
                     "source": KERNELS[name][0], "replaces": KERNELS[name][1],
                     "launches": 0, "max_abs_err": max(errs[name]),
-                    "ms": rec[name]["ms"], "plain_ms": rec["plain_ms"],
+                    "ms": rec[name]["ms"], "plain_ms": plain,
                     "bound_ms": rec[name]["bound_ms"],
                     "bound_by": rec[name]["bound_by"], "library_ms": None,
                     "device_ms": rec[name]["device_ms"]}
@@ -1756,8 +1825,12 @@ def ssd_bwd_times(torch, dev, rn, g, probes, Bg, H, S, P, N, Q, dtype):
     products, the two scans and the chunk's dot product.  The design's
     own float32 arrays are its cost, not the gradient's: st and U are
     written, read and rewritten in place as hprev and G, and read again,
-    eight passes of a [BH, nc, N, P] array; ``design_ms`` is that traffic
-    over the HBM rate, outside every bound."""
+    eight passes of a [BH, nc, N, P] array (``design_chain_ms``: that
+    traffic over the HBM rate, outside every bound); where the states and
+    the scan run fused (``ssd_bwd_fused``), st and U stay on chip and four
+    passes are left, hprev and G written and read (``design_ms``).  The
+    fused kernel is timed beside the pair it replaces in the same sessions,
+    its bound the pair's, its plain version the plain states and scan."""
     from repro_torch.kernels import ssd_scan as ss
     BH, nc = Bg * H, -(-S // Q)
     case = (Bg, H, S, P, N, Q, "bf16" if dtype == torch.bfloat16 else "f32",
@@ -1771,6 +1844,10 @@ def ssd_bwd_times(torch, dev, rn, g, probes, Bg, H, S, P, N, Q, dtype):
            "ssd_scan_bwd_scan": lambda: ss.ssd_bwd_scan_cuda(st, U, aL),
            "ssd_scan_bwd_grads": lambda: ss.ssd_bwd_grads_cuda(
                x, dA, Bm, Cm, dy, hp, G, sc, H, Q)}
+    fused = ss.ssd_bwd_fused(P, N, Q, S, dtype)
+    if fused:
+        fns[SSD_BWD_FUSED] = lambda: ss.ssd_bwd_states_scan_cuda(
+            x, dA, Bm, Cm, dy, H, Q)
     hopper = ss.ssd_bwd_kernel(P, N, Q, S, dtype) == "wgmma"
     # the CUDA functions the profiler reads: the states and grads kernels'
     # Hopper forms where they run, else the template's form
@@ -1803,20 +1880,30 @@ def ssd_bwd_times(torch, dev, rn, g, probes, Bg, H, S, P, N, Q, dtype):
     scan_ops = 3 * 2 * BH * nc * N * P     # two scans, e^{a_L}<h, G>
     bounds = {"ssd_scan_bwd_states": bound(ins, states_ops, rate),
               "ssd_scan_bwd_scan": bound(dh0, scan_ops),
+              # the pair's work: the scans' float32 operations counted at
+              # the rate of the states' products
+              SSD_BWD_FUSED: bound(ins + dh0, states_ops + scan_ops * rate
+                                   / ALU_OPS_PER_S, rate),
               "ssd_scan_bwd_grads": bound(ins + outs, grads_ops, rate)}
     for n in fns:
         out[n].update(device_ms=device[n], kernel=names[n],
                       mma_device_ms=device.get(n + " (mma)"),
                       bound_ms=bounds[n][0], bound_by=bounds[n][1])
+    if fused:
+        out[SSD_BWD_FUSED]["plain_ms"] = cuda_ms(
+            torch, lambda: ss.ssd_bwd_states_scan_plain(
+                x, dA, Bm, Cm, dy, H, Q), iters=3, warmup=1)
     whole = bound(ins + outs + dh0, states_ops + grads_ops + scan_ops,
                   rate)
+    state_ms = BH * nc * N * P * 4 / HBM_BYTES_PER_S * 1e3   # one pass
     out.update(all_ms=cuda_ms(torch, lambda: ss.ssd_bwd_cuda(
                    x, dA, Bm, Cm, dy, H, Q), iters=20, warmup=3),
                plain_ms=cuda_ms(torch, lambda: ss.ssd_bwd_plain(
                    x, dA, Bm, Cm, dy, H, Q), iters=3, warmup=1),
                fwd_kernel=fwd_kernel, fwd_device_ms=device["forward"],
                bound_ms=whole[0], bound_by=whole[1],
-               design_ms=8 * BH * nc * N * P * 4 / HBM_BYTES_PER_S * 1e3)
+               design_ms=(4 if fused else 8) * state_ms,
+               design_chain_ms=8 * state_ms)
     return out
 
 
@@ -2485,14 +2572,18 @@ def ssm_encdec_phase(torch, dev, cfg, card, runs=None, route="cuda"):
 
 
 # ------------------------------------------------------------ phase 9
-def train_launches(mcfg):
-    """Kernel launches of one loss and its gradient on the ``cuda`` route:
-    every attention call runs the forward kernel twice (the forward, then
-    its layer's recomputation under remat) and each backward kernel once,
-    and so does every SSD scan.  The decoder family attends once a layer,
-    the encoder-decoder family once an encoder layer and twice a decoder
-    layer; the SSM family scans once a layer, the hybrid family too,
-    attending once a group of ``attn_every`` layers."""
+def train_launches(mcfg, seq=None):
+    """Kernel launches of one loss and its gradient over ``seq`` positions
+    (default TRAIN_SEQ) on the ``cuda`` route: every attention call runs
+    the forward kernel twice (the forward, then its layer's recomputation
+    under remat) and each backward kernel once, and so does every SSD scan
+    (its states and scan as one launch where ``ssd_bwd_fused`` says so at
+    the config's P, N, chunk and compute dtype: bf16 at the full configs'
+    shapes, seq <= 1,024; else as two).  The decoder family attends once a
+    layer, the encoder-decoder family once an encoder layer and twice a
+    decoder layer; the SSM family scans once a layer, the hybrid family
+    too, attending once a group of ``attn_every`` layers."""
+    from repro_torch.kernels.ssd_scan import ssd_bwd_fused
     if mcfg.family == "encdec":
         calls = mcfg.n_enc_layers + 2 * mcfg.n_layers
     elif mcfg.family == "hybrid":
@@ -2500,9 +2591,14 @@ def train_launches(mcfg):
     else:
         calls = 0 if mcfg.family == "ssm" else mcfg.n_layers
     scans = mcfg.n_layers if mcfg.family in ("ssm", "hybrid") else 0
+    seq = TRAIN_SEQ if seq is None else seq
+    fused = scans and ssd_bwd_fused(mcfg.headdim, mcfg.d_state, max(1, min(
+        mcfg.ssd_chunk, seq)), seq, mcfg.compute_dtype)
+    pair = 0 if fused else scans
     return {"flash_attention": 2 * calls, "flash_attention_bwd_dq": calls,
             "flash_attention_bwd_dkdv": calls, "ssd_scan": 2 * scans,
-            **dict.fromkeys(SSD_BWD_KERNELS, scans)}
+            "ssd_scan_bwd_states": pair, "ssd_scan_bwd_scan": pair,
+            SSD_BWD_FUSED: scans - pair, "ssd_scan_bwd_grads": scans}
 
 
 def launch_delta(before, after, keys):
@@ -2648,8 +2744,8 @@ def runner_phase(torch, dev, cfg, card, mcfg, route, step, steps,
           f"{str(mcfg.compute_dtype).split('.')[-1]}; batch {B} x {S}, "
           f"{steps} steps, a checkpoint every {ckpt_every}, a failure at "
           f"step {fail_at}, on {route} [{card}]", flush=True)
-    want = train_launches(mcfg) if route == "cuda" else \
-        dict.fromkeys(train_launches(mcfg), 0)
+    want = train_launches(mcfg, S) if route == "cuda" else \
+        dict.fromkeys(train_launches(mcfg, S), 0)
     step_s, step_counts = [], []
 
     def timed_step(p, o, batch):
@@ -2791,8 +2887,11 @@ def train_phase(torch, dev, cfg, card, mcfg=None, family_runs=None,
             counts = f32_gate(torch, fcfg, fparams, fbatch, route, "train",
                               f"{step} {fcfg.name}", card,
                               sync_warn=fcfg.moe)
-            fwant = train_launches(fcfg) if route == "cuda" else \
-                dict.fromkeys(train_launches(fcfg), 0)
+
+            def wanted(mcfg):
+                w = train_launches(mcfg, s)
+                return w if route == "cuda" else dict.fromkeys(w, 0)
+            fwant = wanted(fcfg.replace(compute_dtype=torch.float32))
             if {k: counts[k] for k in fwant} != fwant:
                 raise AssertionError(f"[train] {step}: launches {counts}, "
                                      f"expected {fwant}")
@@ -2803,6 +2902,7 @@ def train_phase(torch, dev, cfg, card, mcfg=None, family_runs=None,
                 counts = bf16_step(torch, fcfg, fparams, fbatch, route,
                                    "train", f"{bf16_label} {fcfg.name}",
                                    card)
+                fwant = wanted(fcfg)
                 if {k: counts[k] for k in fwant} != fwant:
                     raise AssertionError(f"[train] {bf16_label}: launches "
                                          f"{counts}, expected {fwant}")

@@ -1,7 +1,7 @@
 """Device time of the SSD scan's backward kernels at the training shapes,
 for the checkout this file sits in, on one CUDA device.
 
-    python3 scripts/ssd_bwd_ab.py [--reps N] [--cut]
+    python3 scripts/ssd_bwd_ab.py [--reps N] [--cut [FORM]]
 
 Shapes (batch 4, S = 1,024, chunk 128, bf16; x, dA and dy as the views of
 the model's [B, S, H, .] layout that ``models/ssm.py`` passes):
@@ -12,21 +12,28 @@ its inputs in place: the same work at every call) and
 ``ssd_scan_bwd_grads`` in the form the route table names, one kernel a
 profiler session, of the states and grads kernels' ``mma.sync`` forms
 where the checkout can ask for them (``kernel="mma"``; labelled
-``(mma)``), and of the forward kernel the path runs at that shape.
+``(mma)``), of ``ssd_scan_bwd_states_scan`` (the states and the scan as
+one launch, where the checkout has it) beside the states kernel plus the
+scan kernel of the same run, and of the forward kernel the path runs at
+that shape.
 Everything once unrecorded, then ``--reps`` times; every run and the
 median are printed with the card's name and power limit.  To compare two
 trees copy this file and ``probes.py`` into the other checkout's
 ``scripts/`` and run the two in alternating processes (A, B, B, A).
 
-``--cut``: where the grads kernel's time goes, from builds of
+``--cut`` (all forms, or one of ``mma.sync``, ``Hopper``, ``fused``):
+where the grads kernel's and the fused kernel's time goes, from builds of
 ``csrc/ssd_scan_bwd.cu`` alone: the ``mma.sync`` form with
 ``-DSB_CUT=<bits>`` (0: whole; 1: without the head sum of dB and dC, the
 counter and the last block's reads; 3: also without each head's rows
 written to the float32 scratch) and the Hopper form with
 ``-DSBW_CUT=<bits>`` (1: without the walks' mask and decay; 2: without
 their fed-back products; 4: without their score products; 7: none of
-the three): device ms at both shapes, each build a profiler session, the
-first round unrecorded.  Their outputs are wrong by design; only their
+the three), and the fused states and scan kernel with
+``-DSBF_CUT=<bits>`` (1: without the scans; 2: without the stores of
+hprev, G and dh0): device ms at both shapes, each build a profiler
+session, the first round unrecorded.
+Their outputs are wrong by design; only their
 times are read.
 
 ``--clocks``: the Hopper grads kernel's phases in cycles, from a build
@@ -55,6 +62,9 @@ SHAPES = {"zamba2-2.7b": (80, 64), "mamba2-130m": (24, 128)}   # (H, N)
 KERNELS = ("ssd_scan_bwd_states", "ssd_scan_bwd_scan", "ssd_scan_bwd_grads")
 # the forms a checkout can ask for: this tree's wrappers take kernel=
 FORMS = "kernel" in inspect.signature(ss.ssd_bwd_grads_cuda).parameters
+# the states and the scan as one launch, where the checkout has it
+FUSED = ("ssd_scan_bwd_states_scan"
+         if hasattr(ss, "ssd_bwd_states_scan_cuda") else None)
 CUTS = {"whole": 0, "without the head sum": 1,
         "without the head sum and the scratch writes": 3}
 # SBW_CUT bits of the Hopper grads kernel's timing builds
@@ -62,6 +72,9 @@ HOPPER_CUTS = {"whole": 0, "without the walks' mask and decay": 1,
                "without the walks' fed-back products": 2,
                "without the walks' score products": 4,
                "without the walks' products, mask and decay": 7}
+# SBF_CUT bits of the fused states and scan kernel's timing builds
+FUSED_CUTS = {"whole": 0, "without the scans": 1,
+              "without the stores of hprev, G and dh0": 2}
 
 
 def card_line() -> str:
@@ -109,6 +122,10 @@ def calls(dev, H, N, seed=0) -> dict:
             kernel_name("ssd_scan_bwd_grads", form or routed))
     out["ssd_scan_bwd_scan"] = (lambda: ss.ssd_bwd_scan_cuda(st, U, aL),
                                 "ssd_scan_bwd_scan_kernel")
+    if FUSED and ss.ssd_bwd_fused(P, N, Q, S, torch.bfloat16):
+        out[FUSED] = (lambda: ss.ssd_bwd_states_scan_cuda(x, dA, Bm, Cm, dy,
+                                                          H, Q),
+                      f"{FUSED}_wgmma_kernel")
     out["forward"] = (lambda: ss.ssd_cuda(x, dA, Bm, Cm, H, Q), forward)
     return out
 
@@ -122,29 +139,37 @@ def measure(dev) -> dict:
     return out
 
 
-def cut_times(dev, card: str) -> None:
+def cut_times(dev, card: str, only: str = "all") -> None:
     """The grads kernel's device ms from the timing builds: the mma.sync
-    form's SB_CUT builds and, where the tree has it, the Hopper form's
-    SBW_CUT builds."""
+    form's SB_CUT builds and, where the tree has them, the Hopper form's
+    SBW_CUT builds and the fused states and scan kernel's SBF_CUT
+    builds."""
     from concurrent.futures import ThreadPoolExecutor
     from kernel_variants import build_flagged
     from repro_torch.kernels import build
+    grads = "ssd_scan_bwd_grads_launch"
     sets = [("mma.sync", "SB_CUT", CUTS,
-             "ssd_scan_bwd_grads (mma)" if FORMS else "ssd_scan_bwd_grads")]
+             "ssd_scan_bwd_grads (mma)" if FORMS else "ssd_scan_bwd_grads",
+             grads)]
     if FORMS:
-        sets.append(("Hopper", "SBW_CUT", HOPPER_CUTS, "ssd_scan_bwd_grads"))
-    jobs = [(form, macro, label, bits) for form, macro, cuts, _ in sets
+        sets.append(("Hopper", "SBW_CUT", HOPPER_CUTS, "ssd_scan_bwd_grads",
+                     grads))
+    if FUSED:
+        sets.append(("fused", "SBF_CUT", FUSED_CUTS, FUSED,
+                     f"{FUSED}_launch"))
+    sets = [t for t in sets if only in ("all", t[0])]
+    jobs = [(form, macro, label, bits) for form, macro, cuts, *_ in sets
             for label, bits in cuts.items()]
     with ThreadPoolExecutor(len(jobs)) as pool:   # one nvcc each, together
         futs = {(form, label): pool.submit(build_flagged, "ssd_scan_bwd.cu",
                                            f"{macro}={bits}")
                 for form, macro, label, bits in jobs}
         libs = {key: f.result() for key, f in futs.items()}
-    lib, entry = build.library(), "ssd_scan_bwd_grads_launch"
-    full = getattr(lib, entry)
+    lib = build.library()
     for name, (H, N) in SHAPES.items():
-        for form, macro, cuts, key in sets:
+        for form, macro, cuts, key, entry in sets:
             call, kname = calls(dev, H, N)[key]
+            full = getattr(lib, entry)
             got = {}
             try:
                 for rep in range(2):
@@ -157,7 +182,7 @@ def cut_times(dev, card: str) -> None:
             for label, ms in got.items():
                 print(f"[ssd_bwd_ab] cut: {name}'s training shape (B={B} "
                       f"S={S} H={H} P={P} N={N} chunk {Q} bf16) {form} "
-                      f"ssd_scan_bwd_grads {label} (-D{macro}="
+                      f"{key} {label} (-D{macro}="
                       f"{cuts[label]}): device ms "
                       + ("not measured" if ms is None else f"{ms:.5f}")
                       + f" [{card}]", flush=True)
@@ -217,7 +242,8 @@ def clock_phases(dev, card: str) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=3)
-    ap.add_argument("--cut", action="store_true")
+    ap.add_argument("--cut", nargs="?", const="all",
+                    choices=("all", "mma.sync", "Hopper", "fused"))
     ap.add_argument("--clocks", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -226,7 +252,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda:0")
     card = card_line()
     if args.cut:
-        cut_times(dev, card)
+        cut_times(dev, card, args.cut)
         return 0
     if args.clocks:
         clock_phases(dev, card)
@@ -237,6 +263,10 @@ def main(argv=None) -> int:
     for name, (H, N) in SHAPES.items():
         label = (f"[ssd_bwd_ab] {tree}: {name}'s training shape (B={B} "
                  f"S={S} H={H} P={P} N={N} chunk {Q} bf16)")
+        for r in runs:
+            pair = [r[name].get(k) for k in KERNELS[:2]]
+            r[name]["states + scan"] = (None if None in pair
+                                        else sum(pair))
         for kernel in runs[0][name]:
             got = [r[name][kernel] for r in runs]
             vals = [v for v in got if v is not None]

@@ -47,6 +47,8 @@ SIGNATURES = {
     "ssd_scan_launch": [_P] * 7 + [_I] * 7 + [_L] * 11 + [_P],
     "ssd_scan_bwd_states_launch": [_P] * 8 + [_I] * 7 + [_L] * 11 + [_P],
     "ssd_scan_bwd_scan_launch": [_P] * 7 + [_I] * 3 + [_P],
+    "ssd_scan_bwd_states_scan_launch": [_P] * 11 + [_I] * 6 + [_L] * 11
+    + [_P],
     "ssd_scan_bwd_grads_launch": [_P] * 14 + [_I] * 7 + [_L] * 17 + [_P],
     "commit_loop_launch": [_P] * 28 + [_I] * 10 + [_P, _I, _P],
 }
@@ -56,7 +58,7 @@ LAUNCHES = {"version_scan": 0, "potential_matrix": 0, "wave_commit": 0,
             "commit_loop": 0, "flash_attention": 0, "ssd_scan": 0,
             "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkdv": 0,
             "ssd_scan_bwd_states": 0, "ssd_scan_bwd_scan": 0,
-            "ssd_scan_bwd_grads": 0}
+            "ssd_scan_bwd_states_scan": 0, "ssd_scan_bwd_grads": 0}
 
 # shared memory one block may use on the H100 (bytes, dynamic)
 SMEM_LIMIT = 232_448

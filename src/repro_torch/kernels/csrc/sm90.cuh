@@ -145,6 +145,17 @@ __device__ __forceinline__ void st_async_v4(uint32_t addr, float a, float b,
       : "memory");
 }
 
+// An asynchronous store of a float into another block of the cluster, as
+// st_async_v4.
+__device__ __forceinline__ void st_async_f32(uint32_t addr, float a,
+                                             uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, "
+      "[%2];\n" ::"r"(addr),
+      "f"(a), "r"(bar)
+      : "memory");
+}
+
 // One arrival on a barrier of another block of the cluster (its
 // shared::cluster address), releasing this thread's stores before it.
 __device__ __forceinline__ void mbar_arrive_cluster(uint32_t addr) {
@@ -152,6 +163,26 @@ __device__ __forceinline__ void mbar_arrive_cluster(uint32_t addr) {
       "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
           addr)
       : "memory");
+}
+
+// A float of another block's shared memory (its shared::cluster address).
+__device__ __forceinline__ float ld_cluster_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// 8 bytes of another block's shared memory (its shared::cluster address).
+__device__ __forceinline__ float2 ld_cluster_v2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(addr)
+               : "memory");
+  return v;
 }
 
 // 16 bytes of another block's shared memory (its shared::cluster

@@ -45,7 +45,11 @@
 // (ssd_scan_bwd_states_wgmma_kernel, ssd_scan_bwd_grads_wgmma_kernel: the
 // last section of this file), the other bf16 shapes the mma.sync form,
 // float32 the FMA form, both one template (below).  The scan kernel has
-// one form.
+// one form.  Where the Hopper kernels run and a batch*head has at most 8
+// chunks (S <= 1,024: every training shape of the repo), the table
+// (ssd_bwd_fused) takes the states and the scan as one launch instead,
+// ssd_scan_bwd_states_scan_wgmma_kernel (the end of this file): st and U
+// never leave the chip.
 //
 // What bounds it on the H100: bytes.  At zamba2-2.7b's training shape
 // (B = 4, S = 1,024, H = 80, P = N = 64, chunks of 128, bf16) the gradient
@@ -69,8 +73,8 @@
 // written, read and rewritten by the scan, read again; each head's dB and
 // dC rows written and read back for the head sum) is about 0.7 GB at that
 // shape, some 0.2 ms: the price of the simple form.  The Hopper grads
-// kernel keeps the head sum on chip; st, U, hprev and G stay float32
-// arrays between the kernels.  The float32 form (float tiles, each product by fmaf in the
+// kernel keeps the head sum on chip, the fused states and scan kernel st
+// and U; hprev and G stay float32 arrays between the kernels.  The float32 form (float tiles, each product by fmaf in the
 // same fragment layout, a register operand passed through a 16 x 17 tile
 // of the warp's, h and G read from device memory: no room for them in
 // shared memory at N = 128) keeps full fp32 products, which the float32
@@ -1787,6 +1791,206 @@ __global__ void __launch_bounds__(SBW_THREADS, 1)
     asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
+// ------------------------------------------ the states and the scan, fused
+// ssd_scan_bwd_states_scan_wgmma_kernel: ssd_scan_bwd_states_wgmma_kernel
+// and ssd_scan_bwd_scan_kernel in one launch, at the Hopper shapes with at
+// most SBW_CLUSTER chunks (S <= 1,024: every training shape of the repo).
+//
+// What held the two-launch chain back: not the scan kernel's loop but its
+// interface.  The states kernel wrote st and U, float32 [BH, nc, N, 64],
+// only for the scan kernel to read them, write hprev over st, read it
+// again and write G over U: seven passes of the array (210 MB at
+// zamba2-2.7b's training shape, 0.063 ms at 3.35 TB/s; the scan kernel ran
+// at 88% of its five).  Here st and U never leave the chip: the two passes
+// left are the writes of hprev and G, which the grads kernel reads.
+//
+// What the design does about it:
+// * The grid is (nc, BH) in clusters of nc blocks: block c of a cluster is
+//   chunk c of one batch*head, its rank c.  It computes st_c and U_c as
+//   the states kernel does (the same TMA tiles, cumsum and sbw_state
+//   products, so the same bits) and parks them, float32 [N][64] each, in
+//   its own shared memory over B's and C's boxes (NT x 16 KB each: the
+//   states' exact size), once every product reading a box is done (a
+//   block barrier after each product's wgmma.wait_group); a_L beside them.
+// * The scans as a transpose, not a chain (a step through distributed
+//   shared memory cost 1.0-2.0 us in ssd_scan_wgmma_kernel): after a
+//   cluster barrier block r owns float2s [r F / nc, (r + 1) F / nc) of the
+//   F = 32 N of a state, all 256 threads at work.  A thread reads its
+//   float2 of every block's st and U in one round of ld.shared::cluster
+//   (16 loads in flight), no block waiting on another, runs both
+//   recurrences in registers in the scan kernel's order and expressions
+//   (h_c = exp(a_L) h_{c-1} + st_c from h0; G_{c-1} = U_c + exp(a_L) G_c
+//   from dh), so hprev, G and dh0 equal the chain's to the bit, and writes
+//   hprev and G by 8-byte stores.
+// * sc_c = exp(a_L_c) <h_{c-1}, G_c>: each block reduces its slice's
+//   products for every c in a fixed order (a thread's float2s in order,
+//   the warp by shuffles, the eight warps in order) and sends the sum for
+//   chunk k to block k (st.async, counted on block k's mbarrier); block c
+//   waits for its nc sums and adds them in rank order.  No float atomics:
+//   two calls give the same bits (sc differs from the scan kernel's by the
+//   order of its sum alone).  A block sends only after all its reads of
+//   the cluster's st and U, so a block that has its nc sums may leave: no
+//   barrier after the first.
+// Two blocks an SM, as the states kernel: its shared memory plus the sums.
+
+// SBF_CUT is 0 in the port.  Timing builds set it (scripts/ssd_bwd_ab.py
+// --cut): bit 1 drops the fused kernel's scans (it ends after the first
+// cluster barrier), bit 2 their stores of hprev, G and dh0.  Their outputs
+// are wrong by design.
+#ifndef SBF_CUT
+#define SBF_CUT 0
+#endif
+
+// Shared memory of the fused kernel: the states kernel's, then the
+// mbarrier of sc's sums, the warps' sums by chunk [8][SBW_CLUSTER], the
+// cluster's sums for this block's chunk [SBW_CLUSTER] and its a_L.  67,408
+// bytes at N = 64, 100,176 at N = 128.
+static constexpr int sbw_fused_smem(int NT) {
+  return sbw_states_smem(NT) + 8 + 4 * (9 * SBW_CLUSTER + 4);
+}
+
+// x, dy, B, C, dA as ssd_scan_bwd_states_wgmma_kernel's; h0, dh [BH, N, 64]
+// float32 or NULL (zeros).  Writes hprev, Gc [BH, nc, N, 64], dh0
+// [BH, N, 64] and sc [BH, nc], float32.  grid (nc, BH) in clusters of
+// (nc, 1, 1), nc <= SBW_CLUSTER, SBW_THREADS threads.
+template <int NT>
+__global__ void __launch_bounds__(SBW_THREADS, 2)
+    ssd_scan_bwd_states_scan_wgmma_kernel(
+        const __grid_constant__ CUtensorMap tm_x,
+        const __grid_constant__ CUtensorMap tm_dy,
+        const __grid_constant__ CUtensorMap tm_b,
+        const __grid_constant__ CUtensorMap tm_c, SbwOrders ord,
+        const float* __restrict__ dA, long long as0, long long as1,
+        long long as2, const float* __restrict__ h0,
+        const float* __restrict__ dh, float* __restrict__ hprev,
+        float* __restrict__ Gc, float* __restrict__ dh0,
+        float* __restrict__ sc, int S, int H) {
+  constexpr int N = 64 * NT, F = N * 64 / 2;   // float2s of a state
+  extern __shared__ __align__(1024) unsigned char sbw_smem[];
+  unsigned char* xs = sbw_smem;   // 1024-aligned: the swizzle's period
+  if (sm90_addr(xs) & 1023) __trap();
+  unsigned char* ds = xs + SBW_BOX;
+  unsigned char* bs = ds + SBW_BOX;            // [NT][SBW_BOX]; then st_c
+  unsigned char* cs = bs + NT * SBW_BOX;       // [NT][SBW_BOX]; then U_c
+  float* a2 = reinterpret_cast<float*>(cs + NT * SBW_BOX);   // unread here
+  float* ea = a2 + SBW_Q;
+  float* wq = ea + SBW_Q;
+  float* wsum = wq + SBW_Q;
+  uint64_t* full = reinterpret_cast<uint64_t*>(wsum + 4);
+  uint64_t* sums = full + 1;   // the nc ranks' sums for chunk c landed
+  float* red = reinterpret_cast<float*>(sums + 1);   // [8][SBW_CLUSTER]
+  float* recv = red + 8 * SBW_CLUSTER;                // [SBW_CLUSTER]
+  float* aLs = recv + SBW_CLUSTER;
+  float* sts = reinterpret_cast<float*>(bs);
+  float* Us = reinterpret_cast<float*>(cs);
+  const int c = blockIdx.x, nc = gridDim.x, bh = blockIdx.y;
+  const int bg = bh / H, hh = bh - bg * H, s0 = c * SBW_Q;
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x >> 7, 0);
+  const int tid = threadIdx.x & 127;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    mbar_init(full, 1);
+    mbar_init(sums, 1);
+    mbar_init_fence();
+    mbar_expect_tx(sums, 4 * nc);
+    mbar_expect_tx(full, (2 + 2 * NT) * SBW_BOX);
+    sw_load(xs, &tm_x, full, ord.x, 0, hh, s0, bg);
+    sw_load(ds, &tm_dy, full, ord.dy, 0, hh, s0, bg);
+    for (int b = 0; b < NT; ++b) {
+      sw_load(bs + b * SBW_BOX, &tm_b, full, ord.bc, 64 * b, 0, s0, bg);
+      sw_load(cs + b * SBW_BOX, &tm_c, full, ord.bc, 64 * b, 0, s0, bg);
+    }
+  }
+  if (wg == 0) {
+    const float aLv = sbw_cumsum(
+        s0 + tid < S ? dA[bg * as0 + hh * as1 + (s0 + tid) * as2] : 0.f, a2,
+        ea, wq, wsum, tid);
+    if (tid == 0) *aLs = aLv;
+  }
+  __syncthreads();   // a, ea, wq, a_L; the barrier initialized
+  mbar_wait(full, 0);
+  // N = 64: group 0 takes st (B's box, x), group 1 U (C's box, dy), one
+  // product each; N = 128: both groups st (rows 64 g ..), then both U
+  // (B's boxes are dead once both st products are done)
+#pragma unroll
+  for (int k = 0; k < NT; ++k) {
+    const int which = NT == 1 ? wg : k;   // 0: st, 1: U
+    const int u = NT == 1 ? 0 : wg;       // the state's rows 64 u ..
+    float acc[32];
+    sbw_state(acc, (which ? cs : bs) + u * SBW_BOX, which ? ds : xs,
+              which ? ea : wq, tid);
+    __syncthreads();   // every product reading the boxes below is done
+    sbw_store_rows(acc, (which ? Us : sts) + u * 64 * 64, tid);
+  }
+  cluster_sync();   // every block's st, U, a_L and barriers ready
+  if (SBF_CUT & 1) return;
+
+  float d[SBW_CLUSTER], part[SBW_CLUSTER];
+#pragma unroll
+  for (int k = 0; k < SBW_CLUSTER; ++k) {
+    d[k] = k < nc ? expf(ld_cluster_f32(cluster_map(aLs, k))) : 0.f;
+    part[k] = 0.f;
+  }
+  const long long o = (long long)bh * nc * F;   // hprev, Gc [bh] in float2s
+  float2* hp2 = reinterpret_cast<float2*>(hprev) + o;
+  float2* g2 = reinterpret_cast<float2*>(Gc) + o;
+  for (int e = c * F / nc + threadIdx.x; e < (c + 1) * F / nc;
+       e += SBW_THREADS) {
+    const long long oe = (long long)bh * F + e;
+    float2 v[SBW_CLUSTER], u[SBW_CLUSTER], hs[SBW_CLUSTER];
+#pragma unroll
+    for (int k = 0; k < SBW_CLUSTER; ++k)   // st_k and U_k, one round
+      if (k < nc) {
+        v[k] = ld_cluster_v2(cluster_map(sts + 2 * e, k));
+        u[k] = ld_cluster_v2(cluster_map(Us + 2 * e, k));
+      }
+    float2 h = make_float2(0.f, 0.f), g = h;
+    if (h0) h = make_float2(h0[2 * oe], h0[2 * oe + 1]);
+    if (dh) g = make_float2(dh[2 * oe], dh[2 * oe + 1]);
+#pragma unroll
+    for (int k = 0; k < SBW_CLUSTER; ++k)   // h_k = exp(aL_k) h_{k-1} + st_k
+      if (k < nc) {
+        hs[k] = h;
+        if (!(SBF_CUT & 2)) hp2[k * F + e] = h;
+        h.x = d[k] * h.x + v[k].x;
+        h.y = d[k] * h.y + v[k].y;
+      }
+#pragma unroll
+    for (int k = SBW_CLUSTER - 1; k >= 0; --k)   // G_{k-1} = U_k + e^aL G_k
+      if (k < nc) {
+        if (!(SBF_CUT & 2)) g2[k * F + e] = g;
+        part[k] += hs[k].x * g.x + hs[k].y * g.y;
+        g.x = u[k].x + d[k] * g.x;
+        g.y = u[k].y + d[k] * g.y;
+      }
+    if (!(SBF_CUT & 2)) reinterpret_cast<float2*>(dh0)[oe] = g;
+  }
+#pragma unroll
+  for (int k = 0; k < SBW_CLUSTER; ++k)
+    if (k < nc) {
+      float p = part[k];
+#pragma unroll
+      for (int off = 16; off; off >>= 1)
+        p += __shfl_xor_sync(0xffffffffu, p, off);
+      if (lane == 0) red[warp * SBW_CLUSTER + k] = p;
+    }
+  __syncthreads();   // every thread's reads of the cluster's st, U done
+  if (threadIdx.x < nc) {   // this block's sum for chunk k, to block k
+    const int k = threadIdx.x;
+    float t = 0.f;
+    for (int w = 0; w < SBW_THREADS / 32; ++w) t += red[w * SBW_CLUSTER + k];
+    st_async_f32(cluster_map(recv + c, k), t, cluster_map(sums, k));
+  }
+  if (threadIdx.x == 0) {
+    // every block has sent its sum, so has read this block's st and U:
+    // none is read once this block leaves
+    mbar_wait<true>(sums, 0);
+    float t = 0.f;
+    for (int r = 0; r < nc; ++r) t += recv[r];
+    sc[(long long)bh * nc + c] = expf(*aLs) * t;
+  }
+}
+
 // ---------------------------------------------------------------- launch
 // Op::run<BF, PT, NT>(args...) for the (bf16, P, N) given; an invalid value
 // where no instantiation takes it (P in {16, 32, 64}, N in {16, 32, 64,
@@ -1990,6 +2194,57 @@ static int sbw_grads_launch(const void* x, const void* dA, const void* Bm,
   return (int)cudaGetLastError();
 }
 
+// The launch configuration of the fused kernel: grid (nc, BH) in clusters
+// of nc blocks, its shared memory set once a device.
+template <int NT>
+static cudaError_t sbw_fused_config(cudaLaunchConfig_t* cfg,
+                                    cudaLaunchAttribute* attr, int nc,
+                                    int BH, cudaStream_t stream) {
+  cudaError_t e =
+      smem_attribute_once<ssd_scan_bwd_states_scan_wgmma_kernel<NT>>(
+          sbw_fused_smem(NT));
+  *cfg = {};
+  cfg->gridDim = dim3(nc, BH, 1);
+  cfg->blockDim = dim3(SBW_THREADS, 1, 1);
+  cfg->dynamicSmemBytes = sbw_fused_smem(NT);
+  cfg->stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = nc;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return e;
+}
+
+template <int NT>
+static int sbw_states_scan_launch(const void* x, const void* dA,
+                                  const void* Bm, const void* Cm,
+                                  const void* dy, const void* h0,
+                                  const void* dh, void* hprev, void* G,
+                                  void* dh0, void* sc, const SbStrides& sd,
+                                  int BH, int S, int H,
+                                  cudaStream_t stream) {
+  const int nc = (S + SBW_Q - 1) / SBW_Q;
+  if (nc > SBW_CLUSTER) return (int)cudaErrorInvalidValue;
+  CUtensorMap mx, my, mb, mc;
+  SbwOrders ord = {0, 0, 0, 0};
+  const int err = sbw_maps(&mx, &my, &mb, &mc, nullptr, x, dy, Bm, Cm,
+                           nullptr, sd, BH / H, H, S, 64 * NT, &ord);
+  if (err) return err;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t e = sbw_fused_config<NT>(&cfg, attr, nc, BH, stream);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaLaunchKernelEx(&cfg, ssd_scan_bwd_states_scan_wgmma_kernel<NT>, mx,
+                         my, mb, mc, ord, (const float*)dA, sd.a[0], sd.a[1],
+                         sd.a[2], (const float*)h0, (const float*)dh,
+                         (float*)hprev, (float*)G, (float*)dh0, (float*)sc, S,
+                         H);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 // The Hopper kernels take P = 64, N = 64 or 128 and chunks of 128 rows
 // (or one chunk, Q = S < 128).
 static bool sbw_shape_ok(int P, int N, int S, int Q) {
@@ -2027,6 +2282,50 @@ extern "C" int ssd_scan_bwd_states_launch(
   }
   return sb_dispatch<SbStatesOp>(kind, P, N, x, dA, Bm, Cm, dy, st, U, aL,
                                  sd, BH, S, H, Q, s);
+}
+
+// The states and scan kernels fused (ssd_scan_bwd_states_scan_wgmma_kernel)
+// at the Hopper shapes (sbw_shape_ok) with nc = ceil(S / 128) <= 8:
+// inputs as ssd_scan_bwd_states_launch's (bf16), h0 and dh as
+// ssd_scan_bwd_scan_launch's.  Writes hprev, G [BH, nc, N, P], dh0
+// [BH, N, P] and sc [BH, nc], float32, as that pair of launches.
+extern "C" int ssd_scan_bwd_states_scan_launch(
+    const void* x, const void* dA, const void* Bm, const void* Cm,
+    const void* dy, const void* h0, const void* dh, void* hprev, void* G,
+    void* dh0, void* sc, int BH, int S, int P, int N, int H, int Q,
+    long long xs0, long long xs1, long long xs2, long long as0,
+    long long as1, long long as2, long long ys0, long long ys1,
+    long long ys2, long long bs0, long long bs1, void* stream) {
+  if (!sb_sizes_ok(BH, S, H, Q) || !sbw_shape_ok(P, N, S, Q))
+    return (int)cudaErrorInvalidValue;
+  const SbStrides sd = {{xs0, xs1, xs2}, {ys0, ys1, ys2}, {0, 0, 0},
+                        {as0, as1, as2}, {0, 0, 0}, {bs0, bs1}};
+  cudaStream_t s = (cudaStream_t)stream;
+  return N == 64 ? sbw_states_scan_launch<1>(x, dA, Bm, Cm, dy, h0, dh,
+                                             hprev, G, dh0, sc, sd, BH, S,
+                                             H, s)
+                 : sbw_states_scan_launch<2>(x, dA, Bm, Cm, dy, h0, dh,
+                                             hprev, G, dh0, sc, sd, BH, S,
+                                             H, s);
+}
+
+// The clusters of nc blocks of the fused kernel at state size N (64 or
+// 128) that fit on the card at once (cudaOccupancyMaxActiveClusters) into
+// *n.  Returns 0 or a cudaError.
+extern "C" int ssd_scan_bwd_states_scan_clusters(int N, int nc, int* n) {
+  if ((N != 64 && N != 128) || nc < 1 || nc > SBW_CLUSTER)
+    return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t e =
+      N == 64 ? sbw_fused_config<1>(&cfg, attr, nc, 1, nullptr)
+              : sbw_fused_config<2>(&cfg, attr, nc, 1, nullptr);
+  if (e != cudaSuccess) return (int)e;
+  e = N == 64 ? cudaOccupancyMaxActiveClusters(
+                    n, ssd_scan_bwd_states_scan_wgmma_kernel<1>, &cfg)
+              : cudaOccupancyMaxActiveClusters(
+                    n, ssd_scan_bwd_states_scan_wgmma_kernel<2>, &cfg);
+  return (int)e;
 }
 
 template <int EPT>

@@ -34,25 +34,32 @@ group's heads).  The states and grads kernels take the forward's table
 (:func:`ssd_bwd_kernel`): Hopper forms (wgmma on TMA tiles; the grads
 kernel a cluster of a group's heads a (group, chunk), dB and dC summed on
 chip) at P = 64 with N = 64 or 128 in chunks of 128 rows, mma.sync forms
-for the other bf16 shapes, FMA forms in float32.  :class:`SsdScanFn`
-binds them to autograd; the plain
-versions (:func:`ssd_bwd_states_plain`, :func:`ssd_bwd_scan_plain`,
-:func:`ssd_bwd_grads_plain`, chained by :func:`ssd_bwd_plain`) write the
-same formulas out in plain PyTorch (not by autograd) and serve CPU
-tensors and the card's checks.
+for the other bf16 shapes, FMA forms in float32.  Where the Hopper forms
+run and a batch*head has at most ``SSD_BWD_FUSED_CHUNKS`` chunks
+(:func:`ssd_bwd_fused`: every training shape of the repo), the states and
+the scan are one launch, ``ssd_scan_bwd_states_scan`` (a cluster of a
+batch*head's chunks, the scans through distributed shared memory: st and
+U never reach device memory).  :class:`SsdScanFn` binds them to autograd;
+the plain versions (:func:`ssd_bwd_states_plain`,
+:func:`ssd_bwd_scan_plain`, :func:`ssd_bwd_grads_plain`, chained by
+:func:`ssd_bwd_plain`; :func:`ssd_bwd_states_scan_plain` the first two)
+write the same formulas out in plain PyTorch (not by autograd) and serve
+CPU tensors and the card's checks.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from .build import SMEM_LIMIT, check_input, launch, stream_of
+from .build import SMEM_LIMIT, check_input, launch, library, stream_of
 
-__all__ = ["SsdScanFn", "ssd_bwd", "ssd_bwd_cuda", "ssd_bwd_grads_cuda",
-           "ssd_bwd_grads_plain", "ssd_bwd_kernel", "ssd_bwd_plain",
-           "ssd_bwd_scan_cuda", "ssd_bwd_scan_plain", "ssd_bwd_smem_bytes",
-           "ssd_bwd_states_cuda", "ssd_bwd_states_plain", "ssd_chunked",
-           "ssd_cuda", "ssd_kernel", "ssd_plain", "ssd_scan",
+__all__ = ["SsdScanFn", "ssd_bwd", "ssd_bwd_cuda", "ssd_bwd_fused",
+           "ssd_bwd_grads_cuda", "ssd_bwd_grads_plain", "ssd_bwd_kernel",
+           "ssd_bwd_plain", "ssd_bwd_scan_cuda", "ssd_bwd_scan_plain",
+           "ssd_bwd_smem_bytes", "ssd_bwd_states_cuda",
+           "ssd_bwd_states_plain", "ssd_bwd_states_scan_clusters",
+           "ssd_bwd_states_scan_cuda", "ssd_bwd_states_scan_plain",
+           "ssd_chunked", "ssd_cuda", "ssd_kernel", "ssd_plain", "ssd_scan",
            "ssd_smem_bytes"]
 
 NEG_INF = -1.0e30
@@ -230,6 +237,15 @@ def ssd_bwd_scan_plain(st, U, aL, h0=None, dh=None):
     hprev, grads = torch.stack(hprev, dim=1), torch.stack(grads, dim=1)
     sc = torch.exp(aL) * (hprev * grads).sum((-1, -2))
     return hprev, grads, g, sc
+
+
+def ssd_bwd_states_scan_plain(x, dA, Bm, Cm, dy, n_heads_per_group: int,
+                              chunk: int = 128, h0=None, dh=None):
+    """The fused states and scan kernel in plain PyTorch: the two plain
+    stages chained, (hprev, G [BH, nc, N, P], dh0 [BH, N, P], sc
+    [BH, nc]), float32."""
+    return ssd_bwd_scan_plain(*ssd_bwd_states_plain(
+        x, dA, Bm, Cm, dy, n_heads_per_group, chunk), h0, dh)
 
 
 def ssd_bwd_grads_plain(x, dA, Bm, Cm, dy, hprev, G, sc,
@@ -419,6 +435,9 @@ SSD_BWD_MAX_CHUNK = 128
 # (SBW_CLUSTER), each a slice of the group's heads; the launch picks the
 # size by the clusters that fit on the card at once (sbw_cluster_size)
 SSD_BWD_CLUSTER = 8
+# chunks of a batch*head the fused states and scan kernel takes, at most:
+# a cluster of one block a chunk (SBW_CLUSTER)
+SSD_BWD_FUSED_CHUNKS = 8
 
 
 def ssd_bwd_kernel(P: int, N: int, Q: int, S: int,
@@ -432,17 +451,30 @@ def ssd_bwd_kernel(P: int, N: int, Q: int, S: int,
     return ssd_kernel(P, N, Q, S, dtype)
 
 
+def ssd_bwd_fused(P: int, N: int, Q: int, S: int, dtype: torch.dtype) -> bool:
+    """Whether :func:`ssd_bwd_cuda` runs the states and the scan as one
+    launch (:func:`ssd_bwd_states_scan_cuda`): where the table names the
+    Hopper forms and the chunks of a batch*head, ceil(S / Q), number at
+    most ``SSD_BWD_FUSED_CHUNKS``.  Elsewhere it launches the states kernel
+    and then the scan kernel."""
+    return (ssd_bwd_kernel(P, N, Q, S, dtype) == "wgmma"
+            and -(-S // Q) <= SSD_BWD_FUSED_CHUNKS)
+
+
 def ssd_bwd_smem_bytes(P: int, N: int, Q: int, dtype: torch.dtype,
                        kernel: str, which: str) -> int:
-    """Shared memory of one block of the ``which`` ("states" or "grads")
-    kernel in form ``kernel``, in bytes: ``sb_states_smem`` /
-    ``sb_grads_smem`` (Qp = Q rounded up to 16) and, for "wgmma" (P = 64,
-    chunks of 128 rows), ``sbw_states_smem`` / ``sbw_grads_smem`` in
-    ``csrc/ssd_scan_bwd.cu``."""
+    """Shared memory of one block of the ``which`` ("states", "grads" or,
+    for "wgmma", "states_scan") kernel in form ``kernel``, in bytes:
+    ``sb_states_smem`` / ``sb_grads_smem`` (Qp = Q rounded up to 16) and,
+    for "wgmma" (P = 64, chunks of 128 rows), ``sbw_states_smem`` /
+    ``sbw_grads_smem`` / ``sbw_fused_smem`` in ``csrc/ssd_scan_bwd.cu``."""
     if kernel == "wgmma":
         box, nt = 16384, N // 64        # a 128-row box of 64 bf16
         if which == "states":           # x, dy, B, C; a, ea, wq; 1 barrier
             return box * (2 + 2 * nt) + 4 * (3 * 128 + 4) + 8
+        if which == "states_scan":      # and sc's barrier and sums, a_L
+            return (ssd_bwd_smem_bytes(P, N, Q, dtype, kernel, "states")
+                    + 8 + 4 * (9 * SSD_BWD_FUSED_CHUNKS + 4))
         # B, C; x, dy twice; hprev, G; dx's tiles; a, ea, wq and the row
         # terms twice; four barriers
         return box * (4 * nt + 5) + 4 * (9 * 128 + 4) + 8 * 4
@@ -562,6 +594,64 @@ def ssd_bwd_scan_cuda(st, U, aL, h0=None, dh=None):
     return st, U, dh0, sc
 
 
+def ssd_bwd_states_scan_cuda(x, dA, Bm, Cm, dy, n_heads_per_group: int,
+                             chunk: int = 128, h0=None, dh=None):
+    """The states and scan kernels as one launch
+    (``ssd_scan_bwd_states_scan``), where :func:`ssd_bwd_fused` says so:
+    the forward's inputs and dy as :func:`ssd_bwd_states_cuda` takes them,
+    h0 and dh as :func:`ssd_bwd_scan_cuda`'s.  Returns (hprev, G
+    [BH, nc, N, P], dh0 [BH, N, P], sc [BH, nc]), float32, as
+    :func:`ssd_bwd_states_scan_plain`; hprev, G and dh0 equal the two
+    launches' to the bit, sc up to the order of its sum."""
+    H = n_heads_per_group
+    S, P = x.shape[-2:]
+    N, Q = Bm.shape[-1], max(1, min(chunk, S))
+    if not ssd_bwd_fused(P, N, Q, S, x.dtype):
+        raise ValueError(
+            f"ssd_scan_bwd_states_scan: the fused kernel takes bf16 at (P, "
+            f"N) in {SSD_WGMMA_SHAPES}, chunks of {SSD_WGMMA_CHUNK} rows (or "
+            f"one of S < {SSD_WGMMA_CHUNK}) and at most "
+            f"{SSD_BWD_FUSED_CHUNKS} of them; got P={P}, N={N}, chunk {Q}, "
+            f"S={S}, {x.dtype}")
+    G, BH, S, P, N, Q, x4, a4, dy4 = _bwd_check(
+        "ssd_scan_bwd_states_scan", x, dA, Bm, Cm, dy, H, chunk)
+    for name, t in (("h0", h0), ("dh", dh)):
+        if t is not None:
+            check_input(f"ssd_scan_bwd_states_scan.{name}", t, (BH, N, P),
+                        torch.float32)
+    nc = -(-S // Q)
+    hprev = torch.empty((BH, nc, N, P), dtype=torch.float32,
+                        device=x.device)
+    Gs = torch.empty_like(hprev)
+    dh0 = torch.empty((BH, N, P), dtype=torch.float32, device=x.device)
+    sc = torch.empty((BH, nc), dtype=torch.float32, device=x.device)
+    if BH:
+        launch("ssd_scan_bwd_states_scan", "ssd_scan_bwd_states_scan_launch",
+               x.data_ptr(), dA.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+               dy.data_ptr(), *(None if t is None else t.data_ptr()
+                                for t in (h0, dh)),
+               hprev.data_ptr(), Gs.data_ptr(), dh0.data_ptr(),
+               sc.data_ptr(), BH, S, P, N, H, Q, *x4.stride()[:3],
+               *a4.stride(), *dy4.stride()[:3], *Bm.stride()[:2],
+               stream_of(x))
+    return hprev, Gs, dh0, sc
+
+
+def ssd_bwd_states_scan_clusters(N: int, nc: int) -> int:
+    """Clusters of ``nc`` blocks of the fused kernel at state size ``N``
+    that fit on the current card at once (``cudaOccupancyMaxActiveClusters``
+    through ``ssd_scan_bwd_states_scan_clusters``); the card only."""
+    import ctypes
+    fn = library().ssd_scan_bwd_states_scan_clusters
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    n = ctypes.c_int(0)
+    err = fn(N, nc, ctypes.byref(n))
+    if err:
+        raise RuntimeError(f"ssd_scan_bwd_states_scan_clusters: cudaError "
+                           f"{err}")
+    return n.value
+
+
 def _like_layout(t4, G, H, S, last, dtype):
     """A new tensor in the order of ``t4``'s layout: for a [G, H, S, .]
     transpose view of [G, S, H, .] the same view of a new [G, S, H, .],
@@ -621,12 +711,19 @@ def ssd_bwd_grads_cuda(x, dA, Bm, Cm, dy, hprev, G, sc,
 
 def ssd_bwd_cuda(x, dA, Bm, Cm, dy, n_heads_per_group: int,
                  chunk: int = 128, h0=None, dh=None):
-    """The three backward kernels: the gradient of :func:`ssd_cuda` at dy
-    (x's shape and dtype) and dh ([BH, N, P] float32 or None).  Returns
-    (dx, ddA, dB, dC, dh0) as :func:`ssd_bwd_plain`."""
-    st, U, aL = ssd_bwd_states_cuda(x, dA, Bm, Cm, dy, n_heads_per_group,
-                                    chunk)
-    hprev, G, dh0, sc = ssd_bwd_scan_cuda(st, U, aL, h0, dh)
+    """The backward kernels: the gradient of :func:`ssd_cuda` at dy (x's
+    shape and dtype) and dh ([BH, N, P] float32 or None).  Where
+    :func:`ssd_bwd_fused` says so the states and the scan are one launch
+    (:func:`ssd_bwd_states_scan_cuda`), elsewhere two; then the grads
+    kernel.  Returns (dx, ddA, dB, dC, dh0) as :func:`ssd_bwd_plain`."""
+    S, P = x.shape[-2:]
+    if ssd_bwd_fused(P, Bm.shape[-1], max(1, min(chunk, S)), S, x.dtype):
+        hprev, G, dh0, sc = ssd_bwd_states_scan_cuda(
+            x, dA, Bm, Cm, dy, n_heads_per_group, chunk, h0, dh)
+    else:
+        st, U, aL = ssd_bwd_states_cuda(x, dA, Bm, Cm, dy,
+                                        n_heads_per_group, chunk)
+        hprev, G, dh0, sc = ssd_bwd_scan_cuda(st, U, aL, h0, dh)
     return (*ssd_bwd_grads_cuda(x, dA, Bm, Cm, dy, hprev, G, sc,
                                 n_heads_per_group, chunk), dh0)
 

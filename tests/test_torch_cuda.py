@@ -70,9 +70,12 @@ gradients those of autograd through the plain version; the SSD scan's
 three backward kernels must agree with their plain versions at
 ``chip_smoke.py``'s ``SSD_BWD_CASES`` (float32 within 1e-3 of scale, bf16
 within 2e-2 and one bf16 rounding of the float32 oracle, two calls
-bit-equal), ``ops.ssd`` under a gradient must run ``SsdScanFn``: the
-forward kernel and each backward kernel once, its gradients those of
-autograd through the plain scan; and one float32 loss and gradient of the
+bit-equal; the fused states and scan kernel also equal to the states and
+scan kernels, hprev, G and dh0 bit for bit), ``ops.ssd`` under a
+gradient must run ``SsdScanFn``: the forward kernel and each backward
+kernel once (in bf16 the fused one in place of the states and scan
+kernels), its gradients those of autograd through the plain scan; and
+one float32 loss and gradient of the
 reduced qwen2-0.5b, deepseek-moe-16b, seamless, mamba2-130m and
 zamba2-2.7b models on ``cuda`` must equal the ``torch`` route's (every
 leaf within 1e-3 of its scale) with the launches of
@@ -152,7 +155,7 @@ def test_kernels_equal_plain_versions(dev, T, O, V, pad):
         "commit_loop": 0, "flash_attention": 0, "ssd_scan": 0,
         "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkdv": 0,
         "ssd_scan_bwd_states": 0, "ssd_scan_bwd_scan": 0,
-        "ssd_scan_bwd_grads": 0}
+        "ssd_scan_bwd_states_scan": 0, "ssd_scan_bwd_grads": 0}
 
 
 @pytest.mark.parametrize("sched", tc.SCHEDULERS)
@@ -222,7 +225,7 @@ def test_read_phase_corners_equal_plain_versions(dev, T, O, V, pad):
         "commit_loop": 0, "flash_attention": 0, "ssd_scan": 0,
         "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkdv": 0,
         "ssd_scan_bwd_states": 0, "ssd_scan_bwd_scan": 0,
-        "ssd_scan_bwd_grads": 0}
+        "ssd_scan_bwd_states_scan": 0, "ssd_scan_bwd_grads": 0}
 
 
 @pytest.mark.parametrize("V", [1, 3, 8, 16, 40])
@@ -1363,7 +1366,9 @@ def test_attention_gradient_goes_through_the_kernels(dev, causal):
 def test_ssd_kernel_route_refuses_a_gradient_on_the_card(dev, dtype, model):
     """(Named for the refusal it replaced.)  ``ops.ssd`` on the kernel
     route under a gradient trains on the card: ``SsdScanFn`` launches
-    ``ssd_scan`` once and each backward kernel once a call; its gradients
+    ``ssd_scan`` once and each backward kernel once a call (in bf16, at
+    three chunks, the states and the scan as one launch,
+    ``ssd_scan_bwd_states_scan``); its gradients
     (x, dA, B, C, h0, with the final state's gradient) are those of
     autograd through the plain scan on the same inputs: float32 within
     1e-3 of scale, bf16 within one bf16 rounding plus 1e-3 of scale of the
@@ -1395,13 +1400,14 @@ def test_ssd_kernel_route_refuses_a_gradient_on_the_card(dev, dtype, model):
         return torch.autograd.grad((y.float() * cast(dy).float()).sum()
                                    + (h * dh).sum(), leaves)
 
-    keys = ("ssd_scan", "ssd_scan_bwd_states", "ssd_scan_bwd_scan",
-            "ssd_scan_bwd_grads")
+    pair = ("ssd_scan_bwd_states", "ssd_scan_bwd_scan")
+    fused = dtype == torch.bfloat16
+    want = {"ssd_scan": 1, **dict.fromkeys(pair, 0 if fused else 1),
+            "ssd_scan_bwd_states_scan": int(fused), "ssd_scan_bwd_grads": 1}
     before = dict(LAUNCHES)
     got = grads(True, lambda t: t)
     torch.cuda.synchronize()
-    assert {k: LAUNCHES[k] - before[k] for k in keys} == dict.fromkeys(
-        keys, 1)
+    assert {k: LAUNCHES[k] - before[k] for k in want} == want
     want = grads(False, lambda t: t.float())
     for a, w, like in zip(got, want, (x, dA, Bm, Cm, h0)):
         assert a.shape == like.shape and a.dtype == like.dtype
@@ -1416,15 +1422,21 @@ def test_ssd_backward_kernels_vs_plain(dev, case):
     """``chip_smoke.py``'s phase-3 check of one SSD backward case: each
     kernel against its plain version, bf16 also the chain against the
     float32 oracle, each kernel's two calls bit-equal (raises otherwise);
-    one launch of each kernel a call."""
+    where the fused states and scan kernel takes the case, it too."""
+    from repro_torch.kernels import ssd_scan as ss
     g = torch.Generator(device=dev).manual_seed(6)
 
     def rn(shape, scale, dtype):
         return (torch.randn(shape, generator=g, device=dev)
                 * scale).to(dtype)
     errs = {name: [] for name in CS.SSD_BWD_KERNELS}
-    CS.ssd_bwd_check(torch, dev, rn, g, case, errs, {})
-    assert all(len(v) for v in errs.values())
+    fused = CS.ssd_bwd_check(torch, dev, rn, g, case, errs, {})
+    Bg, H, S, P, N, Q, dt = case[:7]
+    assert fused == ss.ssd_bwd_fused(
+        P, N, min(Q, S), S,
+        torch.bfloat16 if dt == "bf16" else torch.float32)
+    assert all(len(v) for n, v in errs.items()
+               if fused or n != CS.SSD_BWD_FUSED)
 
 
 # (Bg, H, S, P, N, chunk, dtype, h0, dh_final, decay, model layout) where
@@ -1479,6 +1491,50 @@ def test_ssd_backward_hopper_split_cases(dev, case):
     assert torch.cuda.max_memory_allocated() - base < scratch
     near(got, ss.ssd_bwd_grads_cuda(*args, kernel="mma"),
          (2e-2, 1e-3, 2e-2, 2e-2))
+
+
+# (Bg, H, S, P, N, chunk, dtype, h0, dh_final, decay, model layout) the
+# fused states and scan kernel takes (bf16 at P = 64, N = 64 and 128, at
+# most 8 chunks of 128 rows): both training shapes, clusters of 8 at a
+# ragged S with h0 and dh, of 3 and 5 blocks, of one block (S < 128, S = 1)
+SSD_BWD_FUSED_CASES = (
+    (4, 80, 1024, 64, 64, 128, "bf16", False, False, 1.4, True),
+    (4, 24, 1024, 64, 128, 128, "bf16", False, False, 0.01, True),
+    (1, 5, 1000, 64, 128, 128, "bf16", True, True, 1.4, False),
+    (2, 3, 300, 64, 64, 128, "bf16", True, False, 0.3, True),
+    (3, 2, 640, 64, 128, 128, "bf16", False, True, 0.01, False),
+    (2, 3, 100, 64, 64, 128, "bf16", True, True, 0.01, True),
+    (2, 3, 1, 64, 128, 128, "bf16", True, True, 0.8, False))
+
+
+@pytest.mark.parametrize("case", SSD_BWD_FUSED_CASES)
+def test_ssd_backward_fused_states_scan(dev, case):
+    """The fused states and scan kernel (``ssd_bwd_states_scan_cuda``):
+    against the plain states and scan, against the states and scan kernels
+    on the card (hprev, G and dh0 bit-equal, sc within
+    ``chip_smoke.SSD_SC_ORDER_TOL``), two calls bit-equal
+    (``chip_smoke.ssd_bwd_check``); ``ssd_bwd_cuda`` launches it once and
+    the grads kernel once, neither the states nor the scan kernel, and
+    its clusters fit on the card."""
+    from repro_torch.kernels import ssd_scan as ss
+    Bg, H, S, P, N, Q = case[:6]
+    assert ss.ssd_bwd_fused(P, N, min(Q, S), S, torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(9)
+
+    def rn(shape, scale, dtype):
+        return (torch.randn(shape, generator=g, device=dev)
+                * scale).to(dtype)
+    errs = {name: [] for name in CS.SSD_BWD_KERNELS}
+    assert CS.ssd_bwd_check(torch, dev, rn, g, case, errs, {})
+    assert errs[CS.SSD_BWD_FUSED]
+    x, dA, Bm, Cm, dy, h0, dh = CS.ssd_bwd_inputs(torch, dev, rn, g, case)
+    keys = ("ssd_scan_bwd_states", "ssd_scan_bwd_scan",
+            "ssd_scan_bwd_states_scan", "ssd_scan_bwd_grads")
+    before = dict(LAUNCHES)
+    ss.ssd_bwd_cuda(x, dA, Bm, Cm, dy, H, Q, h0, dh)
+    torch.cuda.synchronize()
+    assert [LAUNCHES[k] - before[k] for k in keys] == [0, 0, 1, 1]
+    assert ss.ssd_bwd_states_scan_clusters(N, -(-S // Q)) >= 1
 
 
 @pytest.mark.parametrize("arch", ["qwen2-0.5b", "deepseek-moe-16b",

@@ -313,7 +313,8 @@ def test_build_hash_covers_sources_and_flags(tmp_path):
         "version_scan", "potential_matrix", "wave_commit", "commit_loop",
         "flash_attention", "ssd_scan", "flash_attention_bwd_dq",
         "flash_attention_bwd_dkdv", "ssd_scan_bwd_states",
-        "ssd_scan_bwd_scan", "ssd_scan_bwd_grads"}
+        "ssd_scan_bwd_scan", "ssd_scan_bwd_states_scan",
+        "ssd_scan_bwd_grads"}
     assert {f"{n}_launch" for n in build.LAUNCHES} == set(build.SIGNATURES)
     assert [h.name for h in headers] == ["common.cuh", "mma.cuh", "sm90.cuh"]
     for src in sources:

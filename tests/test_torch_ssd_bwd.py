@@ -428,8 +428,12 @@ def test_train_launches_count_the_ssd_backward(chip_smoke):
     m = chip_smoke.train_launches(get_config("mamba2-130m"))
     assert m == {"flash_attention": 0, "flash_attention_bwd_dq": 0,
                  "flash_attention_bwd_dkdv": 0, "ssd_scan": 48,
-                 "ssd_scan_bwd_states": 24, "ssd_scan_bwd_scan": 24,
-                 "ssd_scan_bwd_grads": 24}
+                 "ssd_scan_bwd_states": 0, "ssd_scan_bwd_scan": 0,
+                 "ssd_scan_bwd_states_scan": 24, "ssd_scan_bwd_grads": 24}
+    f = chip_smoke.train_launches(get_config("mamba2-130m").replace(
+        compute_dtype=torch.float32))
+    assert (f["ssd_scan_bwd_states"], f["ssd_scan_bwd_scan"],
+            f["ssd_scan_bwd_states_scan"]) == (24, 24, 0)
     z = chip_smoke.train_launches(get_config("zamba2-2.7b").replace(
         n_layers=6))
     assert z["flash_attention"] == 2 and z["flash_attention_bwd_dq"] == 1

@@ -356,17 +356,20 @@ def test_chip_smoke_ssd_bwd_cases_reach_the_hopper_edges(chip_smoke):
     assert any(c[9] >= 1.4 for c in hopper)
     assert any(c[9] <= 0.01 for c in hopper)
     assert any(route(c) == "mma" for c in chip_smoke.SSD_BWD_CASES)
-    assert chip_smoke.SSD_BWD_WGMMA == {"ssd_scan_bwd_states": (64, 128),
-                                        "ssd_scan_bwd_grads": (64, 128)}
+    assert chip_smoke.SSD_BWD_WGMMA == {
+        "ssd_scan_bwd_states": (64, 128),
+        "ssd_scan_bwd_states_scan": (64, 128),
+        "ssd_scan_bwd_grads": (64, 128)}
 
 
 def _sass(drop=None):
     """A disassembly as ``cuobjdump -sass`` prints it: the Hopper forms of
-    the SSD backward's states and grads kernels at NT = 1, 2 (N = 64 NT),
-    each with HGMMA and UTMALDG instructions but ``drop`` ((kernel, NT,
-    instruction))."""
+    the SSD backward's states, fused states and scan, and grads kernels at
+    NT = 1, 2 (N = 64 NT), each with HGMMA and UTMALDG instructions but
+    ``drop`` ((kernel, NT, instruction))."""
     lines = []
     for name, n in (("ssd_scan_bwd_states_wgmma_kernel", 32),
+                    ("ssd_scan_bwd_states_scan_wgmma_kernel", 37),
                     ("ssd_scan_bwd_grads_wgmma_kernel", 31)):
         for nt in (1, 2):
             lines.append(f"Function : _Z{n}{name}ILi{nt}EEv14CUtensorMap_st")
@@ -382,18 +385,20 @@ def _sass(drop=None):
     None, ("ssd_scan_bwd_grads_wgmma_kernel", 1, "HGMMA"),
     ("ssd_scan_bwd_grads_wgmma_kernel", 2, "UTMALDG"),
     ("ssd_scan_bwd_states_wgmma_kernel", 2, "HGMMA"),
-    ("ssd_scan_bwd_states_wgmma_kernel", 1, "UTMALDG")])
+    ("ssd_scan_bwd_states_wgmma_kernel", 1, "UTMALDG"),
+    ("ssd_scan_bwd_states_scan_wgmma_kernel", 1, "HGMMA"),
+    ("ssd_scan_bwd_states_scan_wgmma_kernel", 2, "UTMALDG")])
 def test_ssd_bwd_wgmma_check(chip_smoke, monkeypatch, capsys, drop):
-    """Phase 2 fails unless the states and grads kernels each have their
-    two Hopper instantiations (N = 64 and 128) and both hold wgmma (HGMMA)
-    products and TMA (UTMALDG) loads."""
+    """Phase 2 fails unless the states, fused states and scan, and grads
+    kernels each have their two Hopper instantiations (N = 64 and 128) and
+    both hold wgmma (HGMMA) products and TMA (UTMALDG) loads."""
     class Done:
         stdout = _sass(drop)
     monkeypatch.setattr(chip_smoke.subprocess, "run", lambda *a, **k: Done)
     if drop is None:
         chip_smoke.ssd_bwd_wgmma_check("lib.so", "/cuda/bin/nvcc")
         out = capsys.readouterr().out
-        for name in ("ssd_scan_bwd_states", "ssd_scan_bwd_grads"):
+        for name in chip_smoke.SSD_BWD_WGMMA:
             assert f"{name} bf16 Hopper: HGMMA [1, 1], UTMALDG [1, 1]" in out
     else:
         with pytest.raises(AssertionError,
