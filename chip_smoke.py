@@ -101,7 +101,7 @@ Phases (any failure raises, so the process exits non-zero):
    plain loop there, and the wrapper's host time a call at T=1;
    one profiled postsi wave on each CUDA route, with its launches (one
    ``commit_loop`` a wave);
-4. engine: 8 SmallBank waves of T=256 over a 1,000,000-account store
+4. engine: 4 SmallBank waves of T=256 over a 1,000,000-account store
    (8 nodes x 125,000 accounts, V=8, 20% distributed) through
    ``run_workload_fused`` for all six schedulers under the ``cuda``,
    ``cuda+fused``, ``torch`` and ``torch+fused`` routes; every route equal
@@ -208,8 +208,11 @@ Phases (any failure raises, so the process exits non-zero):
    wave asserted: ``version_scan`` N (T + 1) = 2,056 and
    ``potential_matrix`` 1 on ``cuda``, ``wave_commit`` 8 and
    ``version_scan`` N T = 2,048 on ``cuda+fused``, ``commit_loop`` 0 (the
-   mesh runs the plain commit loop); one postsi wave on the mesh's
-   ``torch`` route equal to it too;
+   mesh runs the plain commit loop); each scheduler through one of the
+   four (route, driver) pairs, the pairs in turn (every pair for one
+   scheduler or two); one postsi wave on the mesh's ``torch``
+   route equal to it too; then one more postsi wave on ``cuda`` under the
+   counter for phase 9g;
    5m. the service on the node mesh, phase 5's stream for ``--mesh-ticks``
    ticks: ``TxnService(mesh=...)`` on both CUDA routes equal to the
    single-device ``cuda`` session (fates, history, store), ``verify() ==
@@ -314,6 +317,19 @@ Phases (any failure raises, so the process exits non-zero):
    one step; the loss within 2e-2 of the ``torch`` route's on the same
    parameters and batch, every gradient leaf finite, its launches as
    counted, ms a loss and gradient;
+   9g. the dry run held to the card: phases 4m, 6, 7a, 9a and 9d each
+   make one untimed extra call under ``launch.op_count``'s counter on the
+   ``cuda`` route (a postsi mesh wave at phase 4m's shape, zamba2-2.7b's
+   and qwen3-14b's 4 x 1,024 prefill, a qwen2-0.5b and a mamba2-130m
+   train step of 4 x 1,024), and 9g traces each on ``meta`` (the mesh
+   wave in a child process started at the beginning, which never touches
+   the card): FLOPs (by dtype) and bytes equal exactly; each hand-written
+   kernel's launches in the trace equal to the card's counter's and the
+   wrappers' (``LAUNCHES``); every one of them in the profiler's trace
+   (at most as often: the profiler can drop an event); printed beside
+   the card line: each call's ``compute_s``, ``memory_s`` and measured
+   ms (its phase's time), the share of the roofline, and the peak-live
+   estimate beside ``torch.cuda.max_memory_allocated``;
 10. one JSON line of per-kernel results, with the launches each kernel made
    on its own path (phases 4-5d for the engine's, the streamed, planned,
    durable, replayed and placed runs included, the served batches of
@@ -326,7 +342,8 @@ The store, wave, stream and model sizes are fixed (the constants below);
 the flags cut only the depth: ``--waves``, ``--scheds``, ``--ticks``,
 ``--planned-waves``, ``--elastic-ticks``, ``--mesh-waves``,
 ``--mesh-ticks``, ``--serve-batches``, ``--new-tokens`` and
-``--ssm-train-steps``.
+``--ssm-train-steps``.  Each phase's seconds are printed at the end
+(``[phases]``).
 
 Without a CUDA device, or in a directory that does not hold the repository,
 it exits non-zero and prints no result.
@@ -345,13 +362,16 @@ from typing import NamedTuple
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
+if SRC not in sys.path:
+    sys.path.insert(0, SRC)
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, the non-tensor-core
 # 32-bit rate (taken for the engine kernels' integer compares) and the dense
-# bf16 tensor rate (taken for the model kernels' bf16 products)
-HBM_BYTES_PER_S = 3.35e12
-ALU_OPS_PER_S = 67e12
-BF16_FLOPS_PER_S = 989e12
+# bf16 tensor rate (taken for the model kernels' bf16 products); the bound
+# of (bytes, operations)
+from repro_torch.kernels.roofline import (ALU_OPS_PER_S,  # noqa: E402
+                                          BF16_FLOPS_PER_S, HBM_BYTES_PER_S,
+                                          bound, ops_rate)
 
 # the serve phase: model, batch and prompt lengths (fixed)
 SERVE_ARCH = "zamba2-2.7b"
@@ -398,6 +418,10 @@ TRAIN_ENC_FRAMES = 1000
 # layers, batch, seq), the layers a whole number of shared-attention groups
 SSM_TRAIN_ARCH = "mamba2-130m"
 HYBRID_TRAIN_RUNS = (("9e", "zamba2-2.7b", 6, 2, 1024),)
+# phase 9g, the dry run held to the card: the prefills of these models
+# (phases 6, 7a) and the runners' steps (9a, 9d) are counted on the card
+# and traced on meta, with one postsi mesh wave (phase 4m)
+DRY_PREFILLS = ("zamba2-2.7b", "qwen3-14b")
 
 
 class Config(NamedTuple):
@@ -414,17 +438,20 @@ class Config(NamedTuple):
     service_T: int = 64
     rate: float = 48.0             # Poisson arrivals per tick
     seed: int = 0
-    waves: int = 8                 # cut from 16 to make room for 4m, 5m
+    waves: int = 4                 # cut from 16 to make room for 4m, 5m,
+                                   # and from 8 for 9g
     scheds: str = "all"
-    ticks: int = 32
+    ticks: int = 16                # cut from 32 to make room for 9g
     serve_batches: int = 3         # of SERVE_PROMPTS
     new_tokens: int = 16
-    planned_waves: int = 2         # hot SmallBank waves the planner replays
+    planned_waves: int = 1         # hot SmallBank waves the planner replays
+                                   # (cut from 2 to make room for 9g)
     elastic_ticks: int = 20        # ticks of phase 5d's elastic stream
     mesh_waves: int = 1            # waves a scheduler and route, phase 4m
                                    # (cut from 2 to make room for phase 8;
                                    # 5m carries state across mesh waves)
-    mesh_ticks: int = 8            # ticks of phase 5m's mesh sessions
+    mesh_ticks: int = 6            # ticks of phase 5m's mesh sessions
+                                   # (cut from 8 to make room for 9g)
     ssm_train_steps: int = 8       # steps of phase 9d's runner
 
 
@@ -468,14 +495,6 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
-
-
-def bound(n_bytes: float, n_ops: float, ops_per_s: float = ALU_OPS_PER_S):
-    """(bound_ms, bound_by): the larger of bytes over the HBM rate and
-    operations over ``ops_per_s``."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / ops_per_s * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def cuda_ms(torch, fn, iters=200, warmup=10) -> float:
@@ -547,10 +566,12 @@ def kernel_phase(torch, dev, n_keys, V, T, O):
     records of the main-path shape (T*O requests, a T-txn wave) and the
     store tables they ran on (for ``engine_device_ms``)."""
     from repro_torch.kernels.interval_negotiate import (
-        potential_matrix_cuda, potential_matrix_ref)
-    from repro_torch.kernels.version_scan import (version_scan_cuda,
+        potential_matrix_cost, potential_matrix_cuda, potential_matrix_ref)
+    from repro_torch.kernels.version_scan import (version_scan_cost,
+                                                  version_scan_cuda,
                                                   version_scan_plain)
-    from repro_torch.kernels.wave_commit import (wave_commit_cuda,
+    from repro_torch.kernels.wave_commit import (wave_commit_cost,
+                                                 wave_commit_cuda,
                                                  wave_commit_plain)
     g = torch.Generator(device=dev).manual_seed(0)
     i32 = dict(dtype=torch.int32, device=dev)
@@ -659,19 +680,14 @@ def kernel_phase(torch, dev, n_keys, V, T, O):
     ms["wave_commit"] = (
         cuda_ms(torch, lambda: wave_commit_cuda(*wc, keys=kw)),
         cuda_ms(torch, lambda: wave_commit_plain(*wc, keys=kw)))
-    # bytes: each input read once (ring rows of cid/tid, val/sid at the
-    # chosen slot), each output written once; operations: compares and
-    # selects, the potential tile's only for the reader keys >= 0 that this
-    # run's data holds (inactive reader keys are skipped)
-    pairs = 2 * T * O * int((rk >= 0).sum())
-    work = {
-        "version_scan": (M * (4 + 4 + 2 * 4 * V + 2 * 4), 3 * M * V),
-        "potential_matrix": (2 * T * O * 4 + T * T, pairs),
-        "wave_commit": (T * O * (4 * 4 + 1 + 2 * 4 * V + 2 * 4 + 5 * 4)
-                        + T * 4 + T * T, 3 * T * O * V + pairs),
-    }
+    # each kernel's cost formula; the potential tile's operations only for
+    # the reader keys >= 0 that this run's data holds
+    live = int((rk >= 0).sum())
+    work = {"version_scan": version_scan_cost(M, V),
+            "potential_matrix": potential_matrix_cost(T, O, live),
+            "wave_commit": wave_commit_cost(T, O, V, live)}
     for name, (k_ms, p_ms) in ms.items():
-        b_ms, b_by = bound(*work[name])
+        b_ms, b_by = bound(work[name][1], work[name][0])
         records[name] = {
             "name": name, "route": "cuda", "source": KERNELS[name][0],
             "replaces": KERNELS[name][1], "launches": 0,
@@ -1098,6 +1114,17 @@ def check_commit_loop(torch, np, dev, case, sched, gc, kernel, plain):
     return err
 
 
+def path_wave_counts(np, wave, status, wcid, n_keys):
+    """(rows, installs, reads) of ``commit_loop_cost`` for one wave
+    (numpy fields) and its plain loop's status [T] and wcid [T, O]: the
+    distinct keys it touches, its installs and its committed txns' live
+    reads (SID bumps)."""
+    kind = wave[0]
+    reads = ((kind == 1) | (kind == 3)) & (status == 1)[:, None]
+    return (len(np.unique(np.clip(wave[1], 0, n_keys - 1))),
+            int((wcid >= 0).sum()), int(reads.sum()))
+
+
 def commit_loop_phase(torch, np, dev, cfg):
     """``commit_loop`` against the engine's plain loop on every case, for
     the six schedulers x three GC modes, in the variant the wrapper picks
@@ -1111,7 +1138,8 @@ def commit_loop_phase(torch, np, dev, cfg):
     from repro_torch.core import SCHEDULERS, LocalSubstrate, MVStore
     from repro_torch.core import wave_from_numpy
     from repro_torch.core.engine import wave_read_phase
-    from repro_torch.kernels.commit_loop import (VARIANTS, commit_loop_cuda,
+    from repro_torch.kernels.commit_loop import (VARIANTS, commit_loop_cost,
+                                                 commit_loop_cuda,
                                                  commit_loop_plain,
                                                  commit_loop_smem_bytes)
     cases = commit_loop_cases(np, cfg)
@@ -1170,19 +1198,13 @@ def commit_loop_phase(torch, np, dev, cfg):
                        iters=20, warmup=2) for v in VARIANTS}
     p_ms = cuda_ms(torch, lambda: commit_loop_plain(store, inputs, **kw),
                    iters=3, warmup=1)
-    # bytes of this wave: the per-op inputs (8 [T, O] int32 arrays), host,
-    # tid, s_lo0, potential and 3 scalars read once; the ring rows of the
-    # distinct keys touched (cid, tid, sid) and their heads; every install
-    # (4 ring fields, head, wave tag) and SID bump written once; the
-    # outputs.  Operations: the ring compares and the two [T, T] passes.
+    # the kernel's cost formula at this wave's distinct keys, installs and
+    # SID bumps
     status, _, _, wcid, _, _ = commit_loop_plain(
         MVStore(*(t.clone() for t in store)), inputs, **kw)
-    rows = len(np.unique(np.clip(wave[1], 0, n_keys - 1)))
-    reads = ((kind == 1) | (kind == 3)) & (status.cpu().numpy() == 1)[:, None]
-    n_bytes = (8 * T * O * 4 + 3 * T * 4 + T * T + 12 + rows * (3 * V + 1) * 4
-               + int((wcid >= 0).sum()) * 6 * 4 + int(reads.sum()) * 4
-               + 3 * T * 4 + T * O * 4 + 8)
-    b_ms, b_by = bound(n_bytes, 3 * T * O * V + 2 * T * T)
+    n_ops, n_bytes = commit_loop_cost(T, O, V, *path_wave_counts(
+        np, wave, status.cpu().numpy(), wcid.cpu().numpy(), n_keys))
+    b_ms, b_by = bound(n_bytes, n_ops)
     print(f"[kernels] commit_loop at the path's wave ({label}, O={O}, "
           f"V={V}, postsi): "
           + ", ".join(f"{v} {ms:.4f} ms/wave ({1e3 * ms / T:.3f} us a step)"
@@ -1516,7 +1538,8 @@ def attention_times(torch, rn, probes, B, S, H, KH, D, Sk=None,
     library time, since its CUDA events read the host's pace; the events
     beside them), and the bytes-or-operations bound."""
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+    from repro_torch.kernels.flash_attention import (flash_attention_cost,
+                                                     flash_attention_cuda,
                                                      flash_attention_plain)
     Sk = S if Sk is None else Sk
     q = rn((B, S, H, D), 0.5, torch.bfloat16)
@@ -1525,12 +1548,8 @@ def attention_times(torch, rn, probes, B, S, H, KH, D, Sk=None,
     kern = lambda: flash_attention_cuda(q, k, v, causal)
     sdpa = lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=causal, enable_gqa=H != KH)
-    # bytes: inputs read once, the output written once; operations: the
-    # two products over the (query, key) pairs the mask keeps, the causal
-    # half of S^2 or all of S x Sk
-    pairs = B * H * (S * (S + 1) // 2 if causal else S * Sk)
-    b_ms, b_by = bound((2 * H * S + 2 * KH * Sk) * B * D * 2, 4 * pairs * D,
-                       BF16_FLOPS_PER_S)
+    n_ops, n_bytes = flash_attention_cost(B, S, Sk, H, KH, D, causal)
+    b_ms, b_by = bound(n_bytes, n_ops, BF16_FLOPS_PER_S)
     return {
         "ms": cuda_ms(torch, kern, iters=20, warmup=3),
         "plain_ms": cuda_ms(torch, lambda: flash_attention_plain(q, k, v,
@@ -1554,7 +1573,8 @@ def ssd_times(torch, dev, rn, probes, Bg, H, S, P, N, Q, dtype):
     the same shape, ``mma_device_ms``) and the bytes-or-operations bound
     (bf16 products over the tensor rate, float32 ones over the FMA
     rate)."""
-    from repro_torch.kernels.ssd_scan import ssd_cuda, ssd_kernel, ssd_plain
+    from repro_torch.kernels.ssd_scan import (ssd_cost, ssd_cuda, ssd_kernel,
+                                              ssd_plain)
     BH = Bg * H
     g = torch.Generator(device=dev).manual_seed(BH + N)
     x, dA = model_layout(rn((BH, S, P), 0.5, dtype),
@@ -1562,16 +1582,8 @@ def ssd_times(torch, dev, rn, probes, Bg, H, S, P, N, Q, dtype):
                          Bg, H)
     Bm, Cm = rn((Bg, S, N), 0.3, dtype), rn((Bg, S, N), 0.3, dtype)
     kern = lambda: ssd_cuda(x, dA, Bm, Cm, H, Q)
-    # bytes: inputs read once, outputs written once; operations: Q(Q+1)/2
-    # per chunk for the SSD's two intra-chunk products, plus its two state
-    # products
-    nc = -(-S // Q)
-    isz = 2 if dtype == torch.bfloat16 else 4
-    b_ms, b_by = bound(
-        2 * BH * S * P * isz + BH * S * 4 + 2 * Bg * S * N * isz
-        + BH * N * P * 4,
-        2 * BH * nc * (Q * (Q + 1) // 2 * (N + P) + 2 * Q * N * P),
-        BF16_FLOPS_PER_S if dtype == torch.bfloat16 else ALU_OPS_PER_S)
+    n_ops, n_bytes = ssd_cost(BH, Bg, S, P, N, Q, dtype)
+    b_ms, b_by = bound(n_bytes, n_ops, ops_rate(dtype))
     routed = ssd_kernel(P, N, min(Q, S), S, dtype)
     mma = None
     if routed == "wgmma":
@@ -1867,24 +1879,14 @@ def ssd_bwd_times(torch, dev, rn, g, probes, Bg, H, S, P, N, Q, dtype):
          **{n + " (mma)": (f, n + "_kernel") for n, f in mma.items()},
          "forward": (lambda: ss.ssd_cuda(x, dA, Bm, Cm, H, Q), fwd_kernel)},
         iters=10)
-    isz = x.element_size()
-    rate = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else ALU_OPS_PER_S
-    pairs = (S // Q) * Q * (Q + 1) // 2 + (S % Q) * (S % Q + 1) // 2
-    # x, dy, dA, B, C in; dx, dA, dB, dC out; dh0 out of the scan
-    ins = 2 * BH * S * P * isz + BH * S * 4 + 2 * Bg * S * N * isz
-    outs = BH * S * P * isz + BH * S * 4 + 2 * Bg * S * N * isz
-    dh0 = BH * N * P * 4
-    grads_ops = 2 * (pairs * (Bg * N + BH * (2 * P + 2 * N))
-                     + 3 * BH * S * N * P)
-    states_ops = 2 * 2 * BH * S * N * P
-    scan_ops = 3 * 2 * BH * nc * N * P     # two scans, e^{a_L}<h, G>
-    bounds = {"ssd_scan_bwd_states": bound(ins, states_ops, rate),
-              "ssd_scan_bwd_scan": bound(dh0, scan_ops),
-              # the pair's work: the scans' float32 operations counted at
-              # the rate of the states' products
-              SSD_BWD_FUSED: bound(ins + dh0, states_ops + scan_ops * rate
-                                   / ALU_OPS_PER_S, rate),
-              "ssd_scan_bwd_grads": bound(ins + outs, grads_ops, rate)}
+    rate = ops_rate(dtype)
+    shape = (BH, Bg, S, P, N, Q, dtype)
+    costs = {"ssd_scan_bwd_states": (ss.ssd_bwd_states_cost(*shape), rate),
+             "ssd_scan_bwd_scan": (ss.ssd_bwd_scan_cost(BH, nc, N, P),
+                                   ALU_OPS_PER_S),
+             SSD_BWD_FUSED: (ss.ssd_bwd_states_scan_cost(*shape), rate),
+             "ssd_scan_bwd_grads": (ss.ssd_bwd_grads_cost(*shape), rate)}
+    bounds = {n: bound(c[1], c[0], r) for n, (c, r) in costs.items()}
     for n in fns:
         out[n].update(device_ms=device[n], kernel=names[n],
                       mma_device_ms=device.get(n + " (mma)"),
@@ -1893,8 +1895,8 @@ def ssd_bwd_times(torch, dev, rn, g, probes, Bg, H, S, P, N, Q, dtype):
         out[SSD_BWD_FUSED]["plain_ms"] = cuda_ms(
             torch, lambda: ss.ssd_bwd_states_scan_plain(
                 x, dA, Bm, Cm, dy, H, Q), iters=3, warmup=1)
-    whole = bound(ins + outs + dh0, states_ops + grads_ops + scan_ops,
-                  rate)
+    n_ops, n_bytes = ss.ssd_bwd_cost(*shape)
+    whole = bound(n_bytes, n_ops, rate)
     state_ms = BH * nc * N * P * 4 / HBM_BYTES_PER_S * 1e3   # one pass
     out.update(all_ms=cuda_ms(torch, lambda: ss.ssd_bwd_cuda(
                    x, dA, Bm, Cm, dy, H, Q), iters=20, warmup=3),
@@ -2130,19 +2132,11 @@ def attention_bwd_phase(torch, dev):
              if n != "unforced" and r[0] is not None}
     fastest = min(timed, key=timed.get) if timed else None
     sdpa_bwd_ms = backends["unforced"][0]
-    # bytes: inputs read once, outputs written once; operations: each
-    # product over the (query, key) pairs the causal mask keeps: s, dp and
-    # dq in the first kernel, s, dp, dv and dk in the second, five in the
-    # backward as a whole
-    pairs = B * H * S * (S + 1) // 2
-    big, small, rows = B * S * H * D * 2, B * S * KH * D * 2, B * H * S * 4
-    bounds = {"flash_attention_bwd_dq": bound(4 * big + 2 * small + 2 * rows,
-                                              3 * 2 * pairs * D,
-                                              BF16_FLOPS_PER_S),
-              "flash_attention_bwd_dkdv": bound(
-                  2 * big + 4 * small + 2 * rows, 4 * 2 * pairs * D,
-                  BF16_FLOPS_PER_S)}
-    whole = bound(4 * big + 4 * small + rows, 5 * 2 * pairs * D,
+    from repro_torch.kernels import flash_attention as fa
+    shape = (B, S, S, H, KH, D, True)
+    bounds = {n: bound(*reversed(getattr(fa, n + "_cost")(*shape)),
+                       BF16_FLOPS_PER_S) for n in fns}
+    whole = bound(*reversed(fa.flash_attention_bwd_cost(*shape)),
                   BF16_FLOPS_PER_S)
     print(f"[kernels] attention backward at phase 9's training shape (B={B} "
           f"S={S} H={H} KH={KH} D={D} bf16 causal): dq kernel "
@@ -2290,7 +2284,7 @@ def model_launches(mcfg):
 
 def serve_phase(torch, dev, cfg, card, mcfg=None, route="cuda",
                 n_versions=2, prompts=None, tag="serve", src_lens=None,
-                gate_bf16=True):
+                gate_bf16=True, dry=None):
     """zamba2-2.7b (or ``mcfg``) behind ``Server`` on ``route``, with
     ``n_versions`` random weight versions (the second published after the
     first batch) over ``prompts`` (default ``SERVE_PROMPTS``; the first
@@ -2298,7 +2292,9 @@ def serve_phase(torch, dev, cfg, card, mcfg=None, route="cuda",
     frame embeddings of ``src_lens`` frames a batch.  Returns the launch
     counts of the served batches (the counted path); measures and
     cross-checks against the ``torch`` route after reading them (the bf16
-    distance gated only where ``gate_bf16``)."""
+    distance gated only where ``gate_bf16``).  A model of ``DRY_PREFILLS``
+    makes one more prefill under the counter for phase 9g, into ``dry``
+    (``dry_run_call``)."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.kernels import LAUNCHES, reset_launch_counts
@@ -2416,6 +2412,10 @@ def serve_phase(torch, dev, cfg, card, mcfg=None, route="cuda",
     profile_call(torch, f"one {mcfg.name} decode step", lambda: srv.decode(
         params, cache, {"token": tok}), card, tag)
     del cache
+    if dry is not None and mcfg.name in DRY_PREFILLS and use:
+        dry_run_call(torch, dry, f"{mcfg.name} prefill {SERVE_BATCH} x "
+                     f"{toks.shape[1]}", srv.prefill,
+                     (params, batch, max_len), min(times) * 1e3)
     ssd_check(mcfg, lambda: profile_call(
         torch, f"one {mcfg.name} prefill (S={toks.shape[1]})",
         lambda: srv.prefill(params, batch, max_len), card, tag), use, tag,
@@ -2482,12 +2482,12 @@ def serve_phase(torch, dev, cfg, card, mcfg=None, route="cuda",
     return counts
 
 
-def decoder_phase(torch, dev, cfg, card, runs=None, route="cuda"):
+def decoder_phase(torch, dev, cfg, card, runs=None, route="cuda", dry=None):
     """Phase 7: ``DecoderLM`` behind ``Server`` at full width, one
     ``serve_phase`` a configuration of ``runs`` (default ``DECODER_RUNS``,
     built from the registry; tuples of step, config, weight versions,
     prompt lengths and a note printed first), each model's versions freed
-    before the next is made.
+    before the next is made; ``dry`` as ``serve_phase``'s.
     Returns the launch counts of all their served batches."""
     import gc
     from repro_torch.configs import get_config
@@ -2518,7 +2518,7 @@ def decoder_phase(torch, dev, cfg, card, runs=None, route="cuda"):
               f"{route} [{card}]", flush=True)
         counts = serve_phase(torch, dev, cfg, card, mcfg=mcfg, route=route,
                              n_versions=n_versions, prompts=prompts,
-                             tag="decoder")
+                             tag="decoder", dry=dry)
         print(f"[decoder] {step} {mcfg.name}: {time.perf_counter() - t0:.1f}"
               f" s with its measurements", flush=True)
         total = {k: total.get(k, 0) + v for k, v in counts.items()}
@@ -2704,7 +2704,7 @@ def bf16_step(torch, mcfg, params, batch, route, tag, label, card):
 
 
 def runner_phase(torch, dev, cfg, card, mcfg, route, step, steps,
-                 gate_step):
+                 gate_step, dry=None):
     """``TrainRunner`` on ``route`` over ``TokenStream`` batches of
     TRAIN_BATCH x TRAIN_SEQ of ``mcfg`` (bf16 compute over float32
     parameters): ``steps`` steps, a checkpoint every ``steps // 2`` and a
@@ -2714,7 +2714,8 @@ def runner_phase(torch, dev, cfg, card, mcfg, route, step, steps,
     checkpoint save and restore seconds, a profile of one more step; then
     one float32 step on ``route`` against the ``torch`` route
     (``f32_gate``, its lines labelled ``gate_step``).  ``step`` labels the
-    lines ("9a")."""
+    lines ("9a").  With ``dry`` one more step runs under the counter for
+    phase 9g (``dry_run_call``)."""
     import gc
     import tempfile
     from repro_torch.checkpoint import PostSICheckpointer
@@ -2814,6 +2815,9 @@ def runner_phase(torch, dev, cfg, card, mcfg, route, step, steps,
     batch = stream.next()
     profile_call(torch, f"one {mcfg.name} train step",
                  lambda: step_fn(params, opt, batch), card, tag="train")
+    if dry is not None:
+        dry_run_call(torch, dry, f"{mcfg.name} train step {B} x {S}",
+                     step_fn, (params, opt, batch), steady * 1e3)
     del opt
     gc.collect()
     torch.cuda.empty_cache()
@@ -2825,7 +2829,7 @@ def runner_phase(torch, dev, cfg, card, mcfg, route, step, steps,
 
 
 def train_phase(torch, dev, cfg, card, mcfg=None, family_runs=None,
-                route="cuda", ssm_mcfg=None, hybrid_runs=None):
+                route="cuda", ssm_mcfg=None, hybrid_runs=None, dry=None):
     """Phase 9: training on ``route``.  9a: qwen2-0.5b (or ``mcfg``) at
     full width and depth through ``runner_phase`` (TRAIN_STEPS steps).
     9b, 9c: one float32 step of each of ``family_runs`` (default
@@ -2835,8 +2839,9 @@ def train_phase(torch, dev, cfg, card, mcfg=None, family_runs=None,
     (``cfg.ssm_train_steps`` steps), its float32 step labelled 9e; 9e:
     one float32 step of each of ``hybrid_runs`` (default
     HYBRID_TRAIN_RUNS, as ``family_runs``); 9f: one step of each in its
-    bf16 compute dtype (``bf16_step``), with its launches.  Returns the
-    launch counts of the phase."""
+    bf16 compute dtype (``bf16_step``), with its launches.  ``dry``: the
+    runners' counted steps for phase 9g.  Returns the launch counts of the
+    phase."""
     import gc
     from repro_torch.configs import get_config
     from repro_torch.data import TokenStream
@@ -2845,7 +2850,7 @@ def train_phase(torch, dev, cfg, card, mcfg=None, family_runs=None,
     t_phase = time.perf_counter()
     reset_launch_counts()     # the phase's path starts here
     runner_phase(torch, dev, cfg, card, mcfg or get_config(TRAIN_ARCH),
-                 route, "9a", TRAIN_STEPS, "9a")
+                 route, "9a", TRAIN_STEPS, "9a", dry)
 
     def cut_runs(runs):
         out = []
@@ -2913,7 +2918,7 @@ def train_phase(torch, dev, cfg, card, mcfg=None, family_runs=None,
 
     gate_runs(family_runs)
     runner_phase(torch, dev, cfg, card, ssm_mcfg or get_config(
-        SSM_TRAIN_ARCH), route, "9d", cfg.ssm_train_steps, "9e")
+        SSM_TRAIN_ARCH), route, "9d", cfg.ssm_train_steps, "9e", dry)
     gate_runs(hybrid_runs, bf16_label="9f")
     total = dict(LAUNCHES)
     gc.collect()
@@ -2921,6 +2926,140 @@ def train_phase(torch, dev, cfg, card, mcfg=None, family_runs=None,
     print(f"[train] phase 9: {time.perf_counter() - t_phase:.1f} s, kernel "
           f"launches {total}", flush=True)
     return total
+
+
+# ------------------------------------------------------------ phase 9g
+def meta_like(torch, tree):
+    """``tree`` with every tensor replaced by an empty one on ``meta`` of
+    its shape, strides and dtype (the same tree structure)."""
+    from torch.utils._pytree import tree_map
+    return tree_map(lambda t: torch.empty_strided(
+        t.shape, t.stride(), dtype=t.dtype, device="meta")
+        if isinstance(t, torch.Tensor) else t, tree)
+
+
+def traced_kernels(prof) -> dict:
+    """{kernel of KERNELS: device launches} in a stopped profiler's trace
+    (the profiler can drop an event: a count may fall short)."""
+    out = {}
+    for e in prof.events():
+        if getattr(e, "device_type", None) is not None \
+                and "CUDA" in str(e.device_type):
+            k = kernel_of(e.name)
+            if k:
+                out[k] = out.get(k, 0) + 1
+    return out
+
+
+def dry_run_call(torch, dry, label, fn, args, ms, kwargs=None,
+                 profile=True, meta_proc=None):
+    """One untimed call of ``fn(*args, **kwargs)`` on the card under the
+    counter (``launch.op_count.count_call``), kept in ``dry[label]`` for
+    phase 9g with: the meta twin of its arguments (made before the call,
+    which may update them in place), the wrappers' launches
+    (``LAUNCHES``), the profiler's kernel counts where ``profile``, the
+    card's peak memory over the call, and ``ms``, the call's time as its
+    phase measured it.  ``meta_proc``: a child making the meta trace
+    instead (``start_mesh_meta_trace``)."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.launch.op_count import count_call
+    kwargs = kwargs or {}
+    meta_args = None if meta_proc else meta_like(torch, (args, kwargs))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    before = dict(LAUNCHES)
+    prof = start_profiler("dry") if profile else None
+    out, count = count_call(fn, *args, **kwargs)
+    torch.cuda.synchronize()
+    traced = traced_kernels(prof) if stop_profiler(prof, "dry") else None
+    del out
+    dry[label] = {"fn": fn, "meta_args": meta_args, "meta_proc": meta_proc,
+                  "count": count, "traced": traced, "ms": ms,
+                  "launched": {k: LAUNCHES[k] - before[k] for k in LAUNCHES
+                               if LAUNCHES[k] != before[k]},
+                  "peak": torch.cuda.max_memory_allocated(), "base": base}
+
+
+def start_mesh_meta_trace():
+    """A child process (``chip_smoke.py --mesh-meta-trace``) tracing
+    ``mesh_wave_call`` on ``meta`` at the fixed sizes while the card runs
+    the phases before 9g; it never touches the card (no CUDA device is
+    visible to it) and prints the count as its last line."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mesh-meta-trace"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=ROOT)
+
+
+def mesh_meta_trace() -> int:
+    """The child of ``start_mesh_meta_trace``."""
+    import torch
+    from repro_torch.launch.op_count import count_call
+    torch.set_num_threads(1)
+    fn, args, kwargs = mesh_wave_call(torch, torch.device("meta"), Config())
+    print(json.dumps(count_call(fn, *args, **kwargs)[1]), flush=True)
+    return 0
+
+
+def dry_run_phase(torch, dry, card):
+    """Phase 9g: each call of ``dry`` traced on ``meta`` (or its child's
+    trace read) and held to its count on the card: FLOPs (by dtype) and
+    bytes equal exactly; each hand-written kernel's launches in the trace
+    equal to the card's counter's and to the wrappers' (``LAUNCHES``);
+    where profiled, every kernel in the profiler's trace, at most as
+    often.  Prints each call's roofline (``launch.dryrun.roofline``)
+    beside its measured ms, the share of the roofline, and the peak-live
+    estimate beside ``torch.cuda.max_memory_allocated``."""
+    from repro_torch.launch.dryrun import roofline
+    from repro_torch.launch.op_count import count_call
+    for label, d in dry.items():
+        t0 = time.perf_counter()
+        if d["meta_proc"] is not None:
+            out, err = d["meta_proc"].communicate(timeout=900)
+            if d["meta_proc"].returncode != 0:
+                raise AssertionError(f"[dry] {label}: the meta trace failed:"
+                                     f" {err[-2000:]}")
+            meta = json.loads(out.strip().splitlines()[-1])
+        else:
+            (args, kwargs) = d["meta_args"]
+            meta = count_call(d["fn"], *args, **kwargs)[1]
+        real = d["count"]
+        for key in ("flops", "flops_by_dtype", "bytes"):
+            if real[key] != meta[key]:
+                raise AssertionError(f"[dry] {label}: {key} on the card "
+                                     f"{real[key]}, on meta {meta[key]}")
+        launches = {k: v["launches"] for k, v in real["kernels"].items()}
+        meta_launches = {k: v["launches"] for k, v in meta["kernels"].items()}
+        if launches != meta_launches or launches != d["launched"]:
+            raise AssertionError(f"[dry] {label}: kernel launches counted "
+                                 f"{launches}, on meta {meta_launches}, by "
+                                 f"the wrappers {d['launched']}")
+        traced = d["traced"]
+        if traced is not None and any(
+                not 0 < traced.get(k, 0) <= n for k, n in launches.items()):
+            raise AssertionError(f"[dry] {label}: the profiler traced "
+                                 f"{traced}, the counter {launches}")
+        r = roofline(real)
+        least_ms = max(r["compute_s"], r["memory_s"]) * 1e3
+        share = ("not measured" if d["ms"] is None else
+                 f"{d['ms']:.1f} ms measured, {100 * least_ms / d['ms']:.2f}%"
+                 f" of the roofline")
+        gib = lambda n: f"{n / 2 ** 30:.2f} GiB"
+        print(f"[dry] {label}: {real['flops']:.4g} FLOPs "
+              f"{ {k: f'{v:.4g}' for k, v in real['flops_by_dtype'].items()} }"
+              f", {real['bytes']:.4g} bytes, {real['aten_ops']} aten ops, "
+              f"equal on meta (traced in {time.perf_counter() - t0:.1f} s); "
+              f"launches {launches} = the wrappers' = meta's"
+              + ("" if traced is None else f", profiler {traced}")
+              + f"; compute_s {r['compute_s']:.6g} memory_s "
+              f"{r['memory_s']:.6g} ({r['dominant']}), least "
+              f"{least_ms:.4f} ms, {share}; peak-live estimate "
+              f"{gib(real['memory']['peak_live_bytes'])} beside "
+              f"max_memory_allocated {gib(d['peak'])} "
+              f"({gib(d['base'])} allocated before the call) [{card}]",
+              flush=True)
 
 
 def in_situ_check(torch, srv, params, batch, max_len, tag="serve"):
@@ -4143,14 +4282,36 @@ def mesh_wave_launches(route, n_nodes, T, n_waves):
             "wave_commit": n_waves * n_nodes, "commit_loop": 0}
 
 
+def mesh_wave_call(torch, dev, cfg, route="cuda"):
+    """(fn, args, kwargs) of the mesh wave phase 9g counts: phase 4m's
+    first wave, postsi, on a fresh store sharded over
+    ``make_node_mesh(cfg.nodes)`` on ``dev`` (the card, or ``meta`` for its
+    trace), through ``run_wave_dist`` on ``route``."""
+    import numpy as np
+    from repro_torch.core import make_node_mesh, make_store, shard_store
+    from repro_torch.core.dist_engine import run_wave_dist
+    from repro_torch.core.workloads import smallbank_waves
+    mesh = make_node_mesh(cfg.nodes, dev)
+    wave = smallbank_waves(np.random.RandomState(cfg.seed), 1, cfg.T,
+                           cfg.nodes, cfg.kpn, dist_frac=0.2, device=dev)[0]
+    store = shard_store(make_store(cfg.nodes * cfg.kpn, cfg.V, device=dev),
+                        mesh)
+    return run_wave_dist, (store, wave, 1, 1, mesh), dict(
+        sched="postsi", gc_track=True, kernels=route)
+
+
 def mesh_engine_phase(torch, dev, cfg, card, routes=("cuda", "cuda+fused"),
-                      plain="torch"):
+                      plain="torch", dry=None, meta_proc=None):
     """Phase 4m: phase 4's store sharded over ``make_node_mesh(nodes)``
     and ``--mesh-waves`` of its waves for every scheduler through
-    ``run_workload_fused_dist`` and ``run_workload_dist`` on each route of
-    ``routes``, each equal to the single-device ``routes[0]`` run (WaveOut,
-    stats, store) and launching what ``mesh_wave_launches`` says; one
-    postsi wave on the mesh's ``plain`` route equal to it too."""
+    one (route, driver) of ``routes`` x (``run_workload_fused_dist``,
+    ``run_workload_dist``), the four taken in turn (scheduler i on the
+    (i mod 4)-th: every pair for one scheduler or two), each equal to the
+    single-device ``routes[0]`` run (WaveOut, stats, store) and launching
+    what ``mesh_wave_launches`` says; one postsi wave on the
+    mesh's ``plain`` route equal to it too.  With ``dry``, one more postsi
+    wave (``mesh_wave_call``) under the counter for phase 9g, its meta
+    trace the one ``meta_proc`` makes (``start_mesh_meta_trace``)."""
     import numpy as np
     from repro_torch.core import (SCHEDULERS, make_node_mesh, make_store,
                                   run_workload_dist, run_workload_fused,
@@ -4165,7 +4326,10 @@ def mesh_engine_phase(torch, dev, cfg, card, routes=("cuda", "cuda+fused"),
                             cfg.nodes, cfg.kpn, dist_frac=0.2, device=dev)
     scheds = SCHEDULERS if cfg.scheds == "all" else cfg.scheds.split(",")
     ref_route = routes[0]
-    for sched in scheds:
+    combos = [(route, drv) for route in routes
+              for drv in (run_workload_fused_dist, run_workload_dist)]
+    wave_ms = None
+    for i, sched in enumerate(scheds):
         sync()
         t0 = time.perf_counter()
         ref_store, ref_hist, stats = run_workload_fused(
@@ -4174,30 +4338,30 @@ def mesh_engine_phase(torch, dev, cfg, card, routes=("cuda", "cuda+fused"),
         sync()
         one_ms = (time.perf_counter() - t0) * 1e3 / W
         times = []
-        for route in routes:
-            for drv in (run_workload_fused_dist, run_workload_dist):
-                store = shard_store(make_store(n_keys, cfg.V, device=dev),
-                                    mesh)
-                sync()
-                before = dict(LAUNCHES)
-                t0 = time.perf_counter()
-                store, hist, m_stats = drv(store, waves, mesh, sched=sched,
-                                           gc_track=True, kernels=route)
-                sync()
-                ms = (time.perf_counter() - t0) * 1e3 / W
-                label = f"mesh {sched}/{route}/{drv.__name__}"
-                same_run(torch, np, label, ref_hist, ref_store, hist, store)
-                if m_stats != stats:
-                    raise AssertionError(f"{label}: stats {m_stats} vs "
-                                         f"{stats}")
-                if on_card:
-                    got = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
-                    want = mesh_wave_launches(route, cfg.nodes, cfg.T, W)
-                    if any(got[k] != v for k, v in want.items()):
-                        raise AssertionError(f"{label}: launches {got}, "
-                                             f"expected {want}")
-                times.append(f"{route} {drv.__name__} {ms:.1f}")
-                del store
+        for route, drv in combos[i % len(combos):][:1]:
+            store = shard_store(make_store(n_keys, cfg.V, device=dev), mesh)
+            sync()
+            before = dict(LAUNCHES)
+            t0 = time.perf_counter()
+            store, hist, m_stats = drv(store, waves, mesh, sched=sched,
+                                       gc_track=True, kernels=route)
+            sync()
+            ms = (time.perf_counter() - t0) * 1e3 / W
+            label = f"mesh {sched}/{route}/{drv.__name__}"
+            same_run(torch, np, label, ref_hist, ref_store, hist, store)
+            if m_stats != stats:
+                raise AssertionError(f"{label}: stats {m_stats} vs {stats}")
+            if on_card:
+                got = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+                want = mesh_wave_launches(route, cfg.nodes, cfg.T, W)
+                if any(got[k] != v for k, v in want.items()):
+                    raise AssertionError(f"{label}: launches {got}, "
+                                         f"expected {want}")
+            times.append(f"{route} {drv.__name__} {ms:.1f}")
+            if (sched, route, drv) == ("postsi", ref_route,
+                                       run_workload_fused_dist):
+                wave_ms = ms
+            del store
         print(f"[mesh] {sched:8s} {W} waves of T={cfg.T} on {cfg.nodes} "
               f"nodes x {cfg.kpn} rows equal the single-device {ref_route} "
               f"run (WaveOut, stats, store); ms a wave: "
@@ -4220,6 +4384,12 @@ def mesh_engine_phase(torch, dev, cfg, card, routes=("cuda", "cuda+fused"),
     print(f"[mesh] postsi 1 wave on the mesh's {plain} route equals the "
           f"single-device {ref_route} wave: "
           f"{(time.perf_counter() - t0) * 1e3:.1f} ms ({card})", flush=True)
+    del store, ref_store
+    if dry is not None:
+        fn, args, kwargs = mesh_wave_call(torch, dev, cfg)
+        dry_run_call(torch, dry, f"postsi mesh wave T={cfg.T} on "
+                     f"{cfg.nodes} nodes", fn, args, wave_ms, kwargs,
+                     profile=False, meta_proc=meta_proc)
 
 
 def mesh_service_phase(torch, dev, cfg, card, checked,
@@ -4435,13 +4605,27 @@ def parse_config(argv=None) -> Config:
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--mesh-meta-trace"]:
+        return mesh_meta_trace()
     cfg = parse_config(argv)
 
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, SRC)
+    mesh_proc = start_mesh_meta_trace()
+    try:
+        return run(torch, cfg, mesh_proc)
+    finally:
+        if mesh_proc.poll() is None:
+            mesh_proc.kill()
+            mesh_proc.communicate()
+
+
+def run(torch, cfg, mesh_proc) -> int:
+    """The phases, in order (the module's docstring), on the first CUDA
+    device; ``mesh_proc`` traces phase 9g's mesh wave on meta meanwhile."""
     from repro_torch.kernels import LAUNCHES, reset_launch_counts
     from repro_torch.kernels.build import build_info, library, nvcc_path
 
@@ -4451,7 +4635,8 @@ def main(argv=None) -> int:
     print(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
-    t0 = time.perf_counter()
+    seconds = {}              # each phase's wall seconds
+    t_run = t0 = time.perf_counter()
     library()
     print(f"[build] kernels ready in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {build_info.get('seconds', 0.0):.2f} s, "
@@ -4465,6 +4650,8 @@ def main(argv=None) -> int:
     ssd_bwd_tensor_core_check(build_info["path"], nvcc_path())
     ssd_bwd_wgmma_check(build_info["path"], nvcc_path())
 
+    seconds["1-2 build"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     import numpy as np
     records, tables = kernel_phase(torch, dev, cfg.nodes * cfg.kpn, cfg.V,
                                    cfg.T, cfg.O)
@@ -4476,6 +4663,8 @@ def main(argv=None) -> int:
     records.update(model_kernel_phase(torch, dev))
     records.update(attention_bwd_phase(torch, dev))
     records.update(ssd_bwd_phase(torch, dev))
+    seconds["3 kernels"] = time.perf_counter() - t0
+    dry = {}                  # the calls phase 9g holds to their counts
 
     profile_wave(torch, dev, cfg)
     # each path with the counts set to 0 just before it and read just after
@@ -4483,12 +4672,14 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     engine_phase(torch, dev, cfg)
     step_runs = service_phase(torch, dev, cfg)
+    seconds["4-5 engine, service"] = time.perf_counter() - t0
     print(f"[main path] engine + service: {time.perf_counter() - t0:.1f} s, "
           f"kernel launches {dict(LAUNCHES)}", flush=True)
     t1 = time.perf_counter()
     checked, streamed = streaming_phase(torch, dev, cfg, step_runs)
     del step_runs
     planner_phase(torch, dev, cfg, checked)
+    seconds["5 streaming, planner"] = time.perf_counter() - t1
     engine_counts = dict(LAUNCHES)
     print(f"[main path] streaming + planner: {time.perf_counter() - t1:.1f} "
           f"s, {checked[0]} block dispatches checked for host waits; kernel "
@@ -4499,6 +4690,7 @@ def main(argv=None) -> int:
     durability_phase(torch, dev, cfg, streamed, checked)
     del streamed
     durable_counts = dict(LAUNCHES)
+    seconds["5c durability"] = time.perf_counter() - t1
     if durable_counts["commit_loop"] <= 0:
         raise AssertionError("recovery replayed no wave through commit_loop")
     print(f"[main path] durability: {time.perf_counter() - t1:.1f} s, "
@@ -4507,11 +4699,12 @@ def main(argv=None) -> int:
           flush=True)
     engine_counts = {k: v + durable_counts[k]
                      for k, v in engine_counts.items()}
+    t1 = time.perf_counter()
     placed_corner_check(torch, dev, cfg, card)
     reset_launch_counts()
-    t1 = time.perf_counter()
     elastic_phase(torch, dev, cfg, card, checked)
     elastic_counts = dict(LAUNCHES)
+    seconds["5d elastic"] = time.perf_counter() - t1
     print(f"[main path] elastic placement: {time.perf_counter() - t1:.1f} s,"
           f" {checked[0]} block dispatches checked in all; kernel launches "
           f"of the placed sessions and their recoveries {elastic_counts}",
@@ -4520,8 +4713,11 @@ def main(argv=None) -> int:
                      for k, v in engine_counts.items()}
     reset_launch_counts()
     t1 = time.perf_counter()
-    mesh_engine_phase(torch, dev, cfg, card)
+    mesh_engine_phase(torch, dev, cfg, card, dry=dry, meta_proc=mesh_proc)
+    seconds["4m mesh engine"] = time.perf_counter() - t1
     mesh_service_phase(torch, dev, cfg, card, checked)
+    seconds["5m mesh service"] = time.perf_counter() - t1 \
+        - seconds["4m mesh engine"]
     mesh_counts = dict(LAUNCHES)
     for name in ("version_scan", "potential_matrix", "wave_commit"):
         if mesh_counts[name] <= 0:
@@ -4531,22 +4727,32 @@ def main(argv=None) -> int:
           f"of the mesh engine and service runs and their single-device "
           f"references (not in the kernels line) {mesh_counts}", flush=True)
     t0 = time.perf_counter()
-    serve_counts = serve_phase(torch, dev, cfg, card)
+    serve_counts = serve_phase(torch, dev, cfg, card, dry=dry)
+    seconds["6 serve"] = time.perf_counter() - t0
     print(f"[main path] serve: {time.perf_counter() - t0:.1f} s with its "
           f"measurements, kernel launches {serve_counts}", flush=True)
     t0 = time.perf_counter()
-    decoder_counts = decoder_phase(torch, dev, cfg, card)
+    decoder_counts = decoder_phase(torch, dev, cfg, card, dry=dry)
+    seconds["7 decoder"] = time.perf_counter() - t0
     print(f"[main path] decoder: {time.perf_counter() - t0:.1f} s with its "
           f"measurements, kernel launches {decoder_counts}", flush=True)
     t0 = time.perf_counter()
     family_counts = ssm_encdec_phase(torch, dev, cfg, card)
+    seconds["8 ssm, encdec"] = time.perf_counter() - t0
     print(f"[main path] ssm and encdec: {time.perf_counter() - t0:.1f} s "
           f"with their measurements, kernel launches {family_counts}",
           flush=True)
     t0 = time.perf_counter()
-    train_counts = train_phase(torch, dev, cfg, card)
+    train_counts = train_phase(torch, dev, cfg, card, dry=dry)
+    seconds["9 train"] = time.perf_counter() - t0
     print(f"[main path] train: {time.perf_counter() - t0:.1f} s with its "
           f"measurements, kernel launches {train_counts}", flush=True)
+    t0 = time.perf_counter()
+    dry_run_phase(torch, dry, card)
+    seconds["9g dry run"] = time.perf_counter() - t0
+    print(f"[phases] seconds: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
+          + f"; in all {time.perf_counter() - t_run:.1f}", flush=True)
     model_counts = {k: v + decoder_counts[k] + family_counts[k]
                     + train_counts[k] for k, v in serve_counts.items()}
     paths = {"version_scan": engine_counts, "potential_matrix": engine_counts,

@@ -1,4 +1,5 @@
-"""Architecture registry of the port: ``get_config`` / ``get_reduced``.
+"""Architecture registry of the port: ``get_config`` / ``get_reduced`` /
+``all_configs``, and the shape cells (``SHAPES``, ``applicable``).
 
 Port of ``repro.configs``: every architecture id of the reference
 resolves, full and reduced.  Unknown ids raise ``KeyError`` as in the
@@ -7,9 +8,11 @@ reference.
 from __future__ import annotations
 
 import importlib
-from typing import List
+from typing import Dict, List
 
 from repro_torch.models.config import ModelConfig
+
+from .shapes import SHAPES, ShapeCell, applicable  # re-export
 
 _MODULES = {
     "qwen2-vl-2b": "qwen2_vl_2b",
@@ -41,3 +44,7 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_reduced(arch: str) -> ModelConfig:
     return _mod(arch).reduced()
+
+
+def all_configs() -> Dict[str, ModelConfig]:
+    return {a: get_config(a) for a in ARCH_IDS}

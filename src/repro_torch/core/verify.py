@@ -48,7 +48,8 @@ def _collect(history, base_store=None):
     versions = defaultdict(list)   # key -> [(cid, tid)]
     for tids, out in history:
         tids = _np(tids)
-        out = type(out)(*(_np(f) for f in out))
+        if isinstance(out, tuple):     # a WaveOut of tensors; a sequential
+            out = type(out)(*(_np(f) for f in out))   # history is numpy
         for i in range(len(tids)):
             if out.status[i] != COMMITTED:
                 continue

@@ -104,9 +104,11 @@ class KernelConfig:
 
     def check_device(self, device) -> None:
         """Raise if this config cannot run on ``device``: the CUDA kernels
-        take CUDA tensors only and are never replaced by the plain
+        take CUDA tensors only (and ``meta`` ones, whose calls launch
+        nothing and are only counted) and are never replaced by the plain
         version."""
-        if self.use_kernel and torch.device(device).type != "cuda":
+        if self.use_kernel and torch.device(device).type not in ("cuda",
+                                                                 "meta"):
             raise ValueError(
                 f"KernelConfig({self.name!r}) runs the CUDA kernels and "
                 f"cannot serve tensors on {device}; use 'torch' (or 'auto') "

@@ -12,10 +12,20 @@ Every C entry point takes its pointers and the CUDA stream as ``void*``
 raises when that is not 0 and otherwise adds one to the kernel's launch
 count (:data:`LAUNCHES`).  Nothing here runs at import: the tests import
 every module on machines without ``nvcc``.
+
+The kernel route also takes ``meta`` tensors (:func:`on_card`), which
+hold a shape and a dtype and no memory: a wrapper then checks its inputs
+and allocates its outputs as on the card, and :func:`launch` builds and
+launches nothing.  On either device :func:`launch` tells each of
+:data:`WATCHERS` (``launch.op_count.OpCounter`` while it counts) of the
+call with the kernel's cost, and a wrapper marked :func:`kernel_wrapper`
+tells them which aten ops are its own (its outputs' allocations and
+scratch), so that the kernel is counted by its cost formula alone.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -59,6 +69,12 @@ LAUNCHES = {"version_scan": 0, "potential_matrix": 0, "wave_commit": 0,
             "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkdv": 0,
             "ssd_scan_bwd_states": 0, "ssd_scan_bwd_scan": 0,
             "ssd_scan_bwd_states_scan": 0, "ssd_scan_bwd_grads": 0}
+
+# the counters told of every kernel call, on the card or on meta (objects
+# with ``kernel(name, dtype, ops, n_bytes)``), and how many kernel
+# wrappers are running (:func:`kernel_wrapper`)
+WATCHERS: list = []
+_WRAPPER_DEPTH = [0]
 
 # shared memory one block may use on the H100 (bytes, dynamic)
 SMEM_LIMIT = 232_448
@@ -149,20 +165,52 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def launch(name: str, entry: str, *args) -> None:
-    """Call C entry point ``entry`` of kernel ``name``; raise on a refused
-    launch, else count it."""
-    err = getattr(library(), entry)(*args)
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
-    LAUNCHES[name] += 1
+def on_card(t) -> bool:
+    """Whether the kernel route takes tensor ``t``: a CUDA tensor, or a
+    ``meta`` one (shapes only: the wrapper launches nothing)."""
+    return t.is_cuda or t.is_meta
+
+
+def launch(name: str, entry: str, *args, on, cost) -> None:
+    """Call C entry point ``entry`` of kernel ``name`` for the tensors of
+    ``on``'s device; raise on a refused launch, else count it.  ``cost``:
+    (operations, bytes) of the call, from the kernel module's ``*_cost``,
+    told with ``on``'s dtype to each of :data:`WATCHERS`.  On a meta
+    tensor nothing is built or called and :data:`LAUNCHES` stays."""
+    if not on.is_meta:
+        err = getattr(library(), entry)(*args)
+        if err != 0:
+            raise RuntimeError(f"{name}: CUDA launch failed with cudaError "
+                               f"{err}")
+        LAUNCHES[name] += 1
+    for w in WATCHERS:
+        w.kernel(name, on.dtype, *cost)
+
+
+def kernel_wrapper(fn):
+    """Marks ``fn`` as a kernel's wrapper: the aten ops it makes while it
+    runs belong to the kernel, whose launch reports its cost
+    (:func:`wrapper_depth` is above 0 meanwhile)."""
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        _WRAPPER_DEPTH[0] += 1
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _WRAPPER_DEPTH[0] -= 1
+    return wrapped
+
+
+def wrapper_depth() -> int:
+    """How many kernel wrappers are running (nested calls count each)."""
+    return _WRAPPER_DEPTH[0]
 
 
 def check_input(name: str, t, shape, dtype, strides="contiguous") -> None:
-    """The kernels take CUDA tensors of one dtype (or one of a tuple of
-    dtypes) and shape; ``strides``: "contiguous", "rows" (any strides but a
-    dense last dimension) or "any"."""
-    if not (isinstance(t, torch.Tensor) and t.is_cuda):
+    """The kernels take CUDA (or meta) tensors of one dtype (or one of a
+    tuple of dtypes) and shape; ``strides``: "contiguous", "rows" (any
+    strides but a dense last dimension) or "any"."""
+    if not (isinstance(t, torch.Tensor) and on_card(t)):
         raise ValueError(f"{name}: expected a CUDA tensor, got "
                          f"{getattr(t, 'device', type(t))}")
     if t.dtype not in (dtype if isinstance(dtype, tuple) else (dtype,)):
@@ -176,10 +224,13 @@ def check_input(name: str, t, shape, dtype, strides="contiguous") -> None:
         raise ValueError(f"{name}: expected a dense last dimension")
 
 
-def stream_of(t) -> int:
+def stream_of(t) -> int | None:
     """The current CUDA stream of ``t``'s device, as the raw handle a C
     entry point takes (what ``torch.cuda.current_stream(...).cuda_stream``
-    gives, without building a Stream object)."""
+    gives, without building a Stream object); None for a meta tensor,
+    which has no stream."""
+    if t.is_meta:
+        return None
     index = t.device.index
     return torch._C._cuda_getCurrentRawStream(
         torch.cuda.current_device() if index is None else index)

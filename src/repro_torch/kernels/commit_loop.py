@@ -19,6 +19,7 @@ Two variants of it, picked here before the launch by
 Its plain version is the engine's own loop, ``engine._commit_loop_plain``
 (the only Python copy of the rules), run over a ``torch`` substrate: CPU
 tensors get it, and the kernel is held to it bit for bit on the card.
+:func:`commit_loop_cost` counts a call's work.
 """
 from __future__ import annotations
 
@@ -27,10 +28,12 @@ import functools
 
 import torch
 
-from .build import SMEM_LIMIT, check_input, launch, stream_of
+from .build import (SMEM_LIMIT, check_input, kernel_wrapper, launch,
+                    on_card, stream_of)
 
-__all__ = ["commit_loop", "commit_loop_cuda", "commit_loop_plain",
-           "commit_loop_smem_bytes", "SCHEDULER_CODES", "VARIANTS"]
+__all__ = ["commit_loop", "commit_loop_cost", "commit_loop_cuda",
+           "commit_loop_plain", "commit_loop_smem_bytes", "SCHEDULER_CODES",
+           "VARIANTS"]
 
 # scheduler -> int code of the C entry point (engine.SCHEDULERS order)
 SCHEDULER_CODES = {"postsi": 0, "cv": 1, "si": 2, "optimal": 3, "dsi": 4,
@@ -50,6 +53,25 @@ def commit_loop_plain(store, inputs, *, sched, n_nodes, gc_track, gc_block):
     return _commit_loop_plain(LocalSubstrate("torch", store.device), store,
                               inputs, sched=sched, n_nodes=n_nodes,
                               gc_track=gc_track, gc_block=gc_block)
+
+
+def commit_loop_cost(T: int, O: int, V: int, rows: int | None = None,
+                     installs: int | None = None,
+                     reads: int | None = None) -> tuple[int, int]:
+    """(operations, bytes) of one wave of T txns of O ops over rings of V
+    slots.  Bytes: the per-op inputs (8 [T, O] int32 arrays), host, tid,
+    s_lo0, the [T, T] potential and 3 scalars read once; the ring rows
+    (cid, tid, sid) and heads of the ``rows`` distinct keys touched; every
+    one of the ``installs`` (4 ring fields, head, wave tag) and of the
+    ``reads`` SID bumps written once; the outputs.  Operations: the ring
+    compares of every op and the two [T, T] passes.  The three counts
+    depend on the data (None: T O each, what the shapes alone allow)."""
+    rows, installs, reads = (T * O if n is None else n
+                             for n in (rows, installs, reads))
+    n_bytes = (8 * T * O * 4 + 3 * T * 4 + T * T + 12
+               + rows * (3 * V + 1) * 4 + installs * 6 * 4 + reads * 4
+               + 3 * T * 4 + T * O * 4 + 8)
+    return 3 * T * O * V + 2 * T * T, n_bytes
 
 
 def _round4(x: int) -> int:
@@ -118,6 +140,7 @@ def commit_loop_smem_bytes(T: int, O: int, V: int,
     return 4 * _layout(T, O, V, variant == "staged").total, variant
 
 
+@kernel_wrapper
 def commit_loop_cuda(store, inputs, *, sched, n_nodes, gc_track, gc_block,
                      variant=None):
     """CUDA kernel.  ``store``: the six tables (val, tid, cid, sid [N, V],
@@ -180,14 +203,16 @@ def commit_loop_cuda(store, inputs, *, sched, n_nodes, gc_track, gc_block,
            buf.data_ptr() + 4 * off, T, O, V, N, SCHEDULER_CODES[sched],
            int(gc_track or gc_block), int(gc_block), n_nodes, int(vec16),
            int(variant == "staged"), ctypes.byref(layout),
-           ctypes.sizeof(layout), stream_of(kind))
+           ctypes.sizeof(layout), stream_of(kind), on=kind,
+           cost=commit_loop_cost(T, O, V))
     return (status, s_arr, c_arr, wcid.view(T, O), clk.view(()),
             evicted.view(()))
 
 
 def commit_loop(store, inputs, *, sched, n_nodes, gc_track, gc_block):
-    """The wrapper: the CUDA kernel for a store on the card, the plain
-    version for a store on the CPU (the kernel has no CPU form)."""
-    fn = commit_loop_cuda if store[0].is_cuda else commit_loop_plain
+    """The wrapper: the CUDA kernel for a store on the card (or on meta),
+    the plain version for a store on the CPU (the kernel has no CPU
+    form)."""
+    fn = commit_loop_cuda if on_card(store[0]) else commit_loop_plain
     return fn(store, inputs, sched=sched, n_nodes=n_nodes, gc_track=gc_track,
               gc_block=gc_block)

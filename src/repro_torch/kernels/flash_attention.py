@@ -21,7 +21,9 @@ FlashAttention-2's formulas.  The reference has no such kernel: it takes
 this gradient by XLA's autodiff of its plain attention.
 :class:`FlashAttentionFn` binds the two to autograd;
 :func:`flash_attention_bwd_plain` writes the same formulas out in plain
-PyTorch (not by autograd) as their oracle.
+PyTorch (not by autograd) as their oracle.  :func:`flash_attention_cost`,
+:func:`flash_attention_bwd_dq_cost` and :func:`flash_attention_bwd_dkdv_cost`
+count a call's work.
 """
 from __future__ import annotations
 
@@ -29,13 +31,16 @@ import math
 
 import torch
 
-from .build import check_input, launch, stream_of
+from .build import check_input, kernel_wrapper, launch, on_card, stream_of
 
 __all__ = ["NEG_INF", "FlashAttentionFn", "flash_attention",
-           "flash_attention_bwd", "flash_attention_bwd_cuda",
-           "flash_attention_bwd_dkdv_cuda", "flash_attention_bwd_dq_cuda",
-           "flash_attention_bwd_plain", "flash_attention_cuda",
-           "flash_attention_fwd", "flash_attention_plain"]
+           "flash_attention_bwd", "flash_attention_bwd_cost",
+           "flash_attention_bwd_cuda",
+           "flash_attention_bwd_dkdv_cost", "flash_attention_bwd_dkdv_cuda",
+           "flash_attention_bwd_dq_cost", "flash_attention_bwd_dq_cuda",
+           "flash_attention_bwd_plain", "flash_attention_cost",
+           "flash_attention_cuda", "flash_attention_fwd",
+           "flash_attention_plain"]
 
 NEG_INF = -1.0e30
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -96,6 +101,66 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool = True):
             dv.to(v.dtype))
 
 
+def _pairs(B, Sq, Sk, H, causal) -> int:
+    """The (query, key) pairs the mask keeps over B x H heads: query i
+    sees keys 0..i when causal (aligned top-left, as the kernels mask),
+    all Sk otherwise."""
+    if not causal:
+        return B * H * Sq * Sk
+    n = min(Sq, Sk)
+    return B * H * (n * (n + 1) // 2 + (Sq - n) * Sk)
+
+
+def flash_attention_cost(B, Sq, Sk, H, KH, D, causal=True,
+                         dtype=torch.bfloat16,
+                         with_lse=False) -> tuple[int, int]:
+    """(operations, bytes) of one forward call in ``dtype``.  Bytes: q, k,
+    v read once and o written once, and the float32 lse where it is
+    written; operations: the two products over the (query, key) pairs the
+    mask keeps."""
+    n_bytes = (2 * H * Sq + 2 * KH * Sk) * B * D * dtype.itemsize
+    if with_lse:
+        n_bytes += B * H * Sq * 4
+    return 4 * _pairs(B, Sq, Sk, H, causal) * D, n_bytes
+
+
+def _bwd_sizes(B, Sq, Sk, H, KH, D, dtype):
+    """Bytes of one [B, Sq, H, D] tensor, of one [B, Sk, KH, D] tensor and
+    of one float32 [B, H, Sq] row array."""
+    return (B * Sq * H * D * dtype.itemsize,
+            B * Sk * KH * D * dtype.itemsize, B * H * Sq * 4)
+
+
+def flash_attention_bwd_dq_cost(B, Sq, Sk, H, KH, D, causal=True,
+                                dtype=torch.bfloat16) -> tuple[int, int]:
+    """(operations, bytes) of the first backward kernel.  Bytes: q, k, v,
+    o, do and lse read once, dq and delta written once; operations: the
+    products s, dp and dq over the pairs the mask keeps."""
+    big, small, rows = _bwd_sizes(B, Sq, Sk, H, KH, D, dtype)
+    return (3 * 2 * _pairs(B, Sq, Sk, H, causal) * D,
+            4 * big + 2 * small + 2 * rows)
+
+
+def flash_attention_bwd_dkdv_cost(B, Sq, Sk, H, KH, D, causal=True,
+                                  dtype=torch.bfloat16) -> tuple[int, int]:
+    """(operations, bytes) of the second backward kernel.  Bytes: q, k, v,
+    do, lse and delta read once, dk and dv written once; operations: the
+    products s, dp, dv and dk over the pairs the mask keeps."""
+    big, small, rows = _bwd_sizes(B, Sq, Sk, H, KH, D, dtype)
+    return (4 * 2 * _pairs(B, Sq, Sk, H, causal) * D,
+            2 * big + 4 * small + 2 * rows)
+
+
+def flash_attention_bwd_cost(B, Sq, Sk, H, KH, D, causal=True,
+                             dtype=torch.bfloat16) -> tuple[int, int]:
+    """(operations, bytes) of the whole backward, both kernels: q, k, v,
+    o, do and lse read once, dq, dk and dv written once, five products
+    over the pairs the mask keeps."""
+    big, small, rows = _bwd_sizes(B, Sq, Sk, H, KH, D, dtype)
+    return (5 * 2 * _pairs(B, Sq, Sk, H, causal) * D,
+            4 * big + 4 * small + rows)
+
+
 def _check_qkv(name, q, k, v):
     """The kernels' common input checks; returns (B, Sq, Sk, H, KH, D)."""
     B, Sq, H, D = q.shape
@@ -112,6 +177,7 @@ def _check_qkv(name, q, k, v):
     return B, Sq, Sk, H, KH, D
 
 
+@kernel_wrapper
 def flash_attention_cuda(q, k, v, causal: bool = True,
                          with_lse: bool = False):
     """CUDA kernel.  q: [B, Sq, H, D]; k, v: [B, Sk, KH, D]; contiguous, one
@@ -139,7 +205,8 @@ def flash_attention_cuda(q, k, v, causal: bool = True,
                k.data_ptr(), v.data_ptr(), o.data_ptr(),
                None if lse is None else lse.data_ptr(), B, Sq, Sk, H, KH, D,
                int(bool(causal)), int(bf16), 1.0 / math.sqrt(D),
-               stream_of(q))
+               stream_of(q), on=q, cost=flash_attention_cost(
+                   B, Sq, Sk, H, KH, D, causal, q.dtype, with_lse))
     return (o, lse) if with_lse else o
 
 
@@ -161,6 +228,7 @@ def _bwd_args(q, causal):
             1.0 / math.sqrt(q.shape[-1]), stream_of(q))
 
 
+@kernel_wrapper
 def flash_attention_bwd_dq_cuda(q, k, v, o, lse, do, causal: bool = True):
     """The first backward kernel: (dq in q's dtype, delta = rowsum(do * o)
     [B, H, Sq] float32, which the second reads)."""
@@ -173,10 +241,13 @@ def flash_attention_bwd_dq_cuda(q, k, v, o, lse, do, causal: bool = True):
     launch("flash_attention_bwd_dq", "flash_attention_bwd_dq_launch",
            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-           B, Sq, Sk, H, KH, D, causal_i, bf16, scale, stream)
+           B, Sq, Sk, H, KH, D, causal_i, bf16, scale, stream, on=q,
+           cost=flash_attention_bwd_dq_cost(B, Sq, Sk, H, KH, D, causal,
+                                            q.dtype))
     return dq, delta
 
 
+@kernel_wrapper
 def flash_attention_bwd_dkdv_cuda(q, k, v, do, lse, delta,
                                   causal: bool = True):
     """The second backward kernel, after the first: (dk, dv) in k's dtype,
@@ -191,7 +262,9 @@ def flash_attention_bwd_dkdv_cuda(q, k, v, do, lse, delta,
     launch("flash_attention_bwd_dkdv", "flash_attention_bwd_dkdv_launch",
            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-           B, Sq, Sk, H, KH, D, causal_i, bf16, scale, stream)
+           B, Sq, Sk, H, KH, D, causal_i, bf16, scale, stream, on=q,
+           cost=flash_attention_bwd_dkdv_cost(B, Sq, Sk, H, KH, D, causal,
+                                              q.dtype))
     return dk, dv
 
 
@@ -206,9 +279,9 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, causal: bool = True):
 
 
 def flash_attention(q, k, v, causal: bool = True):
-    """The wrapper: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors (the kernel has no CPU form)."""
-    if q.is_cuda:
+    """The wrapper: the CUDA kernel for CUDA (and meta) tensors, the plain
+    version for CPU tensors (the kernel has no CPU form)."""
+    if on_card(q):
         return flash_attention_cuda(q, k, v, causal)
     return flash_attention_plain(q, k, v, causal)
 
@@ -216,7 +289,7 @@ def flash_attention(q, k, v, causal: bool = True):
 def flash_attention_fwd(q, k, v, causal: bool = True):
     """(o, lse): the forward kernel with its lse for CUDA tensors, the
     plain version for CPU tensors."""
-    if q.is_cuda:
+    if on_card(q):
         return flash_attention_cuda(q, k, v, causal, with_lse=True)
     return flash_attention_plain(q, k, v, causal, with_lse=True)
 
@@ -224,7 +297,7 @@ def flash_attention_fwd(q, k, v, causal: bool = True):
 def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True):
     """(dq, dk, dv): the backward kernels for CUDA tensors, the plain
     version for CPU tensors."""
-    if q.is_cuda:
+    if on_card(q):
         return flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
     return flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
 

@@ -13,11 +13,12 @@ from __future__ import annotations
 
 import torch
 
-from .build import SMEM_LIMIT, check_input, launch, stream_of
+from .build import (SMEM_LIMIT, check_input, kernel_wrapper, launch,
+                    on_card, stream_of)
 from .ref import potential_matrix_ref
 
-__all__ = ["potential_matrix", "potential_matrix_cuda",
-           "potential_matrix_ref", "geometry"]
+__all__ = ["potential_matrix", "potential_matrix_cost",
+           "potential_matrix_cuda", "potential_matrix_ref", "geometry"]
 
 THREADS = 128     # threads a block
 UNIT = 16         # bytes of the flat output a thread (csrc: POT_UNIT)
@@ -48,6 +49,18 @@ def geometry(T: int, O: int, threads: int = THREADS) -> tuple[int, int]:
     return blocks, smem
 
 
+def potential_matrix_cost(T: int, O: int,
+                          live_reads: int | None = None) -> tuple[int, int]:
+    """(operations, bytes) of one call over [T, O] keys.  Bytes: the two
+    key sets read once, the [T, T] int8 output written once; operations:
+    a compare and a select for each (reader key, writer key) pair of the
+    ``live_reads`` reader keys >= 0 the data holds (inactive reader keys
+    are skipped; None: all T O of them, what the shapes alone allow)."""
+    R = T * O if live_reads is None else live_reads
+    return 2 * T * O * R, 2 * T * O * 4 + T * T
+
+
+@kernel_wrapper
 def potential_matrix_cuda(read_key, write_key):
     """CUDA kernel.  read_key/write_key: [T, O] int32 (-1 = inactive op).
     Returns potential [T, T] int8."""
@@ -59,13 +72,14 @@ def potential_matrix_cuda(read_key, write_key):
     if T:
         launch("potential_matrix", "potential_matrix_launch",
                read_key.data_ptr(), write_key.data_ptr(), pot.data_ptr(), T,
-               O, THREADS, blocks, smem, stream_of(read_key))
+               O, THREADS, blocks, smem, stream_of(read_key), on=read_key,
+               cost=potential_matrix_cost(T, O))
     return pot
 
 
 def potential_matrix(read_key, write_key):
-    """The wrapper: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors."""
-    if read_key.is_cuda:
+    """The wrapper: the CUDA kernel for CUDA (and meta) tensors, the plain
+    version for CPU tensors."""
+    if on_card(read_key):
         return potential_matrix_cuda(read_key, write_key)
     return potential_matrix_ref(read_key, write_key)

@@ -7,7 +7,10 @@ The six kernel ops -- the engine's ``version_scan``, ``potential_matrix``,
 not):
 
   use_kernel=True   the kernel wrapper: the hand-written CUDA kernel for
-                    CUDA tensors, its plain version for CPU tensors;
+                    CUDA tensors, its plain version for CPU tensors; on
+                    ``meta`` tensors (shapes only) the kernel's outputs,
+                    empty, with nothing launched and the launch reported
+                    to ``build.WATCHERS`` (the dry run's counter);
   use_kernel=False  the plain PyTorch version on any device (the ``torch``
                     backend — the oracle the kernels are held to on the card).
 

@@ -44,23 +44,27 @@ the plain versions (:func:`ssd_bwd_states_plain`,
 :func:`ssd_bwd_scan_plain`, :func:`ssd_bwd_grads_plain`, chained by
 :func:`ssd_bwd_plain`; :func:`ssd_bwd_states_scan_plain` the first two)
 write the same formulas out in plain PyTorch (not by autograd) and serve
-CPU tensors and the card's checks.
+CPU tensors and the card's checks.  :func:`ssd_cost` and the four
+``ssd_bwd_*_cost`` count a call's work.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from .build import SMEM_LIMIT, check_input, launch, library, stream_of
+from .build import (SMEM_LIMIT, check_input, kernel_wrapper, launch, library,
+                    on_card, stream_of)
+from .roofline import ALU_OPS_PER_S, ops_rate
 
-__all__ = ["SsdScanFn", "ssd_bwd", "ssd_bwd_cuda", "ssd_bwd_fused",
-           "ssd_bwd_grads_cuda", "ssd_bwd_grads_plain", "ssd_bwd_kernel",
-           "ssd_bwd_plain", "ssd_bwd_scan_cuda", "ssd_bwd_scan_plain",
-           "ssd_bwd_smem_bytes", "ssd_bwd_states_cuda",
+__all__ = ["SsdScanFn", "ssd_bwd", "ssd_bwd_cost", "ssd_bwd_cuda",
+           "ssd_bwd_fused", "ssd_bwd_grads_cost", "ssd_bwd_grads_cuda",
+           "ssd_bwd_grads_plain", "ssd_bwd_kernel", "ssd_bwd_plain",
+           "ssd_bwd_scan_cost", "ssd_bwd_scan_cuda", "ssd_bwd_scan_plain",
+           "ssd_bwd_smem_bytes", "ssd_bwd_states_cost", "ssd_bwd_states_cuda",
            "ssd_bwd_states_plain", "ssd_bwd_states_scan_clusters",
-           "ssd_bwd_states_scan_cuda", "ssd_bwd_states_scan_plain",
-           "ssd_chunked", "ssd_cuda", "ssd_kernel", "ssd_plain", "ssd_scan",
-           "ssd_smem_bytes"]
+           "ssd_bwd_states_scan_cost", "ssd_bwd_states_scan_cuda",
+           "ssd_bwd_states_scan_plain", "ssd_chunked", "ssd_cost", "ssd_cuda",
+           "ssd_kernel", "ssd_plain", "ssd_scan", "ssd_smem_bytes"]
 
 NEG_INF = -1.0e30
 SSD_STRIP = 64          # the float32 kernel's strip of [M | C] rows
@@ -340,6 +344,23 @@ def ssd_smem_bytes(P: int, N: int, Q: int,
     return 4 * (Qs * (Q + N + 1) + Q * (N + 1) + (Q + N) * P + Q)
 
 
+def ssd_cost(BH: int, G: int, S: int, P: int, N: int, Q: int,
+             dtype=torch.bfloat16, h0: bool = False) -> tuple[int, int]:
+    """(operations, bytes) of one forward call over BH = G x H rows of S
+    positions in chunks of Q rows, x and y [BH, S, P] and B, C [G, S, N]
+    in ``dtype``.  Bytes: the inputs read once (dA float32, h0 where it is
+    given), y and the float32 final state written once; operations:
+    Q (Q + 1) / 2 pairs a chunk for the two intra-chunk products, and the
+    two state products."""
+    nc = -(-S // Q)
+    isz = dtype.itemsize
+    n_bytes = (2 * BH * S * P * isz + BH * S * 4 + 2 * G * S * N * isz
+               + BH * N * P * 4 * (2 if h0 else 1))
+    return (2 * BH * nc * (Q * (Q + 1) // 2 * (N + P) + 2 * Q * N * P),
+            n_bytes)
+
+
+@kernel_wrapper
 def ssd_cuda(x, dA, Bm, Cm, n_heads_per_group: int, chunk: int = 128,
              h0=None, kernel: str | None = None):
     """CUDA kernel.  x: [BH, S, P] or the [G, H, S, P] view of the model's
@@ -405,7 +426,8 @@ def ssd_cuda(x, dA, Bm, Cm, n_heads_per_group: int, chunk: int = 128,
                None if h0 is None else h0.data_ptr(), y.data_ptr(),
                h.data_ptr(), BH, S, P, N, H, Q, _KIND[kernel],
                *x4.stride()[:3], *a4.stride(), *y4.stride()[:3],
-               *Bm.stride()[:2], stream_of(x))
+               *Bm.stride()[:2], stream_of(x), on=x,
+               cost=ssd_cost(BH, G, S, P, N, Q, x.dtype, h0 is not None))
     elif h0 is not None:
         h.copy_(h0)
     else:
@@ -415,9 +437,9 @@ def ssd_cuda(x, dA, Bm, Cm, n_heads_per_group: int, chunk: int = 128,
 
 def ssd_scan(x, dA, Bm, Cm, n_heads_per_group: int, chunk: int = 128,
              h0=None):
-    """The wrapper: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors (the kernel has no CPU form)."""
-    if x.is_cuda:
+    """The wrapper: the CUDA kernel for CUDA (and meta) tensors, the plain
+    version for CPU tensors (the kernel has no CPU form)."""
+    if on_card(x):
         return ssd_cuda(x, dA, Bm, Cm, n_heads_per_group, chunk, h0)
     return ssd_plain(x, dA, Bm, Cm, n_heads_per_group, chunk, h0)
 
@@ -438,6 +460,71 @@ SSD_BWD_CLUSTER = 8
 # chunks of a batch*head the fused states and scan kernel takes, at most:
 # a cluster of one block a chunk (SBW_CLUSTER)
 SSD_BWD_FUSED_CHUNKS = 8
+
+
+def _bwd_work(BH, G, S, P, N, Q, dtype):
+    """The SSD gradient's own bytes and operations, split as the kernels
+    share them.  Bytes: the gradient's inputs x, dy, dA, B, C (``ins``)
+    and outputs dx, dA, dB, dC (``outs``), each once, and dh0 (``dh0``);
+    operations: the products over the (row, column) pairs at or below each
+    chunk's diagonal, C B^T once a group and the state products (``grads``),
+    the states' two products (``states``), the two scans and the chunk's
+    dot product (``scan``).  The design's float32 st, U, hprev and G are
+    its cost, not the gradient's: no bound counts them."""
+    nc = -(-S // Q)
+    isz = dtype.itemsize
+    pairs = (S // Q) * Q * (Q + 1) // 2 + (S % Q) * (S % Q + 1) // 2
+    return dict(
+        ins=2 * BH * S * P * isz + BH * S * 4 + 2 * G * S * N * isz,
+        outs=BH * S * P * isz + BH * S * 4 + 2 * G * S * N * isz,
+        dh0=BH * N * P * 4,
+        grads=2 * (pairs * (G * N + BH * (2 * P + 2 * N))
+                   + 3 * BH * S * N * P),
+        states=2 * 2 * BH * S * N * P,
+        scan=3 * 2 * BH * nc * N * P)
+
+
+def ssd_bwd_states_cost(BH, G, S, P, N, Q,
+                        dtype=torch.bfloat16) -> tuple[int, int]:
+    """(operations, bytes) of ``ssd_scan_bwd_states`` (shapes as
+    :func:`ssd_cost`'s): the gradient's inputs read, the states'
+    products."""
+    w = _bwd_work(BH, G, S, P, N, Q, dtype)
+    return w["states"], w["ins"]
+
+
+def ssd_bwd_scan_cost(BH: int, nc: int, N: int, P: int) -> tuple[int, int]:
+    """(operations, bytes) of ``ssd_scan_bwd_scan`` over [BH, nc, N, P]
+    float32 states: dh0 written, the two scans and the chunk's dot
+    product."""
+    return 3 * 2 * BH * nc * N * P, BH * N * P * 4
+
+
+def ssd_bwd_states_scan_cost(BH, G, S, P, N, Q,
+                             dtype=torch.bfloat16) -> tuple[int, int]:
+    """(operations, bytes) of ``ssd_scan_bwd_states_scan``: the work of
+    the two kernels it fuses, the scans' float32 operations counted at the
+    rate of the states' products in ``dtype``."""
+    w = _bwd_work(BH, G, S, P, N, Q, dtype)
+    return (w["states"] + w["scan"] * ops_rate(dtype) / ALU_OPS_PER_S,
+            w["ins"] + w["dh0"])
+
+
+def ssd_bwd_grads_cost(BH, G, S, P, N, Q,
+                       dtype=torch.bfloat16) -> tuple[int, int]:
+    """(operations, bytes) of ``ssd_scan_bwd_grads``: the gradient's
+    inputs read and outputs written, its products."""
+    w = _bwd_work(BH, G, S, P, N, Q, dtype)
+    return w["grads"], w["ins"] + w["outs"]
+
+
+def ssd_bwd_cost(BH, G, S, P, N, Q, dtype=torch.bfloat16) -> tuple[int, int]:
+    """(operations, bytes) of the whole gradient, however many launches
+    compute it: its inputs read and outputs written once, dh0 written, all
+    its products and scans."""
+    w = _bwd_work(BH, G, S, P, N, Q, dtype)
+    return (w["states"] + w["grads"] + w["scan"],
+            w["ins"] + w["outs"] + w["dh0"])
 
 
 def ssd_bwd_kernel(P: int, N: int, Q: int, S: int,
@@ -535,6 +622,7 @@ def _bwd_check(name, x, dA, Bm, Cm, dy, H, chunk):
     return G, BH, S, P, N, Q, x4, a4, dy4
 
 
+@kernel_wrapper
 def ssd_bwd_states_cuda(x, dA, Bm, Cm, dy, n_heads_per_group: int,
                         chunk: int = 128, kernel: str | None = None):
     """The first backward kernel (``ssd_scan_bwd_states``), arguments as
@@ -556,10 +644,12 @@ def ssd_bwd_states_cuda(x, dA, Bm, Cm, dy, n_heads_per_group: int,
                dy.data_ptr(), st.data_ptr(), U.data_ptr(), aL.data_ptr(), BH,
                S, P, N, H, Q, _KIND[kernel],
                *x4.stride()[:3], *a4.stride(), *dy4.stride()[:3],
-               *Bm.stride()[:2], stream_of(x))
+               *Bm.stride()[:2], stream_of(x), on=x,
+               cost=ssd_bwd_states_cost(BH, G, S, P, N, Q, x.dtype))
     return st, U, aL
 
 
+@kernel_wrapper
 def ssd_bwd_scan_cuda(st, U, aL, h0=None, dh=None):
     """The second backward kernel (``ssd_scan_bwd_scan``): st, U
     [BH, nc, N, P] and aL [BH, nc] from the first, h0 and dh [BH, N, P]
@@ -586,7 +676,8 @@ def ssd_bwd_scan_cuda(st, U, aL, h0=None, dh=None):
                st.data_ptr(), U.data_ptr(), aL.data_ptr(),
                None if h0 is None else h0.data_ptr(),
                None if dh is None else dh.data_ptr(), dh0.data_ptr(),
-               sc.data_ptr(), BH, nc, N * P, stream_of(st))
+               sc.data_ptr(), BH, nc, N * P, stream_of(st), on=st,
+               cost=ssd_bwd_scan_cost(BH, nc, N, P))
     elif dh is not None:
         dh0.copy_(dh)
     else:
@@ -594,6 +685,7 @@ def ssd_bwd_scan_cuda(st, U, aL, h0=None, dh=None):
     return st, U, dh0, sc
 
 
+@kernel_wrapper
 def ssd_bwd_states_scan_cuda(x, dA, Bm, Cm, dy, n_heads_per_group: int,
                              chunk: int = 128, h0=None, dh=None):
     """The states and scan kernels as one launch
@@ -633,7 +725,8 @@ def ssd_bwd_states_scan_cuda(x, dA, Bm, Cm, dy, n_heads_per_group: int,
                hprev.data_ptr(), Gs.data_ptr(), dh0.data_ptr(),
                sc.data_ptr(), BH, S, P, N, H, Q, *x4.stride()[:3],
                *a4.stride(), *dy4.stride()[:3], *Bm.stride()[:2],
-               stream_of(x))
+               stream_of(x), on=x,
+               cost=ssd_bwd_states_scan_cost(BH, G, S, P, N, Q, x.dtype))
     return hprev, Gs, dh0, sc
 
 
@@ -662,6 +755,7 @@ def _like_layout(t4, G, H, S, last, dtype):
     return torch.empty((G, H, S, *last), dtype=dtype, device=t4.device)
 
 
+@kernel_wrapper
 def ssd_bwd_grads_cuda(x, dA, Bm, Cm, dy, hprev, G, sc,
                        n_heads_per_group: int, chunk: int = 128,
                        kernel: str | None = None):
@@ -702,7 +796,8 @@ def ssd_bwd_grads_cuda(x, dA, Bm, Cm, dy, hprev, G, sc,
                *(None if t is None else t.data_ptr() for t in (part, count)),
                BH, S, P, N, H, Q, _KIND[kernel], *x4.stride()[:3],
                *a4.stride(), *dy4.stride()[:3], *dx4.stride()[:3],
-               *da4.stride(), *Bm.stride()[:2], stream_of(x))
+               *da4.stride(), *Bm.stride()[:2], stream_of(x), on=x,
+               cost=ssd_bwd_grads_cost(BH, Gg, S, P, N, Q, x.dtype))
     else:
         for t in (dx4, da4, dB, dC):
             t.zero_()
@@ -732,7 +827,7 @@ def ssd_bwd(x, dA, Bm, Cm, dy, n_heads_per_group: int, chunk: int = 128,
             h0=None, dh=None):
     """(dx, ddA, dB, dC, dh0): the backward kernels for CUDA tensors, the
     plain version for CPU tensors."""
-    fn = ssd_bwd_cuda if x.is_cuda else ssd_bwd_plain
+    fn = ssd_bwd_cuda if on_card(x) else ssd_bwd_plain
     return fn(x, dA, Bm, Cm, dy, n_heads_per_group, chunk, h0, dh)
 
 

@@ -7,7 +7,7 @@ seed ``s_lo0`` (as ``[T]``) and the potential matrix.  The CUDA kernel
 V lanes an op, in read blocks of their own beside the potential matrix's
 blocks (:func:`geometry` sizes the launch); its plain version
 (``wave_commit_ref``, over pre-gathered rings) sits beside it and serves
-CPU tensors.
+CPU tensors; :func:`wave_commit_cost` counts a call's work.
 """
 from __future__ import annotations
 
@@ -16,11 +16,11 @@ from typing import NamedTuple
 import torch
 
 from . import interval_negotiate
-from .build import check_input, launch, stream_of
+from .build import check_input, kernel_wrapper, launch, on_card, stream_of
 from .ref import wave_commit_ref
 
-__all__ = ["wave_commit", "wave_commit_cuda", "wave_commit_plain",
-           "wave_commit_ref", "geometry", "Geometry"]
+__all__ = ["wave_commit", "wave_commit_cost", "wave_commit_cuda",
+           "wave_commit_plain", "wave_commit_ref", "geometry", "Geometry"]
 
 
 class Geometry(NamedTuple):
@@ -77,6 +77,21 @@ def wave_commit_plain(cids, tids, sids, vals, max_cid, read_key, write_key,
                            write_key, rvalid)
 
 
+def wave_commit_cost(T: int, O: int, V: int,
+                     live_reads: int | None = None) -> tuple[int, int]:
+    """(operations, bytes) of one call over a [T, O] wave and rings of V
+    slots.  Bytes: each input read once (keys, ceilings, reader and writer
+    keys, rvalid; the ring row's cid and tid; val and sid at the chosen
+    slot), each output written once (the five [T, O] fields, s_lo0, the
+    [T, T] potential); operations: the version scan's, and the potential
+    matrix's over the ``live_reads`` reader keys >= 0
+    (:func:`interval_negotiate.potential_matrix_cost`)."""
+    pairs = interval_negotiate.potential_matrix_cost(T, O, live_reads)[0]
+    return (3 * T * O * V + pairs,
+            T * O * (4 * 4 + 1 + 2 * 4 * V + 2 * 4 + 5 * 4) + T * 4 + T * T)
+
+
+@kernel_wrapper
 def wave_commit_cuda(cids, tids, sids, vals, max_cid, read_key, write_key,
                      rvalid, keys):
     """CUDA kernel.  cids/tids/sids/vals: the [N, V] int32 store tables;
@@ -105,15 +120,16 @@ def wave_commit_cuda(cids, tids, sids, vals, max_cid, read_key, write_key,
                keys.data_ptr(), max_cid.data_ptr(),
                read_key.data_ptr(), write_key.data_ptr(), rvalid.data_ptr(),
                *(o.data_ptr() for o in outs), s_lo0.data_ptr(),
-               pot.data_ptr(), T, O, V, N, *g, stream_of(read_key))
+               pot.data_ptr(), T, O, V, N, *g, stream_of(read_key),
+               on=read_key, cost=wave_commit_cost(T, O, V))
     return (*outs, s_lo0, pot)
 
 
 def wave_commit(cids, tids, sids, vals, max_cid, read_key, write_key, rvalid,
                 keys=None):
-    """The wrapper: the CUDA kernel for CUDA tensors (which needs ``keys``),
-    the plain version for CPU tensors."""
-    if read_key.is_cuda:
+    """The wrapper: the CUDA kernel for CUDA (and meta) tensors (which
+    needs ``keys``), the plain version for CPU tensors."""
+    if on_card(read_key):
         return wave_commit_cuda(cids, tids, sids, vals, max_cid, read_key,
                                 write_key, rvalid, keys)
     return wave_commit_plain(cids, tids, sids, vals, max_cid, read_key,

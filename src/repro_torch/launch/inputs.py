@@ -1,5 +1,9 @@
-"""Real input batches for every architecture family (port of the
-materialized half of ``repro.launch.inputs``).
+"""Input batches for every architecture family (port of
+``repro.launch.inputs``).
+
+``input_specs(cfg, shape, mode)`` gives one shape cell's inputs as tensors
+on the ``meta`` device (a shape and a dtype, no memory): the dry run
+counts a step against them.
 
 ``make_batch(cfg, B, S, mode, rng)`` draws small real batches for tests
 and examples from a numpy ``RandomState`` in the reference's order, so the
@@ -12,9 +16,6 @@ Modality frontends are stubs, as in the reference: the VLM batch feeds
 token ids plus position ids, the audio batch precomputed frame embeddings.
 The tensors land on ``device`` (the CUDA device unless the caller asks
 for another).
-
-Not ported here: ``input_specs``, the abstract half (shape-only stand-ins
-for the dry-run tooling, ROADMAP.md queue 1, item 4).
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ from repro_torch.kernels import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import build
 
-__all__ = ["CACHE_PAD", "ENCDEC_DECODE_SRC", "make_batch"]
+__all__ = ["CACHE_PAD", "ENCDEC_DECODE_SRC", "input_specs", "make_batch"]
 
 CACHE_PAD = 128          # decode batches: room after the prefilled cache
 ENCDEC_DECODE_SRC = 4096  # encoder memory length for enc-dec decode batches
@@ -35,7 +36,7 @@ ENCDEC_DECODE_SRC = 4096  # encoder memory length for enc-dec decode batches
 
 def _real_cache(cfg: ModelConfig, B: int, S: int, device=None):
     """A zero cache of a model of ``cfg`` with S positions counted as
-    filled."""
+    filled (on ``meta``: its shapes and dtypes)."""
     model = build(cfg)
     if cfg.family == "encdec":
         cache = model.init_cache(B, S + CACHE_PAD, min(S, ENCDEC_DECODE_SRC),
@@ -46,6 +47,34 @@ def _real_cache(cfg: ModelConfig, B: int, S: int, device=None):
         cache = model.init_cache(B, S + CACHE_PAD, device=device)
     cache["len"] = S
     return cache
+
+
+def _meta_batch(cfg: ModelConfig, B: int, S: int) -> Dict:
+    """A train / prefill batch of B rows of S positions on ``meta``."""
+    meta = lambda shape, dtype=torch.int32: torch.empty(shape, dtype=dtype,
+                                                        device="meta")
+    batch = {"tokens": meta((B, S)), "labels": meta((B, S))}
+    if cfg.mrope:
+        batch["positions"] = meta((B, S, 3))
+    if cfg.family == "encdec":
+        batch["enc_embeds"] = meta((B, S, cfg.d_model), torch.float32)
+    return batch
+
+
+def input_specs(cfg: ModelConfig, shape, mode: str | None = None):
+    """One shape cell's inputs on the ``meta`` device: ``(batch,)`` for
+    ``train`` / ``prefill``, ``(batch, cache)`` for ``decode`` (a cache of
+    ``shape.seq_len`` filled positions, ``cache["len"]`` that length, as
+    :func:`make_batch` gives it).  ``mode`` defaults to the cell's kind."""
+    mode = mode or shape.kind
+    B, S = shape.global_batch, shape.seq_len
+    if mode in ("train", "prefill"):
+        return (_meta_batch(cfg, B, S),)
+    if mode == "decode":
+        batch = {"token": torch.empty((B, 1), dtype=torch.int32,
+                                      device="meta")}
+        return batch, _real_cache(cfg, B, S, torch.device("meta"))
+    raise ValueError(mode)
 
 
 def make_batch(cfg: ModelConfig, B: int, S: int, mode: str = "train",

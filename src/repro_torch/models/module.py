@@ -10,7 +10,7 @@ reference's key names and stacked ``[L, ...]`` leaves, so that
 
 :func:`abstract` is the reference's shape-only stand-in: the tree as
 tensors on the ``meta`` device, which hold a shape and a dtype and no
-memory.
+memory; :func:`count_params` counts a spec tree's parameters.
 
 Not ported, because one card has no mesh: the logical-axis rules and
 ``partition_spec`` / ``param_shardings``, ``shard_activation`` and
@@ -88,3 +88,8 @@ def abstract(specs):
     if isinstance(specs, ParamSpec):
         return torch.empty(specs.shape, dtype=specs.dtype, device="meta")
     return {k: abstract(specs[k]) for k in sorted(specs)}
+
+
+def count_params(specs) -> int:
+    """The parameters of a spec tree: the sum of its leaves' sizes."""
+    return sum(math.prod(s.shape) for s in tree_leaves(specs))
