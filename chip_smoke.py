@@ -226,6 +226,23 @@ Phases (any failure raises, so the process exits non-zero):
    (2,000,000 rows, the balancer, one explicit ``move_range``) equal to
    the static mesh session; the mesh phases' launches on a line of their
    own (not in the kernels line);
+   4p. the node mesh across processes (``launch.mesh.spawn_ranks``,
+   ``ProcessMesh``): 8 ``gloo`` ranks, all on ``cuda:0``, one node and its
+   125,000-row block each, run ``--mesh-waves`` of phase 4's waves for
+   the six schedulers on ``cuda`` (the two mesh drivers in turn) and
+   postsi on ``cuda+fused`` and ``torch``, every rank's WaveOut and stats
+   and the store gathered on rank 0 (by SHA-256 digests) equal to the
+   single-device ``cuda`` run; each rank's launches a wave asserted
+   (``version_scan`` T + 1 and ``potential_matrix`` 1 on ``cuda``,
+   ``wave_commit`` 1 and ``version_scan`` T on ``cuda+fused``,
+   ``commit_loop`` 0); phase 5's stream for ``--mesh-ticks`` ticks on
+   ``TxnService(mesh=...)`` equal to the single-device session; then one
+   ``nccl`` ``run_streaming`` session (B=4, K=2) at world size
+   ``device_count``, every block dispatch under sync debug mode "error",
+   equal to the single-device session; ms a wave beside phase 4m's and
+   the single device's, labelled "8 processes share one card; merges
+   through gloo on the host"; the ranks' launches on a line of their own
+   (not in the kernels line); a failed or hung rank fails the run;
 6. serve: zamba2-2.7b at full width (2.42 B parameters, random weights
    from a seeded generator on the card) behind ``launch.serve.Server`` on
    the ``cuda`` route, batch 4: 3 batches (prompts of 1,024, 1,024 and
@@ -3156,17 +3173,7 @@ def moe_sync_check(torch, srv, params, batch, max_len, tag):
 def same_run(torch, np, label, ref_hist, ref_store, hist, store):
     """Raise unless ``hist``/``store`` equal the reference route's bit for
     bit (every WaveOut field and dtype, every store field)."""
-    if len(hist) != len(ref_hist):
-        raise AssertionError(f"{label}: {len(hist)} waves vs {len(ref_hist)}"
-                             f" on the torch route")
-    for (ta, oa), (tb, ob) in zip(ref_hist, hist):
-        if not np.array_equal(ta, tb):
-            raise AssertionError(f"{label}: wave tids differ from the torch "
-                                 f"route")
-        for f, a, b in zip(oa._fields, oa, ob):
-            if not np.array_equal(a, b) or a.dtype != b.dtype:
-                raise AssertionError(f"{label}: WaveOut.{f} differs from the"
-                                     f" torch route")
+    same_history(np, label, ref_hist, hist)
     for f, a, b in zip(store._fields, ref_store, store):
         if not torch.equal(a, b):
             raise AssertionError(f"{label}: store.{f} differs from the torch "
@@ -3343,10 +3350,11 @@ def served_ok(label, svc, rep):
 
 
 # --------------------------------------------------------------- phase 5b
-def sync_detector_fires(torch, np, dev) -> None:
+def sync_detector_fires(torch, np, dev) -> str:
     """Raise unless ``torch.cuda.set_sync_debug_mode("error")`` raises on a
     known blocking copy (a pageable numpy array to the card), so that its
-    silence around a dispatch means the dispatch did not wait."""
+    silence around a dispatch means the dispatch did not wait.  Returns
+    the first line of what it raised."""
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -3354,9 +3362,7 @@ def sync_detector_fires(torch, np, dev) -> None:
     except RuntimeError as exc:
         if "synchroniz" not in str(exc):
             raise
-        print(f"[stream] sync debug mode 'error' fires on a blocking copy: "
-              f"{str(exc).splitlines()[0]!r}", flush=True)
-        return
+        return str(exc).splitlines()[0]
     finally:
         torch.cuda.set_sync_debug_mode("default")
     raise AssertionError("sync debug mode 'error' let a blocking copy pass")
@@ -3420,7 +3426,8 @@ def streaming_phase(torch, dev, cfg, step_runs,
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     checked = [0]
     if on_card:
-        sync_detector_fires(torch, np, dev)
+        print(f"[stream] sync debug mode 'error' fires on a blocking copy: "
+              f"{sync_detector_fires(torch, np, dev)!r}", flush=True)
 
     def session(kernels, B, K, sizer=None):
         rng = np.random.RandomState(cfg.seed + 1)
@@ -4311,7 +4318,9 @@ def mesh_engine_phase(torch, dev, cfg, card, routes=("cuda", "cuda+fused"),
     what ``mesh_wave_launches`` says; one postsi wave on the
     mesh's ``plain`` route equal to it too.  With ``dry``, one more postsi
     wave (``mesh_wave_call``) under the counter for phase 9g, its meta
-    trace the one ``meta_proc`` makes (``start_mesh_meta_trace``)."""
+    trace the one ``meta_proc`` makes (``start_mesh_meta_trace``).
+    Returns ``{sched: (route, driver, ms a mesh wave, ms a single-device
+    wave)}`` for phase 4p's lines."""
     import numpy as np
     from repro_torch.core import (SCHEDULERS, make_node_mesh, make_store,
                                   run_workload_dist, run_workload_fused,
@@ -4329,6 +4338,7 @@ def mesh_engine_phase(torch, dev, cfg, card, routes=("cuda", "cuda+fused"),
     combos = [(route, drv) for route in routes
               for drv in (run_workload_fused_dist, run_workload_dist)]
     wave_ms = None
+    emulated = {}
     for i, sched in enumerate(scheds):
         sync()
         t0 = time.perf_counter()
@@ -4358,6 +4368,7 @@ def mesh_engine_phase(torch, dev, cfg, card, routes=("cuda", "cuda+fused"),
                     raise AssertionError(f"{label}: launches {got}, "
                                          f"expected {want}")
             times.append(f"{route} {drv.__name__} {ms:.1f}")
+            emulated[sched] = (route, drv.__name__, ms, one_ms)
             if (sched, route, drv) == ("postsi", ref_route,
                                        run_workload_fused_dist):
                 wave_ms = ms
@@ -4390,6 +4401,7 @@ def mesh_engine_phase(torch, dev, cfg, card, routes=("cuda", "cuda+fused"),
         dry_run_call(torch, dry, f"postsi mesh wave T={cfg.T} on "
                      f"{cfg.nodes} nodes", fn, args, wave_ms, kwargs,
                      profile=False, meta_proc=meta_proc)
+    return emulated
 
 
 def mesh_service_phase(torch, dev, cfg, card, checked,
@@ -4565,6 +4577,347 @@ def mesh_service_phase(torch, dev, cfg, card, checked,
           f"{el_rep.placement_moves} moves {tag}", flush=True)
 
 
+# ---------------------------------------------------------------- phase 4p
+PROCESS_DEADLINE = 600.0      # seconds for one spawn of phase 4p's ranks
+
+
+def store_digest(store) -> dict:
+    """Field -> SHA-256 of its dtype, shape and bytes: a store held
+    bit-equal to another across processes without shipping it."""
+    import hashlib
+    return {f: hashlib.sha256(f"{t.dtype}{tuple(t.shape)}".encode()
+                              + t.cpu().numpy().tobytes()).hexdigest()
+            for f, t in zip(store._fields, store)}
+
+
+def same_digest(label, ref_label, ref, got) -> None:
+    """Raise unless two store digests (``store_digest``) are equal."""
+    bad = [f for f in ref if ref[f] != got[f]]
+    if bad:
+        raise AssertionError(f"{label}: store fields {bad} differ from "
+                             f"{ref_label}")
+
+
+def same_history(np, label, ref_hist, hist) -> None:
+    """Raise unless two histories are equal, every WaveOut field and
+    dtype of every wave."""
+    if len(hist) != len(ref_hist):
+        raise AssertionError(f"{label}: {len(hist)} waves vs "
+                             f"{len(ref_hist)}")
+    for w, ((ta, oa), (tb, ob)) in enumerate(zip(ref_hist, hist)):
+        if not np.array_equal(ta, tb):
+            raise AssertionError(f"{label}: wave {w} tids differ")
+        for f, a, b in zip(oa._fields, oa, ob):
+            if not np.array_equal(a, b) or a.dtype != b.dtype:
+                raise AssertionError(f"{label}: wave {w} WaveOut.{f} "
+                                     f"differs")
+
+
+def phase5_stream(np, cfg, ticks):
+    """Phase 5's stream: (Poisson arrivals, SmallBank request factory)
+    from ``cfg.seed + 1``, as every service phase draws it."""
+    from repro_torch.core.workloads import poisson_arrivals
+    from repro_torch.service import smallbank_txn_gen
+    rng = np.random.RandomState(cfg.seed + 1)
+    arrivals = poisson_arrivals(rng, cfg.rate, ticks)
+    return arrivals, smallbank_txn_gen(rng, cfg.nodes, cfg.kpn,
+                                       dist_frac=0.2)
+
+
+def collective_check(torch, pmesh, reps=50):
+    """The int32 SUM, MAX and MIN ``all_reduce`` of the mesh's group on
+    this rank's device, checked, and the microseconds of one SUM of a
+    commit step's read answers ([5, 4] int32), the mean over ``reps``."""
+    import torch.distributed as dist
+    n, r, dev = pmesh.n_nodes, pmesh.rank, pmesh.device
+    want = {"SUM": [n * (n + 1) // 2, -n * (n - 1) // 2],
+            "MAX": [n, 0], "MIN": [1, -(n - 1)]}
+    for op, w in want.items():
+        x = torch.tensor([r + 1, -r], dtype=torch.int32, device=dev)
+        dist.all_reduce(x, op=getattr(dist.ReduceOp, op), group=pmesh.group)
+        if x.tolist() != w:
+            raise AssertionError(f"all_reduce {op} on {dev} over "
+                                 f"{pmesh.backend}: {x.tolist()} != {w}")
+    x = torch.zeros(5, 4, dtype=torch.int32, device=dev)
+    dist.barrier(group=pmesh.host_group)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        dist.all_reduce(x, group=pmesh.group)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e6 / reps
+
+
+def process_runs(cfg, routes, plain):
+    """Phase 4p's engine runs, (scheduler, route, driver): every scheduler
+    on ``routes[0]``, the two mesh drivers in turn, then postsi on
+    ``routes[1]`` and on the ``plain`` route."""
+    from repro_torch.core import SCHEDULERS
+    scheds = SCHEDULERS if cfg.scheds == "all" else cfg.scheds.split(",")
+    drivers = ("run_workload_fused_dist", "run_workload_dist")
+    return ([(s, routes[0], drivers[i % 2]) for i, s in enumerate(scheds)]
+            + [("postsi", routes[1], drivers[0]),
+               ("postsi", plain, drivers[1])])
+
+
+def process_rank(pmesh, cfg, runs, service_route):
+    """Phase 4p on one rank of the ``gloo`` process mesh: ``runs`` of
+    ``--mesh-waves`` waves each on this rank's block, then phase 5's
+    stream for ``--mesh-ticks`` ticks on ``TxnService(mesh=pmesh)``.
+    Returns each run's (history, stats, this rank's launches, ms a wave,
+    the gathered store's digest on rank 0) and the session's (fates,
+    history, digest on rank 0, launches, wall s, committed)."""
+    import numpy as np
+    import torch
+    import repro_torch.core as core
+    from repro_torch.core.workloads import smallbank_waves
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.service import TxnService
+    dev = pmesh.device
+    sync = (torch.cuda.synchronize if dev.type == "cuda"
+            else (lambda: None))
+    n_keys, W = cfg.nodes * cfg.kpn, cfg.mesh_waves
+    waves = smallbank_waves(np.random.RandomState(cfg.seed), W, cfg.T,
+                            cfg.nodes, cfg.kpn, dist_frac=0.2, device=dev)
+    def digest(block):
+        """The gathered store's digest on rank 0 (every rank gathers)."""
+        whole = core.gather_store(block, pmesh)
+        return store_digest(whole) if pmesh.rank == 0 else None
+    us = collective_check(torch, pmesh)
+    reset_launch_counts()
+    out = []
+    for sched, route, drv in runs:
+        store = core.shard_store(core.make_store(n_keys, cfg.V, device=dev),
+                                 pmesh)
+        sync()
+        before = dict(LAUNCHES)
+        t0 = time.perf_counter()
+        store, hist, stats = getattr(core, drv)(store, waves, pmesh,
+                                                sched=sched, gc_track=True,
+                                                kernels=route)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3 / W
+        launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+        out.append((hist, tuple(stats), launches, ms, digest(store)))
+        del store
+    arrivals, gen = phase5_stream(np, cfg, cfg.mesh_ticks)
+    svc = TxnService(n_keys=n_keys, n_versions=cfg.V, T=cfg.service_T,
+                     sched="postsi", n_nodes=cfg.nodes, kernels=service_route,
+                     mesh=pmesh)
+    sync()
+    before = dict(LAUNCHES)
+    t0 = time.perf_counter()
+    rep = svc.run_stream(arrivals, gen)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+    served_ok(f"process mesh service rank {pmesh.rank}", svc, rep)
+    return out, (fates_of(svc), svc.history, digest(svc.store), launches,
+                 wall, rep.committed, rep.waves), us
+
+
+def process_rank_nccl(pmesh, cfg, route):
+    """Phase 4p's NCCL session on one rank: phase 5's stream for
+    ``--mesh-ticks`` ticks through ``run_streaming`` (B=4, K=2) on
+    ``TxnService(mesh=pmesh)``, every block dispatch under sync debug
+    mode "error" (shown first to raise on a blocking copy in this
+    process).  Returns (fates, history, digest on rank 0, dispatches
+    checked, the detector's message, launches, wall s)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import repro_torch.core as core
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.kernels.build import library
+    from repro_torch.service import TxnService
+    dev = pmesh.device
+    library()
+    # the communicator is made at the first collective: before the check
+    dist.all_reduce(torch.zeros(1, dtype=torch.int32, device=dev),
+                    group=pmesh.group)
+    torch.cuda.synchronize()
+    us = collective_check(torch, pmesh)
+    fired = sync_detector_fires(torch, np, dev)
+    arrivals, gen = phase5_stream(np, cfg, cfg.mesh_ticks)
+    svc = TxnService(n_keys=cfg.nodes * cfg.kpn, n_versions=cfg.V,
+                     T=cfg.service_T, sched="postsi", n_nodes=cfg.nodes,
+                     kernels=route, mesh=pmesh)
+    checked = [0]
+    check_dispatch(torch, svc, checked)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep = svc.run_streaming(arrivals, gen, B=4, K=2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    served_ok(f"nccl process mesh rank {pmesh.rank}", svc, rep)
+    whole = core.gather_store(svc.store, pmesh)
+    return (fates_of(svc), svc.history,
+            store_digest(whole) if pmesh.rank == 0 else None, checked[0],
+            fired, launches, wall, us)
+
+
+def process_mesh_phase(torch, dev, cfg, card, emulated=None,
+                       routes=("cuda", "cuda+fused"), plain="torch"):
+    """Phase 4p: the node mesh across processes.  ``cfg.nodes`` ``gloo``
+    ranks on ``dev`` (on the card: all on ``cuda:0``), one node and its
+    block of phase 4's store each, run ``process_runs`` and phase 5's
+    stream on ``TxnService(mesh=...)``; every rank's outcomes and the
+    gathered store equal the single-device ``routes[0]`` run, and each
+    rank's launches are one node's of ``mesh_wave_launches``.  Then, on
+    the card, one ``nccl`` ``run_streaming`` session at world size
+    ``device_count`` with every block dispatch under sync debug mode
+    "error", equal to the single-device B=4, K=2 session.  A failed or
+    hung rank raises (``RankFailure``).  ``emulated``: phase 4m's
+    ``{sched: (route, driver, ms, single-device ms)}``, printed beside."""
+    import numpy as np
+    from repro_torch.core import make_store, run_workload_fused
+    from repro_torch.core.workloads import smallbank_waves
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.service import TxnService
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    ref_route, W = routes[0], cfg.mesh_waves
+    n_keys = cfg.nodes * cfg.kpn
+    tag = f"({card})"
+    where = (f"{cfg.nodes} processes share one card; merges through gloo on"
+             f" the host" if on_card else f"{cfg.nodes} processes on the "
+             f"CPU; merges through gloo")
+    runs = process_runs(cfg, routes, plain)
+    waves = smallbank_waves(np.random.RandomState(cfg.seed), W, cfg.T,
+                            cfg.nodes, cfg.kpn, dist_frac=0.2, device=dev)
+    refs = {}
+    for sched in dict.fromkeys(s for s, _, _ in runs):
+        sync()
+        t0 = time.perf_counter()
+        st, hist, stats = run_workload_fused(
+            make_store(n_keys, cfg.V, device=dev), waves, sched=sched,
+            n_nodes=cfg.nodes, gc_track=True, kernels=ref_route)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3 / W
+        refs[sched] = (hist, tuple(stats), store_digest(st), ms)
+        del st
+
+    def session(B=None):
+        arrivals, gen = phase5_stream(np, cfg, cfg.mesh_ticks)
+        svc = TxnService(n_keys=n_keys, n_versions=cfg.V, T=cfg.service_T,
+                         sched="postsi", n_nodes=cfg.nodes,
+                         kernels=ref_route, device=dev)
+        sync()
+        t0 = time.perf_counter()
+        rep = (svc.run_stream(arrivals, gen) if B is None
+               else svc.run_streaming(arrivals, gen, B=B, K=2))
+        sync()
+        wall = time.perf_counter() - t0
+        return (fates_of(svc), svc.history, store_digest(svc.store), wall,
+                rep)
+    one = session()
+
+    t0 = time.perf_counter()
+    got = spawn_ranks(process_rank, cfg.nodes, args=(cfg, runs, ref_route),
+                      device=dev, deadline=PROCESS_DEADLINE)
+    spawn_s = time.perf_counter() - t0
+    totals = {}
+    for i, (sched, route, drv) in enumerate(runs):
+        ref_hist, ref_stats, ref_digest, one_ms = refs[sched]
+        label = f"process mesh {sched}/{route}/{drv}"
+        for rank, (res, _, _) in enumerate(got):
+            hist, stats, launches, ms, digest = res[i]
+            same_history(np, f"{label} rank {rank}", ref_hist, hist)
+            if stats != ref_stats:
+                raise AssertionError(f"{label} rank {rank}: stats {stats} "
+                                     f"vs {ref_stats}")
+            if on_card and route.startswith("cuda"):
+                # one rank launches what one node of the emulated mesh does
+                want = mesh_wave_launches(route, 1, cfg.T, W)
+                if any(launches[k] != v for k, v in want.items()):
+                    raise AssertionError(f"{label} rank {rank}: launches "
+                                         f"{launches}, expected {want}")
+            for k, v in launches.items():
+                totals[k] = totals.get(k, 0) + v
+        same_digest(f"{label} gathered on rank 0",
+                    f"the single-device {ref_route} run", ref_digest,
+                    got[0][0][i][4])
+        ms = [res[i][3] for res, _, _ in got]
+        beside = ""
+        if emulated and sched in emulated and route == ref_route:
+            e_route, e_drv, e_ms, _ = emulated[sched]
+            beside = f"; emulated mesh (4m, {e_route} {e_drv}) {e_ms:.1f}"
+        print(f"[process] {sched:8s} {route:10s} {drv}: {W} waves of "
+              f"T={cfg.T} on {cfg.nodes} ranks x {cfg.kpn} rows equal the "
+              f"single-device {ref_route} run (every rank's WaveOut and "
+              f"stats, the store gathered on rank 0); ms a wave: rank 0 "
+              f"{ms[0]:.1f}, slowest rank {max(ms):.1f}{beside}; single "
+              f"device {one_ms:.2f} [{where}] {tag}", flush=True)
+    for rank, (_, (fates, hist, digest, launches, wall, committed,
+                   n_waves), _) in enumerate(got):
+        label = f"process mesh service [{ref_route}] rank {rank}"
+        if fates != one[0]:
+            raise AssertionError(f"{label}: request fates differ from the "
+                                 f"single-device session")
+        same_history(np, label, one[1], hist)
+        if on_card and (launches["commit_loop"] != 0
+                        or launches["version_scan"] == 0):
+            raise AssertionError(f"{label}: launches {launches}")
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+    svc_res = got[0][1]
+    same_digest("process mesh service gathered on rank 0",
+                "the single-device session", one[2], svc_res[2])
+    print(f"[process] service [{ref_route}] on {cfg.nodes} ranks, "
+          f"{cfg.mesh_ticks} ticks: fates, history and gathered store equal "
+          f"the single-device session, verify() == [] on every rank; "
+          f"{svc_res[6]} waves, {svc_res[5]} committed, wall {svc_res[4]:.3f}"
+          f" s ({svc_res[4] * 1e3 / max(svc_res[6], 1):.1f} ms a wave) "
+          f"beside {one[3]:.3f} s on one device [{where}] {tag}",
+          flush=True)
+    us = [g[2] for g in got]
+    print(f"[process] {cfg.nodes} gloo ranks on {dev}: int32 all_reduce SUM,"
+          f" MAX and MIN right; one SUM of [5, 4] int32 {min(us):.1f}-"
+          f"{max(us):.1f} us over the ranks; {spawn_s:.1f} s with their "
+          f"start; launches summed over the ranks (not in the kernels line)"
+          f" {totals} {tag}", flush=True)
+    if on_card:
+        for name in ("version_scan", "potential_matrix", "wave_commit"):
+            if totals.get(name, 0) <= 0:
+                raise AssertionError(f"{name} never launched on a rank")
+        if totals["commit_loop"]:
+            raise AssertionError("a rank launched commit_loop")
+    if not on_card:
+        print("[process] nccl session: needs CUDA devices, not run here",
+              flush=True)
+        return totals
+    n_cards = torch.cuda.device_count()
+    stream = session(B=4)
+    t0 = time.perf_counter()
+    got = spawn_ranks(process_rank_nccl, n_cards, args=(cfg, ref_route),
+                      backend="nccl", deadline=PROCESS_DEADLINE)
+    spawn_s = time.perf_counter() - t0
+    for rank, (fates, hist, digest, checked, fired, launches, wall, us) in \
+            enumerate(got):
+        label = f"nccl process mesh [{ref_route} B=4 K=2] rank {rank}"
+        if fates != stream[0]:
+            raise AssertionError(f"{label}: request fates differ from the "
+                                 f"single-device B=4 K=2 session")
+        same_history(np, label, stream[1], hist)
+        if checked <= 0:
+            raise AssertionError(f"{label}: no block dispatch checked")
+    same_digest("nccl process mesh gathered on rank 0",
+                "the single-device B=4 K=2 session", stream[2], got[0][2])
+    print(f"[process] nccl at world size {n_cards} ({n_cards} card(s); "
+          f"{'over more than one card' if n_cards > 1 else 'one rank, no peer: NCCL over two or more cards unverified'}): "
+          f"run_streaming B=4 K=2 for {cfg.mesh_ticks} ticks equals the "
+          f"single-device session (fates, history, gathered store); "
+          f"{got[0][3]} block dispatches on rank 0 ran under sync debug "
+          f"mode 'error' (it fired on a blocking copy there: "
+          f"{got[0][4]!r}), none waited on the card; wall {got[0][6]:.3f} s"
+          f" beside {stream[3]:.3f} s on one device, {spawn_s:.1f} s with "
+          f"the start; one SUM of [5, 4] int32 {got[0][7]:.1f} us; rank 0 "
+          f"launches {got[0][5]} {tag}", flush=True)
+    return totals
+
+
 def parse_config(argv=None) -> Config:
     """The fixed configuration, with only its depth taken from the flags."""
     full = Config()
@@ -4713,7 +5066,8 @@ def run(torch, cfg, mesh_proc) -> int:
                      for k, v in engine_counts.items()}
     reset_launch_counts()
     t1 = time.perf_counter()
-    mesh_engine_phase(torch, dev, cfg, card, dry=dry, meta_proc=mesh_proc)
+    emulated = mesh_engine_phase(torch, dev, cfg, card, dry=dry,
+                                 meta_proc=mesh_proc)
     seconds["4m mesh engine"] = time.perf_counter() - t1
     mesh_service_phase(torch, dev, cfg, card, checked)
     seconds["5m mesh service"] = time.perf_counter() - t1 \
@@ -4726,6 +5080,14 @@ def run(torch, cfg, mesh_proc) -> int:
           f"{checked[0]} block dispatches checked in all; kernel launches "
           f"of the mesh engine and service runs and their single-device "
           f"references (not in the kernels line) {mesh_counts}", flush=True)
+    reset_launch_counts()
+    t1 = time.perf_counter()
+    process_mesh_phase(torch, dev, cfg, card, emulated)
+    seconds["4p process mesh"] = time.perf_counter() - t1
+    print(f"[main path] process mesh: {time.perf_counter() - t1:.1f} s; "
+          f"kernel launches of its single-device references in this "
+          f"process (the ranks' are on the [process] line; neither in the "
+          f"kernels line) {dict(LAUNCHES)}", flush=True)
     t0 = time.perf_counter()
     serve_counts = serve_phase(torch, dev, cfg, card, dry=dry)
     seconds["6 serve"] = time.perf_counter() - t0

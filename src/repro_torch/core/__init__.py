@@ -1,6 +1,6 @@
 """Engine, store, substrates and workloads of the PyTorch port: the
-single-device engine and the node mesh emulated on one device
-(``dist_engine``)."""
+single-device engine and the node mesh (``dist_engine``), emulated on one
+device or one ``torch.distributed`` rank a node."""
 from repro_torch.kernels import (KernelConfig, default_backend, resolve,
                                  set_default_backend)
 from .commit_phase import (ABORTED, COMMITTED, NOP, READ, RMW, RUNNING,
@@ -15,10 +15,11 @@ from .store import (INF, NO_TID, MVStore, PlacementArrays,
                     evicting_visible, install_version, make_store,
                     node_of_key, read_newest, read_visible, store_from_numpy,
                     store_to_numpy)
-from .substrate import (LocalSubstrate, MeshSubstrate,
+from .substrate import (GroupMeshSubstrate, LocalSubstrate, MeshSubstrate,
                         effective_mesh_backend, mesh_degrade_count,
                         mesh_kernels)
-from .dist_engine import (NodeMesh, make_node_mesh, mesh_watermark,
+from .dist_engine import (NodeMesh, ProcessMesh, gather_store,
+                          make_node_mesh, make_process_mesh, mesh_watermark,
                           run_block_dist, run_wave_dist, run_workload_dist,
                           run_workload_fused_dist, shard_store,
                           step_block_dist, step_wave_dist)
@@ -36,9 +37,10 @@ __all__ = [
     "INF", "NO_TID", "MVStore", "PlacementArrays", "as_placement_arrays",
     "bump_sid", "evicting_visible", "install_version",
     "make_store", "node_of_key", "read_newest", "read_visible",
-    "store_from_numpy", "store_to_numpy", "LocalSubstrate",
-    "MeshSubstrate", "effective_mesh_backend", "mesh_degrade_count",
-    "mesh_kernels", "NodeMesh", "make_node_mesh", "mesh_watermark",
+    "store_from_numpy", "store_to_numpy", "GroupMeshSubstrate",
+    "LocalSubstrate", "MeshSubstrate", "effective_mesh_backend",
+    "mesh_degrade_count", "mesh_kernels", "NodeMesh", "ProcessMesh",
+    "gather_store", "make_node_mesh", "make_process_mesh", "mesh_watermark",
     "run_block_dist", "run_wave_dist", "run_workload_dist",
     "run_workload_fused_dist", "shard_store", "step_block_dist",
     "step_wave_dist",

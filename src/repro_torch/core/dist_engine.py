@@ -29,7 +29,15 @@ ones one for one:
 
 plus ``mesh_watermark``, the min of the per-node GC floors.  Their
 ``n_nodes`` (the logical cluster model of dsi, clocksi skew and
-``msgs_cross``) defaults to the mesh's node count.  Like the engine's, the
+``msgs_cross``) defaults to the mesh's node count.
+
+The same drivers run the cluster across processes: a ``ProcessMesh``
+(``make_process_mesh``) makes every ``torch.distributed`` rank one node
+holding only its own block of the store on its own device
+(``shard_store`` returns that block, ``gather_store`` the whole store for
+checks), and the drivers pick ``substrate.GroupMeshSubstrate``, whose
+merges are collectives.  Every rank runs the same driver call on the same
+waves; there is still no coordinator.  Like the engine's, the
 drivers update the store IN PLACE, and on a CUDA device a block dispatch
 does not wait on the card.  The outcomes, the stores and the statistics are
 bit-identical to the single-device engine's for every scheduler and route.
@@ -38,10 +46,11 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Tuple
+from typing import Any, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.kernels import resolve_device
 from .engine import (Wave, WaveOut, _as_staged, _h2d, _out_to_numpy,
@@ -49,7 +58,7 @@ from .engine import (Wave, WaveOut, _as_staged, _h2d, _out_to_numpy,
                      run_wave_on, stage_block, wave_from_numpy,
                      wave_to_numpy)
 from .store import NO_TID, MVStore, as_placement_arrays, make_store
-from .substrate import MeshSubstrate
+from .substrate import GroupMeshSubstrate, MeshSubstrate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,36 +89,113 @@ def _indexed(device) -> torch.device:
     return dev
 
 
-def mesh_device(mesh: NodeMesh, device=None) -> torch.device:
-    """The device a service or a recovery on ``mesh`` runs on: the mesh's.
-    A ``device`` given beside the mesh must name the same one."""
+@dataclasses.dataclass(frozen=True)
+class ProcessMesh:
+    """A 1-D mesh of ``n_nodes`` nodes, one ``torch.distributed`` rank a
+    node (``make_process_mesh``): this process is node ``rank`` and holds
+    only its own block of the store, on ``device``.  Reads merge by
+    collectives over ``group``; ``host_group`` is a ``gloo`` group over the
+    same ranks for host integers (the GC watermark), so that merging them
+    never waits on the card."""
+    n_nodes: int
+    rank: int
+    device: torch.device
+    group: Any
+    host_group: Any
+    backend: str
+
+
+def check_backend(backend: str, device_type: str, world_size: int) -> None:
+    """Raise ``ValueError`` where ``backend`` cannot place ``world_size``
+    ranks on this host's cards: ``nccl`` needs CUDA devices and one card a
+    rank (NCCL refuses two ranks on one card).  Nothing here switches
+    backends: the caller asks for ``gloo`` by name."""
+    if backend not in ("gloo", "nccl"):
+        raise ValueError(f"backend {backend!r}: the process mesh runs on "
+                         f"'gloo' or 'nccl'")
+    if backend != "nccl":
+        return
+    if device_type != "cuda":
+        raise ValueError(f"nccl cannot run a mesh on {device_type} "
+                         f"tensors; ask for backend='gloo' by name")
+    n_cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if world_size > n_cards:
+        raise ValueError(f"nccl would put {world_size} ranks on {n_cards} "
+                         f"card(s), and NCCL refuses two ranks on one card;"
+                         f" ask for backend='gloo' by name")
+
+
+def make_process_mesh(group=None, device=None) -> ProcessMesh:
+    """This rank's node of the mesh over ``group`` (``None``: the default
+    process group, which must be initialised).  ``device`` (``None``: the
+    CUDA device ``cuda:LOCAL_RANK``, else ``cuda:rank % device_count``)
+    holds the rank's block.  A ``cpu`` device needs a ``gloo`` group and an
+    ``nccl`` group needs one card a rank: either fault raises
+    ``ValueError`` on every rank, and nothing switches backends.  A
+    collective: every rank of ``group`` calls it."""
+    if not dist.is_initialized():
+        raise RuntimeError("make_process_mesh: initialise a process group "
+                           "first (launch.mesh.spawn_ranks does)")
+    group = dist.group.WORLD if group is None else group
+    backend = str(dist.get_backend(group))
+    rank, world = dist.get_rank(group), dist.get_world_size(group)
+    if device is None:
+        resolve_device(None)                      # raises without a card
+        local = os.environ.get("LOCAL_RANK")
+        dev = torch.device("cuda", int(local) if local is not None
+                           else rank % torch.cuda.device_count())
+    else:
+        dev = _indexed(device)
+    check_backend(backend, dev.type, world)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    host_group = (group if backend == "gloo" else dist.new_group(
+        dist.get_process_group_ranks(group), backend="gloo"))
+    if backend == "nccl":
+        # one card a rank, as every rank sees it
+        index = torch.tensor([dev.index], dtype=torch.int64)
+        cards = [torch.zeros_like(index) for _ in range(world)]
+        dist.all_gather(cards, index, group=host_group)
+        cards = [int(c) for c in cards]
+        if len(set(cards)) < world:
+            raise ValueError(f"nccl would put two ranks on one card (cards "
+                             f"{cards}), and NCCL refuses that; ask for "
+                             f"backend='gloo' by name")
+    return ProcessMesh(world, rank, dev, group, host_group, backend)
+
+
+def mesh_device(mesh, device=None) -> torch.device:
+    """The device a service or a recovery on ``mesh`` runs on: the mesh's
+    (on a ``ProcessMesh``, this rank's).  A ``device`` given beside the
+    mesh must name the same one."""
     if device is not None and _indexed(device) != mesh.device:
         raise ValueError(f"device {device} is not the mesh's {mesh.device}")
     return mesh.device
 
 
-def check_mesh(mesh) -> NodeMesh | None:
-    """``mesh`` if it is ``None`` or a ``NodeMesh``; anything else raises
-    ``TypeError`` (the reference's JAX ``Mesh`` has no meaning here)."""
-    if mesh is not None and not isinstance(mesh, NodeMesh):
-        raise TypeError(f"mesh must be a NodeMesh (make_node_mesh), got "
+def check_mesh(mesh):
+    """``mesh`` if it is ``None``, a ``NodeMesh`` or a ``ProcessMesh``;
+    anything else raises ``TypeError`` (the reference's JAX ``Mesh`` has no
+    meaning here)."""
+    if mesh is not None and not isinstance(mesh, (NodeMesh, ProcessMesh)):
+        raise TypeError(f"mesh must be a NodeMesh (make_node_mesh) or a "
+                        f"ProcessMesh (make_process_mesh), got "
                         f"{type(mesh).__name__}")
     return mesh
 
 
-def shard_store(store: MVStore, mesh: NodeMesh,
-                n_slots: int | None = None) -> MVStore:
-    """Block-partition a store over the mesh's nodes, on the mesh's device.
+def refuse_process_mesh(mesh, what: str, item: str) -> None:
+    """Raise ``ValueError`` where ``what`` is asked of a ``ProcessMesh``,
+    which does not serve it yet; ``item`` names the ``ROADMAP.md`` item
+    that brings it.  Nothing is dropped silently."""
+    if isinstance(mesh, ProcessMesh):
+        raise ValueError(f"{what} does not run on a ProcessMesh yet "
+                         f"(ROADMAP.md queue 1, item {item})")
 
-    A row count that does not divide the node count is PADDED with empty
-    rows (``tid == NO_TID`` in every slot: never visible, routed to by no
-    key or placement) up to the next multiple of ``n_nodes``, so the block
-    arithmetic stays exact.  ``n_slots`` (an elastic placement's
-    ``PlacementMap.n_slots``) asks for a given padded row count: a multiple
-    of ``n_nodes``, not below the store's rows.  Without padding the
-    store's own tensors are returned (moved to the mesh's device)."""
-    n_nodes = mesh.n_nodes
-    n_rows = store.n_keys
+
+def _padded_rows(n_rows: int, n_nodes: int, n_slots: int | None) -> int:
+    """The padded row count of a store of ``n_rows`` over ``n_nodes``:
+    ``n_slots``, checked, or the next multiple of ``n_nodes``."""
     if n_slots is None:
         n_slots = -(-n_rows // n_nodes) * n_nodes        # ceil to a multiple
     if n_slots % n_nodes != 0:
@@ -118,29 +204,90 @@ def shard_store(store: MVStore, mesh: NodeMesh,
     if n_slots < n_rows:
         raise ValueError(f"shard_store: n_slots={n_slots} < store rows "
                          f"{n_rows}; the store does not shrink")
+    return n_slots
+
+
+def _empty_rows(n: int, n_versions: int, device) -> MVStore:
+    """``n`` EMPTY rows: ``tid == NO_TID`` in every slot, not bootstrap
+    rows."""
+    pad = make_store(n, n_versions, device=device)
+    pad.tid.fill_(NO_TID)
+    return pad
+
+
+def shard_store(store: MVStore, mesh, n_slots: int | None = None
+                ) -> MVStore:
+    """Block-partition a store over the mesh's nodes, on the mesh's device.
+
+    A row count that does not divide the node count is PADDED with empty
+    rows (``tid == NO_TID`` in every slot: never visible, routed to by no
+    key or placement) up to the next multiple of ``n_nodes``, so the block
+    arithmetic stays exact.  ``n_slots`` (an elastic placement's
+    ``PlacementMap.n_slots``) asks for a given padded row count: a multiple
+    of ``n_nodes``, not below the store's rows.
+
+    On a ``NodeMesh`` the result is the whole padded store (without padding
+    the store's own tensors, moved to the mesh's device).  On a
+    ``ProcessMesh`` it is ONLY this rank's block, padded rows ``[rank *
+    n_local, (rank + 1) * n_local)``, copied onto the rank's device, so
+    the whole store can be freed."""
+    n_rows = store.n_keys
+    n_slots = _padded_rows(n_rows, mesh.n_nodes, n_slots)
+    if isinstance(check_mesh(mesh), ProcessMesh):
+        n_local = n_slots // mesh.n_nodes
+        lo = min(mesh.rank * n_local, n_rows)
+        hi = min(lo + n_local, n_rows)
+        block = MVStore(*(t[lo:hi].to(mesh.device, copy=True)
+                          for t in store))
+        if block.n_keys < n_local:
+            pad = _empty_rows(n_local - block.n_keys, store.n_versions,
+                              mesh.device)
+            block = MVStore(*(torch.cat([a, b]) for a, b in zip(block, pad)))
+        return block
     store = MVStore(*(t.to(mesh.device) for t in store))
     if n_slots > n_rows:
-        pad = make_store(n_slots - n_rows, store.n_versions,
-                         device=mesh.device)
-        pad.tid.fill_(NO_TID)        # EMPTY rows, not bootstrap rows
+        pad = _empty_rows(n_slots - n_rows, store.n_versions, mesh.device)
         store = MVStore(*(torch.cat([a, b]) for a, b in zip(store, pad)))
     return store
 
 
-def _prepare(store: MVStore, mesh: NodeMesh, kernels, host_skew, placement):
-    """The mesh substrate on the store's device and the wave-independent
-    inputs there; the store must live on the mesh's device."""
+def gather_store(block: MVStore, pmesh: ProcessMesh) -> MVStore:
+    """The whole (padded) store from every rank's block, on every rank, on
+    the block's device: for checks, not for the serving path.  A
+    collective: every rank calls it.  ``gloo`` has no ``all_gather`` of
+    CUDA tensors, so there the blocks are staged through host memory by
+    name (``.cpu()`` before, ``.to(device)`` after)."""
+    staged = pmesh.backend == "gloo" and block.device.type != "cpu"
+    parts = MVStore(*(t.cpu() for t in block)) if staged else block
+    whole = []
+    for t in parts:
+        got = [torch.empty_like(t) for _ in range(pmesh.n_nodes)]
+        dist.all_gather(got, t.contiguous(), group=pmesh.group)
+        whole.append(torch.cat(got))
+    return MVStore(*(t.to(block.device) for t in whole))
+
+
+def _prepare(store: MVStore, mesh, kernels, host_skew, placement):
+    """The mesh's substrate on the store's device (a ``MeshSubstrate`` on a
+    ``NodeMesh``, a ``GroupMeshSubstrate`` on a ``ProcessMesh``) and the
+    wave-independent inputs there; the store must live on the mesh's
+    device."""
     mesh = check_mesh(mesh)
     dev = store.device
     if dev != mesh.device:
         raise ValueError(f"the store lives on {dev}, the mesh on "
                          f"{mesh.device}: shard_store it first")
     hs = None if host_skew is None else _h2d(host_skew, dev)
-    return (MeshSubstrate(mesh.n_nodes, kernels, dev), hs,
-            as_placement_arrays(placement, dev))
+    if isinstance(mesh, ProcessMesh):
+        if placement is not None:
+            refuse_process_mesh(mesh, "an elastic placement", "5.2")
+        sub = GroupMeshSubstrate(mesh, kernels)
+    else:
+        sub = MeshSubstrate(mesh.n_nodes, kernels, dev)
+    return sub, hs, as_placement_arrays(placement, dev)
 
 
-def _placement_check(store: MVStore, mesh: NodeMesh, placement,
+def _placement_check(store: MVStore, mesh, placement,
                      op_key) -> None:
     """``REPRO_PLACEMENT_CHECK=1``: validate the owner/slot routing of the
     keys about to run against the store's block layout before dispatching
@@ -154,7 +301,7 @@ def _placement_check(store: MVStore, mesh: NodeMesh, placement,
 
 
 def run_wave_dist(store: MVStore, wave: Wave, wave_idx, clock,
-                  mesh: NodeMesh, n_nodes=None, sched: str = "postsi",
+                  mesh, n_nodes=None, sched: str = "postsi",
                   host_skew=None, watermark=None, gc_track: bool = False,
                   gc_block: bool = False, kernels=None, placement=None
                   ) -> Tuple[MVStore, WaveOut, torch.Tensor]:
@@ -172,7 +319,7 @@ def run_wave_dist(store: MVStore, wave: Wave, wave_idx, clock,
 
 
 def step_wave_dist(store: MVStore, wave, wave_idx: int, clock,
-                   mesh: NodeMesh, *, sched: str = "postsi",
+                   mesh, *, sched: str = "postsi",
                    n_nodes: int | None = None, host_skew=None,
                    watermark=None, gc_track: bool = True,
                    gc_block: bool = False, kernels=None, placement=None):
@@ -186,7 +333,7 @@ def step_wave_dist(store: MVStore, wave, wave_idx: int, clock,
 
 
 def run_block_dist(store: MVStore, stacked, wave_idx0, clock,
-                   mesh: NodeMesh, *, sched: str = "postsi",
+                   mesh, *, sched: str = "postsi",
                    n_nodes: int | None = None, host_skew=None,
                    watermark=None, gc_track: bool = True,
                    gc_block: bool = False, kernels=None, placement=None):
@@ -205,7 +352,7 @@ def run_block_dist(store: MVStore, stacked, wave_idx0, clock,
 
 
 def step_block_dist(store: MVStore, stacked, wave_idx0: int, clock,
-                    mesh: NodeMesh, **kw):
+                    mesh, **kw):
     """Synchronous mesh block step: ``run_block_dist`` and a host sync of
     the per-wave outcomes (mesh twin of ``engine.step_block``)."""
     store, outs, clock = run_block_dist(store, stacked, wave_idx0, clock,
@@ -213,7 +360,7 @@ def step_block_dist(store: MVStore, stacked, wave_idx0: int, clock,
     return store, _out_to_numpy(outs), clock
 
 
-def run_workload_dist(store: MVStore, waves, mesh: NodeMesh,
+def run_workload_dist(store: MVStore, waves, mesh,
                       sched: str = "postsi", host_skew=None,
                       n_nodes: int | None = None, gc_track: bool = False,
                       gc_block: bool = False, kernels=None, placement=None):
@@ -231,7 +378,7 @@ def run_workload_dist(store: MVStore, waves, mesh: NodeMesh,
     return store, history, _stats_of(history)
 
 
-def run_workload_fused_dist(store: MVStore, waves, mesh: NodeMesh,
+def run_workload_fused_dist(store: MVStore, waves, mesh,
                             sched: str = "postsi", host_skew=None,
                             n_nodes: int | None = None,
                             gc_track: bool = False, gc_block: bool = False,
@@ -249,11 +396,19 @@ def run_workload_fused_dist(store: MVStore, waves, mesh: NodeMesh,
                       placement=pl)
 
 
-def mesh_watermark(mesh: NodeMesh, node_floors) -> int:
+def mesh_watermark(mesh, node_floors) -> int:
     """The global GC watermark: the min over the ``N`` per-node
     live-reader floors (``service.VisibilityGC.node_floors``), the
-    reference's ``pmin``.  The floors are host ints and the min is taken on
-    the host: the service asks for it at every block dispatch, and a round
-    trip through the device would make that dispatch wait."""
+    reference's ``pmin``.  The floors are host ints: on a ``NodeMesh`` the
+    min is taken on the host; on a ``ProcessMesh`` each rank gives its own
+    node's floor, ``node_floors[rank]``, and the floors merge by
+    ``all_reduce(MIN)`` over the mesh's ``gloo`` host group (a collective:
+    every rank calls it).  The service asks for it at every block
+    dispatch, and a round trip through the device would make that
+    dispatch wait."""
     floors = np.asarray(node_floors, np.int64).reshape(mesh.n_nodes)
-    return int(floors.min())
+    if not isinstance(mesh, ProcessMesh):
+        return int(floors.min())
+    floor = torch.tensor([floors[mesh.rank]], dtype=torch.int64)
+    dist.all_reduce(floor, op=dist.ReduceOp.MIN, group=mesh.host_group)
+    return int(floor)

@@ -209,7 +209,12 @@ def _commit_loop_plain(sub, store: MVStore, inputs: CommitInputs, *,
     for i in range(T):
         active = status[i] == RUNNING
         w_i, r_i, pk_i = is_write[i], is_read[i], pkeys[i]
-        nv_val, nv_tid, nv_cid, nv_sid, nv_slot = sub.read_newest(store, pk_i)
+        # the step's reads of the store, all before its installs: the
+        # newest versions, the read slots' SIDs (postsi) and the GC consult
+        ((nv_val, nv_tid, nv_cid, nv_sid, nv_slot), cur_sid,
+         evicting) = sub.step_reads(
+            store, pk_i, r_slot[i] if sched == "postsi" else None,
+            wm if track_gc else None)
 
         # map newest creators to wave-local ids (or -1 if older wave)
         local, creator_committed = creator_slots(nv_tid, tid0, T, status)
@@ -229,9 +234,8 @@ def _commit_loop_plain(sub, store: MVStore, inputs: CommitInputs, *,
             abort = abort | (r_i & remote & (nv_cid != r_cid[i])).any()
 
         if sched == "postsi":
-            # rules 3/4(a)/5; SIDs of read slots are re-gathered: peers may
-            # have bumped them while we ran
-            cur_sid = sub.read_sid(store, pk_i, r_slot[i])
+            # rules 3/4(a)/5; SIDs of read slots are re-gathered (cur_sid):
+            # peers may have bumped them while we ran
             ongoing_reader = ongoing_readers_of(i, potential, status)
             s_i, c_i, iv_abort = postsi_bounds(
                 s_lo[i], s_hi[i], c_lo[i], r_i, w_i, nv_cid, nv_sid, cur_sid,
@@ -245,7 +249,7 @@ def _commit_loop_plain(sub, store: MVStore, inputs: CommitInputs, *,
         # GC watermark consult: does any write reuse a ring slot whose
         # version is still visible above the watermark?
         if track_gc:
-            evict_unsafe = w_i & sub.evicting_visible(store, pk_i, wm)
+            evict_unsafe = w_i & evicting
         if gc_block:
             abort = abort | evict_unsafe.any()
 

@@ -25,10 +25,18 @@ view into the one global store.  Every method maps global keys to local
 rows and delegates to a ``LocalSubstrate`` on each block; reads keep the
 owner's answer and merge by a sum over the node dimension (the reference's
 ``psum``), installs and SID bumps apply on the owner only.
+
+``GroupMeshSubstrate`` is the same cluster across processes: one
+``torch.distributed`` rank a node, each holding only its own block of the
+store on its own device (``dist_engine.ProcessMesh``).  Its reads answer
+from the block and merge by ``all_reduce`` (SUM for the owner-keeps
+answers, MAX for the fused read phase's ``s_lo0``), the reference's
+``psum`` and ``pmax``; there is no coordinator.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.kernels import KernelConfig, ops, resolve, resolve_device
 from .commit_phase import build_potential
@@ -59,6 +67,25 @@ def mesh_degrade_count() -> int:
     the port raises instead (kept under the reference's name for the
     benchmarks that report it)."""
     return 0
+
+
+def _step_parts(sub, store: MVStore, keys, slots, watermark):
+    """``step_reads``' answers on one store as a tuple of int32 tensors
+    shaped like ``keys``: the newest version's five fields, then the SIDs
+    at ``slots`` and the eviction flags where asked for."""
+    parts = list(sub.read_newest(store, keys))
+    if slots is not None:
+        parts.append(sub.read_sid(store, keys, slots))
+    if watermark is not None:
+        parts.append(sub.evicting_visible(store, keys, watermark).to(
+            torch.int32))
+    return tuple(parts)
+
+
+def _step_split(parts, slots, watermark):
+    """``_step_parts``' tuple back into ``step_reads``' answer."""
+    return (tuple(parts[:5]), parts[5] if slots is not None else None,
+            parts[-1].bool() if watermark is not None else None)
 
 
 class LocalSubstrate:
@@ -110,6 +137,17 @@ class LocalSubstrate:
         """Would installing into ``keys`` evict a version still visible
         above the GC watermark?  (``store.evicting_visible``)."""
         return store_ops.evicting_visible(store, keys, watermark)
+
+    def step_reads(self, store: MVStore, keys, slots=None, watermark=None):
+        """A commit step's reads of the store, all made before its
+        installs, in one call: ``(read_newest, read_sid at slots,
+        evicting_visible under watermark)``, the last two ``None`` where
+        ``slots`` / ``watermark`` is ``None``.  A mesh merges them at
+        once."""
+        return (self.read_newest(store, keys),
+                None if slots is None else self.read_sid(store, keys, slots),
+                None if watermark is None
+                else self.evicting_visible(store, keys, watermark))
 
     def install(self, store: MVStore, mask, keys, values, tid, cid,
                 wave_idx):
@@ -267,6 +305,13 @@ class MeshSubstrate:
                 torch.int32),) for i, b in enumerate(blocks)])
         return ev.bool()
 
+    def step_reads(self, store: MVStore, keys, slots=None, watermark=None):
+        """A commit step's reads on every node, merged in one sum."""
+        blocks, lk, mine = self._local(store, keys)
+        return _step_split(self._merge(mine, [
+            _step_parts(self._local_sub, b, lk[i], slots, watermark)
+            for i, b in enumerate(blocks)]), slots, watermark)
+
     # ------------------------------------------------------------- writes
     def install(self, store: MVStore, mask, keys, values, tid, cid,
                 wave_idx):
@@ -324,3 +369,138 @@ class MeshSubstrate:
         s_lo0 = torch.stack([o[5] for o in outs]).max(dim=0).values
         return (r_val, r_tid, r_cid, r_sid, slot, s_lo0,
                 outs[0][6].view(torch.bool))
+
+
+class GroupMeshSubstrate:
+    """Peer-merge data plane of ONE rank of a process-group node mesh
+    (``dist_engine.ProcessMesh``): the counterpart of the reference's
+    ``MeshSubstrate`` on real devices, where the emulated ``MeshSubstrate``
+    above keeps every node on one device.
+
+    The store it is handed is this rank's block of ``n_local`` rows, and
+    its base row is ``rank * n_local``; all key arguments are GLOBAL rows.
+    Every method maps the keys to local rows (``lk = keys - base``,
+    ``mine = 0 <= lk < n_local``, ``lk`` clamped) and delegates to a
+    ``LocalSubstrate`` on the block.  Reads give 0 for the rows the rank
+    does not own, the parts are stacked into one int32 tensor and one
+    ``all_reduce(SUM)`` over the mesh's group merges them (the reference's
+    ``psum``); a key no rank owns (-1, a pad) reads 0.  Installs and SID
+    bumps are masked to the owner and stay local.  The fused read phase
+    runs ``ops.wave_commit`` on the block with ``rvalid = is_read & mine``;
+    its slot fields merge as above and ``s_lo0`` by ``all_reduce(MAX)``
+    (the reference's ``pmax``).  The potential matrix depends on the GLOBAL
+    keys only: every rank builds it, as every reference node does, and it
+    is not merged.  The commit loop is the plain loop
+    (``engine._commit_loop_plain``) with a merge at every step; the
+    ``commit_loop`` kernel is not used on a mesh.
+
+    Every rank must make the same calls in the same order (the engine's
+    drivers do: the transaction state is replicated), since each read is a
+    collective."""
+
+    def __init__(self, pmesh, kernels: KernelConfig | str | None = None):
+        self.n_nodes = pmesh.n_nodes
+        self.rank = pmesh.rank
+        self.group = pmesh.group
+        self.device = pmesh.device
+        self.kernels = mesh_kernels(kernels, self.device)
+        self._local_sub = LocalSubstrate(self.kernels, self.device)
+
+    # ------------------------------------------------------------ helpers
+    def _local(self, store: MVStore, keys):
+        """(lk clamped local rows, mine owner mask) of GLOBAL ``keys`` on
+        this rank's block."""
+        n_local = store.n_keys
+        lk = keys - self.rank * n_local
+        mine = (lk >= 0) & (lk < n_local)
+        return lk.clamp(0, n_local - 1), mine
+
+    def _merge(self, mine, parts):
+        """This rank's int32 answers, 0 where it does not own the row,
+        stacked and summed over the ranks by one ``all_reduce``."""
+        merged = torch.where(mine, torch.stack([p.to(torch.int32)
+                                                for p in parts]), 0)
+        dist.all_reduce(merged, op=dist.ReduceOp.SUM, group=self.group)
+        return tuple(merged.unbind(0))
+
+    # -------------------------------------------------------------- reads
+    def read_visible(self, store: MVStore, keys, max_cid):
+        lk, mine = self._local(store, keys)
+        return self._merge(mine, self._local_sub.read_visible(store, lk,
+                                                              max_cid))
+
+    def read_newest(self, store: MVStore, keys):
+        return self.read_visible(store, keys, torch.full_like(keys, INF))
+
+    def read_sid(self, store: MVStore, keys, slots):
+        lk, mine = self._local(store, keys)
+        (sid,) = self._merge(mine, (self._local_sub.read_sid(store, lk,
+                                                             slots),))
+        return sid
+
+    def key_staleness(self, store: MVStore, keys):
+        lk, mine = self._local(store, keys)
+        return self._merge(mine, self._local_sub.key_staleness(store, lk))
+
+    def evicting_visible(self, store: MVStore, keys, watermark):
+        lk, mine = self._local(store, keys)
+        (ev,) = self._merge(mine, (self._local_sub.evicting_visible(
+            store, lk, watermark),))
+        return ev.bool()
+
+    def step_reads(self, store: MVStore, keys, slots=None, watermark=None):
+        """A commit step's reads, merged in ONE ``all_reduce``: a commit
+        step costs one collective, whichever of its reads it makes."""
+        lk, mine = self._local(store, keys)
+        return _step_split(self._merge(mine, _step_parts(
+            self._local_sub, store, lk, slots, watermark)), slots, watermark)
+
+    # ------------------------------------------------------------- writes
+    def install(self, store: MVStore, mask, keys, values, tid, cid,
+                wave_idx):
+        lk, mine = self._local(store, keys)
+        return self._local_sub.install(store, mask & mine, lk, values, tid,
+                                       cid, wave_idx)
+
+    def bump_sid(self, store: MVStore, mask, keys, slots, expect_tid, s_val):
+        lk, mine = self._local(store, keys)
+        return self._local_sub.bump_sid(store, mask & mine, lk, slots,
+                                        expect_tid, s_val)
+
+    def commit_loop(self, store: MVStore, inputs, *, sched: str,
+                    n_nodes: int, gc_track: bool, gc_block: bool):
+        """The plain commit loop over this substrate: every step's reads
+        merge across the ranks (on ``cuda`` one ``version_scan`` launch a
+        rank a step)."""
+        from .engine import _commit_loop_plain
+        return _commit_loop_plain(self, store, inputs, sched=sched,
+                                  n_nodes=n_nodes, gc_track=gc_track,
+                                  gc_block=gc_block)
+
+    def build_potential(self, keys, is_read, is_write):
+        """The [T, T] matrix from the GLOBAL keys, built on every rank."""
+        return build_potential(keys, is_read, is_write, backend=self.kernels)
+
+    def read_phase(self, store: MVStore, keys, max_cid, is_read, is_write):
+        """Twin of ``MeshSubstrate.read_phase`` for this rank's block: on
+        the fused route one ``ops.wave_commit`` on the block, its slot
+        fields merged by SUM and ``s_lo0`` by MAX (every contribution is a
+        CID >= 0); the potential matrix is this rank's own."""
+        mc = torch.broadcast_to(max_cid, keys.shape).contiguous()
+        if not self.kernels.fused:
+            r_val, r_tid, r_cid, r_sid, r_slot = self.read_visible(
+                store, keys, mc)
+            s_lo0 = torch.where(is_read, r_cid, 0).max(dim=1).values
+            pot = self.build_potential(keys, is_read, is_write)
+            return r_val, r_tid, r_cid, r_sid, r_slot, s_lo0, pot
+        lk, mine = self._local(store, keys)
+        out = ops.wave_commit(store.cid, store.tid, store.sid, store.val, mc,
+                              torch.where(is_read, keys, -1),
+                              torch.where(is_write, keys, -1),
+                              is_read & mine, keys=lk,
+                              use_kernel=self.kernels.use_kernel)
+        slot, r_val, r_tid, r_cid, r_sid = self._merge(mine, out[:5])
+        s_lo0 = out[5].clone()
+        dist.all_reduce(s_lo0, op=dist.ReduceOp.MAX, group=self.group)
+        return (r_val, r_tid, r_cid, r_sid, slot, s_lo0,
+                out[6].view(torch.bool))

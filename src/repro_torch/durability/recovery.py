@@ -55,7 +55,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.dist_engine import (check_mesh, mesh_device,
-                                          shard_store, step_block_dist)
+                                          refuse_process_mesh, shard_store,
+                                          step_block_dist)
 from repro_torch.core.engine import Wave, WaveOut, step_block
 from repro_torch.core.store import MVStore, make_store, store_from_numpy
 from repro_torch.kernels import resolve, resolve_device
@@ -204,6 +205,7 @@ def recover(directory: str, mesh=None, kernels=None,
     replay through ``kernels`` resolved against it; every choice gives the
     same bits.  ``use_snapshot=False`` forces a full-WAL replay (the
     differential path)."""
+    refuse_process_mesh(mesh, "recover", "5.1")
     dev = (resolve_device(device) if check_mesh(mesh) is None
            else mesh_device(mesh, device))
     kernels = resolve(kernels, dev)

@@ -24,7 +24,9 @@ scratch), so that the kernel is counted by its cost formula alone.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -118,8 +120,21 @@ def _digest(files) -> str:
     return h.hexdigest()[:16]
 
 
+@contextlib.contextmanager
+def _file_lock(path: Path):
+    """Hold an exclusive lock on ``path`` between processes (the ranks of
+    a process mesh load the library at once)."""
+    with open(path, "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def _build() -> Path:
-    """Compile and link the library unless this source hash is built."""
+    """Compile and link the library unless this source hash is built; one
+    process builds while the others wait on a lock file beside it."""
     sources, headers = _sources()
     out = build_dir() / _digest(sources + headers)
     lib = out / LIB_NAME
@@ -127,6 +142,15 @@ def _build() -> Path:
         build_info.update(path=str(lib), seconds=0.0, cached=True)
         return lib
     out.mkdir(parents=True, exist_ok=True)
+    with _file_lock(out / "build.lock"):
+        if lib.exists():
+            build_info.update(path=str(lib), seconds=0.0, cached=True)
+            return lib
+        return _compile(sources, out, lib)
+
+
+def _compile(sources, out: Path, lib: Path) -> Path:
+    """Compile every source into ``out`` and link them into ``lib``."""
     nvcc = nvcc_path()
     t0 = time.perf_counter()
     procs = [(src, subprocess.Popen(

@@ -28,7 +28,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.dist_engine import NodeMesh, check_mesh
+from repro_torch.core.dist_engine import (NodeMesh, check_mesh,
+                                          refuse_process_mesh)
 from repro_torch.core.store import MVStore, NO_TID
 from repro_torch.kernels.ops import I32_MAX, I32_MIN, _put_
 
@@ -109,6 +110,7 @@ def apply_move_mesh(store: MVStore, rec: MoveRecord,
 
 def apply_move(store: MVStore, rec: MoveRecord,
                mesh: NodeMesh | None = None) -> MVStore:
+    refuse_process_mesh(mesh, "apply_move", "5.2")
     if check_mesh(mesh) is None:
         return apply_move_local(store, rec)
     return apply_move_mesh(store, rec, mesh)

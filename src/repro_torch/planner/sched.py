@@ -47,7 +47,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.commit_phase import ABORTED, NOP
-from repro_torch.core.dist_engine import check_mesh, step_block_dist
+from repro_torch.core.dist_engine import (check_mesh, refuse_process_mesh,
+                                          step_block_dist)
 from repro_torch.core.engine import (SCHEDULERS, Wave, WaveOut, step_block,
                                      _stats_of, wave_to_numpy)
 
@@ -180,6 +181,7 @@ def run_wave_planned(store, wave: Wave, clock, *, wave_idx0: int,
         raise ValueError(f"base scheduler must be one of {SCHEDULERS}, "
                          f"got {sched!r}")
     check_mesh(mesh)
+    refuse_process_mesh(mesh, "run_wave_planned", "5.3")
     wave = wave_to_numpy(wave)
     plan = plan_wave(wave.op_kind, wave.op_key, max_lanes=max_lanes)
     stacked, rows, T_pad = build_planned_block(wave, plan, next_tid)

@@ -45,6 +45,14 @@ wave or block runs through ``step_wave_dist`` / ``run_block_dist``, the
 same commit loop over the ``MeshSubstrate``, with the GC watermark merged
 from the per-node reader floors (``mesh_watermark``).  Outcomes are
 bit-identical between the two data planes.
+
+``mesh=`` may also be a ``core.dist_engine.ProcessMesh``: every rank runs
+this same service loop on the same seeded arrivals, its store holds only
+the rank's block, and the drivers' merges and the watermark's min are
+collectives.  The step loop, ``run_streaming`` and ``verify()`` (which
+gathers the store, so every rank calls it) serve as on one device;
+durability, an elastic placement, moves, replicas and the planner raise
+``ValueError`` there, naming the ``ROADMAP.md`` item that brings them.
 """
 from __future__ import annotations
 
@@ -57,9 +65,12 @@ import numpy as np
 import torch
 
 from repro_torch.core.commit_phase import ABORTED, COMMITTED, NOP
-from repro_torch.core.dist_engine import (check_mesh, mesh_device,
-                                          mesh_watermark, run_block_dist,
-                                          shard_store, step_wave_dist)
+from repro_torch.core.dist_engine import (ProcessMesh, check_mesh,
+                                          gather_store, mesh_device,
+                                          mesh_watermark,
+                                          refuse_process_mesh,
+                                          run_block_dist, shard_store,
+                                          step_wave_dist)
 from repro_torch.core.engine import Wave, WaveOut, run_block, stage_block, \
     step_wave
 from repro_torch.core.store import make_store
@@ -74,6 +85,10 @@ from repro_torch.planner import HybridSwitch
 from .former import TxnRequest, WaveFormer, fold_counts
 from .gc import VisibilityGC
 from .retry import RetryPolicy
+
+
+# a ProcessMesh rank's watermark floor when it holds no pin: above any clock
+_NO_PIN = np.iinfo(np.int64).max
 
 
 def _pct(xs: List[int], q: float) -> float:
@@ -143,6 +158,13 @@ class TxnService:
                  tenants: Optional[Dict[int, float]] = None,
                  fold_rmw: bool = False, fold_max: int = 256, device=None):
         self.mesh = check_mesh(mesh)
+        for what, given, item in (("durability=", durability, "5.1"),
+                                  ("an elastic placement", placement, "5.2"),
+                                  ("replicas=", replicas, "5.2"),
+                                  ("a balancer", balancer, "5.2"),
+                                  ("the planner", planner, "5.3")):
+            if given is not None:
+                refuse_process_mesh(mesh, what, item)
         self.device = (resolve_device(device) if mesh is None
                        else mesh_device(mesh, device))
         self.sched = sched
@@ -425,10 +447,17 @@ class TxnService:
         conservative, never unsafe."""
         if self.mesh is None:
             return self.gc.watermark()
+        n = self.mesh.n_nodes
+        if isinstance(self.mesh, ProcessMesh):
+            # a collective at every dispatch, pins or none, so that ranks
+            # never disagree on whether to merge; a rank without pins
+            # gives _NO_PIN, and no pin anywhere is the wave boundary
+            wm = mesh_watermark(self.mesh, self.gc.node_floors(n)
+                                if self.gc.pinned else [_NO_PIN] * n)
+            return None if wm == _NO_PIN else wm
         if not self.gc.pinned:
             return None
-        return mesh_watermark(self.mesh,
-                              self.gc.node_floors(self.mesh.n_nodes))
+        return mesh_watermark(self.mesh, self.gc.node_floors(n))
 
     def _step_wave(self, wave, wm):
         """Run one formed wave on the configured data plane under the
@@ -521,6 +550,7 @@ class TxnService:
         the move bit for bit.  A live streaming driver is flushed first, so
         no dispatched block is in flight.  Returns the applied
         ``MoveRecord`` (``None`` if nothing moved)."""
+        refuse_process_mesh(self.mesh, "move_range", "5.2")
         if self.placement is None:
             raise ValueError("move_range needs an elastic placement")
         if self.stream is not None:
@@ -685,10 +715,14 @@ class TxnService:
         """Post-hoc correctness of the served history: SI (or CV) validity
         plus final-store-matches-serial-replay, via ``core.verify``.  The
         history speaks logical keys, so a placed store is gathered back
-        into key order first (moves do not change ring contents)."""
+        into key order first (moves do not change ring contents).  On a
+        ``ProcessMesh`` the blocks are gathered (``gather_store``): every
+        rank calls it."""
         check = verify_cv if self.sched == "cv" else verify_si
         errors = check(self.history, base_store=self.base_store)
-        errors += final_values_ok(logical_store(self.store, self.placement),
+        store = (gather_store(self.store, self.mesh)
+                 if isinstance(self.mesh, ProcessMesh) else self.store)
+        errors += final_values_ok(logical_store(store, self.placement),
                                   self.history, self.n_keys)
         return errors
 
