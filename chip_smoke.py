@@ -239,10 +239,34 @@ Phases (any failure raises, so the process exits non-zero):
    ``TxnService(mesh=...)`` equal to the single-device session; then one
    ``nccl`` ``run_streaming`` session (B=4, K=2) at world size
    ``device_count``, every block dispatch under sync debug mode "error",
-   equal to the single-device session; ms a wave beside phase 4m's and
+   equal to the single-device session, and the same session durable
+   (phase 5m's durability, its snapshots gathered onto rank 0 over the
+   host group) equal to it and recovered from its snapshot; ms a wave
+   beside phase 4m's and
    the single device's, labelled "8 processes share one card; merges
    through gloo on the host"; the ranks' launches on a line of their own
    (not in the kernels line); a failed or hung rank fails the run;
+   4q. durability, elastic placement and the planner on the process mesh:
+   8 ``gloo`` ranks on ``cuda:0`` serve, in one spawn, phase 5m's durable
+   session (``--process-ticks`` ticks, ``fsync_every=1``,
+   ``snapshot_every=4``, rank 0 the one writer), whose WAL bytes, fates,
+   histories and gathered store (SHA-256 digests) equal the same session
+   on the emulated mesh; the same stream on ``cuda+fused`` killed by a
+   ``drop_node`` fault at one point on every rank, its log a prefix of
+   the fault-free one; phase 5d's elastic deployment (2,000,000 rows, the
+   balancer, replicas, one explicit ``move_range``) equal to it on the
+   emulated mesh; and the hybrid planner session of phase 5
+   (``PROCESS_PLANNER_TICKS`` ticks) equal to the single device.  A
+   fresh spawn recovers the durable directory from its snapshot
+   (``cuda``) and by full replay (``cuda+fused``), each equal to the live
+   store, and takes up the crashed one and serves on, equal to one device
+   taking up a copy; each rank's launches asserted (``version_scan`` T +
+   1 and ``potential_matrix`` 1 a wave on ``cuda``, ``wave_commit`` 1 and
+   ``version_scan`` T on ``cuda+fused``, one ``version_scan`` a replica
+   refresh, ``commit_loop`` 0), summed on a ``[process] 4q`` line of
+   their own; recovery seconds and ms a wave beside phase 5m's and the
+   references', labelled "8 processes share one card; merges through
+   gloo on the host";
 6. serve: zamba2-2.7b at full width (2.42 B parameters, random weights
    from a seeded generator on the card) behind ``launch.serve.Server`` on
    the ``cuda`` route, batch 4: 3 batches (prompts of 1,024, 1,024 and
@@ -469,6 +493,8 @@ class Config(NamedTuple):
                                    # 5m carries state across mesh waves)
     mesh_ticks: int = 6            # ticks of phase 5m's mesh sessions
                                    # (cut from 8 to make room for 9g)
+    process_ticks: int = 6         # ticks of phase 4q's durable and elastic
+                                   # sessions (5m's durable session's)
     ssm_train_steps: int = 8       # steps of phase 9d's runner
 
 
@@ -4004,10 +4030,10 @@ def elastic_phase(torch, dev, cfg, card, checked,
                 raise AssertionError("bootstrap replica above its floor")
             refresh = rep.refresh
 
-            def timed_refresh(store, floor, slot_of=None):
+            def timed_refresh(store, floor, **kw):
                 sync()
                 t0 = time.perf_counter()
-                refresh(store, floor, slot_of=slot_of)
+                refresh(store, floor, **kw)
                 log["refresh_ms"].append((time.perf_counter() - t0) * 1e3)
                 if rep.max_cid() > rep.floor:
                     raise AssertionError(f"replica max_cid {rep.max_cid()} "
@@ -4413,8 +4439,10 @@ def mesh_service_phase(torch, dev, cfg, card, checked,
     the single-device B=4, K=2 session, every mesh block dispatch under
     sync debug mode "error"; a durable mesh session recovered onto the
     mesh on ``routes[0]`` (from its snapshot and by full replay) and onto
-    one device on ``routes[1]`` by full replay; phase 5d's elastic deployment on the mesh (balancer, one
-    explicit move) equal to the static mesh session."""
+    one device on ``routes[1]`` by full replay; phase 5d's elastic
+    deployment on the mesh (balancer, one explicit move) equal to the
+    static mesh session.  Returns the durable session's (report wall s,
+    waves) and each recovery's seconds, for phase 4q's lines."""
     import shutil
     import tempfile
     import numpy as np
@@ -4422,9 +4450,8 @@ def mesh_service_phase(torch, dev, cfg, card, checked,
     from repro_torch.core.workloads import poisson_arrivals
     from repro_torch.durability import DurabilityManager, recover
     from repro_torch.kernels import LAUNCHES
-    from repro_torch.placement import PlacementMap, logical_store
-    from repro_torch.service import (TxnService, smallbank_txn_gen,
-                                     ycsb_txn_gen)
+    from repro_torch.placement import logical_store
+    from repro_torch.service import TxnService, smallbank_txn_gen
     on_card = dev.type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     cuda, fused = routes
@@ -4509,6 +4536,7 @@ def mesh_service_phase(torch, dev, cfg, card, checked,
         live, rep = serve(cuda, True, streaming=(4, 2), durability=mgr,
                           check=True)
         mgr.close()
+        timings = {"durable": (rep.wall_s, rep.waves), "recover": {}}
         same_session(torch, np, f"durable mesh [{cuda} B=4 K=2]",
                      "the non-durable mesh session", s_ref,
                      (fates_of(live), live.history, live.store))
@@ -4523,6 +4551,7 @@ def mesh_service_phase(torch, dev, cfg, card, checked,
             t0 = time.perf_counter()
             st = recover(d, **kw)
             sync()
+            timings["recover"][lbl] = time.perf_counter() - t0
             same_state(torch, lbl, st, live)
             sec = st.seconds
             print(f"[mesh] {lbl}: {time.perf_counter() - t0:.3f} s (scan "
@@ -4538,23 +4567,9 @@ def mesh_service_phase(torch, dev, cfg, card, checked,
 
     # phase 5d's elastic deployment on the mesh, against the static mesh
     def elastic(placed):
-        gen = ycsb_txn_gen(np.random.RandomState(ELASTIC_SEED), cfg.nodes,
-                           cfg.kpn, theta=ELASTIC_THETA,
-                           read_frac=ELASTIC_READ_FRAC, n_ops=ELASTIC_N_OPS)
-        svc = TxnService(
-            n_keys=n_keys, n_versions=cfg.V, T=T, O=ELASTIC_N_OPS,
-            sched="postsi", n_nodes=cfg.nodes, seed=0, kernels=cuda,
-            mesh=mesh, placement=(PlacementMap(n_keys, cfg.nodes,
-                                               headroom=ELASTIC_HEADROOM)
-                                  if placed else None),
-            balancer=True if placed else None)
-        arr = [ELASTIC_LOAD * T] * ticks
         sync()
         t0 = time.perf_counter()
-        svc.run_stream(arr[:ticks // 2], gen, drain=False)
-        if placed:
-            svc.move_range(0, cfg.kpn // 4, 1)
-        rep = svc.run_stream(arr[ticks // 2:], gen)
+        svc, rep = elastic_mesh_session(np, cfg, mesh, cuda, placed, ticks)
         sync()
         wall = time.perf_counter() - t0
         label = f"{'elastic' if placed else 'static'} mesh [{cuda}]"
@@ -4575,6 +4590,37 @@ def mesh_service_phase(torch, dev, cfg, card, checked,
     print(f"[mesh] elastic mesh equals the static mesh session (fates, "
           f"history rows, logical store) over {ticks} ticks, "
           f"{el_rep.placement_moves} moves {tag}", flush=True)
+    return timings
+
+
+def elastic_mesh_session(np, cfg, mesh, kernels, placed, ticks,
+                         replicas=None):
+    """Phase 5d's elastic deployment served on ``mesh`` (a ``NodeMesh`` or
+    a ``ProcessMesh``) for ``ticks`` ticks on ``kernels``: YCSB at
+    ``ELASTIC_LOAD`` x T arrivals a tick; with ``placed`` a 2x-headroom
+    ``PlacementMap`` (2,000,000 rows at full size), the balancer and an
+    explicit ``move_range(0, kpn / 4, 1)`` after half the ticks;
+    ``replicas``: the hot keys replicated (refreshed every
+    ``ELASTIC_REFRESH`` ticks), or none.  Returns (svc, report)."""
+    from repro_torch.placement import PlacementMap
+    from repro_torch.service import TxnService, ycsb_txn_gen
+    n_keys, T = cfg.nodes * cfg.kpn, cfg.service_T
+    gen = ycsb_txn_gen(np.random.RandomState(ELASTIC_SEED), cfg.nodes,
+                       cfg.kpn, theta=ELASTIC_THETA,
+                       read_frac=ELASTIC_READ_FRAC, n_ops=ELASTIC_N_OPS)
+    svc = TxnService(
+        n_keys=n_keys, n_versions=cfg.V, T=T, O=ELASTIC_N_OPS,
+        sched="postsi", n_nodes=cfg.nodes, seed=0, kernels=kernels,
+        mesh=mesh, placement=(PlacementMap(n_keys, cfg.nodes,
+                                           headroom=ELASTIC_HEADROOM)
+                              if placed else None),
+        balancer=True if placed else None, replicas=replicas,
+        replica_refresh=ELASTIC_REFRESH)
+    arr = [ELASTIC_LOAD * T] * ticks
+    svc.run_stream(arr[:ticks // 2], gen, drain=False)
+    if placed:
+        svc.move_range(0, cfg.kpn // 4, 1)
+    return svc, svc.run_stream(arr[ticks // 2:], gen)
 
 
 # ---------------------------------------------------------------- phase 4p
@@ -4716,17 +4762,23 @@ def process_rank(pmesh, cfg, runs, service_route):
                  wall, rep.committed, rep.waves), us
 
 
-def process_rank_nccl(pmesh, cfg, route):
-    """Phase 4p's NCCL session on one rank: phase 5's stream for
+def process_rank_nccl(pmesh, cfg, route, root):
+    """Phase 4p's NCCL sessions on one rank: phase 5's stream for
     ``--mesh-ticks`` ticks through ``run_streaming`` (B=4, K=2) on
     ``TxnService(mesh=pmesh)``, every block dispatch under sync debug
     mode "error" (shown first to raise on a blocking copy in this
-    process).  Returns (fates, history, digest on rank 0, dispatches
-    checked, the detector's message, launches, wall s)."""
+    process); then the same stream durable in ``root`` (phase 5m's
+    durability: its snapshots gather the blocks onto rank 0 over the
+    host group), recovered there from its last snapshot.  Returns (fates,
+    history, digest on rank 0, dispatches checked, the detector's
+    message, launches, wall s, µs of one all_reduce, the durable
+    session's (fates, history, digest on rank 0, snapshots taken, the
+    recovery's snapshot seq, its digest on rank 0))."""
     import numpy as np
     import torch
     import torch.distributed as dist
     import repro_torch.core as core
+    from repro_torch.durability import recover
     from repro_torch.kernels import LAUNCHES, reset_launch_counts
     from repro_torch.kernels.build import library
     from repro_torch.service import TxnService
@@ -4753,9 +4805,23 @@ def process_rank_nccl(pmesh, cfg, route):
     launches = dict(LAUNCHES)
     served_ok(f"nccl process mesh rank {pmesh.rank}", svc, rep)
     whole = core.gather_store(svc.store, pmesh)
-    return (fates_of(svc), svc.history,
-            store_digest(whole) if pmesh.rank == 0 else None, checked[0],
-            fired, launches, wall, us)
+    first = (fates_of(svc), svc.history,
+             store_digest(whole) if pmesh.rank == 0 else None)
+    del whole
+
+    mgr = durable_manager(root)
+    arrivals, gen = phase5_stream(np, cfg, cfg.mesh_ticks)
+    svc = TxnService(n_keys=cfg.nodes * cfg.kpn, n_versions=cfg.V,
+                     T=cfg.service_T, sched="postsi", n_nodes=cfg.nodes,
+                     kernels=route, mesh=pmesh, durability=mgr)
+    rep = svc.run_streaming(arrivals, gen, B=4, K=2)
+    mgr.close()
+    served_ok(f"nccl durable process mesh rank {pmesh.rank}", svc, rep)
+    st = recover(root, mesh=pmesh, kernels=route)
+    durable = (fates_of(svc), svc.history, root_digest(svc.store, pmesh),
+               mgr.snapshots_taken, st.snapshot_seq,
+               root_digest(st.store, pmesh))
+    return (*first, checked[0], fired, launches, wall, us, durable)
 
 
 def process_mesh_phase(torch, dev, cfg, card, emulated=None,
@@ -4768,9 +4834,13 @@ def process_mesh_phase(torch, dev, cfg, card, emulated=None,
     rank's launches are one node's of ``mesh_wave_launches``.  Then, on
     the card, one ``nccl`` ``run_streaming`` session at world size
     ``device_count`` with every block dispatch under sync debug mode
-    "error", equal to the single-device B=4, K=2 session.  A failed or
+    "error", equal to the single-device B=4, K=2 session, and the same
+    session durable (its snapshots gathered onto rank 0 over the host
+    group), equal to it too and recovered from its snapshot.  A failed or
     hung rank raises (``RankFailure``).  ``emulated``: phase 4m's
     ``{sched: (route, driver, ms, single-device ms)}``, printed beside."""
+    import shutil
+    import tempfile
     import numpy as np
     from repro_torch.core import make_store, run_workload_fused
     from repro_torch.core.workloads import smallbank_waves
@@ -4890,31 +4960,538 @@ def process_mesh_phase(torch, dev, cfg, card, emulated=None,
         return totals
     n_cards = torch.cuda.device_count()
     stream = session(B=4)
-    t0 = time.perf_counter()
-    got = spawn_ranks(process_rank_nccl, n_cards, args=(cfg, ref_route),
-                      backend="nccl", deadline=PROCESS_DEADLINE)
-    spawn_s = time.perf_counter() - t0
-    for rank, (fates, hist, digest, checked, fired, launches, wall, us) in \
-            enumerate(got):
+    root = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    try:
+        t0 = time.perf_counter()
+        got = spawn_ranks(process_rank_nccl, n_cards,
+                          args=(cfg, ref_route, root), backend="nccl",
+                          deadline=PROCESS_DEADLINE)
+        spawn_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for rank, (fates, hist, digest, checked, fired, launches, wall, us,
+               durable) in enumerate(got):
         label = f"nccl process mesh [{ref_route} B=4 K=2] rank {rank}"
-        if fates != stream[0]:
-            raise AssertionError(f"{label}: request fates differ from the "
-                                 f"single-device B=4 K=2 session")
-        same_history(np, label, stream[1], hist)
+        for what, f, h in (("", fates, hist),
+                           (" durable", durable[0], durable[1])):
+            if f != stream[0]:
+                raise AssertionError(f"{label}{what}: request fates differ "
+                                     f"from the single-device B=4 K=2 "
+                                     f"session")
+            same_history(np, label + what, stream[1], h)
         if checked <= 0:
             raise AssertionError(f"{label}: no block dispatch checked")
     same_digest("nccl process mesh gathered on rank 0",
                 "the single-device B=4 K=2 session", stream[2], got[0][2])
+    durable = got[0][8]
+    if durable[3] < 1 or durable[4] is None:
+        raise AssertionError(f"the nccl durable session took "
+                             f"{durable[3]} snapshot(s), its recovery "
+                             f"found none")
+    same_digest("nccl durable process mesh gathered on rank 0",
+                "the single-device B=4 K=2 session", stream[2], durable[2])
+    same_digest("nccl durable process mesh recovered from its snapshot",
+                "the live store", durable[2], durable[5])
     print(f"[process] nccl at world size {n_cards} ({n_cards} card(s); "
           f"{'over more than one card' if n_cards > 1 else 'one rank, no peer: NCCL over two or more cards unverified'}): "
           f"run_streaming B=4 K=2 for {cfg.mesh_ticks} ticks equals the "
-          f"single-device session (fates, history, gathered store); "
+          f"single-device session (fates, history, gathered store), and so "
+          f"does it durable ({durable[3]} snapshot(s) gathered onto rank 0 "
+          f"over the host group; recovered from the one at record "
+          f"{durable[4]} equal to the live store); "
           f"{got[0][3]} block dispatches on rank 0 ran under sync debug "
           f"mode 'error' (it fired on a blocking copy there: "
           f"{got[0][4]!r}), none waited on the card; wall {got[0][6]:.3f} s"
           f" beside {stream[3]:.3f} s on one device, {spawn_s:.1f} s with "
           f"the start; one SUM of [5, 4] int32 {got[0][7]:.1f} us; rank 0 "
           f"launches {got[0][5]} {tag}", flush=True)
+    return totals
+
+
+# ---------------------------------------------------------------- phase 4q
+# the drop_node fault of phase 4q's crashed session: at its 2nd retire
+PROCESS_CRASH_AT = 1
+# ticks of phase 4q's hybrid planner session: the fewest that plan a wave
+# at the configuration's rate
+PROCESS_PLANNER_TICKS = 3
+LAUNCH_KEYS = ("version_scan", "potential_matrix", "wave_commit",
+               "commit_loop")
+
+
+def rank_launches(route, n_waves, n_rows, reads=0):
+    """The launches a rank of a process mesh makes for ``n_waves`` waves
+    of ``n_rows`` rows in all and ``reads`` merged reads (replica
+    refreshes): one node's read phases of ``mesh_wave_launches`` (its
+    waves of 0 rows), one ``version_scan`` a commit step (a row) and one a
+    read.  For a T-row wave on ``cuda``: T + 1 and 1."""
+    want = mesh_wave_launches(route, 1, 0, n_waves)
+    want["version_scan"] += n_rows + reads
+    return want
+
+
+def served_rows(svc, since=(0, 1)):
+    """(waves, rows) a service dispatched since ``since`` = (its wave
+    index, its next TID then): every formed wave burns T TIDs, a planned
+    tick's lanes run under fresh TIDs past the formed wave's T, and waves
+    still in the streaming driver's open block (a crash) never ran."""
+    held = (0 if svc.stream is None
+            else sum(len(w.tid) for w, _ in svc.stream._buf))
+    return (svc.wave_idx - since[0], svc.former.next_tid - since[1]
+            - svc.T * svc.planned_waves - held)
+
+
+def replayed_rows(st):
+    """(waves, rows) a recovery replayed."""
+    return len(st.history), sum(len(t) for t, _ in st.history)
+
+
+def root_digest(store, pmesh, placement=None):
+    """The digest of the store gathered onto rank 0 (``gather_store_root``;
+    in key order under ``placement``), ``None`` on the other ranks.  A
+    collective."""
+    from repro_torch.core import gather_store_root
+    from repro_torch.placement import logical_store
+    whole = gather_store_root(store, pmesh)
+    return None if whole is None else store_digest(
+        logical_store(whole, placement))
+
+
+def planner_stream(np, cfg, ticks):
+    """Phase 5's hybrid planner stream: Poisson arrivals and YCSB
+    theta=0.99 with 10% reads, from ``cfg.seed + 4``."""
+    from repro_torch.core.workloads import poisson_arrivals
+    from repro_torch.service import ycsb_txn_gen
+    rng = np.random.RandomState(cfg.seed + 4)
+    arrivals = poisson_arrivals(rng, cfg.rate, ticks)
+    return arrivals, ycsb_txn_gen(rng, cfg.nodes, cfg.kpn, theta=0.99,
+                                  read_frac=0.1)
+
+
+def resume_stream(np, cfg):
+    """What the service taken up after the crash serves: ``RESUME_TICKS``
+    ticks of SmallBank arrivals from ``cfg.seed + 9``."""
+    from repro_torch.core.workloads import poisson_arrivals
+    from repro_torch.service import smallbank_txn_gen
+    rng = np.random.RandomState(cfg.seed + 9)
+    arrivals = poisson_arrivals(rng, cfg.rate, RESUME_TICKS)
+    return arrivals, smallbank_txn_gen(rng, cfg.nodes, cfg.kpn,
+                                       dist_frac=0.2)
+
+
+def durable_manager(d):
+    """Phase 5m's durability: a WAL synced before every ack, a snapshot
+    every ``DURABLE_SNAPSHOT_EVERY`` retired blocks."""
+    from repro_torch.durability import DurabilityManager
+    return DurabilityManager(d, fsync_every=DURABLE_FSYNC_EVERY,
+                             snapshot_every=DURABLE_SNAPSHOT_EVERY)
+
+
+def rank_tools(pmesh):
+    """(sync, a context that counts this rank's launches and times what
+    it holds between two syncs into a dict)."""
+    import torch
+    from repro_torch.kernels import LAUNCHES
+    sync = (torch.cuda.synchronize if pmesh.device.type == "cuda"
+            else (lambda: None))
+
+    @contextlib.contextmanager
+    def counted(box):
+        sync()
+        before = dict(LAUNCHES)
+        t0 = time.perf_counter()
+        yield
+        sync()
+        box["wall"] = time.perf_counter() - t0
+        box["launches"] = {k: LAUNCHES[k] - before[k] for k in LAUNCH_KEYS}
+    return sync, counted
+
+
+def process_planes_rank(pmesh, cfg, root, routes):
+    """Phase 4q's first spawn on one rank: (a) phase 5m's durable session
+    (B=4, K=2) on ``routes[0]``, the same stream on ``routes[1]`` killed
+    by a ``drop_node`` fault, (c) phase 5d's elastic deployment with
+    replicas and (d) phase 5's hybrid planner session, each on
+    ``TxnService(mesh=pmesh)``.  Returns, per session, (fates, history,
+    digest on rank 0, launches, launches expected, wall s, waves, report
+    dict, meta)."""
+    import numpy as np
+    from repro_torch.core.workloads import zipf_hot_keys
+    from repro_torch.runtime import Fault, FaultSchedule, InjectedCrash
+    from repro_torch.service import TxnService
+    _, counted = rank_tools(pmesh)
+    cuda, fused = routes
+    out = {}
+
+    def service(route, **kw):
+        return TxnService(n_keys=cfg.nodes * cfg.kpn, n_versions=cfg.V,
+                          T=cfg.service_T, sched="postsi",
+                          n_nodes=cfg.nodes, kernels=route, mesh=pmesh,
+                          **kw)
+
+    def record(label, route, svc, rep, box):
+        served_ok(f"{label} rank {pmesh.rank}", svc, rep)
+        reads = 0 if svc.replicas is None else svc.replicas.refreshes
+        out[label] = (fates_of(svc), svc.history,
+                      root_digest(svc.store, pmesh, svc.placement),
+                      box["launches"],
+                      rank_launches(route, *served_rows(svc), reads),
+                      box["wall"], rep.waves, rep.as_dict(),
+                      (int(svc.clock), svc.wave_idx, svc.gc.clock,
+                       svc.former.next_tid))
+
+    box = {}
+    mgr = durable_manager(os.path.join(root, "durable"))
+    with counted(box):
+        svc = service(cuda, durability=mgr)
+        arrivals, gen = phase5_stream(np, cfg, cfg.process_ticks)
+        rep = svc.run_streaming(arrivals, gen, B=4, K=2)
+    mgr.close()
+    record("durable", cuda, svc, rep, box)
+    out["durable counters"] = (mgr.seq, mgr.snapshots_taken, mgr.writes)
+
+    faults = FaultSchedule([Fault("drop_node", "retire", PROCESS_CRASH_AT)])
+    mgr = durable_manager(os.path.join(root, "crashed"))
+    crashed = False
+    with counted(box):
+        svc = service(fused, durability=mgr, faults=faults)
+        arrivals, gen = phase5_stream(np, cfg, cfg.process_ticks)
+        try:
+            svc.run_streaming(arrivals, gen, B=4, K=2)
+        except InjectedCrash:
+            crashed = True
+    if crashed:
+        mgr.crash()
+        faults.mutilate_wal(mgr.wal_path, mgr.crash_synced_bytes,
+                            pmesh=pmesh)
+    out["crashed"] = (crashed, mgr.seq, box["launches"],
+                      rank_launches(fused, *served_rows(svc)))
+
+    hot = zipf_hot_keys(cfg.nodes, cfg.kpn, ELASTIC_THETA, mass=ELASTIC_MASS,
+                        max_frac=ELASTIC_MAX_FRAC)
+    with counted(box):
+        svc, rep = elastic_mesh_session(np, cfg, pmesh, cuda, True,
+                                        cfg.process_ticks, replicas=hot)
+    record("elastic", cuda, svc, rep, box)
+    out["elastic map"] = (svc.placement.slot.copy(),
+                          svc.placement.owner.copy())
+
+    with counted(box):
+        svc = service(cuda, planner="hybrid")
+        arrivals, gen = planner_stream(np, cfg, PROCESS_PLANNER_TICKS)
+        rep = svc.run_streaming(arrivals, gen, B=2, K=2)
+    record("planner", cuda, svc, rep, box)
+    return out
+
+
+def process_recover_rank(pmesh, cfg, root, routes):
+    """Phase 4q's second spawn, fresh ranks, on one rank: (b) the durable
+    session's directory recovered from its snapshot on ``routes[0]`` and
+    by full replay on ``routes[1]``, then the crashed directory taken up
+    by a ``TxnService`` on ``routes[0]``, which serves on.  Returns each
+    recovery's (digest on rank 0, meta, launches, launches expected, wall
+    s, the recovery's own seconds, blocks replayed, snapshot) and the
+    service's (fates, history, digest, digest when attached, launches,
+    launches expected, attach s, wall s, waves, blocks replayed)."""
+    import numpy as np
+    from repro_torch.durability import recover
+    from repro_torch.service import TxnService
+    _, counted = rank_tools(pmesh)
+    cuda, fused = routes
+    out = {}
+    box = {}
+    for label, route, use_snapshot in (("snapshot", cuda, True),
+                                       ("full replay", fused, False)):
+        with counted(box):
+            st = recover(os.path.join(root, "durable"), mesh=pmesh,
+                         kernels=route, use_snapshot=use_snapshot)
+        out[label] = (root_digest(st.store, pmesh),
+                      (st.clock, st.wave_idx, st.gc_clock, st.next_tid),
+                      box["launches"],
+                      rank_launches(route, *replayed_rows(st)),
+                      box["wall"], st.seconds, st.n_replayed,
+                      st.snapshot_seq)
+        del st
+
+    mgr = durable_manager(os.path.join(root, "crashed"))
+    with counted(box):
+        svc = TxnService(n_keys=cfg.nodes * cfg.kpn, n_versions=cfg.V,
+                         T=cfg.service_T, sched="postsi", n_nodes=cfg.nodes,
+                         kernels=cuda, mesh=pmesh, durability=mgr)
+    t_attach, attach_launches = box["wall"], box["launches"]
+    st = mgr.last_recovery
+    attached = root_digest(svc.store, pmesh)
+    since = (svc.wave_idx, svc.former.next_tid)
+    with counted(box):
+        arrivals, gen = resume_stream(np, cfg)
+        rep = svc.run_streaming(arrivals, gen, B=4, K=2)
+    mgr.close()
+    served_ok(f"taken up rank {pmesh.rank}", svc, rep)
+    (rw, rr), (nw, nr) = replayed_rows(st), served_rows(svc, since)
+    launches = {k: v + attach_launches[k] for k, v in box["launches"].items()}
+    out["served on"] = (fates_of(svc), svc.history,
+                        root_digest(svc.store, pmesh), attached, launches,
+                        rank_launches(cuda, rw + nw, rr + nr), t_attach,
+                        box["wall"], rep.waves, st.n_replayed)
+    return out
+
+
+def tally(label, launches, want, on_card, totals) -> None:
+    """Raise on the card unless a rank's ``launches`` are ``want``; add
+    them to ``totals``."""
+    if on_card and launches != want:
+        raise AssertionError(f"{label}: launches {launches}, expected "
+                             f"{want}")
+    for k, v in launches.items():
+        totals[k] = totals.get(k, 0) + v
+
+
+def check_ranks(np, label, ref, got, on_card, totals):
+    """Raise unless every rank's session (``process_planes_rank``'s tuple)
+    equals ``ref`` = (fates, history, digest) and ``tally`` its
+    launches."""
+    for rank, res in enumerate(got):
+        fates, hist, _, launches, want = res[:5]
+        msg = f"{label} rank {rank}"
+        if fates != ref[0]:
+            raise AssertionError(f"{msg}: request fates differ")
+        same_history(np, msg, ref[1], hist)
+        tally(msg, launches, want, on_card, totals)
+    same_digest(f"{label} gathered on rank 0", "its reference", ref[2],
+                got[0][2])
+
+
+def process_planes_phase(torch, dev, cfg, card, emulated=None,
+                         routes=("cuda", "cuda+fused")):
+    """Phase 4q: durability, elastic placement and the planner on the
+    node mesh across processes.  ``cfg.nodes`` ``gloo`` ranks on ``dev``
+    serve (a) phase 5m's durable session, equal to it on the emulated
+    mesh (fates, history, store, the WAL's bytes), and the same stream
+    killed by ``drop_node``; (c) phase 5d's elastic deployment with
+    replicas, equal to it on the emulated mesh; (d) phase 5's hybrid
+    planner session, equal to the single device.  A fresh spawn then
+    (b) recovers the durable directory from its snapshot and by full
+    replay, each equal to the live store, and takes up the crashed one,
+    whose log is a prefix of the fault-free log, serving on equal to one
+    device taking up a copy.  (e) Each rank's launches are asserted on the
+    card.  (f) Recovery seconds and ms a wave are printed beside phase
+    5m's (``emulated``: its durable session's (report wall s, waves) and
+    recoveries' seconds) and the references'.  Returns the ranks'
+    launches summed."""
+    import hashlib
+    import shutil
+    import tempfile
+    import numpy as np
+    from repro_torch.core import make_node_mesh
+    from repro_torch.core.workloads import zipf_hot_keys
+    from repro_torch.durability import wal, wal_path
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.placement import logical_store
+    from repro_torch.service import TxnService
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    cuda, fused = routes
+    tag = f"({card})"
+    where = (f"{cfg.nodes} processes share one card; merges through gloo on"
+             f" the host" if on_card else f"{cfg.nodes} processes on the "
+             f"CPU; merges through gloo")
+    mesh = make_node_mesh(cfg.nodes, dev)
+    wal_sha = lambda d: hashlib.sha256(open(wal_path(d), "rb").read()
+                                       ).hexdigest()
+
+    def service(**kw):
+        return TxnService(n_keys=cfg.nodes * cfg.kpn, n_versions=cfg.V,
+                          T=cfg.service_T, sched="postsi",
+                          n_nodes=cfg.nodes, kernels=cuda, **kw)
+
+    def reference(serve, placed=False):
+        """(fates, history, store digest, wall s, report) of a session."""
+        sync()
+        t0 = time.perf_counter()
+        svc, rep = serve()
+        sync()
+        wall = time.perf_counter() - t0
+        store = logical_store(svc.store, svc.placement) if placed \
+            else svc.store
+        return (fates_of(svc), svc.history, store_digest(store), wall, rep)
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_planes_")
+    try:
+        def emulated_durable():
+            mgr = durable_manager(os.path.join(root, "emulated"))
+            svc = service(device=dev, mesh=mesh, durability=mgr)
+            arrivals, gen = phase5_stream(np, cfg, cfg.process_ticks)
+            rep = svc.run_streaming(arrivals, gen, B=4, K=2)
+            mgr.close()
+            return svc, rep
+        refs = {"durable": reference(emulated_durable)}
+        hot = zipf_hot_keys(cfg.nodes, cfg.kpn, ELASTIC_THETA,
+                            mass=ELASTIC_MASS, max_frac=ELASTIC_MAX_FRAC)
+        refs["elastic"] = reference(lambda: elastic_mesh_session(
+            np, cfg, mesh, cuda, True, cfg.process_ticks, replicas=hot),
+            placed=True)
+
+        def one_device_hybrid():
+            svc = service(device=dev, planner="hybrid")
+            arrivals, gen = planner_stream(np, cfg, PROCESS_PLANNER_TICKS)
+            return svc, svc.run_streaming(arrivals, gen, B=2, K=2)
+        refs["planner"] = reference(one_device_hybrid)
+        if refs["planner"][4].planned_waves <= 0:
+            raise AssertionError("the hybrid session planned no wave in "
+                                 f"{PROCESS_PLANNER_TICKS} ticks")
+        print(f"[process] 4q references: durable on the emulated mesh "
+              f"{refs['durable'][3]:.3f} s, elastic on the emulated mesh "
+              f"{refs['elastic'][3]:.3f} s, hybrid planner on one device "
+              f"{refs['planner'][3]:.3f} s {tag}", flush=True)
+
+        t0 = time.perf_counter()
+        got = spawn_ranks(process_planes_rank, cfg.nodes,
+                          args=(cfg, root, routes), device=dev,
+                          deadline=PROCESS_DEADLINE)
+        first_s = time.perf_counter() - t0
+        print(f"[process] 4q first spawn: {first_s:.1f} s with the start of "
+              f"{cfg.nodes} ranks {tag}", flush=True)
+        totals = {}
+        for label in ("durable", "elastic", "planner"):
+            check_ranks(np, f"process mesh {label}", refs[label],
+                        [res[label] for res in got], on_card, totals)
+        ranks_wal = wal_sha(os.path.join(root, "durable"))
+        if ranks_wal != wal_sha(os.path.join(root, "emulated")):
+            raise AssertionError("the ranks' WAL bytes differ from the "
+                                 "emulated mesh's")
+        counters = {res["durable counters"][:2] for res in got}
+        writers = [res["durable counters"][2] for res in got]
+        if len(counters) != 1 or writers != [True] + [False] * (
+                cfg.nodes - 1):
+            raise AssertionError(f"durable counters {counters}, writers "
+                                 f"{writers}")
+        seq, snaps = counters.pop()
+        if snaps < 1:
+            raise AssertionError("the durable session took no snapshot: "
+                                 "raise --process-ticks")
+        maps = [res["elastic map"] for res in got]
+        if any(not (np.array_equal(m[0], maps[0][0])
+                    and np.array_equal(m[1], maps[0][1])) for m in maps):
+            raise AssertionError("the ranks' placement maps differ")
+        crashed = [res["crashed"] for res in got]
+        if {c[:2] for c in crashed} != {(True, crashed[0][1])}:
+            raise AssertionError(f"drop_node did not fire at one point on "
+                                 f"every rank: {[c[:2] for c in crashed]}")
+        for rank, (_, _, launches, want) in enumerate(crashed):
+            tally(f"crashed session rank {rank}", launches, want, on_card,
+                  totals)
+        blocks = lambda d: wal.scan(wal_path(os.path.join(root, d))).blocks
+        wal_prefix(np, "process mesh drop_node", blocks("crashed"),
+                   blocks("durable"))
+
+        # one device takes up a copy of the crashed log, as the ranks will
+        shutil.copytree(os.path.join(root, "crashed"),
+                        os.path.join(root, "crashed-one"))
+        holder = {}
+
+        def taken_up():
+            mgr = durable_manager(os.path.join(root, "crashed-one"))
+            svc = service(device=dev, durability=mgr)
+            holder["attached"] = store_digest(svc.store)
+            arrivals, gen = resume_stream(np, cfg)
+            rep = svc.run_streaming(arrivals, gen, B=4, K=2)
+            mgr.close()
+            return svc, rep
+        refs["served on"] = reference(taken_up)
+
+        t0 = time.perf_counter()
+        got2 = spawn_ranks(process_recover_rank, cfg.nodes,
+                           args=(cfg, root, routes), device=dev,
+                           deadline=PROCESS_DEADLINE)
+        second_s = time.perf_counter() - t0
+        live = got[0]["durable"]
+        for label in ("snapshot", "full replay"):
+            for rank, res in enumerate(got2):
+                digest, meta, launches, want = res[label][:4]
+                msg = f"recover [{label}] rank {rank}"
+                if meta != live[8]:
+                    raise AssertionError(f"{msg}: (clock, wave_idx, "
+                                         f"gc_clock, next_tid) {meta} vs "
+                                         f"live {live[8]}")
+                tally(msg, launches, want, on_card, totals)
+            same_digest(f"recover [{label}] gathered on rank 0",
+                        "the live store", live[2], got2[0][label][0])
+        if got2[0]["snapshot"][7] is None:
+            raise AssertionError("the snapshot recovery found no snapshot")
+        ref = refs["served on"]
+        for rank, res in enumerate(got2):
+            fates, hist, _, _, launches, want = res["served on"][:6]
+            msg = f"taken up after drop_node rank {rank}"
+            if fates != ref[0]:
+                raise AssertionError(f"{msg}: request fates differ from "
+                                     f"one device taking up a copy")
+            same_history(np, msg, ref[1], hist)
+            tally(msg, launches, want, on_card, totals)
+        served = got2[0]["served on"]
+        same_digest("taken up, attached", "one device attached",
+                    holder["attached"], served[3])
+        same_digest("taken up, served on", "one device", ref[2], served[2])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    ms = lambda wall, waves: wall * 1e3 / max(waves, 1)
+    five_m = ""
+    if emulated:
+        wall_s, waves = emulated["durable"]
+        five_m = (f"; phase 5m's durable mesh session "
+                  f"{ms(wall_s, waves):.1f} ms a wave (its report), its "
+                  f"recoveries " + ", ".join(
+                      f"{k} {v:.3f} s" for k, v in emulated["recover"]
+                      .items()))
+    for label, ref_name in (("durable", "emulated mesh"),
+                            ("elastic", "emulated mesh"),
+                            ("planner", "one device")):
+        res = [g[label] for g in got]
+        r = res[0][7]
+        print(f"[process] 4q {label} [{cuda}] on {cfg.nodes} ranks, "
+              f"{PROCESS_PLANNER_TICKS if label == 'planner' else cfg.process_ticks}"
+              f" ticks: fates, history and the store gathered on rank 0 "
+              f"equal the {ref_name} session; {res[0][6]} waves, "
+              f"{r['committed']} committed, {r['placement_moves']} moves, "
+              f"{r['replica_commits']} replica commits, "
+              f"{r['planned_waves']} planned waves ({r['planned_lane_waves']}"
+              f" lane waves), {r['planner_switches']} switches; ms a wave "
+              f"rank 0 {ms(res[0][5], res[0][6]):.1f}, slowest rank "
+              f"{max(ms(x[5], x[6]) for x in res):.1f}, beside "
+              f"{ms(refs[label][3], refs[label][4].waves):.1f} on the "
+              f"{ref_name} [{where}] {tag}", flush=True)
+    print(f"[process] 4q durable: the ranks' WAL ({seq} records, {snaps} "
+          f"snapshots, rank 0 the one writer) equals the emulated mesh's "
+          f"byte for byte; drop_node at retire {PROCESS_CRASH_AT} on "
+          f"{fused} fired on every rank after {crashed[0][1]} records, a "
+          f"prefix of the fault-free log{five_m} {tag}", flush=True)
+    for label in ("snapshot", "full replay"):
+        res = [g[label] for g in got2]
+        sec = res[0][5]
+        print(f"[process] 4q recover [{label}, "
+              f"{cuda if label == 'snapshot' else fused}] on {cfg.nodes} "
+              f"fresh ranks: {res[0][6]} blocks replayed, equal to the live "
+              f"store and meta; rank 0 {res[0][4]:.3f} s (scan "
+              f"{sec['scan']:.4f}, snapshot restore {sec['snapshot']:.4f}, "
+              f"replay {sec['replay']:.4f}), slowest rank "
+              f"{max(x[4] for x in res):.3f} s [{where}] {tag}", flush=True)
+    print(f"[process] 4q taken up after drop_node on {cfg.nodes} fresh "
+          f"ranks: attached in {served[6]:.3f} s ({served[9]} blocks "
+          f"replayed), served {RESUME_TICKS} ticks ({served[8]} waves, "
+          f"{ms(served[7], served[8]):.1f} ms a wave) equal to one device "
+          f"taking up a copy, verify() == [] on every rank; spawns "
+          f"{first_s:.1f} s and {second_s:.1f} s [{where}] {tag}",
+          flush=True)
+    print(f"[process] 4q launches summed over the ranks (not in the kernels "
+          f"line; each rank's asserted: version_scan T + 1 and "
+          f"potential_matrix 1 a wave on cuda, wave_commit 1 and "
+          f"version_scan T on cuda+fused, one version_scan a replica "
+          f"refresh, commit_loop 0) {totals} {tag}", flush=True)
+    if on_card:
+        for name in ("version_scan", "potential_matrix", "wave_commit"):
+            if totals.get(name, 0) <= 0:
+                raise AssertionError(f"{name} never launched on a rank")
+        if totals["commit_loop"]:
+            raise AssertionError("a rank launched commit_loop")
     return totals
 
 
@@ -4936,6 +5513,9 @@ def parse_config(argv=None) -> Config:
                     help="waves of phase 4m's mesh engine runs")
     ap.add_argument("--mesh-ticks", type=int, default=full.mesh_ticks,
                     help="ticks of arrivals of phase 5m's mesh sessions")
+    ap.add_argument("--process-ticks", type=int, default=full.process_ticks,
+                    help="ticks of arrivals of phase 4q's durable and "
+                         "elastic sessions on the process mesh")
     ap.add_argument("--serve-batches", type=int, default=full.serve_batches,
                     choices=range(1, len(SERVE_PROMPTS) + 1),
                     help="served batches, the first ones of SERVE_PROMPTS")
@@ -4954,6 +5534,7 @@ def parse_config(argv=None) -> Config:
                          elastic_ticks=args.elastic_ticks,
                          mesh_waves=args.mesh_waves,
                          mesh_ticks=args.mesh_ticks,
+                         process_ticks=args.process_ticks,
                          ssm_train_steps=max(3, args.ssm_train_steps))
 
 
@@ -5069,7 +5650,7 @@ def run(torch, cfg, mesh_proc) -> int:
     emulated = mesh_engine_phase(torch, dev, cfg, card, dry=dry,
                                  meta_proc=mesh_proc)
     seconds["4m mesh engine"] = time.perf_counter() - t1
-    mesh_service_phase(torch, dev, cfg, card, checked)
+    mesh_timings = mesh_service_phase(torch, dev, cfg, card, checked)
     seconds["5m mesh service"] = time.perf_counter() - t1 \
         - seconds["4m mesh engine"]
     mesh_counts = dict(LAUNCHES)
@@ -5087,6 +5668,14 @@ def run(torch, cfg, mesh_proc) -> int:
     print(f"[main path] process mesh: {time.perf_counter() - t1:.1f} s; "
           f"kernel launches of its single-device references in this "
           f"process (the ranks' are on the [process] line; neither in the "
+          f"kernels line) {dict(LAUNCHES)}", flush=True)
+    reset_launch_counts()
+    t1 = time.perf_counter()
+    process_planes_phase(torch, dev, cfg, card, mesh_timings)
+    seconds["4q process mesh planes"] = time.perf_counter() - t1
+    print(f"[main path] process mesh planes: {time.perf_counter() - t1:.1f}"
+          f" s; kernel launches of its references in this process (the "
+          f"ranks' are on the [process] 4q launches line; neither in the "
           f"kernels line) {dict(LAUNCHES)}", flush=True)
     t0 = time.perf_counter()
     serve_counts = serve_phase(torch, dev, cfg, card, dry=dry)

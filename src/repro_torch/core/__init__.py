@@ -19,7 +19,8 @@ from .substrate import (GroupMeshSubstrate, LocalSubstrate, MeshSubstrate,
                         effective_mesh_backend, mesh_degrade_count,
                         mesh_kernels)
 from .dist_engine import (NodeMesh, ProcessMesh, gather_store,
-                          make_node_mesh, make_process_mesh, mesh_watermark,
+                          gather_store_root, global_rows, make_node_mesh,
+                          make_process_mesh, mesh_watermark,
                           run_block_dist, run_wave_dist, run_workload_dist,
                           run_workload_fused_dist, shard_store,
                           step_block_dist, step_wave_dist)
@@ -40,7 +41,8 @@ __all__ = [
     "store_from_numpy", "store_to_numpy", "GroupMeshSubstrate",
     "LocalSubstrate", "MeshSubstrate", "effective_mesh_backend",
     "mesh_degrade_count", "mesh_kernels", "NodeMesh", "ProcessMesh",
-    "gather_store", "make_node_mesh", "make_process_mesh", "mesh_watermark",
+    "gather_store", "gather_store_root", "global_rows", "make_node_mesh",
+    "make_process_mesh", "mesh_watermark",
     "run_block_dist", "run_wave_dist", "run_workload_dist",
     "run_workload_fused_dist", "shard_store", "step_block_dist",
     "step_wave_dist",

@@ -35,7 +35,8 @@ The same drivers run the cluster across processes: a ``ProcessMesh``
 (``make_process_mesh``) makes every ``torch.distributed`` rank one node
 holding only its own block of the store on its own device
 (``shard_store`` returns that block, ``gather_store`` the whole store for
-checks), and the drivers pick ``substrate.GroupMeshSubstrate``, whose
+checks, ``gather_store_root`` the whole store on rank 0 alone for a
+snapshot), and the drivers pick ``substrate.GroupMeshSubstrate``, whose
 merges are collectives.  Every rank runs the same driver call on the same
 waves; there is still no coordinator.  Like the engine's, the
 drivers update the store IN PLACE, and on a CUDA device a block dispatch
@@ -184,13 +185,13 @@ def check_mesh(mesh):
     return mesh
 
 
-def refuse_process_mesh(mesh, what: str, item: str) -> None:
-    """Raise ``ValueError`` where ``what`` is asked of a ``ProcessMesh``,
-    which does not serve it yet; ``item`` names the ``ROADMAP.md`` item
-    that brings it.  Nothing is dropped silently."""
+def global_rows(store: MVStore, mesh=None) -> int:
+    """The global (padded) row count of ``store`` on ``mesh``: on a
+    ``ProcessMesh`` the store is this rank's block, ``n_local`` rows of
+    ``n_local * n_nodes``; otherwise the store's own rows."""
     if isinstance(mesh, ProcessMesh):
-        raise ValueError(f"{what} does not run on a ProcessMesh yet "
-                         f"(ROADMAP.md queue 1, item {item})")
+        return store.n_keys * mesh.n_nodes
+    return store.n_keys
 
 
 def _padded_rows(n_rows: int, n_nodes: int, n_slots: int | None) -> int:
@@ -267,11 +268,32 @@ def gather_store(block: MVStore, pmesh: ProcessMesh) -> MVStore:
     return MVStore(*(t.to(block.device) for t in whole))
 
 
+def gather_store_root(block: MVStore, pmesh: ProcessMesh
+                      ) -> MVStore | None:
+    """The whole (padded) store on rank 0 of the mesh, in host memory, and
+    ``None`` on every other rank: for a snapshot, which one writer saves,
+    without a copy of the store on every rank (``gather_store``).  A
+    collective: every rank calls it.  The blocks are staged through host
+    memory by name (``.cpu()``) and gathered over the mesh's ``gloo``
+    ``host_group``, which every backend's mesh has (``gloo`` gathers no
+    CUDA tensor, an ``nccl`` group no host tensor)."""
+    root = dist.get_process_group_ranks(pmesh.host_group)[0]
+    whole = []
+    for t in block:
+        t = t.cpu().contiguous()
+        got = ([torch.empty_like(t) for _ in range(pmesh.n_nodes)]
+               if pmesh.rank == 0 else None)
+        dist.gather(t, got, dst=root, group=pmesh.host_group)
+        whole.append(None if got is None else torch.cat(got))
+    return MVStore(*whole) if pmesh.rank == 0 else None
+
+
 def _prepare(store: MVStore, mesh, kernels, host_skew, placement):
     """The mesh's substrate on the store's device (a ``MeshSubstrate`` on a
     ``NodeMesh``, a ``GroupMeshSubstrate`` on a ``ProcessMesh``) and the
     wave-independent inputs there; the store must live on the mesh's
-    device."""
+    device.  A placement's slots are GLOBAL rows on either mesh (the
+    ``GroupMeshSubstrate`` maps them onto the rank's block)."""
     mesh = check_mesh(mesh)
     dev = store.device
     if dev != mesh.device:
@@ -279,8 +301,6 @@ def _prepare(store: MVStore, mesh, kernels, host_skew, placement):
                          f"{mesh.device}: shard_store it first")
     hs = None if host_skew is None else _h2d(host_skew, dev)
     if isinstance(mesh, ProcessMesh):
-        if placement is not None:
-            refuse_process_mesh(mesh, "an elastic placement", "5.2")
         sub = GroupMeshSubstrate(mesh, kernels)
     else:
         sub = MeshSubstrate(mesh.n_nodes, kernels, dev)
@@ -290,13 +310,13 @@ def _prepare(store: MVStore, mesh, kernels, host_skew, placement):
 def _placement_check(store: MVStore, mesh, placement,
                      op_key) -> None:
     """``REPRO_PLACEMENT_CHECK=1``: validate the owner/slot routing of the
-    keys about to run against the store's block layout before dispatching
-    (it reads the tables back from the device, so it is off unless the
-    variable is set)."""
+    keys about to run against the store's GLOBAL block layout before
+    dispatching (it reads the tables back from the device, so it is off
+    unless the variable is set)."""
     if os.environ.get("REPRO_PLACEMENT_CHECK", "0") in ("", "0"):
         return
     from repro_torch.placement.map import validate_routing
-    validate_routing(int(store.head.shape[0]), mesh.n_nodes, placement,
+    validate_routing(global_rows(store, mesh), mesh.n_nodes, placement,
                      op_key)
 
 

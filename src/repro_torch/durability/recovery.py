@@ -43,6 +43,18 @@ through ``run_block_dist`` and ``apply_move_mesh``.  The substrate is a
 free choice: a log served on a mesh recovers bit for bit onto one device,
 and the reverse.  A service on a mesh recovers onto its own mesh; after a
 ``drop_node`` fault a fresh mesh of the same arity takes it up.
+
+``mesh=`` may be a ``ProcessMesh`` (one ``torch.distributed`` rank a
+node): every rank scans the one WAL and loads the one snapshot of the
+directory, keeps only its own block of the restored store, and replays
+the blocks and moves with the others (``step_block_dist``,
+``apply_move_process``).  The directory must be readable by every rank:
+the ranks of one host share it (ranks on several hosts are not served).
+Its ``DurabilityManager`` writes from rank 0 alone: the WAL frames and the
+snapshots are the bytes one device would write, the snapshot saved from
+the store gathered onto rank 0 (``gather_store_root``); the other ranks
+keep the log's counters in step without writing, and no rank acknowledges
+a block before rank 0 has logged it (one host-group collective a record).
 """
 from __future__ import annotations
 
@@ -53,9 +65,11 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch.core.dist_engine import (check_mesh, mesh_device,
-                                          refuse_process_mesh, shard_store,
+from repro_torch.core.dist_engine import (ProcessMesh, check_mesh,
+                                          gather_store_root, global_rows,
+                                          mesh_device, shard_store,
                                           step_block_dist)
 from repro_torch.core.engine import Wave, WaveOut, step_block
 from repro_torch.core.store import MVStore, make_store, store_from_numpy
@@ -130,7 +144,7 @@ def service_config(svc) -> Dict[str, Any]:
         "backend": svc.kernels.backend,
         # the INITIAL layout's identity; moves replay from explicit
         # REC_MOVE records on top of it
-        "n_slots": int(svc.store.head.shape[0]),
+        "n_slots": global_rows(svc.store, svc.mesh),
         "placement": None if pm is None else pm.to_config(),
     }
 
@@ -204,10 +218,14 @@ def recover(directory: str, mesh=None, kernels=None,
     device; with a ``mesh``, sharded over it on its device) and the blocks
     replay through ``kernels`` resolved against it; every choice gives the
     same bits.  ``use_snapshot=False`` forces a full-WAL replay (the
-    differential path)."""
-    refuse_process_mesh(mesh, "recover", "5.1")
+    differential path).  On a ``ProcessMesh`` every rank calls it (the
+    replay merges through collectives) and the returned store is the
+    rank's block; the whole store is laid out in host memory first."""
     dev = (resolve_device(device) if check_mesh(mesh) is None
            else mesh_device(mesh, device))
+    # a rank of a process mesh keeps only its block: the whole store is
+    # restored on the host and the block alone goes to the device
+    home = torch.device("cpu") if isinstance(mesh, ProcessMesh) else dev
     kernels = resolve(kernels, dev)
     t0 = time.perf_counter()
     scan = wal.scan(wal_path(directory))
@@ -234,13 +252,13 @@ def recover(directory: str, mesh=None, kernels=None,
             f"{len(scan.records)} durable record(s) exist")
 
     if snap is None:
-        store = make_store(n_keys, n_versions, device=dev)
+        store = make_store(n_keys, n_versions, device=home)
         if pm is not None:
             store = physical_store(store, pm)
         clock = 1
         wave_idx, gc_clock, next_tid, start = 0, 0, 1, 0
     else:
-        store = store_from_numpy(snap.store, dev)
+        store = store_from_numpy(snap.store, home)
         clock = snap.clock
         wave_idx, gc_clock = snap.wave_idx, snap.gc_clock
         next_tid, start = snap.next_tid, snap.wal_seq
@@ -319,6 +337,15 @@ class DurabilityManager:
     ack); ``snapshot_every`` — snapshot cadence in retired blocks taken at
     pipeline-empty boundaries (``None`` disables snapshots: recovery
     replays the whole WAL); ``keep_snapshots`` — retained snapshot count.
+
+    Attached to a service on a ``ProcessMesh`` every rank holds a manager
+    on the same directory, and rank 0 alone writes: the WAL frames, and the
+    snapshots of the store gathered onto it.  After each record the ranks
+    make one collective over the mesh's host group, in which rank 0 tells
+    the others its record count, its fsync barrier and its unsynced
+    records: no rank acknowledges a block before rank 0 has logged it, and
+    every rank keeps ``seq``, the snapshot cadence and the crash counters
+    in step.
     """
 
     def __init__(self, directory: str, fsync_every: int = 1,
@@ -336,6 +363,38 @@ class DurabilityManager:
         self.last_recovery: Optional[RecoveredState] = None
         self.snapshots_taken = 0
         self.crash_synced_bytes = 0   # fsync barrier at the last crash()
+        self.pmesh: Optional[ProcessMesh] = None   # set by attach
+        # rank 0's (fsync barrier bytes, unsynced records) as of the last
+        # record, on every rank of a process mesh
+        self._writer_state = (0, 0)
+
+    @property
+    def writes(self) -> bool:
+        """Whether this manager writes the directory: always on one device
+        or a ``NodeMesh``, on rank 0 alone of a ``ProcessMesh``."""
+        return self.pmesh is None or self.pmesh.rank == 0
+
+    def _in_step(self) -> None:
+        """On a process mesh, the ranks' one collective after a record:
+        rank 0 broadcasts its record count, fsync barrier and unsynced
+        records over the host group; every rank checks the count against
+        its own and keeps the other two for ``crash``.  A no-op
+        elsewhere."""
+        if self.pmesh is None:
+            return
+        w = self.writer
+        state = torch.tensor([self.seq, w.synced_bytes, w.unsynced_records]
+                             if w is not None else [0, 0, 0],
+                             dtype=torch.int64)
+        group = self.pmesh.host_group
+        dist.broadcast(state, src=dist.get_process_group_ranks(group)[0],
+                       group=group)
+        seq, synced, unsynced = (int(x) for x in state)
+        if seq != self.seq:
+            raise wal.WalError(f"rank {self.pmesh.rank} is at record "
+                               f"{self.seq}, rank 0 at {seq}: the ranks' "
+                               f"services diverged")
+        self._writer_state = (synced, unsynced)
 
     # ------------------------------------------------------------- attach
     def attach(self, svc) -> None:
@@ -343,7 +402,12 @@ class DurabilityManager:
         service's device and kernels), or write the CONFIG head record of
         a fresh one.  Called last by ``TxnService.__init__`` — after this,
         the service's store, clock, wave index, GC clock, TID counter and
-        history are the durable prefix's."""
+        history are the durable prefix's.  On a ``ProcessMesh`` every rank
+        attaches (a collective): each scans and recovers the directory,
+        then rank 0 alone opens the writer, which truncates a torn tail,
+        once every rank's scan is done."""
+        if isinstance(svc.mesh, ProcessMesh):
+            self.pmesh = svc.mesh
         os.makedirs(self.dir, exist_ok=True)
         cfg = service_config(svc)
         scan = wal.scan(self.wal_path)
@@ -373,11 +437,16 @@ class DurabilityManager:
                 svc.placement = state.placement_map
             self.seq = state.n_records
             self.last_recovery = state
-        self.writer = wal.WalWriter(self.wal_path, self.fsync_every,
-                                    valid_bytes=scan.valid_bytes)
-        if scan.config is None:
-            self.writer.append(wal.REC_CONFIG, cfg)
-            self.writer.sync()            # the head record is never batched
+        if self.pmesh is not None:
+            # every rank has read the log before rank 0 truncates its tail
+            dist.barrier(group=self.pmesh.host_group)
+        if self.writes:
+            self.writer = wal.WalWriter(self.wal_path, self.fsync_every,
+                                        valid_bytes=scan.valid_bytes)
+            if scan.config is None:
+                self.writer.append(wal.REC_CONFIG, cfg)
+                self.writer.sync()        # the head record is never batched
+        self._in_step()
 
     # ---------------------------------------------------------------- log
     def log_block(self, stacked, wave_idx0: int, wm: Optional[int],
@@ -388,11 +457,13 @@ class DurabilityManager:
         the block's inputs as host arrays (``engine.staged_inputs`` of its
         ``StagedBlock``), ``outs_np`` its numpy outcomes.  ``fold`` carries
         the per-row request multiplicities of a folding former."""
-        rec = _block_record(self.seq, stacked, wave_idx0, wm, outs_np,
-                            clock, gc_clock, fold=fold)
-        self.writer.append(wal.REC_BLOCK, rec)
+        if self.writes:
+            rec = _block_record(self.seq, stacked, wave_idx0, wm, outs_np,
+                                clock, gc_clock, fold=fold)
+            self.writer.append(wal.REC_BLOCK, rec)
         self.seq += 1
         self._since_snap += 1
+        self._in_step()
 
     def log_move(self, rec, clock: int = 0) -> None:
         """Append one executed placement range move with its explicit slot
@@ -400,22 +471,32 @@ class DurabilityManager:
         allocator.  Moves share the block seq space and are synced at once:
         a move is a placement commit point, and every block logged after it
         replays under the moved layout."""
-        self.writer.append(wal.REC_MOVE, move_payload(rec, self.seq, clock))
-        self.writer.sync()
+        if self.writes:
+            self.writer.append(wal.REC_MOVE,
+                               move_payload(rec, self.seq, clock))
+            self.writer.sync()
         self.seq += 1
+        self._in_step()
 
     def maybe_snapshot(self, svc, pipeline_empty: bool) -> bool:
         """Snapshot when the cadence is due AND the device store is exactly
         the retired prefix (no block in flight, no open buffer) — the only
-        point where snapshot + WAL-suffix replay equals full replay."""
+        point where snapshot + WAL-suffix replay equals full replay.  On a
+        ``ProcessMesh`` the blocks are gathered onto rank 0, which saves
+        them (every rank calls it)."""
         if (self.snapshot_every is None or not pipeline_empty
                 or self._since_snap < self.snapshot_every):
             return False
-        self.writer.sync()        # a snapshot may lag the log, never lead it
-        self.snaps.save(svc.store, int(svc.clock), svc.wave_idx,
-                        self.seq, svc.gc.clock, svc.former.next_tid)
+        if self.writes:
+            self.writer.sync()    # a snapshot may lag the log, never lead it
+        store = (svc.store if self.pmesh is None
+                 else gather_store_root(svc.store, self.pmesh))
+        if self.writes:
+            self.snaps.save(store, int(svc.clock), svc.wave_idx,
+                            self.seq, svc.gc.clock, svc.former.next_tid)
         self.snapshots_taken += 1
         self._since_snap = 0
+        self._in_step()
         return True
 
     # -------------------------------------------------------------- close
@@ -425,7 +506,12 @@ class DurabilityManager:
         behind the last fsync barrier survives.  Records the barrier in
         ``crash_synced_bytes`` — pass it to
         ``FaultSchedule.mutilate_wal(path, synced_bytes=...)`` so injected
-        tears respect it.  Returns the number of at-risk records."""
+        tears respect it.  Returns the number of at-risk records.  A rank
+        of a process mesh that does not write reports rank 0's barrier and
+        at-risk records as of the last record."""
+        if not self.writes:
+            self.crash_synced_bytes, at_risk = self._writer_state
+            return at_risk
         if self.writer is None:
             return 0
         self.crash_synced_bytes = self.writer.synced_bytes

@@ -7,13 +7,14 @@ WAL-logged for bit-identical replay, hot-key read replicas whose
 visibility floor is the GC watermark, and a load balancer that plans
 splits off per-node commit/abort counters.  On a node mesh a move is
 ``apply_move_mesh``: the source rings gathered by their owner and merged
-over the nodes, the scatters and clears on the owners only.
+over the nodes, the scatters and clears on the owners only; on a process
+mesh ``apply_move_process``, the same with one ``all_reduce``.
 """
 from .balancer import LoadBalancer
 from .map import (MoveRecord, PlacementError, PlacementMap, logical_store,
                   physical_store, validate_routing)
 from .move import (apply_move, apply_move_local, apply_move_mesh,
-                   move_payload, record_from_payload)
+                   apply_move_process, move_payload, record_from_payload)
 from .replica import HotKeyReplicas
 
 __all__ = [
@@ -25,6 +26,7 @@ __all__ = [
     "apply_move",
     "apply_move_local",
     "apply_move_mesh",
+    "apply_move_process",
     "logical_store",
     "move_payload",
     "physical_store",

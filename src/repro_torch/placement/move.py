@@ -22,14 +22,20 @@ owns and the answers merge by a sum over the nodes (the reference's
 ``psum``), then each node scatters the rings into, and clears, only the
 rows of its own block.  A row outside a node's block is DROPPED on that
 node, never clamped into it (a clamp would write the block's last row).
+
+On a ``ProcessMesh`` (one ``torch.distributed`` rank a node, each holding
+only its block) the same peer program runs with a collective: each rank
+gathers the source rings it owns (0 in the other rows), every field is
+stacked into ONE int32 buffer merged by one ``all_reduce(SUM)``, and each
+rank scatters into, and clears, the rows of its own block only.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch.core.dist_engine import (NodeMesh, check_mesh,
-                                          refuse_process_mesh)
+from repro_torch.core.dist_engine import NodeMesh, ProcessMesh, check_mesh
 from repro_torch.core.store import MVStore, NO_TID
 from repro_torch.kernels.ops import I32_MAX, I32_MIN, _put_
 
@@ -76,6 +82,17 @@ def _set_owned_(blocks, rows, live, src) -> None:
           torch.where(live, I32_MIN, I32_MAX).to(torch.int32))
 
 
+def _move_rows(rec: MoveRecord, base: torch.Tensor, n_local: int):
+    """The move's source and destination rows local to each block of
+    ``n_local`` rows based at ``base`` ([N, 1] int64): ``((src, dst),
+    (mine_src, mine_dst))``, each [N, M], the rows clamped into the block
+    and the masks of the ones that lie in it."""
+    idx = torch.as_tensor(np.stack([rec.old_slots, rec.new_slots]).astype(
+        np.int64), device=base.device)
+    lk = idx[:, None, :] - base                      # [2, N, M] local rows
+    return lk.clamp(0, n_local - 1), (lk >= 0) & (lk < n_local)
+
+
 def apply_move_mesh(store: MVStore, rec: MoveRecord,
                     mesh: NodeMesh) -> MVStore:
     """Mesh move, in place, on every node at once: each node gathers the
@@ -91,12 +108,8 @@ def apply_move_mesh(store: MVStore, rec: MoveRecord,
                          f"divide over {N} nodes")
     n_local = store.n_keys // N
     dev = store.device
-    idx = torch.as_tensor(np.stack([rec.old_slots, rec.new_slots]).astype(
-        np.int64), device=dev)
     base = torch.arange(N, dtype=torch.int64, device=dev)[:, None] * n_local
-    lk = idx[:, None, :] - base                      # [2, N, M] local rows
-    mine = (lk >= 0) & (lk < n_local)
-    (src, dst), (mine_src, mine_dst) = lk.clamp(0, n_local - 1), mine
+    (src, dst), (mine_src, mine_dst) = _move_rows(rec, base, n_local)
     node = torch.arange(N, device=dev)[:, None]
     for name, a in zip(MVStore._fields, store):
         blocks = a.view(N, n_local, *a.shape[1:])
@@ -108,11 +121,48 @@ def apply_move_mesh(store: MVStore, rec: MoveRecord,
     return store
 
 
-def apply_move(store: MVStore, rec: MoveRecord,
-               mesh: NodeMesh | None = None) -> MVStore:
-    refuse_process_mesh(mesh, "apply_move", "5.2")
-    if check_mesh(mesh) is None:
+def apply_move_process(block: MVStore, rec: MoveRecord,
+                       pmesh: ProcessMesh) -> MVStore:
+    """This rank's part of a move on a process mesh, in place on its
+    block: the source rings it owns (0 in the others' rows) stacked field
+    by field into one ``[M, 4 V + 2]`` int32 buffer, merged over the ranks
+    by ONE ``all_reduce(SUM)`` (the reference's ``psum``); then the rings
+    scattered into the destination rows of the block and the block's
+    source rows cleared (``_set_owned_`` on a one-node view).  Rows off the
+    block are dropped.  A collective: every rank calls it with the same
+    record."""
+    if rec.keys.size == 0:
+        return block
+    n_local = block.n_keys
+    base = torch.full((1, 1), pmesh.rank * n_local, dtype=torch.int64,
+                      device=block.device)
+    (src, dst), (mine_src, mine_dst) = _move_rows(rec, base, n_local)
+    M = src.shape[1]
+    rows = torch.cat([torch.where(
+        mine_src[0].view(M, *[1] * (a.dim() - 1)), a[src[0]], 0).reshape(
+            M, -1) for a in block], dim=1)
+    dist.all_reduce(rows, op=dist.ReduceOp.SUM, group=pmesh.group)
+    at = 0
+    for name, a in zip(MVStore._fields, block):
+        w = a[0].numel()
+        one = a.view(1, n_local, *a.shape[1:])
+        _set_owned_(one, dst, mine_dst,
+                    rows[:, at:at + w].reshape(1, M, *a.shape[1:]))
+        _set_owned_(one, src, mine_src, _EMPTY[name])
+        at += w
+    return block
+
+
+def apply_move(store: MVStore, rec: MoveRecord, mesh=None) -> MVStore:
+    """Execute ``rec`` on the store, in place, on the data plane ``mesh``
+    names: one device (``None``), a ``NodeMesh`` (``apply_move_mesh``) or
+    a ``ProcessMesh`` (``apply_move_process``: ``store`` is this rank's
+    block, and every rank calls it)."""
+    mesh = check_mesh(mesh)
+    if mesh is None:
         return apply_move_local(store, rec)
+    if isinstance(mesh, ProcessMesh):
+        return apply_move_process(store, rec, mesh)
     return apply_move_mesh(store, rec, mesh)
 
 

@@ -12,7 +12,9 @@ replicated key), refreshed from the store through ``read_visible`` on the
 store's device at the current GC watermark.  A read-only transaction whose
 keys are all replicated is answered at submit time and never enters the
 engine; writes still go to the owner and advance the ring, which the next
-refresh picks up.
+refresh picks up.  On a process mesh the store a rank holds is its block
+and the refresh reads through the mesh's merged read (``read=``): every
+rank makes the same refresh at the same tick and gets the same snapshot.
 """
 from __future__ import annotations
 
@@ -73,12 +75,16 @@ class HotKeyReplicas:
         return vals, self.floor
 
     def refresh(self, store: MVStore, floor: int,
-                slot_of: Optional[np.ndarray] = None) -> None:
+                slot_of: Optional[np.ndarray] = None,
+                read=read_visible) -> None:
         """Re-snapshot every replicated key at visibility floor ``floor``
         (the GC watermark): one batched ``read_visible`` gather on the
         store's device and one copy of its values and CIDs to the host.  No
         invalidation traffic is needed: the floor only moves forward and
-        versions visible at or below it are immutable."""
+        versions visible at or below it are immutable.  ``read(store,
+        rows, max_cid)`` (``core.store.read_visible`` by default) answers
+        GLOBAL rows; on a process mesh it is the mesh's merged read
+        (``GroupMeshSubstrate.read_visible``), a collective."""
         if self.keys.size == 0:
             self.floor = max(self.floor, int(floor))
             return
@@ -86,7 +92,7 @@ class HotKeyReplicas:
         k = torch.as_tensor(np.asarray(rows, np.int32), device=store.device)
         wm = torch.full(k.shape, int(floor), dtype=torch.int32,
                         device=store.device)
-        val, _, cid, _, _ = read_visible(store, k, wm)
+        val, _, cid, _, _ = read(store, k, wm)
         val, cid = torch.stack([val, cid]).cpu().numpy()
         self._val[self.keys] = val
         self._cid[self.keys] = cid

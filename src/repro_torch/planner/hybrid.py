@@ -22,6 +22,9 @@ Both windows reset on every switch so decisions are made on post-switch
 evidence only (the sizer's discipline).  Degenerate thresholds pin the
 policy: ``exit_low < 0`` never exits planned mode (``from_name("planned")``
 — plan every wave), ``enter_high > 1`` never enters it.
+
+The policy reads host counts only: on a process mesh every rank observes
+the same merged outcomes, so every rank switches at the same wave.
 """
 from __future__ import annotations
 

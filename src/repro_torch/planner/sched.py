@@ -5,7 +5,8 @@ This module is the planner's back half: it takes one wave plus its ``Plan``
 (lanes.py) and turns it into ONE ordinary wave *block* for the existing
 engine — every lane becomes a wave in the stack, the spill set (if any)
 becomes the final wave, and the whole block runs through
-``engine.step_block`` (``dist_engine.step_block_dist`` on a node mesh),
+``engine.step_block`` (``dist_engine.step_block_dist`` on a node mesh or
+a process mesh),
 i.e. through ``engine.run_wave_on`` (on the
 ``cuda`` routes the read-phase kernels and one ``commit_loop`` launch a
 lane wave).  There is **zero new copy of the CC rules**: a lane is just a
@@ -47,8 +48,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.commit_phase import ABORTED, NOP
-from repro_torch.core.dist_engine import (check_mesh, refuse_process_mesh,
-                                          step_block_dist)
+from repro_torch.core.dist_engine import check_mesh, step_block_dist
 from repro_torch.core.engine import (SCHEDULERS, Wave, WaveOut, step_block,
                                      _stats_of, wave_to_numpy)
 
@@ -169,10 +169,12 @@ def run_wave_planned(store, wave: Wave, clock, *, wave_idx0: int,
     Plans on the host (graph → lanes → pow2 block), relabels every row with
     a fresh contiguous tid from ``next_tid``, dispatches the block through
     ``engine.step_block`` (``engine.run_wave_on`` per lane; with ``mesh``, a
-    ``NodeMesh``, ``dist_engine.step_block_dist``), asserts zero
-    aborts on planned lanes, and scatters outcomes back to input-row order.
-    ``wave`` may hold numpy arrays or tensors; ``store`` is updated in
-    place.
+    ``NodeMesh`` or a ``ProcessMesh``, ``dist_engine.step_block_dist``),
+    asserts zero aborts on planned lanes, and scatters outcomes back to
+    input-row order.  ``wave`` may hold numpy arrays or tensors; ``store``
+    is updated in place (on a ``ProcessMesh``: this rank's block).  The plan
+    is made on the host from the wave alone, so every rank of a process
+    mesh makes the same one, and a ``PlannerError`` raises on every rank.
 
     Returns ``(store', clock', PlannedWave)``; the caller advances its wave
     index by ``.waves_consumed`` and its tid counter by ``.tids_consumed``.
@@ -181,7 +183,6 @@ def run_wave_planned(store, wave: Wave, clock, *, wave_idx0: int,
         raise ValueError(f"base scheduler must be one of {SCHEDULERS}, "
                          f"got {sched!r}")
     check_mesh(mesh)
-    refuse_process_mesh(mesh, "run_wave_planned", "5.3")
     wave = wave_to_numpy(wave)
     plan = plan_wave(wave.op_kind, wave.op_key, max_lanes=max_lanes)
     stacked, rows, T_pad = build_planned_block(wave, plan, next_tid)

@@ -11,7 +11,9 @@ same numpy ``RandomState``):
 * ``drop_node`` — the mesh flavor of ``kill``: the SPMD program dies with
   the node, recovery replays onto a *fresh* mesh of the same arity (the
   replacement-node story — per-node state is reconstructed from the log,
-  never from the lost device);
+  never from the lost device).  On a process mesh every rank holds the
+  same schedule and visits the same seams, so a fault fires on every rank
+  at the same point; a fresh spawn of ranks is the replacement mesh;
 * ``torn_tail`` — after the crash, tear ``arg`` bytes off the WAL's end
   (a partial final write); applied by ``mutilate_wal``, absorbed by
   ``wal.scan``;
@@ -38,6 +40,7 @@ import os
 from typing import List, Optional, Sequence
 
 import numpy as np
+import torch.distributed
 
 
 class InjectedCrash(RuntimeError):
@@ -122,7 +125,7 @@ class FaultSchedule:
         return False
 
     # ----------------------------------------------------------- aftermath
-    def mutilate_wal(self, path: str, synced_bytes: int = 0):
+    def mutilate_wal(self, path: str, synced_bytes: int = 0, pmesh=None):
         """Apply every scheduled ``torn_tail`` to the dead process's WAL
         file — the partial final write a real crash leaves.  Call between
         the crash and recovery, passing the writer's fsync barrier
@@ -130,8 +133,14 @@ class FaultSchedule:
         the at-risk suffix written after the last fsync, never fsynced
         records — fsync is a durability barrier, and with ``fsync_every=1``
         nothing is ever at risk.  ``synced_bytes=0`` (standalone use)
-        puts the whole file at risk.  Returns bytes actually torn."""
+        puts the whole file at risk.  Returns bytes actually torn.  On a
+        ``ProcessMesh`` (``pmesh=``; a collective) rank 0 alone, the one
+        that writes the log, tears it, and no rank returns before it has:
+        the others return 0."""
         from repro_torch.durability import wal
+        if pmesh is not None and pmesh.rank != 0:
+            torch.distributed.barrier(group=pmesh.host_group)
+            return 0
         torn = 0
         for f in self.faults:
             if f.kind != "torn_tail":
@@ -139,6 +148,8 @@ class FaultSchedule:
             at_risk = max(0, (os.path.getsize(path) if os.path.exists(path)
                               else 0) - synced_bytes)
             torn += wal.torn_tail(path, min(f.arg, at_risk))
+        if pmesh is not None:
+            torch.distributed.barrier(group=pmesh.host_group)
         return torn
 
     @property

@@ -49,10 +49,12 @@ bit-identical between the two data planes.
 ``mesh=`` may also be a ``core.dist_engine.ProcessMesh``: every rank runs
 this same service loop on the same seeded arrivals, its store holds only
 the rank's block, and the drivers' merges and the watermark's min are
-collectives.  The step loop, ``run_streaming`` and ``verify()`` (which
-gathers the store, so every rank calls it) serve as on one device;
-durability, an elastic placement, moves, replicas and the planner raise
-``ValueError`` there, naming the ``ROADMAP.md`` item that brings them.
+collectives.  Everything above serves there as on one device: the step
+loop, ``run_streaming``, the planner, durability (rank 0 writes the one
+log, every rank recovers it), an elastic placement with its moves
+(``apply_move_process``), the balancer (host-side, the same on every
+rank) and replicas (refreshed through the mesh's merged read), and
+``verify()`` (which gathers the store, so every rank calls it).
 """
 from __future__ import annotations
 
@@ -67,13 +69,12 @@ import torch
 from repro_torch.core.commit_phase import ABORTED, COMMITTED, NOP
 from repro_torch.core.dist_engine import (ProcessMesh, check_mesh,
                                           gather_store, mesh_device,
-                                          mesh_watermark,
-                                          refuse_process_mesh,
-                                          run_block_dist, shard_store,
-                                          step_wave_dist)
+                                          mesh_watermark, run_block_dist,
+                                          shard_store, step_wave_dist)
 from repro_torch.core.engine import Wave, WaveOut, run_block, stage_block, \
     step_wave
-from repro_torch.core.store import make_store
+from repro_torch.core.store import make_store, read_visible
+from repro_torch.core.substrate import GroupMeshSubstrate
 from repro_torch.core.verify import final_values_ok, verify_cv, verify_si
 from repro_torch.core.workloads import (SMALLBANK_O, rmw_hot_txn,
                                         smallbank_txn, ycsb_txn)
@@ -158,13 +159,6 @@ class TxnService:
                  tenants: Optional[Dict[int, float]] = None,
                  fold_rmw: bool = False, fold_max: int = 256, device=None):
         self.mesh = check_mesh(mesh)
-        for what, given, item in (("durability=", durability, "5.1"),
-                                  ("an elastic placement", placement, "5.2"),
-                                  ("replicas=", replicas, "5.2"),
-                                  ("a balancer", balancer, "5.2"),
-                                  ("the planner", planner, "5.3")):
-            if given is not None:
-                refuse_process_mesh(mesh, what, item)
         self.device = (resolve_device(device) if mesh is None
                        else mesh_device(mesh, device))
         self.sched = sched
@@ -185,15 +179,27 @@ class TxnService:
                 raise ValueError(f"placement is laid out for "
                                  f"{placement.n_nodes} nodes, mesh has "
                                  f"{mesh.n_nodes}")
-        self.store = make_store(n_keys, n_versions, device=self.device)
+        # a rank of a process mesh lays the whole store out in host memory
+        # and keeps its block alone on the device
+        on_host = isinstance(mesh, ProcessMesh)
+        self.store = make_store(n_keys, n_versions,
+                                device="cpu" if on_host else self.device)
         if placement is not None:
             self.store = physical_store(self.store, placement)
         if mesh is not None:
-            self.store = shard_store(self.store, mesh)
+            self.store = shard_store(
+                self.store, mesh,
+                None if placement is None else placement.n_slots)
         self.n_keys = n_keys
         if replicas is not None and not isinstance(replicas, HotKeyReplicas):
             replicas = HotKeyReplicas(replicas)
         self.replicas = replicas
+        # the refresh reads GLOBAL rows: on a process mesh the store is
+        # this rank's block, so it reads through the mesh's merge (every
+        # rank refreshes at the same tick)
+        self._replica_read = (
+            GroupMeshSubstrate(mesh, self.kernels).read_visible
+            if isinstance(mesh, ProcessMesh) else read_visible)
         self.replica_refresh = max(1, int(replica_refresh))
         self.replica_commits = 0
         if balancer is True:
@@ -514,7 +520,8 @@ class TxnService:
         wm = self._watermark()
         floor = int(self.gc.clock) if wm is None else int(wm)
         slot_of = None if self.placement is None else self.placement.slot
-        self.replicas.refresh(self.store, floor, slot_of=slot_of)
+        self.replicas.refresh(self.store, floor, slot_of=slot_of,
+                              read=self._replica_read)
 
     def _observe_placement(self, wave, out, slots):
         """Fold one retired wave into the placement plane's accounting
@@ -549,8 +556,8 @@ class TxnService:
         device tables) and WAL-log the explicit record so recovery replays
         the move bit for bit.  A live streaming driver is flushed first, so
         no dispatched block is in flight.  Returns the applied
-        ``MoveRecord`` (``None`` if nothing moved)."""
-        refuse_process_mesh(self.mesh, "move_range", "5.2")
+        ``MoveRecord`` (``None`` if nothing moved).  On a ``ProcessMesh``
+        every rank moves at the same boundary (``apply_move_process``)."""
         if self.placement is None:
             raise ValueError("move_range needs an elastic placement")
         if self.stream is not None:
@@ -716,8 +723,8 @@ class TxnService:
         plus final-store-matches-serial-replay, via ``core.verify``.  The
         history speaks logical keys, so a placed store is gathered back
         into key order first (moves do not change ring contents).  On a
-        ``ProcessMesh`` the blocks are gathered (``gather_store``): every
-        rank calls it."""
+        ``ProcessMesh`` the blocks are gathered (``gather_store``) before
+        the placement's permutation: every rank calls it."""
         check = verify_cv if self.sched == "cv" else verify_si
         errors = check(self.history, base_store=self.base_store)
         store = (gather_store(self.store, self.mesh)

@@ -54,6 +54,11 @@ back from the device, so the dispatch still waits on nothing), and a
 snapshot is taken when the pipeline is empty; a ``FaultSchedule`` fires at
 dispatch, at retire and after the log record, and may hold the oldest
 block for a few tick-level retires (``delay_retire``).
+
+On a process mesh every rank runs this driver on the same stream: the
+blocks it dispatches are the same on every rank, a retired block is
+logged by rank 0 and acknowledged on no rank before that, and a move or
+a planned tick happens at the same boundary everywhere.
 """
 from __future__ import annotations
 

@@ -14,9 +14,6 @@ its own case:
   rank's block, and ``verify() == []``;
 * the watermark under pinned readers: a pin every rank holds, a pin on
   one rank only (each rank gives its own node's floor), none;
-* durability, an elastic placement, replicas, the planner, ``move_range``,
-  ``apply_move``, ``recover`` and a placed driver call raise
-  ``ValueError`` on a ``ProcessMesh``, naming the ``ROADMAP.md`` item;
 * a rank that hangs fails the run at its deadline, every rank killed.
 """
 import time
@@ -80,17 +77,6 @@ def test_process_mesh_watermark_under_pinned_readers(ranks):
         # and that pin still held after a stream
         assert marks == [None, 3, None, 5, 5], (rank, marks)
         assert errors == [] and committed > 0
-
-
-@pytest.mark.parametrize("what,item", [
-    ("durability", "5.1"), ("placement", "5.2"), ("replicas", "5.2"),
-    ("planner", "5.3"), ("move_range", "5.2"), ("run_wave_planned", "5.3"),
-    ("apply_move", "5.2"), ("recover", "5.1"), ("driver placement", "5.2")])
-def test_process_mesh_refuses_what_it_does_not_serve(ranks, what, item):
-    for res in ranks:
-        msg = res["refused"][what]
-        assert msg is not None, f"{what} ran on a ProcessMesh"
-        assert "ProcessMesh" in msg and f"item {item})" in msg, msg
 
 
 def test_a_hung_rank_fails_the_run_at_its_deadline():
